@@ -1,0 +1,418 @@
+"""Inference server: micro-batched, bucketed checkpoint serving on the card.
+
+Port of ``cross_attention_vit_tpu/drivers/serve.py``:
+
+  * **Static batch buckets** (default 1/2/4/8): requests pad up to the
+    nearest bucket, so the card only ever sees a few batch shapes.  PyTorch
+    runs eagerly, so there is nothing to compile per bucket and the JAX
+    server's persistent compile-cache flag (``--jit-cache``) does not apply.
+  * **Micro-batching**: one dispatcher thread drains queued requests up to
+    the largest bucket per step (waiting ``max_wait_ms`` for stragglers).
+  * **Backpressure**: admission is bounded in volumes; beyond the bound a
+    request is shed with ``Overloaded`` (HTTP 503 + Retry-After).
+  * **Transfers**: each bucket has a pinned host staging buffer; the batch is
+    copied host→device from it, then the forward runs under
+    ``torch.inference_mode()``; the D2H copy of the logits is the sync.
+    /stats splits transfer ms from device ms.
+
+The checkpoint is the JAX package's npz layout with its config JSON beside it
+(``train/checkpoint.py``); ``gelu_approx`` and the dtypes saved with the run
+rebuild the model exactly.  Only the ModelCross family is served; int8
+(``quantize``) and sharded (``mesh``) serving are later slices of the port.
+
+Endpoints:
+  GET  /healthz           — model family, param count, buckets, config dims
+  GET  /stats             — served counts, batch-size histogram, latency ms
+  POST /predict           — body: .npy bytes, (M,1,D,H,W) or (B,M,1,D,H,W)
+                            float; returns JSON logits + class-1 probability
+  POST /predict_subject   — {"id": "UCSF-PDGM-0004"} JSON: full NIfTI
+                            pipeline (decode → pad/crop → forward) for a
+                            subject directory under --data
+
+CLI:
+    python -m cross_attention_vit_tpu_torch.drivers.serve \\
+        --checkpoint runs/checkpoints/cross/epoch=..npz --port 8000 \\
+        --data /path/to/ucsf-data --img-types DWI SWI ASL
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..configs import get_mgmt_cross_config, modify_config
+from ..models.convert import load_jax_params, params_from_flat
+from ..models.model_cross import ModelCross
+from ..train.checkpoint import load_config_for, restore_flat
+from ..utils.device import resolve_device
+
+
+class Overloaded(RuntimeError):
+    """Request shed: the bounded inference queue is full.  Maps to HTTP 503
+    + Retry-After."""
+
+    def __init__(self, pending: int, limit: int, retry_after_s: float):
+        super().__init__(f"queue full ({pending}/{limit} volumes pending)")
+        self.retry_after_s = retry_after_s
+
+
+class _Request:
+    __slots__ = ("vols", "event", "result", "error", "t_enqueue")
+
+    def __init__(self, vols: np.ndarray):
+        self.vols = vols            # (b, M, 1, D, H, W)
+        self.event = threading.Event()
+        self.result = None          # (b, num_classes) logits
+        self.error: str | None = None
+        self.t_enqueue = time.monotonic()
+
+
+class InferenceServer:
+    """Checkpoint → ModelCross on ``device`` → micro-batching dispatcher."""
+
+    def __init__(self, checkpoint: str | Path, model: str = "cross",
+                 img_types=("DWI", "SWI", "ASL"), data_folder: str | None = None,
+                 buckets=(1, 2, 4, 8), max_wait_ms: float = 5.0,
+                 config_overrides=None, quantize: str | None = None,
+                 mesh=None, max_queue_volumes: int = 64,
+                 device: str | torch.device = "cuda"):
+        if model != "cross":
+            raise NotImplementedError(
+                f"model family {model!r} is not ported yet: ModelVIT is a later "
+                "slice of the PyTorch port (ROADMAP Queue 1, item 7)")
+        if quantize:
+            raise NotImplementedError(
+                "int8 serving (quantize) is a later slice of the PyTorch port "
+                "(ROADMAP Queue 1, item 12)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded serving (mesh) is a later slice of the PyTorch port "
+                "(ROADMAP Queue 1, items 11 and 13)")
+        self.device = resolve_device(device)
+        cfg = load_config_for(checkpoint)
+        if cfg is None:
+            cfg = get_mgmt_cross_config()
+            modify_config(cfg, dict(
+                num_modalities=len(img_types), dropout=0.0, lr=1e-4,
+                weight_decay=0.0, label_smoothing=0.0, attn_order={},
+                img_aug=False, optim_params={"T_max": 1, "eta_min": 0}))
+        if config_overrides:
+            modify_config(cfg, config_overrides)
+        modify_config(cfg, {"img_aug": False})
+        self.cfg = cfg
+        self.model_name = model
+        self.img_types = tuple(img_types)
+        self.data_folder = data_folder
+        self.buckets = tuple(sorted(buckets))
+        self.max_wait_s = max_wait_ms / 1e3
+
+        self.model = ModelCross(cfg, device=self.device)
+        load_jax_params(self.model, params_from_flat(restore_flat(checkpoint)))
+        self.model.eval()
+        self.n_params = self.model.num_params()
+        self._staging: dict[tuple, torch.Tensor] = {}   # pinned H2D buffers
+
+        self.max_queue_volumes = int(max_queue_volumes)
+        self._pending_volumes = 0
+        self._pending_lock = threading.Lock()
+        self._queue: queue.Queue[_Request] = queue.Queue()
+        self._stats_lock = threading.Lock()
+        self.stats = {"requests": 0, "volumes": 0, "batches": {},
+                      "latency_ms": [], "shed_requests": 0,
+                      "shed_volumes": 0, "transfer_ms": [], "device_ms": []}
+        self._stop = threading.Event()
+        self._dispatcher = threading.Thread(target=self._dispatch_loop,
+                                            daemon=True)
+
+    # -- lifecycle ---------------------------------------------------------
+    def warmup(self) -> None:
+        """Run every bucket once before accepting traffic (allocates the
+        staging buffers and the caching allocator's blocks, loads the
+        kernel library)."""
+        m = self.cfg.num_modalities
+        for b in self.buckets:
+            x = np.zeros((b, m, 1, *self.cfg.img_size), np.float32)
+            self._run_padded(x, b)
+
+    def start(self) -> None:
+        self._dispatcher.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._dispatcher.is_alive():
+            self._dispatcher.join(timeout=5)
+
+    # -- request path ------------------------------------------------------
+    def predict(self, vols: np.ndarray, timeout: float = 120.0) -> np.ndarray:
+        """vols: (b, M, 1, D, H, W) float32 → (b, num_classes) logits."""
+        want = (self.cfg.num_modalities, 1, *self.cfg.img_size)
+        if vols.ndim == len(want) + 1:
+            if tuple(vols.shape[1:]) != want:
+                raise ValueError(f"volume shape {vols.shape[1:]} != {want}")
+        else:
+            raise ValueError(f"expected (b, {', '.join(map(str, want))}), "
+                             f"got {vols.shape}")
+        b = vols.shape[0]
+        with self._pending_lock:
+            if self._pending_volumes + b > self.max_queue_volumes:
+                pending = self._pending_volumes
+                with self._stats_lock:
+                    self.stats["shed_requests"] += 1
+                    self.stats["shed_volumes"] += b
+                # a drained max-bucket step frees buckets[-1] slots; advise
+                # retrying after roughly the backlog's drain time
+                steps = max(1, pending // self.buckets[-1])
+                raise Overloaded(pending, self.max_queue_volumes,
+                                 retry_after_s=max(0.05, 0.1 * steps))
+            self._pending_volumes += b
+        req = _Request(np.ascontiguousarray(vols, np.float32))
+        self._queue.put(req)
+        if not req.event.wait(timeout):
+            raise TimeoutError("inference timed out")
+        if req.error:
+            raise RuntimeError(req.error)
+        return req.result
+
+    def predict_subject(self, case_id: str) -> np.ndarray:
+        """Full NIfTI pipeline for one subject under `data_folder`."""
+        if self.data_folder is None:
+            raise RuntimeError("server started without --data")
+        from ..data.nifti import read_volume_cropped, volume_path
+
+        vols = [read_volume_cropped(
+                    volume_path(self.data_folder, case_id, t),
+                    tuple(self.cfg.img_size), fill=-1.0)[None]
+                for t in self.img_types]
+        return self.predict(np.stack(vols)[None])[0]
+
+    # -- dispatcher --------------------------------------------------------
+    def _dispatch_loop(self) -> None:
+        max_b = self.buckets[-1]
+        while not self._stop.is_set():
+            try:
+                first = self._queue.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            batch = [first]
+            n = first.vols.shape[0]
+            deadline = time.monotonic() + self.max_wait_s
+            while n < max_b:
+                remain = deadline - time.monotonic()
+                if remain <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=remain)
+                except queue.Empty:
+                    break
+                batch.append(nxt)
+                n += nxt.vols.shape[0]
+            self._run_batch(batch, n)
+
+    def _run_batch(self, batch: list[_Request], n: int) -> None:
+        bucket = next((b for b in self.buckets if b >= n), None)
+        try:
+            vols = np.concatenate([r.vols for r in batch])
+            if bucket is None:  # oversized burst: split at the largest bucket
+                logits = np.concatenate(
+                    [self._run_padded(vols[i:i + self.buckets[-1]])
+                     for i in range(0, n, self.buckets[-1])])
+            else:
+                logits = self._run_padded(vols, bucket)
+            off = 0
+            now = time.monotonic()
+            with self._stats_lock:
+                self.stats["requests"] += len(batch)
+                self.stats["volumes"] += n
+                self.stats["batches"][n] = self.stats["batches"].get(n, 0) + 1
+                self.stats["latency_ms"].extend(
+                    (now - r.t_enqueue) * 1e3 for r in batch)
+                del self.stats["latency_ms"][:-1000]  # keep a bounded window
+            for r in batch:
+                b = r.vols.shape[0]
+                r.result = logits[off:off + b]
+                off += b
+                r.event.set()
+        except Exception as e:  # surface to every waiter, keep serving
+            for r in batch:
+                r.error = f"{type(e).__name__}: {e}"
+                r.event.set()
+        finally:
+            with self._pending_lock:
+                self._pending_volumes -= n
+
+    def _to_device(self, vols: np.ndarray) -> torch.Tensor:
+        """H2D from a pinned staging buffer, synchronised so the transfer time
+        is its own.  Only the dispatcher thread (or warmup, before it starts)
+        calls this, so one buffer per shape is never written while in use."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(vols).to(self.device)
+        staging = self._staging.get(vols.shape)
+        if staging is None:
+            staging = torch.empty(vols.shape, dtype=torch.float32, pin_memory=True)
+            self._staging[vols.shape] = staging
+        staging.numpy()[...] = vols
+        dev = staging.to(self.device, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return dev
+
+    def _run_padded(self, vols: np.ndarray, bucket: int | None = None) -> np.ndarray:
+        n = vols.shape[0]
+        if bucket is None:
+            bucket = next(b for b in self.buckets if b >= n)
+        if n < bucket:
+            pad = np.zeros((bucket - n, *vols.shape[1:]), vols.dtype)
+            vols = np.concatenate([vols, pad])
+        t0 = time.monotonic()
+        dev = self._to_device(vols)
+        t1 = time.monotonic()
+        with torch.inference_mode():
+            logits = self.model(dev)
+        out = logits.cpu().numpy()[:n]     # the D2H copy waits for the forward
+        t2 = time.monotonic()
+        with self._stats_lock:
+            self.stats["transfer_ms"].append((t1 - t0) * 1e3)
+            self.stats["device_ms"].append((t2 - t1) * 1e3)
+            del self.stats["transfer_ms"][:-1000]
+            del self.stats["device_ms"][:-1000]
+        return out
+
+    # -- introspection -----------------------------------------------------
+    def health(self) -> dict:
+        return {"status": "ok", "model": self.model_name,
+                "params": self.n_params, "buckets": list(self.buckets),
+                "device": str(self.device),
+                "num_modalities": int(self.cfg.num_modalities),
+                "img_size": list(self.cfg.img_size),
+                "img_types": list(self.img_types)}
+
+    def stats_view(self) -> dict:
+        def quantiles(xs):
+            xs = sorted(xs)
+            pick = (lambda p: xs[min(len(xs) - 1, int(p * len(xs)))]
+                    if xs else None)
+            return {"p50": pick(0.5), "p90": pick(0.9), "p99": pick(0.99)}
+
+        with self._stats_lock, self._pending_lock:
+            return {"requests": self.stats["requests"],
+                    "volumes": self.stats["volumes"],
+                    "batch_histogram": dict(self.stats["batches"]),
+                    "latency_ms": quantiles(self.stats["latency_ms"]),
+                    "transfer_ms": quantiles(self.stats["transfer_ms"]),
+                    "device_ms": quantiles(self.stats["device_ms"]),
+                    "pending_volumes": self._pending_volumes,
+                    "queue_limit_volumes": self.max_queue_volumes,
+                    "shed_requests": self.stats["shed_requests"],
+                    "shed_volumes": self.stats["shed_volumes"]}
+
+
+def make_handler(server: InferenceServer):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet by default; /stats has the data
+            pass
+
+        def _reply(self, code: int, payload: dict,
+                   extra_headers: dict | None = None) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in (extra_headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._reply(200, server.health())
+            elif self.path == "/stats":
+                self._reply(200, server.stats_view())
+            else:
+                self._reply(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):
+            length = int(self.headers.get("Content-Length", 0))
+            body = self.rfile.read(length)
+            try:
+                if self.path == "/predict":
+                    vols = np.load(io.BytesIO(body), allow_pickle=False)
+                    if vols.ndim == 5:  # single item: add the batch axis
+                        vols = vols[None]
+                    logits = server.predict(vols)
+                elif self.path == "/predict_subject":
+                    case_id = json.loads(body)["id"]
+                    logits = server.predict_subject(case_id)[None]
+                else:
+                    return self._reply(404, {"error": f"no route {self.path}"})
+            except Overloaded as e:
+                # shed: bounded queue is full — the client should back off
+                return self._reply(
+                    503, {"error": str(e),
+                          "retry_after_s": round(e.retry_after_s, 3)},
+                    extra_headers={"Retry-After":
+                                   f"{max(1, round(e.retry_after_s))}"})
+            except (ValueError, KeyError, RuntimeError, TimeoutError) as e:
+                return self._reply(400, {"error": str(e)})
+            e = np.exp(logits - logits.max(1, keepdims=True))
+            probs = e / e.sum(1, keepdims=True)
+            self._reply(200, {"logits": logits.tolist(),
+                              "prob_class1": probs[:, 1].tolist()})
+
+    return Handler
+
+
+def serve(server: InferenceServer, host: str = "127.0.0.1",
+          port: int = 8000) -> ThreadingHTTPServer:
+    """Bind, warm up every bucket, start the dispatcher; returns the bound
+    httpd (caller runs serve_forever, or uses it as a handle in tests)."""
+    httpd = ThreadingHTTPServer((host, port), make_handler(server))
+    server.warmup()
+    server.start()
+    return httpd
+
+
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(description="serve a ModelCross checkpoint")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--img-types", nargs="+", default=["DWI", "SWI", "ASL"])
+    p.add_argument("--data", default=None,
+                   help="NIfTI root for /predict_subject")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--buckets", type=int, nargs="+", default=[1, 2, 4, 8])
+    p.add_argument("--max-wait-ms", type=float, default=5.0)
+    p.add_argument("--max-queue-volumes", type=int, default=64,
+                   help="admission bound: volumes allowed in the queue; "
+                        "beyond it requests shed with 503 + Retry-After")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain PyTorch path")
+    args = p.parse_args(argv)
+
+    server = InferenceServer(args.checkpoint, img_types=tuple(args.img_types),
+                             data_folder=args.data, buckets=args.buckets,
+                             max_wait_ms=args.max_wait_ms,
+                             max_queue_volumes=args.max_queue_volumes,
+                             device=args.device)
+    httpd = serve(server, args.host, args.port)
+    print(f"serving cross ({server.n_params / 1e6:.1f}M params) on "
+          f"{server.device} at http://{args.host}:{args.port}  buckets={args.buckets}")
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        server.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,503 @@
+// Fused self-attention forward on one stacked qkv operand, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel cross_attention_vit_tpu/kernels/flash_attention.py
+// ::_attn_kernel_qkv_tn (defined at :759, launched by pallas_call at :796 in
+// _flash_forward_qkv_tn).  It computes that kernel's function (_tn_fwd_math,
+// :593-615) for every (batch b, head h):
+//
+//     s   = q·kᵀ · scale                       f32 accumulation
+//     m   = rowmax(s);  e = exp(s − m);  r = 1 / Σ_j e
+//     out = (e cast to the operand dtype)·v   f32 accumulation, then × r
+//
+// The normalisation comes after the AV product, as in the TPU kernel.
+//
+// Head dim D = 64, a compile-time constant: every configuration of the repo
+// has it (hidden/heads = 1024/16, 768/12, 192/3).
+//
+// Layout.  The TPU kernel took (3, B, K, D, N) operands, a TPU layout choice.
+// This kernel reads qkv in the layout x @ to_qkv.weightᵀ produces,
+// (B, N, 3, K, D), and writes (B, N, K, D), which is the (B, N, H) input of
+// the output projection.  All strides are arguments (in elements), so the
+// same kernel can read other layouts.
+//
+// Bound.  At the serving path's largest bucket (B=8, K=16, D=64, N=513, bf16)
+// one launch must read 25.2 MB of qkv and write 8.4 MB of output: 10.0 us at
+// 3.35 TB/s.  It does 4·B·K·N²·D = 8.62 GFLOP: 8.7 us at the 989 TFLOP/s
+// bf16 tensor-core peak.  So the bound is about 10 us (bytes).
+//
+// Design.  A 513×513 f32 score matrix (1.05 MB) does not fit in the 227 KB of
+// shared memory a block may use, so the TPU's one-block-per-(b, h) design
+// cannot carry over.  Here one block owns a 64-row query tile of one (b, h)
+// and loops over 64-key tiles of k and v staged in shared memory.  Two passes
+// keep the TPU kernel's rounding order: pass 1 finds each row's max and sum
+// (online within the pass), pass 2 recomputes the scores, rounds
+// e = exp(s − m) with the FINAL row max to the operand dtype and accumulates
+// e·v in f32 (the bf16 path evaluates exp(scale·(s − m)) as one FMA and an
+// exp2, which differs from exp in the last bits of f32).  The ragged last
+// tile (513 = 8·64 + 1) is masked: key columns ≥ N score −inf, rows ≥ N of
+// q, k and v are staged as zeros, and no load or store leaves [0, N).
+//
+//   bf16 (the serving path): 4 warps, each owning 16 query rows, run both
+//   products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
+//   accumulate).  The score accumulators are re-packed in registers as the
+//   A operand of the e·v product (the FlashAttention-2 register layout), so
+//   e never touches shared memory.  Tiles move in 16-byte chunks, and the
+//   next tile's loads are issued into registers before this tile's
+//   products, so their latency hides behind the tensor cores.  This path
+//   needs a unit head-dim stride and 16-byte aligned rows (the wrapper
+//   checks); the other strides are free.
+//   f32: scalar f32 FMAs on the CUDA cores (256 threads, 4×4 register tiles),
+//   element-wise staging, any strides.  f32 operands keep full f32
+//   precision, as Precision.HIGHEST did on the TPU, so no TF32.  Capped at
+//   the 67 TFLOP/s f32 rate; f32 is not the serving path.
+//
+// Not yet done (later work): wgmma, TMA, warp specialisation, and one pass
+// with online rescaling (each 64-row query block re-reads its head's k twice
+// and v once from L2).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 64;          // query rows per block
+constexpr int BK = 64;          // keys per tile
+constexpr int D = 64;           // head dim (1024/16, 768/12, 192/3: every
+                                // configuration of the repo)
+
+struct Strides {
+  long long b, n, s, h, d;      // qkv (B, N, 3, K, D)
+  long long ob, on, oh, od;     // out (B, N, K, D)
+};
+
+// exp(a − m), 0 where a is −inf (masked), guarding −inf − −inf.
+__device__ __forceinline__ float exp_shift(float a, float m) {
+  return a == -INFINITY ? 0.f : expf(a - m);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16)
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_THREADS = 128;   // 4 warps × 16 query rows
+constexpr int PADH = 8;            // bf16 row pad: conflict-free fragment loads
+
+// c += a·b for one 16×8 tile: a is 16×16 (row-major fragment), b 16×8.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// e = exp2(c·s − cm) for scores s[i], s[i + 1], rounded to bf16 and packed
+__device__ __forceinline__ uint32_t pack_e(const float s[4], int i, float c, float cm) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(exp2f(fmaf(s[i], c, -cm)),
+                                           exp2f(fmaf(s[i + 1], c, -cm)));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One 64-row tile of an operand held in registers as 16-byte chunks, so the
+// next tile's loads are in flight while the tensor cores work on this one.
+// Needs a unit head-dim stride and 16-byte aligned rows (checked by the
+// wrapper).  Rows ≥ N load as zeros.
+struct Tile {
+  static constexpr int kChunks = BK * D / 8 / MMA_THREADS;   // per thread
+  uint4 v[kChunks];
+
+  // row-major chunk order: a warp reads whole rows (coalesced); used for q, k
+  __device__ __forceinline__ void load_rows(const bf16* src, int n0, int N, long long sn) {
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int c = threadIdx.x + i * MMA_THREADS;
+      const int n = n0 + c / (D / 8);
+      v[i] = n < N ? *reinterpret_cast<const uint4*>(src + n * sn + (c % (D / 8)) * 8)
+                   : make_uint4(0, 0, 0, 0);
+    }
+  }
+  __device__ __forceinline__ void store_rows(bf16* dst, int ld) const {
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int c = threadIdx.x + i * MMA_THREADS;
+      *reinterpret_cast<uint4*>(dst + (c / (D / 8)) * ld + (c % (D / 8)) * 8) = v[i];
+    }
+  }
+  // column chunk order: a warp covers 32 rows of one 8-wide column chunk, so
+  // the transposed scalar stores below hit 32 consecutive addresses; used for v
+  __device__ __forceinline__ void load_cols(const bf16* src, int n0, int N, long long sn) {
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int c = threadIdx.x + i * MMA_THREADS;
+      const int n = n0 + c % BK;
+      v[i] = n < N ? *reinterpret_cast<const uint4*>(src + n * sn + (c / BK) * 8)
+                   : make_uint4(0, 0, 0, 0);
+    }
+  }
+  __device__ __forceinline__ void store_transposed(bf16* dst, int ld) const {
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int c = threadIdx.x + i * MMA_THREADS;
+      const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[((c / BK) * 8 + j) * ld + c % BK] = e[j];
+    }
+  }
+};
+
+// s = q·kᵀ (unscaled) for this warp's 16 rows and the 64 keys in `ks`: 8
+// tiles of 8 keys; thread (g, t) holds rows g and g+8, keys 8j + 2t + {0, 1}.
+// Keys ≥ N (only in the last tile) score −inf.
+__device__ __forceinline__ void mma_scores(float s[BK / 8][4], const uint32_t qf[D / 16][4],
+                                           const bf16* ks, int g, int t, int k0, int N) {
+  constexpr int LD = D + PADH;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const bf16* kr = ks + (j * 8 + g) * LD + kk * 16 + 2 * t;
+      mma_bf16(s[j], qf[kk], ld_pair(kr), ld_pair(kr + 8));
+    }
+  if (k0 + BK > N) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (k0 + j * 8 + 2 * t + (c & 1) >= N) s[j][c] = -INFINITY;
+  }
+}
+
+__global__ void __launch_bounds__(MMA_THREADS)
+attn_fwd_qkv_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
+                         Strides st, float scale) {
+  constexpr int LD = D + PADH;      // qs, ks row stride
+  constexpr int LDV = BK + PADH;    // vt row stride
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);   // [BQ][LD]  q tile
+  bf16* ks = qs + BQ * LD;                     // [BK][LD]  k tile
+  bf16* vt = ks + BK * LD;                     // [D][LDV]  v tile, transposed
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;       // mma fragment coordinates
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const bf16* qb = qkv + b * st.b + h * st.h;
+  const bf16* kb = qb + st.s;
+  const bf16* vb = qb + 2 * st.s;
+  const int tiles = (N + BK - 1) / BK;
+  // exp(scale·(s − m)) = exp2(c·s − c·m): one FMA and one ex2 per score; row
+  // maxima are taken on the unscaled scores (scale > 0 keeps the order)
+  const float c = scale * 1.4426950408889634f;
+
+  Tile kr, vr;
+  kr.load_rows(qb, q0, N, st.n);
+  kr.store_rows(qs, LD);
+  kr.load_rows(kb, 0, N, st.n);
+  __syncthreads();
+  uint32_t qf[D / 16][4];                      // this warp's q as A fragments
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bf16* qr = qs + r0 * LD + kk * 16 + 2 * t;
+    qf[kk][0] = ld_pair(qr);
+    qf[kk][1] = ld_pair(qr + 8 * LD);
+    qf[kk][2] = ld_pair(qr + 8);
+    qf[kk][3] = ld_pair(qr + 8 * LD + 8);
+  }
+
+  // pass 1: row max and sum; m is shared by the 4 threads (a quad) of a row.
+  // m starts at −inf; exp2 of −inf is 0, and every tile has a valid key, so
+  // no guard is needed
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int k0 = tile * BK;
+    __syncthreads();
+    kr.store_rows(ks, LD);
+    __syncthreads();
+    if (tile + 1 < tiles) {
+      kr.load_rows(kb, k0 + BK, N, st.n);      // in flight during the products
+    } else {
+      kr.load_rows(kb, 0, N, st.n);            // pass 2's first tile
+      vr.load_cols(vb, 0, N, st.n);
+    }
+    float s[BK / 8][4];
+    mma_scores(s, qf, ks, g, t, k0, N);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * half], s[j][2 * half + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[half], mx);   // finite: key k0 < N is valid
+      const float cm = c * mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        sum += exp2f(fmaf(s[j][2 * half], c, -cm)) + exp2f(fmaf(s[j][2 * half + 1], c, -cm));
+      l[half] = l[half] * exp2f(fmaf(m[half], c, -cm)) + sum;
+      m[half] = mn;
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+  }
+
+  // pass 2: e = exp(s − m) rounded to bf16, o += e·v on the tensor cores
+  const float cm[2] = {c * m[0], c * m[1]};
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int k0 = tile * BK;
+    __syncthreads();
+    kr.store_rows(ks, LD);
+    vr.store_transposed(vt, LDV);
+    __syncthreads();
+    if (tile + 1 < tiles) {
+      kr.load_rows(kb, k0 + BK, N, st.n);
+      vr.load_cols(vb, k0 + BK, N, st.n);
+    }
+    float s[BK / 8][4];
+    mma_scores(s, qf, ks, g, t, k0, N);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // the C fragments of score tiles 2kk and 2kk+1 are the A fragment of
+      // keys [16kk, 16kk + 16)
+      const uint32_t a[4] = {pack_e(s[2 * kk], 0, c, cm[0]), pack_e(s[2 * kk], 2, c, cm[1]),
+                             pack_e(s[2 * kk + 1], 0, c, cm[0]),
+                             pack_e(s[2 * kk + 1], 2, c, cm[1])};
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const bf16* vp = vt + (j * 8 + g) * LDV + kk * 16 + 2 * t;
+        mma_bf16(o[j], a, ld_pair(vp), ld_pair(vp + 8));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int n = q0 + r0 + 8 * half;
+    if (n >= N) continue;
+    const float r = 1.f / l[half];
+    bf16* orow = out + b * st.ob + n * st.on + h * st.oh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        orow[(j * 8 + 2 * t + e) * st.od] = __float2bfloat16_rn(o[j][2 * half + e] * r);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: scalar FMAs on the CUDA cores (no TF32)
+// ---------------------------------------------------------------------------
+
+constexpr int F32_THREADS = 256;   // a 16 × 16 grid; each thread owns 4 rows
+constexpr int LDT = BQ + 4;        // transposed tiles: the pad spreads the
+                                   // staging stores over the banks and keeps
+                                   // float4 reads 16-byte aligned
+
+// rows [n0, n0 + 64) of one (64, D) f32 operand, transposed to [D][LDT]
+__device__ __forceinline__ void stage_transposed(float* dst, const float* src, int n0, int N,
+                                                 const Strides& st) {
+  for (int i = threadIdx.x; i < BQ * D; i += F32_THREADS) {
+    const int r = i / D, d = i % D;
+    const int n = n0 + r;
+    dst[d * LDT + r] = n < N ? src[n * st.n + d * st.d] : 0.f;
+  }
+}
+
+// s[i][j] = scale · Σ_d q[ty·4+i, d] k[tx·4+j, d], −inf for key columns ≥ N.
+__device__ __forceinline__ void f32_scores(float s[4][4], const float* qt, const float* kt,
+                                           int tx, int ty, int k0, int N, float scale) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    const float4 a = *reinterpret_cast<const float4*>(&qt[d * LDT + ty * 4]);
+    const float4 b = *reinterpret_cast<const float4*>(&kt[d * LDT + tx * 4]);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool valid = k0 + tx * 4 + j < N;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][j] = valid ? s[i][j] * scale : -INFINITY;
+  }
+}
+
+__global__ void __launch_bounds__(F32_THREADS)
+attn_fwd_qkv_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N,
+                        Strides st, float scale) {
+  extern __shared__ float4 smem4[];
+  float* qt = reinterpret_cast<float*>(smem4);   // [D][LDT]  q tile, transposed
+  float* kt = qt + D * LDT;                      // [D][LDT]  k tile, transposed
+  float* vs = kt + D * LDT;                      // [BK][D]   v tile
+  float* pt = vs + BK * D;                       // [BK][LDT] e, transposed
+  __shared__ float row_m[BQ], row_l[BQ];
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const float* qb = qkv + b * st.b + h * st.h;
+  const float* kb = qb + st.s;
+  const float* vb = qb + 2 * st.s;
+  const int tiles = (N + BK - 1) / BK;
+
+  stage_transposed(qt, qb, q0, N, st);
+
+  // pass 1: each thread keeps (max, sum) over its own columns, online
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int k0 = tile * BK;
+    __syncthreads();
+    stage_transposed(kt, kb, k0, N, st);
+    __syncthreads();
+    float s[4][4];
+    f32_scores(s, qt, kt, tx, ty, k0, N, scale);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float mn = fmaxf(m[i], fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
+      if (mn == -INFINITY) continue;             // every column so far masked
+      float sum = exp_shift(m[i], mn) * l[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sum += exp_shift(s[i][j], mn);
+      m[i] = mn;
+      l[i] = sum;
+    }
+  }
+  // combine over the 16 threads (lanes differing in bits 0-3) sharing a row
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
+      const float mn = fmaxf(m[i], mo);
+      if (mn != -INFINITY) l[i] = exp_shift(m[i], mn) * l[i] + exp_shift(mo, mn) * lo;
+      m[i] = mn;
+    }
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) { row_m[ty * 4 + i] = m[i]; row_l[ty * 4 + i] = l[i]; }
+  }
+
+  // pass 2: e with the final row max, accumulated against v
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int k0 = tile * BK;
+    __syncthreads();
+    stage_transposed(kt, kb, k0, N, st);
+    for (int i = threadIdx.x; i < BK * D; i += F32_THREADS) {
+      const int r = i / D, d = i % D;
+      const int n = k0 + r;
+      vs[r * D + d] = n < N ? vb[n * st.n + d * st.d] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4];
+    f32_scores(s, qt, kt, tx, ty, k0, N, scale);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float mi = row_m[ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pt[(tx * 4 + j) * LDT + ty * 4 + i] = exp_shift(s[i][j], mi);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      const float4 p = *reinterpret_cast<const float4*>(&pt[c * LDT + ty * 4]);
+      const float4 v = *reinterpret_cast<const float4*>(&vs[c * D + tx * 4]);
+      const float pv[4] = {p.x, p.y, p.z, p.w};
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = q0 + ty * 4 + i;
+    if (n >= N) continue;
+    const float r = 1.f / row_l[ty * 4 + i];
+    float* o = out + b * st.ob + n * st.on + h * st.oh;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[(tx * 4 + j) * st.od] = acc[i][j] * r;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+template <typename T>
+cudaError_t launch(void (*kernel)(const T*, T*, int, Strides, float), int threads, size_t smem,
+                   const void* qkv, void* out, int B, int N, int K, const Strides& st,
+                   float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + BQ - 1) / BQ, K, B);
+  kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out), N,
+                                          st, scale);
+  return cudaGetLastError();
+}
+
+constexpr size_t BF16_SMEM = ((BQ + BK) * (D + PADH) + D * (BK + PADH)) * sizeof(bf16);
+constexpr size_t F32_SMEM = (2 * D * LDT + BK * D + BK * LDT) * sizeof(float);
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  D must be 64.  Strides are in elements.
+// Returns a cudaError_t (0 on success); the launch does not synchronise.
+extern "C" int flash_attention_qkv_fwd(const void* qkv, void* out, int dtype, int B, int N,
+                                       int K, int head_dim, long long sb, long long sn,
+                                       long long ss, long long sh, long long sd, long long ob,
+                                       long long on, long long oh, long long od, float scale,
+                                       void* stream, int device) {
+  if (head_dim != D || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Strides st{sb, sn, ss, sh, sd, ob, on, oh, od};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(attn_fwd_qkv_f32_kernel, F32_THREADS, F32_SMEM, qkv, out, B, N, K,
+                         st, scale, s);
+  return launch<bf16>(attn_fwd_qkv_bf16_kernel, MMA_THREADS, BF16_SMEM, qkv, out, B, N, K, st,
+                      scale, s);
+}
+
+extern "C" const char* flash_attention_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,205 @@
+"""JAX param tree ⇄ the port's state dict, for ModelCross.
+
+The port's parameter names are the reference torch state-dict names, so the
+mapping is the JAX package's ``export_model_cross`` / ``import_model_cross``
+(``cross_attention_vit_tpu/models/convert.py:95-137, 199-228``), of which this
+module keeps its own copy on numpy arrays:
+
+  ModelCross state dict                     JAX param tree
+  ------------------------------------------------------------------
+  pos_embedding / cls_token                 pos_embedding / cls_token
+  patch_to_embedding.{weight,bias}          patch_to_embedding (kernel=Wᵀ)
+  transformer.{b}.blocks.{m}.{j}.attn.*     multi_blocks[b].self_blocks[m][j]
+      .norm.{weight,bias}                     .attn_norm (scale, bias)
+      .fn.to_qkv.weight (3H, H)               .attn.qkv.kernel (H,3,K,D)
+      .fn.to_out.0.{weight,bias}              .attn.out (K,D,H)
+  transformer.{b}.blocks.{m}.{j}.ffn.*        .ffn_norm / .ffn.fc1/.fc2
+  transformer.{b}.fusion.{c}.attn.fn.wq/wk/wv/proj
+                                            multi_blocks[b].cross_blocks[c].attn
+  norm.{m}.* / mlp_head.{m}.{0,3}.*         norm[m] / mlp_head[m].fc1/.fc2
+
+The heads-axis layouts are reshapes of the 2-D weights, so the mapping is
+exact in both directions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..configs import Config
+from ..train.checkpoint import unflatten
+
+
+def _t(w) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(w).T)
+
+
+# -- JAX tree → state dict ---------------------------------------------------
+
+def _exp_linear(p: dict, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = _t(p["kernel"])
+    if "bias" in p:
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _exp_norm(p: dict, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = np.asarray(p["scale"])
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _exp_self_block(blk: dict, p: str, out: dict) -> None:
+    _exp_norm(blk["attn_norm"], f"{p}.attn.norm", out)
+    q = np.asarray(blk["attn"]["qkv"]["kernel"])
+    out[f"{p}.attn.fn.to_qkv.weight"] = _t(q.reshape(q.shape[0], -1))
+    if "out" in blk["attn"]:      # absent for heads==1 (the Identity quirk)
+        o = np.asarray(blk["attn"]["out"]["kernel"])
+        out[f"{p}.attn.fn.to_out.0.weight"] = _t(o.reshape(-1, o.shape[-1]))
+        out[f"{p}.attn.fn.to_out.0.bias"] = np.asarray(blk["attn"]["out"]["bias"])
+    _exp_norm(blk["ffn_norm"], f"{p}.ffn.norm", out)
+    _exp_linear(blk["ffn"]["fc1"], f"{p}.ffn.fn.net.0", out)
+    _exp_linear(blk["ffn"]["fc2"], f"{p}.ffn.fn.net.3", out)
+
+
+def state_dict_from_jax(params: dict, config: Config) -> dict[str, np.ndarray]:
+    """JAX model_cross param tree (numpy leaves) → the port's state dict."""
+    out = {
+        "pos_embedding": np.asarray(params["pos_embedding"]),
+        "cls_token": np.asarray(params["cls_token"]),
+    }
+    _exp_linear(params["patch_to_embedding"], "patch_to_embedding", out)
+    for b, block in enumerate(params["multi_blocks"]):
+        for m, stack in enumerate(block["self_blocks"]):
+            for j, blk in enumerate(stack):
+                _exp_self_block(blk, f"transformer.{b}.blocks.{m}.{j}", out)
+        # an empty list has no leaves, so a flat checkpoint may lack the key
+        for c, blk in enumerate(block.get("cross_blocks", [])):
+            p = f"transformer.{b}.fusion.{c}"
+            _exp_norm(blk["attn_norm"], f"{p}.attn.norm", out)
+            for name in ("wq", "wk", "wv"):
+                k = np.asarray(blk["attn"][name]["kernel"])
+                out[f"{p}.attn.fn.{name}.weight"] = _t(k.reshape(k.shape[0], -1))
+                out[f"{p}.attn.fn.{name}.bias"] = np.asarray(
+                    blk["attn"][name]["bias"]).reshape(-1)
+            pk = np.asarray(blk["attn"]["proj"]["kernel"])
+            out[f"{p}.attn.fn.proj.weight"] = _t(pk.reshape(-1, pk.shape[-1]))
+            out[f"{p}.attn.fn.proj.bias"] = np.asarray(blk["attn"]["proj"]["bias"])
+            _exp_norm(blk["ffn_norm"], f"{p}.ffn.norm", out)
+            _exp_linear(blk["ffn"]["fc1"], f"{p}.ffn.fn.net.0", out)
+            _exp_linear(blk["ffn"]["fc2"], f"{p}.ffn.fn.net.3", out)
+    for m, n in enumerate(params["norm"]):
+        _exp_norm(n, f"norm.{m}", out)
+    for m, head in enumerate(params["mlp_head"]):
+        _exp_linear(head["fc1"], f"mlp_head.{m}.0", out)
+        _exp_linear(head["fc2"], f"mlp_head.{m}.3", out)
+    return out
+
+
+# -- state dict → JAX tree ---------------------------------------------------
+
+def _linear(sd, prefix: str) -> dict:
+    p = {"kernel": _t(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = np.asarray(sd[f"{prefix}.bias"])
+    return p
+
+
+def _norm(sd, prefix: str) -> dict:
+    return {"scale": np.asarray(sd[f"{prefix}.weight"]),
+            "bias": np.asarray(sd[f"{prefix}.bias"])}
+
+
+def _split_heads(w, heads: int, *lead: int) -> np.ndarray:
+    """torch (out, H) weight → (H, *lead, K, D)."""
+    w = np.asarray(w)
+    H = w.shape[1]
+    return _t(w).reshape(H, *lead, heads, H // heads)
+
+
+def _head_out(w, heads: int) -> np.ndarray:
+    """torch (H, H) weight → (K, D, H) (input axis is the merged heads)."""
+    w = np.asarray(w)
+    H = w.shape[1]
+    return _t(w).reshape(heads, H // heads, H)
+
+
+def _self_block_from(sd, p: str, heads: int) -> dict:
+    attn = {"qkv": {"kernel": _split_heads(sd[f"{p}.attn.fn.to_qkv.weight"], heads, 3)}}
+    if f"{p}.attn.fn.to_out.0.weight" in sd:
+        attn["out"] = {"kernel": _head_out(sd[f"{p}.attn.fn.to_out.0.weight"], heads),
+                       "bias": np.asarray(sd[f"{p}.attn.fn.to_out.0.bias"])}
+    return {
+        "attn_norm": _norm(sd, f"{p}.attn.norm"),
+        "attn": attn,
+        "ffn_norm": _norm(sd, f"{p}.ffn.norm"),
+        "ffn": {"fc1": _linear(sd, f"{p}.ffn.fn.net.0"),
+                "fc2": _linear(sd, f"{p}.ffn.fn.net.3")},
+    }
+
+
+def jax_params_from_state_dict(sd: dict, config: Config) -> dict:
+    """The port's state dict (numpy values) → JAX model_cross param tree."""
+    heads = config.num_heads
+    M = config.num_modalities
+    params = {
+        "pos_embedding": np.asarray(sd["pos_embedding"]),
+        "cls_token": np.asarray(sd["cls_token"]),
+        "patch_to_embedding": _linear(sd, "patch_to_embedding"),
+        "multi_blocks": [],
+        "norm": [_norm(sd, f"norm.{m}") for m in range(M)],
+        "mlp_head": [{"fc1": _linear(sd, f"mlp_head.{m}.0"),
+                      "fc2": _linear(sd, f"mlp_head.{m}.3")}
+                     for m in range(M)],
+    }
+    n_cross = len([k for k in sd if k.startswith("transformer.0.fusion.")
+                   and k.endswith("attn.fn.wq.weight")])
+    for b in range(config.num_multi_blocks):
+        block = {
+            "self_blocks": [
+                [_self_block_from(sd, f"transformer.{b}.blocks.{m}.{j}", heads)
+                 for j in range(config.num_self_blocks)]
+                for m in range(M)
+            ],
+            "cross_blocks": [],
+        }
+        for c in range(n_cross):
+            p = f"transformer.{b}.fusion.{c}"
+            block["cross_blocks"].append({
+                "attn_norm": _norm(sd, f"{p}.attn.norm"),
+                "attn": {
+                    **{name: {"kernel": _split_heads(sd[f"{p}.attn.fn.{name}.weight"], heads),
+                              "bias": np.asarray(sd[f"{p}.attn.fn.{name}.bias"])
+                              .reshape(heads, -1)}
+                       for name in ("wq", "wk", "wv")},
+                    "proj": {"kernel": _head_out(sd[f"{p}.attn.fn.proj.weight"], heads),
+                             "bias": np.asarray(sd[f"{p}.attn.fn.proj.bias"])},
+                },
+                "ffn_norm": _norm(sd, f"{p}.ffn.norm"),
+                "ffn": {"fc1": _linear(sd, f"{p}.ffn.fn.net.0"),
+                        "fc2": _linear(sd, f"{p}.ffn.fn.net.3")},
+            })
+        params["multi_blocks"].append(block)
+    return params
+
+
+# -- checkpoints and modules ---------------------------------------------------
+
+def params_from_flat(flat: dict[str, np.ndarray]) -> dict:
+    """The nested param tree from a checkpoint's flat ``params/...`` keys."""
+    prefix = "params/"
+    return unflatten({k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)})
+
+
+def load_jax_params(model: torch.nn.Module, params: dict) -> None:
+    """Load a JAX param tree into the port's ModelCross (strict: every key and
+    shape must match).  Values are cast to each parameter's dtype on copy —
+    the compute-dtype cast the JAX package makes on every call."""
+    sd = state_dict_from_jax(params, model.config)
+    model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                          strict=True)
+
+
+def jax_params_from_model(model: torch.nn.Module) -> dict:
+    """The port's ModelCross → JAX param tree of float32 numpy arrays."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    return jax_params_from_state_dict(sd, model.config)

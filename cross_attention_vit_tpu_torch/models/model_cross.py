@@ -1,0 +1,278 @@
+"""ModelCross — multi-stream ViT with CLS-token cross-attention fusion.
+
+Port of ``cross_attention_vit_tpu/models/model_cross.py`` (eval mode) as an
+``nn.Module`` whose parameter names are the reference torch state-dict names
+(the keys ``cross_attention_vit_tpu/models/convert.export_model_cross``
+emits), for example ``transformer.{b}.blocks.{m}.{j}.attn.fn.to_qkv.weight``:
+
+  * one shared patch embedding, CLS token and positional embedding applied to
+    every modality stream (reference model_cross.py:167-169, 193-198);
+  * ``num_multi_blocks`` multi-scale blocks, each holding per-modality stacks
+    of ``num_self_blocks`` pre-norm self-attention blocks plus one CLS-query
+    cross-attention block per ``attn_order`` entry (model_cross.py:116-148);
+  * in a cross block only the CLS is the query; the attention residual adds
+    the CLS slice and the fused CLS is re-concatenated with its own stream's
+    patch tokens (model_cross.py:112, 140-142);
+  * per-modality LayerNorm + MLP heads on the CLS, logits averaged over
+    modalities, cross-entropy with label smoothing (model_cross.py:203-212).
+
+GEMM weights are stored in ``config.compute_dtype``.  The JAX package casts
+them to that dtype on every call; casting once when they are made or loaded
+gives the same values.  Biases, LayerNorm parameters, the CLS token and the
+positional embedding stay float32, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from ..configs import Config
+from ..ops import initializers as init_ops
+from ..ops.attention import attention_impl, cross_attention_cls, self_attention
+from ..ops.layers import feed_forward, layernorm, linear, mlp_head
+from ..ops.losses import cross_entropy
+from ..ops.patchify import num_patches, patchify_3d
+from ..utils.device import resolve_device
+
+_LATER_TRAINING = ("training is the next slice of the PyTorch port (train step, "
+                   "dropout, the K2 attention backward kernel, augmentation); "
+                   "ROADMAP Queue 1, items 5-6")
+
+
+def _reject_removed_stacked_streams(config: Config) -> None:
+    """``config.stacked_streams`` was removed from the JAX package (measured
+    slower than the per-stream loop); configs that still set it fail loudly."""
+    if config.get("stacked_streams", False):
+        raise ValueError(
+            "config.stacked_streams was removed (measured negative twice on "
+            "v5e; see docs/PERF_r05.md) — drop the flag: the per-stream "
+            "trunk loop IS the fast path")
+
+
+def _attn_pairs(config: Config) -> list[tuple[int, int]]:
+    """Cross-attention routing as (cls_stream, token_stream) pairs, in the
+    ascending-stream order the reference iterates (model_cross.py:135-144)."""
+    order = config.attn_order
+    pairs = []
+    for i in range(config.num_modalities):
+        if str(i) in order:
+            j = int(order[str(i)])
+            if not 0 <= j < config.num_modalities:
+                raise ValueError(
+                    f"attn_order[{i!r}] = {j} is out of range for "
+                    f"num_modalities={config.num_modalities}")
+            pairs.append((i, j))
+    return pairs
+
+
+@dataclass(frozen=True)
+class _Opts:
+    num_heads: int
+    compute_dtype: torch.dtype | None    # None: operands in the activation dtype
+    impl: str                            # 'flash' or 'xla'
+    gelu_approx: bool
+
+
+def _net(first: nn.Linear, second: nn.Linear) -> nn.ModuleDict:
+    """The reference's Sequential(Linear, GELU, Dropout, Linear, Dropout):
+    only indices 0 and 3 hold parameters."""
+    return nn.ModuleDict({"0": first, "3": second})
+
+
+class _PreNorm(nn.Module):
+    def __init__(self, dim: int, fn: nn.Module):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim)
+        self.fn = fn
+
+
+class _Attention(nn.Module):
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.to_qkv = nn.Linear(dim, 3 * dim, bias=False)
+        # heads==1 quirk: the reference's to_out is nn.Identity()
+        # (model_cross.py:37,45-48), so no parameters and no projection
+        self.to_out = nn.ModuleDict({"0": nn.Linear(dim, dim)}) if heads != 1 else None
+
+
+class _CrossAttention(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.wq, self.wk, self.wv = nn.Linear(dim, dim), nn.Linear(dim, dim), nn.Linear(dim, dim)
+        self.proj = nn.Linear(dim, dim)
+
+
+class _FeedForward(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.net = _net(nn.Linear(dim, hidden), nn.Linear(hidden, dim))
+
+
+class _SelfBlock(nn.Module):
+    """Pre-norm self-attention block (reference model_cross.py:64-72)."""
+
+    def __init__(self, dim: int, mlp: int, opts: _Opts):
+        super().__init__()
+        self.opts = opts
+        self.attn = _PreNorm(dim, _Attention(dim, opts.num_heads))
+        self.ffn = _PreNorm(dim, _FeedForward(dim, mlp))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        o, a, f = self.opts, self.attn, self.ffn
+        h = layernorm(x, a.norm.weight, a.norm.bias)
+        to_out = a.fn.to_out["0"] if a.fn.to_out is not None else None
+        x = self_attention(h, a.fn.to_qkv, to_out, o.num_heads, o.compute_dtype, o.impl) + x
+        h = layernorm(x, f.norm.weight, f.norm.bias)
+        net = f.fn.net
+        return feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx) + x
+
+
+class _CrossBlock(nn.Module):
+    """CLS-query cross block; the attention residual is the CLS slice only
+    (reference model_cross.py:104-114).  Returns the fused CLS (B, 1, H)."""
+
+    def __init__(self, dim: int, mlp: int, opts: _Opts):
+        super().__init__()
+        self.opts = opts
+        self.attn = _PreNorm(dim, _CrossAttention(dim))
+        self.ffn = _PreNorm(dim, _FeedForward(dim, mlp))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        o, a, f = self.opts, self.attn, self.ffn
+        h = layernorm(x, a.norm.weight, a.norm.bias)
+        fused = cross_attention_cls(h, a.fn.wq, a.fn.wk, a.fn.wv, a.fn.proj,
+                                    o.num_heads, o.compute_dtype) + x[:, 0:1]
+        h = layernorm(fused, f.norm.weight, f.norm.bias)
+        net = f.fn.net
+        return feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx) + fused
+
+
+class _MultiScaleBlock(nn.Module):
+    """Per-stream self-attention stacks, then attn_order-routed CLS fusion
+    (reference model_cross.py:128-148)."""
+
+    def __init__(self, config: Config, opts: _Opts):
+        super().__init__()
+        H, mlp = config.hidden_dim, config.mlp_dim
+        self.blocks = nn.ModuleList(
+            nn.ModuleList(_SelfBlock(H, mlp, opts) for _ in range(config.num_self_blocks))
+            for _ in range(config.num_modalities))
+        pairs = _attn_pairs(config)
+        self.fusion = nn.ModuleList(_CrossBlock(H, mlp, opts) for _ in pairs)
+        self.routing = dict(pairs)     # cls_stream -> token_stream
+
+    def forward(self, streams: list[torch.Tensor]) -> list[torch.Tensor]:
+        attn = []
+        for stack, x in zip(self.blocks, streams):
+            for blk in stack:
+                x = blk(x)
+            attn.append(x)
+        outs = []
+        cross = 0
+        for i, x in enumerate(attn):
+            if i in self.routing:
+                tmp = torch.cat([x[:, 0:1], attn[self.routing[i]][:, 1:]], dim=1)
+                tmp = self.fusion[cross](tmp)
+                outs.append(torch.cat([tmp, x[:, 1:]], dim=1))
+                cross += 1
+            else:
+                outs.append(x)
+        return outs
+
+
+class ModelCross(nn.Module):
+    """Eval-mode ModelCross.  ``forward(img, labels=None)`` takes
+    img (B, M, C, D, H, W) and returns logits (B, num_classes) float32, or
+    (logits, loss) when labels are given — as the JAX ``apply``.
+
+    Parameters are made on ``device`` (default CUDA; raises on a host without
+    it) from ``generator`` with the reference's init distributions."""
+
+    def __init__(self, config: Config, device: str | torch.device = "cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        img, patch = tuple(config.img_size), tuple(config.patch_size)
+        if any(i % p for i, p in zip(img, patch)):
+            raise ValueError(f"image dimensions {img} must be divisible by the patch size {patch}")
+        _reject_removed_stacked_streams(config)
+        if int(config.get("moe_experts", 0)) > 1:
+            raise NotImplementedError(
+                "moe_experts > 1 is not ported yet: the MoE FFN is a later slice of "
+                "the PyTorch port (ROADMAP Queue 1, item 13)")
+        self.config = config
+        H, M = config.hidden_dim, config.num_modalities
+        cdt = getattr(torch, config.compute_dtype)
+        opts = _Opts(num_heads=config.num_heads,
+                     compute_dtype=None if cdt == torch.float32 else cdt,
+                     impl=attention_impl(config),
+                     gelu_approx=bool(config.get("gelu_approx", False)))
+        self.opts = opts
+        self.activation_dtype = getattr(torch, config.get("activation_dtype", "float32"))
+        n = num_patches(img, patch)
+        patch_dim = patch[0] * patch[1] * patch[2] * config.in_channels
+
+        with device:    # allocate every parameter on the target device
+            self.pos_embedding = nn.Parameter(torch.empty(1, n + 1, H))
+            self.cls_token = nn.Parameter(torch.empty(1, 1, H))
+            self.patch_to_embedding = nn.Linear(patch_dim, H)
+            self.transformer = nn.ModuleList(_MultiScaleBlock(config, opts)
+                                             for _ in range(config.num_multi_blocks))
+            self.norm = nn.ModuleList(nn.LayerNorm(H) for _ in range(M))
+            self.mlp_head = nn.ModuleList(_net(nn.Linear(H, config.mlp_dim),
+                                               nn.Linear(config.mlp_dim, config.num_classes))
+                                          for _ in range(M))
+        self.reset_parameters(generator)
+        if opts.compute_dtype is not None:
+            for mod in self.modules():
+                if isinstance(mod, nn.Linear):
+                    mod.weight.data = mod.weight.data.to(opts.compute_dtype)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """Xavier-uniform Linears with zero bias, ones/zeros LayerNorm,
+        N(0, 0.02) pos-embedding and CLS (reference model_cross.py:214-241)."""
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                init_ops.init_linear_(mod, generator)
+            elif isinstance(mod, nn.LayerNorm):
+                init_ops.init_layernorm_(mod)
+        init_ops.normal_02_(self.pos_embedding, generator)
+        init_ops.normal_02_(self.cls_token, generator)
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def forward(self, img: torch.Tensor, labels: torch.Tensor | None = None,
+                train: bool = False):
+        if train:
+            raise NotImplementedError(_LATER_TRAINING)
+        cfg, o = self.config, self.opts
+        if img.dtype in (torch.bfloat16, torch.float16):
+            img = img.float()   # low-precision transfer batches re-promote at entry
+        B, M = img.shape[:2]
+        if M != len(self.norm):
+            raise ValueError(f"img has {M} modalities, the model {len(self.norm)}")
+        emb = self.patch_to_embedding
+        streams = []
+        for m in range(M):
+            x = patchify_3d(img[:, m], tuple(cfg.patch_size)).to(self.activation_dtype)
+            x = linear(x, emb.weight, emb.bias, o.compute_dtype)
+            cls = self.cls_token.to(x.dtype).expand(B, 1, x.shape[-1])
+            x = torch.cat([cls, x], dim=1)
+            x = x + self.pos_embedding.to(x.dtype)
+            streams.append(x)
+        for block in self.transformer:
+            streams = block(streams)
+        per_mod = []
+        for x, norm, head in zip(streams, self.norm, self.mlp_head):
+            cls = layernorm(x[:, 0], norm.weight, norm.bias)
+            per_mod.append(mlp_head(cls, head["0"], head["3"], o.compute_dtype, o.gelu_approx))
+        # jnp.mean of the activation dtype: f32 accumulation, rounded back
+        logits = torch.stack(per_mod).float().mean(0).to(per_mod[0].dtype).float()
+        if labels is None:
+            return logits
+        return logits, cross_entropy(logits, labels, cfg.get("label_smoothing", 0.0))

@@ -1,0 +1,108 @@
+"""Attention ops: multi-head self-attention and CLS-query cross-attention.
+
+Port of ``cross_attention_vit_tpu/ops/attention.py`` (eval mode).  Reference
+semantics (model_cross.py:33-102):
+  * Self-attention: one fused **bias-free** QKV projection Linear(H → 3H)
+    chunked into thirds, heads split as 'b n (h d) -> b h n d', scale
+    head_dim**-0.5, softmax, AV, output projection.
+  * Cross-attention: separate **biased** wq/wk/wv; queries come from the CLS
+    token only (x[:, 0:1]), so attn is (B, K, 1, N).
+
+``impl="flash"`` runs the hand-written kernel through
+``kernels.flash_attention.fused_qkv_attention``; ``impl="xla"`` (the JAX
+name for the plain path) runs ``_sdpa`` in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..kernels.flash_attention import fused_qkv_attention
+from .layers import linear
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Scaled-dot-product attention on (B, K, N, D) operands.
+
+    Softmax in float32 from the operand dtype; both products take the
+    already-rounded operands upcast to f32 (the JAX preferred_element_type=f32
+    up to summation order); probabilities are normalised, then cast to v's
+    dtype — unlike the flash kernel, which normalises after AV."""
+    dots = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    attn = torch.softmax(dots, dim=-1).to(v.dtype)
+    return torch.matmul(attn.float(), v.float()).to(v.dtype)
+
+
+def attention_impl(config) -> str:
+    """SDPA implementation a config selects: 'flash' (the CUDA kernel) or
+    'xla' (plain PyTorch).  Sequence parallelism ('ring') is not ported."""
+    if config.get("seq_parallel", 0) > 1:
+        raise NotImplementedError(
+            "seq_parallel > 1 (ring attention) is not ported yet: sequence "
+            "parallelism is a later slice of the PyTorch port (ROADMAP Queue 1, item 13)")
+    return "flash" if config.use_flash_attention else "xla"
+
+
+def _project_out(out: torch.Tensor, proj: nn.Linear, in_dtype: torch.dtype) -> torch.Tensor:
+    """out @ projᵀ in out's dtype with f32 accumulation, f32 bias, cast once."""
+    y = torch.matmul(out, proj.weight.to(out.dtype).t()).float() + proj.bias.float()
+    return y.to(in_dtype)
+
+
+def self_attention(x: torch.Tensor, to_qkv: nn.Linear, to_out: nn.Linear | None,
+                   num_heads: int, compute_dtype: torch.dtype | None = None,
+                   impl: str = "xla") -> torch.Tensor:
+    """Fused-QKV multi-head self-attention (reference model_cross.py:33-61).
+
+    to_qkv.weight is the reference (3H, H) weight; to_out is ``to_out.0``.
+    heads==1 quirk: the reference builds ``to_out = nn.Identity()`` when
+    num_heads == 1 (model_cross.py:37,45-48) — no output projection; the
+    model passes ``to_out=None`` then."""
+    in_dtype = x.dtype
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    B, N, H = x.shape
+    K = num_heads
+    D = to_qkv.weight.shape[0] // (3 * K)
+    w = to_qkv.weight.to(x.dtype)
+    if impl == "flash":
+        # (H, 3, K, D) is the JAX kernel layout: a view of the (3H, H) weight
+        out = fused_qkv_attention(x, w.t().reshape(H, 3, K, D))    # (B, K, D, N)
+        # back to the kernel's own (B, N, K, D) memory order: a view, no copy
+        out = out.permute(0, 3, 1, 2)
+    elif impl == "xla":
+        qkv = torch.matmul(x, w.t()).view(B, N, 3, K, D)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, K, N, D)
+        out = _sdpa(q, k, v, D ** -0.5).transpose(1, 2)              # (B, N, K, D)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    out = out.reshape(B, N, K * D)
+    if to_out is None:
+        return out.to(in_dtype)
+    return _project_out(out, to_out, in_dtype)
+
+
+def _head_in(lin: nn.Linear, x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, n, H) → (B, K, n, D) with per-head bias, in x's dtype."""
+    B, n, _ = x.shape
+    return linear(x, lin.weight, lin.bias).view(B, n, heads, -1).transpose(1, 2)
+
+
+def cross_attention_cls(x: torch.Tensor, wq: nn.Linear, wk: nn.Linear, wv: nn.Linear,
+                        proj: nn.Linear, num_heads: int,
+                        compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """CLS-query cross-attention (reference model_cross.py:74-102).
+
+    x is (B, N, H) = [fused-CLS ; other-stream tokens]; only x[:, 0:1] forms
+    queries, so the output is one fused CLS token (B, 1, H).  Plain PyTorch:
+    it was plain XLA in the JAX package."""
+    in_dtype = x.dtype
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    B = x.shape[0]
+    q = _head_in(wq, x[:, 0:1], num_heads)      # (B, K, 1, D)
+    k = _head_in(wk, x, num_heads)              # (B, K, N, D)
+    v = _head_in(wv, x, num_heads)
+    out = _sdpa(q, k, v, q.shape[-1] ** -0.5)
+    return _project_out(out.transpose(1, 2).reshape(B, 1, -1), proj, in_dtype)

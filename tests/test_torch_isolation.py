@@ -1,0 +1,86 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
+package, and its entry points run on CUDA unless the caller asks for the
+CPU — on a host without CUDA they raise instead of quietly running there."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cross_attention_vit_tpu_torch.configs import get_mgmt_cross_config, modify_config
+from cross_attention_vit_tpu_torch.drivers.serve import InferenceServer
+from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
+from cross_attention_vit_tpu_torch.utils.device import resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import cross_attention_vit_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke  # noqa: F401  (imports the port only; main() is not run)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+                     or m == "cross_attention_vit_tpu"
+                     or m.startswith("cross_attention_vit_tpu."))
+        print(len(names), bad)
+        sys.exit(1 if bad or len(names) < 20 else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device resolves")
+
+
+def _tiny():
+    cfg = get_mgmt_cross_config()
+    modify_config(cfg, dict(hidden_dim=32, mlp_dim=64, num_heads=4, num_multi_blocks=1,
+                            num_self_blocks=1, img_size=(16, 16, 8), patch_size=(8, 8, 8),
+                            num_modalities=2, attn_order={"0": "1"}))
+    return cfg
+
+
+def test_resolve_device_raises_without_cuda():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_model_defaults_to_cuda_and_raises_without_it():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelCross(_tiny())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelCross(_tiny(), device="cpu").to(resolve_device())
+
+
+def test_server_defaults_to_cuda_and_raises_without_it(tmp_path):
+    _no_cuda()
+    from cross_attention_vit_tpu_torch.models.convert import jax_params_from_model
+    from cross_attention_vit_tpu_torch.train.checkpoint import save_config, save_pytree
+
+    cfg = _tiny()
+    path = tmp_path / "epoch=00-val_loss=0.5000.npz"
+    save_pytree(path, {"params": jax_params_from_model(ModelCross(cfg, device="cpu"))})
+    save_config(tmp_path, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceServer(path, img_types=("T1c", "T2"))
+    srv = InferenceServer(path, img_types=("T1c", "T2"), device="cpu")
+    assert srv.device.type == "cpu"
+    x = np.zeros((1, 2, 1, 16, 16, 8), np.float32)
+    assert srv._run_padded(x, 1).shape == (1, 2)
