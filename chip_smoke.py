@@ -8,29 +8,49 @@ Phases, each printed as one JSON line with a ``phase`` key:
 
 1. device  — CUDA present, compute capability (9, 0), the card's name and
              power limit; TF32 switched off for matmuls and cuDNN.
-2. build   — compiles every kernel of the serving path from
-             ``cross_attention_vit_tpu_torch/kernels/csrc/`` with nvcc.
-3. kernels — holds each kernel against its plain PyTorch version on the
-             card (normalised max error within the stated tolerance) and
-             times kernel, plain version and the library call (yardstick
-             only) with CUDA events, beside the card's bound.
+2. build   — compiles every kernel of the serving and training paths from
+             ``cross_attention_vit_tpu_torch/kernels/csrc/`` with nvcc, one
+             process per source, all started together.
+3. kernels — holds each kernel (K1 attention forward, K2 its backward, K3
+             the windowed resample, K4 the same over all taps) against its
+             plain PyTorch version on the card (normalised max error within
+             the stated tolerance) and times kernel, plain version and the
+             library call (yardstick only) — device time per call from
+             torch.profiler — beside the card's bound.  At the training
+             shape, K1/K2 and the plain attention are also held against an
+             f32 attention, forward and backward.
 4. serve   — the full-width live ModelCross (3 streams, hidden 1024, 16
              heads, N = 513, bf16, tanh GELU; 241.9M random parameters from
              a seed) written as a JAX-layout npz checkpoint, served by the
              port's InferenceServer (buckets 1/2/4/8) and asked 6 requests of
              1, 3 and 8 volumes, one over HTTP.  Checks finite logits, the
              server's answers against a direct forward, 12 kernel launches
-             per bucket forward, and the kernel path against the plain path.
+             per bucket forward, and the kernel path against the plain path;
+             times bucket 8 with the weights cast once and with f32 masters
+             cast on every call.
+5. train   — the same model, full width, with f32 master weights, trained
+             ``TRAIN_STEPS`` Adam steps at batch 8 with augmentation (bf16
+             pipeline) and dropout 0.25 through ``make_train_step``.  Checks
+             finite losses, changed parameters, 12 K1 and 12 K2 launches per
+             step and 4 K3 launches per step that drew the affine (> 0 over
+             the run); then one step at dropout 0 without augmentation on the
+             kernel path and the plain path from the seeded f32 masters and
+             the same batch (every parameter's gradient within ``SERVE_TOL``,
+             normalised by its own maximum), both beside an f32 step; the
+             step time by CUDA events, split into augmentation and trunk; one
+             profiled step; peak memory.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
-serving run and its timings, the card's name and power limit as nvidia-smi
-prints them, and last ``{"ok": true, "device": {...}}``.  Any failure exits
-non-zero before the result lines are printed; without CUDA it exits 1.
+serving and training runs and its timings, the card's name and power limit as
+nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.  Any
+failure exits non-zero before the result lines are printed; without CUDA it
+exits 1.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import statistics
 import subprocess
@@ -39,6 +59,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -47,20 +68,27 @@ import torch.nn.functional as F
 
 from cross_attention_vit_tpu_torch.configs import (Params, get_mgmt_cross_config,
                                                    modify_config)
+from cross_attention_vit_tpu_torch.data import augment
 from cross_attention_vit_tpu_torch.drivers.serve import InferenceServer, serve
 from cross_attention_vit_tpu_torch.kernels import _build
 from cross_attention_vit_tpu_torch.kernels import flash_attention as fa
+from cross_attention_vit_tpu_torch.kernels import resample as rs
 from cross_attention_vit_tpu_torch.models.convert import jax_params_from_model
 from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
+from cross_attention_vit_tpu_torch.ops.attention import _sdpa
 from cross_attention_vit_tpu_torch.train.checkpoint import save_config, save_pytree
+from cross_attention_vit_tpu_torch.train.optim import Adam
+from cross_attention_vit_tpu_torch.train.schedule import cosine_annealing_lr
+from cross_attention_vit_tpu_torch.train.trainer import make_train_step
 
 ROOT = Path(__file__).resolve().parent
 MODALITIES = ("DWI", "SWI", "ASL")
 LIVE_PARAMS = 241.9e6
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type.
-# f32 is the CUDA-core rate: the f32 kernel must not use TF32.
+# f32 is the CUDA-core rate: the f32 kernels must not use TF32.
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+F32_CUDA_CORE_FLOPS = 67e12
 # kernel vs plain, normalised by max |plain| (tests_tpu/test_kernels_onchip.py:61,189)
 KERNEL_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 # flash-path vs plain-path logits at bucket 8, normalised by max |plain|.  Both
@@ -71,9 +99,41 @@ KERNEL_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 # compounded through the residual stream.
 SERVE_TOL = 5e-2
 REQUEST_SIZES = (1, 3, 8, 1, 3, 8)
+LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "resample")
 K1 = {"name": "flash_attention_qkv", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:759"}
+K2 = {"name": "flash_attention_qkv_bwd", "route": "cuda",
+      "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+      "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:768"}
+K3 = {"name": "resample_axis_windowed (span)", "route": "cuda",
+      "source": "cross_attention_vit_tpu_torch/kernels/csrc/resample.cu",
+      "replaces": "cross_attention_vit_tpu/kernels/resample.py:90"}
+K4 = {"name": "resample_axis_windowed (all taps)", "route": "cuda",
+      "source": "cross_attention_vit_tpu_torch/kernels/csrc/resample.cu",
+      "replaces": "cross_attention_vit_tpu/kernels/resample.py:36"}
+# the live augmentation geometry and its four LU passes (data/augment.py)
+VOLUME = (128, 128, 64)
+AUG = augment.AugmentConfig()
+TRAIN_STEPS = 6
+# profiler kernel names → the layers of PERF.md §3 (first match wins)
+PROFILE_LAYERS = (("K1 attention forward", ("attn_fwd_qkv",)),
+                  ("K2 attention backward", ("attn_bwd_",)),
+                  ("K3/K4 resample", ("resample_kernel",)),
+                  ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+                  ("Adam (fused)", ("multi_tensor_apply",)),
+                  ("LayerNorm", ("layer_norm",)),
+                  ("softmax", ("softmax",)),
+                  ("dropout masks (random)", ("distribution", "philox")),
+                  ("copies, casts, elementwise", ("copy", "elementwise", "Cat", "where",
+                                                  "index", "reduce")))
+TRAIN_SEED = 3          # host generator seed: at least one step draws the affine
+# parameter-name parts followed by a block or stream index
+_INDEXED = {"transformer", "blocks", "fusion", "norm", "mlp_head"}
+# the cross-attention key bias adds q·b to a whole row of scores, which the
+# softmax cancels: its gradient is zero in exact arithmetic, so its own
+# maximum is rounding noise and cannot normalise it (the gate skips it)
+ZERO_GRAD_LEAF = ".attn.fn.wk.bias"
 
 
 class SmokeFailure(RuntimeError):
@@ -109,6 +169,53 @@ def cuda_ms(fn, runs: int = 20, calls: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _kernel_rows(prof) -> list[tuple[str, float, int]]:
+    """(name, device ms, calls) of every kernel a profile saw, user
+    annotations (ranges such as ``Optimizer.step``) left out."""
+    events = prof.key_averages()
+    # an annotated range appears twice: as a CPU event and, with the device
+    # time it spans, under the same name as a CUDA event
+    cpu_names = {ev.key for ev in events if ev.device_type == torch.autograd.DeviceType.CPU}
+    rows = []
+    for ev in events:
+        if getattr(ev, "is_user_annotation", False) or ev.key in cpu_names:
+            continue
+        t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if t and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ev.key, t / 1e3, ev.count))
+    return rows
+
+
+def device_ms(fn, calls: int = 10, warmup: int = 3) -> float:
+    """ms of device time per call: the kernels' own durations under
+    torch.profiler, summed over ``calls`` back-to-back calls.  Unlike
+    ``cuda_ms`` it leaves out the host's dispatch gaps, which exceed the
+    device time of a short kernel on a slow host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a profile now and then records no kernel at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ms for _, ms, _ in _kernel_rows(prof))
+        if total > 0:
+            return total / calls
+    raise SmokeFailure("torch.profiler recorded no kernel in three tries")
+
+
+def timings(entry: dict, kernel, plain, library=None) -> None:
+    """Device time per call (``*_ms``, ``device_ms``) of the kernel, its
+    plain version and the library call."""
+    for name, fn, heavy in (("kernel", kernel, False), ("plain", plain, True),
+                            ("library", library, False)):
+        if fn is not None:
+            entry[f"{name}_ms"] = device_ms(fn, calls=2 if heavy else 10)
+
+
 def attention_bound(B: int, N: int, K: int, D: int, dtype: torch.dtype) -> tuple[float, str]:
     """Least time in ms for one launch: read qkv once, write out once; the
     4·B·K·N²·D FLOPs of the two products at the dtype's peak."""
@@ -139,12 +246,42 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    lib, seconds, report = _build.build("flash_attention_fwd", force=True)
-    print(report, file=sys.stderr, flush=True)     # ptxas -v: registers, smem, spills
-    emit({"phase": "build", "kernel": "flash_attention_fwd",
-          "library": str(lib.relative_to(ROOT)), "nvcc_s": seconds,
-          "ptxas": [ln.strip() for ln in report.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+    """Every kernel library from source, one nvcc process per source, all
+    started together."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        built = list(pool.map(lambda name: _build.build(name, force=True), LIBRARIES))
+    for name, (lib, seconds, report) in zip(LIBRARIES, built):
+        print(report, file=sys.stderr, flush=True)     # ptxas -v: registers, smem, spills
+        emit({"phase": "build", "kernel": name,
+              "library": str(lib.relative_to(ROOT)), "nvcc_s": seconds,
+              "ptxas": [ln.strip() for ln in report.splitlines()
+                        if "registers" in ln or "spill" in ln]})
+
+
+def attention_bwd_bound(B: int, N: int, K: int, D: int, dtype: torch.dtype) -> tuple[float, str]:
+    """Least time in ms for one K2 call: read qkv, o and do once, write dqkv
+    once (8 tensors of B·N·K·D); the 10·B·K·N²·D FLOPs of its five products
+    (s recomputed, dv, dp, dq, dk) at the dtype's peak."""
+    nbytes = 8 * B * N * K * D * torch.empty((), dtype=dtype).element_size()
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = 10 * B * K * N * N * D / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# f32 operations per output voxel of the resample kernel: rel (5), and for
+# each of the two taps with a nonzero hat weight 1 − |rel − d| (3), the max,
+# the product and the sum (3); every other tap of the window has weight 0
+RESAMPLE_OPS = 5 + 2 * 6
+
+
+def resample_bound(V: int, dtype: torch.dtype) -> tuple[float, str]:
+    """Least time in ms for one resample pass over V live volumes: read each
+    voxel once and write it once; RESAMPLE_OPS f32 operations per voxel at
+    the CUDA-core f32 rate."""
+    voxels = V * VOLUME[0] * VOLUME[1] * VOLUME[2]
+    t_bytes = 2 * voxels * torch.empty((), dtype=dtype).element_size() / HBM_BYTES_S
+    t_ops = RESAMPLE_OPS * voxels / F32_CUDA_CORE_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_kernels() -> dict:
@@ -180,9 +317,9 @@ def phase_kernels() -> dict:
                  "finite": bool(torch.isfinite(out).all())}
         if B == 8:
             q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
-            entry["kernel_ms"] = cuda_ms(lambda: fa.flash_attention_qkv(qkv, scale))
-            entry["plain_ms"] = cuda_ms(lambda: fa.flash_attention_qkv_reference(qkv, scale))
-            entry["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            timings(entry, lambda: fa.flash_attention_qkv(qkv, scale),
+                    lambda: fa.flash_attention_qkv_reference(qkv, scale),
+                    lambda: F.scaled_dot_product_attention(q, k, v))
             bound_ms, bound_by = attention_bound(B, N, K, D, dtype)
             entry["bound_us"] = bound_ms * 1e3
             entry["bound_by"] = bound_by
@@ -194,6 +331,194 @@ def phase_kernels() -> dict:
     return next(c for c in checks if (c["B"], c["N"], c["dtype"]) == (8, 513, "bfloat16"))
 
 
+def _norm_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    max_abs = (got.float() - want.float()).abs().max().item()
+    return max_abs, max_abs / max(want.float().abs().max().item(), 1e-30)
+
+
+def _attention_vs_f32(qkv: torch.Tensor, dout: torch.Tensor, scale: float) -> dict:
+    """How far the kernel path (K1, then K2 on its output) and the plain path
+    (autograd through the model's plain ``_sdpa``) each come from an f32
+    attention on the same bf16 operands (autograd through ``_sdpa`` in f32):
+    the forward output and dq, dk, dv, each normalised by the f32 maximum."""
+    def plain(dtype):
+        q, k, v = (qkv[:, :, j].transpose(1, 2).to(dtype).contiguous().requires_grad_()
+                   for j in range(3))
+        out = _sdpa(q, k, v, scale)
+        grads = torch.autograd.grad(out, (q, k, v), dout.transpose(1, 2).to(dtype))
+        return out.detach().transpose(1, 2), [g.transpose(1, 2) for g in grads]
+
+    ref_out, ref_grads = plain(torch.float32)
+    out_k = fa.flash_attention_qkv_fwd(qkv, scale)
+    dqkv_k = fa.flash_attention_qkv_bwd(qkv, out_k, dout, scale)
+    out_p, grads_p = plain(qkv.dtype)
+    names = ("dq", "dk", "dv")
+    return {"fwd": {"kernel": _norm_err(out_k, ref_out)[1], "plain": _norm_err(out_p, ref_out)[1]},
+            "bwd_kernel": {n: _norm_err(dqkv_k[:, :, j], ref_grads[j])[1]
+                           for j, n in enumerate(names)},
+            "bwd_plain": {n: _norm_err(grads_p[j], ref_grads[j])[1] for j, n in enumerate(names)}}
+
+
+def phase_kernels_k2() -> dict:
+    """K2 against its plain version on dq, dk and dv separately; returns the
+    B=8 N=513 bf16 entry (the training shape) with its timings."""
+    K, D = 16, 64
+    # (B, N, dtype, strided): the training batch and two smaller ones at
+    # N = 513 in bf16; f32 at B = 1 (strided: every operand read through a
+    # head-major buffer) and B = 8; bf16 at the longer N of the ViT geometry
+    cases = [(1, 513, torch.bfloat16, False), (2, 513, torch.bfloat16, False),
+             (8, 513, torch.bfloat16, False), (1, 513, torch.float32, True),
+             (8, 513, torch.float32, False), (8, 1025, torch.bfloat16, False),
+             (8, 1041, torch.bfloat16, False)]
+    checks, failures = [], []
+    for i, (B, N, dtype, strided) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(200 + i)
+        if strided:
+            qkv = torch.randn((B, 3, K, N, D), generator=g, device="cuda").to(dtype)
+            qkv = qkv.permute(0, 3, 1, 2, 4)
+            dout = torch.randn((B, K, N, D), generator=g, device="cuda").to(dtype)
+            dout = dout.permute(0, 2, 1, 3)
+        else:
+            qkv = torch.randn((B, N, 3, K, D), generator=g, device="cuda").to(dtype)
+            dout = torch.randn((B, N, K, D), generator=g, device="cuda").to(dtype)
+        scale = D ** -0.5
+        out = fa.flash_attention_qkv_fwd(qkv, scale)
+        if strided:
+            out = out.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+        plain = fa.flash_attention_qkv_bwd_reference(qkv, out, dout, scale)
+        got = fa.flash_attention_qkv_bwd(qkv, out, dout, scale)
+        torch.cuda.synchronize()
+        entry = {"B": B, "K": K, "D": D, "N": N, "dtype": str(dtype).replace("torch.", ""),
+                 "strided": strided, "tol": KERNEL_TOL[dtype],
+                 "finite": bool(torch.isfinite(got).all())}
+        errs = {name: _norm_err(got[:, :, j], plain[:, :, j])
+                for j, name in enumerate(("dq", "dk", "dv"))}
+        entry["max_abs_err"] = max(e[0] for e in errs.values())
+        entry["norm_err"] = {name: e[1] for name, e in errs.items()}
+        if (B, N, dtype) == (8, 513, torch.bfloat16):
+            entry["vs_f32"] = _attention_vs_f32(qkv, dout, scale)
+        if (B, N) == (8, 513):
+            # the yardstick: backward of scaled_dot_product_attention through autograd
+            q, k, v = (qkv[:, :, j].transpose(1, 2).contiguous().requires_grad_()
+                       for j in range(3))
+            lib_out = F.scaled_dot_product_attention(q, k, v)
+            lib_g = dout.transpose(1, 2).contiguous()
+            timings(entry, lambda: fa.flash_attention_qkv_bwd(qkv, out, dout, scale),
+                    lambda: fa.flash_attention_qkv_bwd_reference(qkv, out, dout, scale),
+                    lambda: torch.autograd.grad(lib_out, (q, k, v), lib_g, retain_graph=True))
+            bound_ms, bound_by = attention_bwd_bound(B, N, K, D, dtype)
+            entry["bound_us"] = bound_ms * 1e3
+            entry["bound_by"] = bound_by
+        checks.append(entry)
+        if not (entry["finite"] and max(entry["norm_err"].values()) <= entry["tol"]):
+            failures.append(entry)
+    emit({"phase": "kernels", "checks": [{**K2, "cases": checks}]})
+    check(not failures, f"K2 disagrees with its plain version: {failures}")
+    return next(c for c in checks if (c["B"], c["N"], c["dtype"]) == (8, 513, "bfloat16"))
+
+
+def corner_matrices(V: int, seed: int) -> torch.Tensor:
+    """V affine sampling matrices at corners of the augmentation's parameter
+    box (each angle ±affine_rotate, each scale 1 ± affine_scale), where the
+    LU passes' displacements come nearest their windows."""
+    corners = np.array(list(itertools.product((-1.0, 1.0), repeat=6)))   # 64 corners
+    pick = corners[np.random.default_rng(seed).permutation(len(corners))[:V]]
+    ang = torch.tensor(pick[:, :3] * AUG.affine_rotate, dtype=torch.float32)
+    scale = torch.tensor(1.0 + pick[:, 3:] * AUG.affine_scale, dtype=torch.float32)
+    return augment.affine_matrix(ang, scale)
+
+
+def pass_grid(axis: int, cdelta: torch.Tensor, center: tuple) -> torch.Tensor:
+    """The (V, D, H, W, 3) grid with which ``F.grid_sample`` (bilinear,
+    reflection padding, align_corners=False) computes one LU pass: voxel x
+    reads its volume at x + rel(x)·e_axis.  Reflection about the pixel edges
+    −0.5 and n − 0.5, then clipping, gives linear interpolation over the
+    symmetric pad; the coordinates off the axis sit on voxel centres, exact
+    at power-of-two sizes, so their weights are exactly 1 and 0."""
+    pos = [torch.arange(s, dtype=torch.float32, device=cdelta.device) for s in VOLUME]
+    g = [p - float(c) for p, c in zip(pos, center)]
+    rel = (cdelta[:, 0, None, None, None] * g[0][None, :, None, None]
+           + cdelta[:, 1, None, None, None] * g[1][None, None, :, None]) \
+        + cdelta[:, 2, None, None, None] * g[2][None, None, None, :]
+    full = [pos[0][None, :, None, None], pos[1][None, None, :, None], pos[2][None, None, None, :]]
+    full = [p.expand_as(rel) for p in full]
+    full[axis] = full[axis] + rel
+    # the grid's last dim runs (W, H, D) = (axis 2, axis 1, axis 0)
+    return torch.stack([(2 * full[a] + 1) / VOLUME[a] - 1 for a in (2, 1, 0)], dim=-1)
+
+
+def phase_kernels_resample() -> tuple[dict, dict]:
+    """K3 at the four live LU passes and K4 (all taps) at one, each against
+    the plain version; returns (K3, K4) entries with per-pass timings at
+    V = 8 bf16.  The library yardstick is ``F.grid_sample`` on an f32 copy
+    of the volumes (a bf16 grid cannot place a coordinate near 127 closer
+    than a quarter voxel), held once against the plain version."""
+    center = tuple((s - 1) / 2.0 for s in VOLUME)
+    windows, spans = augment.lu_windows(AUG, VOLUME), augment.lu_spans(AUG, VOLUME)
+    half = np.array([(s - 1) / 2.0 for s in VOLUME])
+    checks, failures, timed = [], [], {}
+    for V, dtype in itertools.product((8, 24), (torch.float32, torch.bfloat16)):
+        g = torch.Generator(device="cuda").manual_seed(300 + V)
+        vols = (torch.randn((V, *VOLUME), generator=g, device="cuda") * 100).to(dtype)
+        vols32 = vols[:, None].float()
+        cds = augment.lu_cdeltas(corner_matrices(V, seed=V))
+        # K4 runs the last pass with span None (all 2W+2 taps)
+        passes = list(zip(range(4), augment.LU_AXES, windows, spans, cds))
+        passes.append((4, augment.LU_AXES[3], windows[3], None, cds[3]))
+        for p, axis, window, span, cd in passes:
+            cd = cd.cuda()
+            plain = rs.resample_axis_windowed_reference(vols, axis, cd, center, window, span)
+            got = rs.resample_axis_windowed_batched(vols, axis, cd, center, window, span)
+            torch.cuda.synchronize()
+            max_abs, norm = _norm_err(got, plain)
+            entry = {"kernel": "K4" if span is None else "K3", "pass": p, "axis": axis,
+                     "window": window, "span": span, "V": V,
+                     "dtype": str(dtype).replace("torch.", ""),
+                     # how near the hat's taps come to the window edge ±W
+                     "max_abs_rel": float((cd.abs().cpu().numpy() @ half).max()),
+                     "max_abs_err": max_abs, "norm_err": norm, "tol": KERNEL_TOL[dtype],
+                     "finite": bool(torch.isfinite(got).all())}
+            if V == 8 and dtype == torch.bfloat16:
+                grid = pass_grid(axis, cd, center)
+
+                def library():
+                    return F.grid_sample(vols32, grid, mode="bilinear",
+                                         padding_mode="reflection", align_corners=False)
+                entry["library_norm_err"] = _norm_err(library()[:, 0], plain)[1]
+                if not entry["library_norm_err"] <= entry["tol"]:
+                    failures.append(entry)
+                timings(entry, lambda: rs.resample_axis_windowed_batched(
+                            vols, axis, cd, center, window, span),
+                        lambda: rs.resample_axis_windowed_reference(
+                            vols, axis, cd, center, window, span), library)
+                del grid
+                bound_ms, bound_by = resample_bound(V, dtype)
+                entry["bound_us"] = bound_ms * 1e3
+                entry["bound_by"] = bound_by
+                timed.setdefault(entry["kernel"], []).append(entry)
+            checks.append(entry)
+            if not (entry["finite"] and norm <= entry["tol"]):
+                failures.append(entry)
+    emit({"phase": "kernels",
+          "checks": [{**K, "cases": [c for c in checks if c["kernel"] == name]}
+                     for name, K in (("K3", K3), ("K4", K4))]})
+    check(not failures, f"resample kernel disagrees with its plain version: {failures}")
+
+    def summary(entries):
+        # per launch, averaged over the timed passes (V = 8, bf16)
+        n = len(entries)
+        return {"max_abs_err": max(c["max_abs_err"] for c in checks
+                                   if c["kernel"] == entries[0]["kernel"]),
+                "ms": sum(e["kernel_ms"] for e in entries) / n,
+                "plain_ms": sum(e["plain_ms"] for e in entries) / n,
+                "library_ms": sum(e["library_ms"] for e in entries) / n,
+                "bound_ms": sum(e["bound_us"] for e in entries) / n / 1e3,
+                "bound_by": entries[0]["bound_by"],
+                "per_pass_ms": [e["kernel_ms"] for e in entries],
+                "per_pass_library_ms": [e["library_ms"] for e in entries]}
+    return summary(timed["K3"]), summary(timed["K4"])
+
+
 def live_config(use_flash: bool):
     """bench.py's live configuration: params_list1[0] of the experiment
     grid, bf16 compute and activations, flash attention, tanh GELU."""
@@ -203,8 +528,8 @@ def live_config(use_flash: bool):
     cfg = get_mgmt_cross_config()
     modify_config(cfg, p)
     modify_config(cfg, {"num_modalities": len(MODALITIES), "compute_dtype": "bfloat16",
-                        "activation_dtype": "bfloat16", "use_flash_attention": use_flash,
-                        "gelu_approx": True})
+                        "activation_dtype": "bfloat16", "augment_dtype": "bfloat16",
+                        "use_flash_attention": use_flash, "gelu_approx": True})
     return cfg
 
 
@@ -228,28 +553,35 @@ def _forward(model, vols: np.ndarray) -> torch.Tensor:
 
 
 def _profile(model, x: torch.Tensor) -> dict:
-    """One forward under torch.profiler: device time by kernel, the device's
-    busy time against the forward's wall time (its idle share)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One forward under torch.profiler (see ``_profiled``)."""
     with torch.inference_mode():
         model(x)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if t and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((ev.key, t / 1e3, ev.count))
+        return _profiled(lambda: model(x))
+
+
+def _profiled(fn) -> dict:
+    """One call of fn under torch.profiler: device time by kernel, the
+    device's busy time against the call's wall time (its idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _kernel_rows(prof)
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
+    by_layer: dict[str, float] = {}
+    for key, ms, _ in rows:
+        layer = next((name for name, marks in PROFILE_LAYERS if any(m in key for m in marks)),
+                     "other")
+        by_layer[layer] = by_layer.get(layer, 0.0) + ms
     return {"device_ms_total": busy, "wall_ms": wall_ms,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "kernel_launches": sum(r[2] for r in rows),
+            "device_ms_by_layer": dict(sorted(by_layer.items(), key=lambda kv: -kv[1])),
             "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:8]]}
 
 
@@ -342,6 +674,19 @@ def phase_serve(tmp: Path) -> dict:
     profiles = {str(b): _profile(model, torch.from_numpy(requests[2][:b]).cuda())
                 for b in (1, 8)}
 
+    # what serving would pay for holding f32 masters and casting the GEMM
+    # weights on every call, as the training model does, at bucket 8
+    masters = ModelCross(cfg, device="cuda", master_weights=True)
+    masters.load_state_dict(model.state_dict())
+    x8 = torch.from_numpy(b8).cuda()
+    with torch.inference_mode():
+        weights_ms = {"cast_once_device_ms": device_ms(lambda: model(x8), calls=5),
+                      "f32_masters_device_ms": device_ms(lambda: masters(x8), calls=5),
+                      "cast_once_ms": bucket_ms[8],
+                      "f32_masters_ms": cuda_ms(lambda: masters(x8), runs=5, calls=5)}
+    del masters
+    torch.cuda.empty_cache()
+
     result = {"phase": "serve", "model": "ModelCross", "params": n_params,
               "streams": len(MODALITIES), "hidden": cfg.hidden_dim, "heads": cfg.num_heads,
               "tokens": server.model.pos_embedding.shape[1], "dtype": "bfloat16", "gelu": "tanh",
@@ -354,6 +699,7 @@ def phase_serve(tmp: Path) -> dict:
               "plain_vs_f32_norm": (plain8 - f32_8).abs().max().item() / f32_8.abs().max().item(),
               "logit_max_abs": scale,
               "ms_per_bucket_forward": {str(b): ms for b, ms in bucket_ms.items()},
+              "bucket8_by_weight_storage": weights_ms,
               "server_device_ms": stats["device_ms"], "server_transfer_ms": stats["transfer_ms"],
               "server_latency_ms": stats["latency_ms"],
               "checkpoint_write_s": write_s, "server_load_s": load_s, "warmup_s": warmup_s,
@@ -363,23 +709,196 @@ def phase_serve(tmp: Path) -> dict:
     return result
 
 
+def _counts() -> dict:
+    return {"K1": fa.flash_attention_qkv.launches, "K2": fa.flash_attention_qkv_bwd.launches,
+            "K3": rs.resample_axis_windowed_batched.launches,
+            "K4": rs.resample_axis_windowed_batched.full_launches}
+
+
+def _zero_counts() -> None:
+    fa.flash_attention_qkv.launches = 0
+    fa.flash_attention_qkv_bwd.launches = 0
+    rs.resample_axis_windowed_batched.launches = 0
+    rs.resample_axis_windowed_batched.full_launches = 0
+
+
+def _grads_after_step(cfg, state: dict, img: torch.Tensor,
+                      labels: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The f32 gradient of every parameter after one train step of a model
+    built from ``cfg`` and loaded with the f32 masters ``state``."""
+    model = ModelCross(cfg, device="cuda", master_weights=True)
+    model.load_state_dict(state)
+    step = make_train_step(model, Adam(model.parameters(), cfg.weight_decay), cfg)
+    aux = step(img, labels, cfg.lr, torch.Generator().manual_seed(0))
+    check(bool(torch.isfinite(aux["loss"])), "non-finite loss in the comparison step")
+    grads = {name: p.grad.float() for name, p in model.named_parameters()}
+    del model, step
+    torch.cuda.empty_cache()
+    return grads
+
+
+def _leaf_errs(got: dict, want: dict) -> dict[str, float]:
+    """Per parameter: max |got − want| over the leaf, normalised by the
+    leaf's own max |want|."""
+    return {name: _norm_err(got[name], w)[1] for name, w in want.items()}
+
+
+def _by_kind(*errs: dict) -> dict[str, list[float]]:
+    """The worst leaf of each parameter kind (the name with its block and
+    stream indices replaced by *), one value per reading in ``errs``."""
+    kinds: dict[str, list[float]] = {}
+    for name in errs[0]:
+        parts = name.split(".")
+        kind = ".".join("*" if p.isdigit() and (parts[i - 1] in _INDEXED or parts[i - 2] == "blocks")
+                        else p for i, p in enumerate(parts))
+        row = kinds.setdefault(kind, [0.0] * len(errs))
+        for j, e in enumerate(errs):
+            row[j] = max(row[j], e[name])
+    return kinds
+
+
+def phase_train() -> dict:
+    cfg = live_config(use_flash=True)
+    torch.cuda.reset_peak_memory_stats()
+    model = ModelCross(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0),
+                       master_weights=True)
+    n_params = model.num_params()
+    check(abs(n_params - LIVE_PARAMS) < 0.05e6, f"{n_params} params, expected 241.9M")
+    optimizer = Adam(model.parameters(), weight_decay=cfg.weight_decay)
+    step = make_train_step(model, optimizer, cfg)
+    op = cfg.optim_params
+    lr_at = cosine_annealing_lr(cfg.lr, op["T_max"], op["eta_min"])
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy((rng.normal(size=(8, len(MODALITIES), 1, *cfg.img_size)) * 100)
+                           .astype(np.float32)).cuda()
+    labels = torch.tensor([0, 1] * 4, device="cuda")
+    # the seeded masters, kept on the host (out of the peak memory): the
+    # gradient comparison below starts from them
+    state0 = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    host_gen = torch.Generator().manual_seed(TRAIN_SEED)
+
+    losses, step_ms, per_step, affine_drawn = [], [], [], []
+    _zero_counts()
+    for i in range(TRAIN_STEPS):
+        counts0 = _counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        aux = step(img, labels, lr_at(i), host_gen)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(aux["loss"]))
+        per_step.append({k: v - counts0[k] for k, v in _counts().items()})
+        affine_drawn.append(step.augmented.get("affine", 0))
+    launches = _counts()
+    changed = max((p.detach() - state0[name].cuda()).abs().max().item()
+                  for name, p in model.named_parameters())
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(changed > 0, "the parameters did not change over the training steps")
+    for i, (c, drawn) in enumerate(zip(per_step, affine_drawn)):
+        check(c["K1"] == 12 and c["K2"] == 12,
+              f"step {i}: K1 launched {c['K1']}, K2 {c['K2']} times (12 each expected)")
+        check(c["K3"] == (4 if drawn else 0) and c["K4"] == 0,
+              f"step {i}: K3 launched {c['K3']} times with {drawn} affine volumes")
+    check(launches["K3"] > 0, "no step drew the affine: K3 never ran on the training path")
+
+    # augmentation and trunk apart: the pipeline alone on the same batch, and
+    # steps of the same model with augmentation off
+    aug_gen = torch.Generator().manual_seed(TRAIN_SEED + 1)
+    bf16_img = img.to(torch.bfloat16)
+    aug_ms = cuda_ms(lambda: augment.augment_batch(bf16_img, aug_gen), runs=5, calls=2, warmup=1)
+    trunk_cfg = live_config(use_flash=True)
+    trunk_cfg.img_aug = False
+    trunk_step = make_train_step(model, optimizer, trunk_cfg)
+    trunk_ms = cuda_ms(lambda: trunk_step(img, labels, lr_at(0), host_gen), runs=3, calls=2,
+                       warmup=1)
+    profile = _profiled(lambda: step(img, labels, lr_at(0), host_gen))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model, optimizer, step, trunk_step
+    torch.cuda.empty_cache()
+
+    # the kernel path against the plain path, one step at dropout 0 without
+    # augmentation from the seeded f32 masters and the same batch, both
+    # beside f32; each parameter's gradient is normalised by its own maximum
+    def cmp_cfg(use_flash: bool, dtype: str = "bfloat16"):
+        c = live_config(use_flash)
+        modify_config(c, {"dropout": 0.0, "img_aug": False, "compute_dtype": dtype,
+                          "activation_dtype": dtype})
+        return c
+    _zero_counts()
+    g_flash = _grads_after_step(cmp_cfg(True), state0, img, labels)
+    cmp_launches = _counts()
+    g_plain = _grads_after_step(cmp_cfg(False), state0, img, labels)
+    g_f32 = _grads_after_step(cmp_cfg(False, "float32"), state0, img, labels)
+    del state0
+    check(cmp_launches["K1"] == 12 and cmp_launches["K2"] == 12,
+          f"comparison step launches {cmp_launches}")
+    flash_vs_plain = _leaf_errs(g_flash, g_plain)
+    flash_vs_f32, plain_vs_f32 = _leaf_errs(g_flash, g_f32), _leaf_errs(g_plain, g_f32)
+    gated = [n for n in flash_vs_plain if not n.endswith(ZERO_GRAD_LEAF)]
+    worst = max(gated, key=flash_vs_plain.get)
+    # the skipped leaves' largest gradient beside their key weight's
+    key_bias_rel = max(g_flash[n].abs().max().item()
+                       / g_flash[n[:-len("bias")] + "weight"].abs().max().item()
+                       for n in flash_vs_plain if n.endswith(ZERO_GRAD_LEAF))
+    del g_flash, g_plain, g_f32
+    torch.cuda.empty_cache()
+
+    result = {"phase": "train", "model": "ModelCross", "params": n_params, "batch": 8,
+              "streams": len(MODALITIES), "hidden": cfg.hidden_dim, "heads": cfg.num_heads,
+              "dtype": "bfloat16", "augment_dtype": cfg.augment_dtype, "dropout": cfg.dropout,
+              "steps": TRAIN_STEPS, "losses": losses, "max_param_change": changed,
+              "launches": launches, "launches_per_step": per_step,
+              "affine_volumes_per_step": affine_drawn,
+              "step_ms": step_ms, "step_ms_steady": statistics.median(step_ms[1:]),
+              "augment_ms": aug_ms, "trunk_ms": trunk_ms, "profile": profile,
+              "peak_device_gb": peak_gb, "grad_leaves": len(flash_vs_plain),
+              "grad_leaves_gated": len(gated),
+              "grad_flash_vs_plain_worst_leaf": [worst, flash_vs_plain[worst]], "tol": SERVE_TOL,
+              "grad_flash_vs_f32_worst_leaf": max(flash_vs_f32[n] for n in gated),
+              "grad_plain_vs_f32_worst_leaf": max(plain_vs_f32[n] for n in gated),
+              "grad_key_bias_vs_key_weight": key_bias_rel,
+              # [kernel vs plain, kernel vs f32, plain vs f32] per parameter kind
+              "grad_by_kind": _by_kind(flash_vs_plain, flash_vs_f32, plain_vs_f32)}
+    emit(result)
+    check(flash_vs_plain[worst] <= SERVE_TOL,
+          f"gradient of {worst}: kernel path vs plain path {flash_vs_plain[worst]:.3e} "
+          f"> {SERVE_TOL}")
+    return result
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
         device = phase_device()
         phase_build()
         k1 = phase_kernels()
+        k2 = phase_kernels_k2()
+        k3, k4 = phase_kernels_resample()
         with tempfile.TemporaryDirectory() as tmp:
             served = phase_serve(Path(tmp))
+        trained = phase_train()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    emit({"kernels": [{
-        **K1, "launches": served["kernel_launches"], "max_abs_err": k1["max_abs_err"],
-        "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_us"] / 1e3, "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-        "shape": "B=8 K=16 D=64 N=513 bfloat16"}]})
+    train_launches = trained["launches"]
+    emit({"kernels": [
+        {**K1, "launches": served["kernel_launches"] + train_launches["K1"],
+         "launches_by_path": {"serve": served["kernel_launches"], "train": train_launches["K1"]},
+         "max_abs_err": k1["max_abs_err"], "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_us"] / 1e3, "bound_by": k1["bound_by"],
+         "library_ms": k1["library_ms"], "shape": "B=8 K=16 D=64 N=513 bfloat16"},
+        {**K2, "launches": train_launches["K2"],
+         "launches_by_path": {"train": train_launches["K2"]},
+         "max_abs_err": k2["max_abs_err"], "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_us"] / 1e3, "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"], "shape": "B=8 K=16 D=64 N=513 bfloat16"},
+        {**K3, "launches": train_launches["K3"],
+         "launches_by_path": {"train": train_launches["K3"]}, **k3,
+         "shape": "V=8 (128, 128, 64) bfloat16, per launch over the 4 live LU passes"},
+        {**K4, "launches": train_launches["K4"],
+         "launches_by_path": {"train": train_launches["K4"]}, **k4,
+         "shape": "V=8 (128, 128, 64) bfloat16, LU pass U0 with all 44 taps"}]})
     print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

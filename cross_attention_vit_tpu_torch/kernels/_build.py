@@ -7,9 +7,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers, so
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 into ``kernels/build/`` (listed in .gitignore).  The file name carries a hash
-of the source and flags, so an edited source is rebuilt and a stale library is
-never loaded.  Nothing is built when a module is imported: the CPU tests
-import every module on a host without ``nvcc``.
+of the source, the shared headers and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  Nothing is built
+when a module is imported: the CPU tests import every module on a host
+without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -44,9 +45,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str, force: bool = False) -> tuple[Path, float, str]:

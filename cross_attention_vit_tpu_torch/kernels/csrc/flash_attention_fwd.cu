@@ -55,50 +55,18 @@
 // with online rescaling (each 64-row query block re-reads its head's k twice
 // and v once from L2).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_tiles.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int D = 64;           // head dim (1024/16, 768/12, 192/3: every
-                                // configuration of the repo)
 
 struct Strides {
   long long b, n, s, h, d;      // qkv (B, N, 3, K, D)
   long long ob, on, oh, od;     // out (B, N, K, D)
 };
 
-// exp(a − m), 0 where a is −inf (masked), guarding −inf − −inf.
-__device__ __forceinline__ float exp_shift(float a, float m) {
-  return a == -INFINITY ? 0.f : expf(a - m);
-}
-
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
-
-constexpr int MMA_THREADS = 128;   // 4 warps × 16 query rows
-constexpr int PADH = 8;            // bf16 row pad: conflict-free fragment loads
-
-// c += a·b for one 16×8 tile: a is 16×16 (row-major fragment), b 16×8.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // e = exp2(c·s − cm) for scores s[i], s[i + 1], rounded to bf16 and packed
 __device__ __forceinline__ uint32_t pack_e(const float s[4], int i, float c, float cm) {
@@ -106,53 +74,6 @@ __device__ __forceinline__ uint32_t pack_e(const float s[4], int i, float c, flo
                                            exp2f(fmaf(s[i + 1], c, -cm)));
   return *reinterpret_cast<uint32_t*>(&v);
 }
-
-// One 64-row tile of an operand held in registers as 16-byte chunks, so the
-// next tile's loads are in flight while the tensor cores work on this one.
-// Needs a unit head-dim stride and 16-byte aligned rows (checked by the
-// wrapper).  Rows ≥ N load as zeros.
-struct Tile {
-  static constexpr int kChunks = BK * D / 8 / MMA_THREADS;   // per thread
-  uint4 v[kChunks];
-
-  // row-major chunk order: a warp reads whole rows (coalesced); used for q, k
-  __device__ __forceinline__ void load_rows(const bf16* src, int n0, int N, long long sn) {
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int c = threadIdx.x + i * MMA_THREADS;
-      const int n = n0 + c / (D / 8);
-      v[i] = n < N ? *reinterpret_cast<const uint4*>(src + n * sn + (c % (D / 8)) * 8)
-                   : make_uint4(0, 0, 0, 0);
-    }
-  }
-  __device__ __forceinline__ void store_rows(bf16* dst, int ld) const {
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int c = threadIdx.x + i * MMA_THREADS;
-      *reinterpret_cast<uint4*>(dst + (c / (D / 8)) * ld + (c % (D / 8)) * 8) = v[i];
-    }
-  }
-  // column chunk order: a warp covers 32 rows of one 8-wide column chunk, so
-  // the transposed scalar stores below hit 32 consecutive addresses; used for v
-  __device__ __forceinline__ void load_cols(const bf16* src, int n0, int N, long long sn) {
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int c = threadIdx.x + i * MMA_THREADS;
-      const int n = n0 + c % BK;
-      v[i] = n < N ? *reinterpret_cast<const uint4*>(src + n * sn + (c / BK) * 8)
-                   : make_uint4(0, 0, 0, 0);
-    }
-  }
-  __device__ __forceinline__ void store_transposed(bf16* dst, int ld) const {
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int c = threadIdx.x + i * MMA_THREADS;
-      const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[((c / BK) * 8 + j) * ld + c % BK] = e[j];
-    }
-  }
-};
 
 // s = q·kᵀ (unscaled) for this warp's 16 rows and the 64 keys in `ks`: 8
 // tiles of 8 keys; thread (g, t) holds rows g and g+8, keys 8j + 2t + {0, 1}.

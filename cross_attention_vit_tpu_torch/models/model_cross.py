@@ -1,6 +1,6 @@
 """ModelCross — multi-stream ViT with CLS-token cross-attention fusion.
 
-Port of ``cross_attention_vit_tpu/models/model_cross.py`` (eval mode) as an
+Port of ``cross_attention_vit_tpu/models/model_cross.py`` as an
 ``nn.Module`` whose parameter names are the reference torch state-dict names
 (the keys ``cross_attention_vit_tpu/models/convert.export_model_cross``
 emits), for example ``transformer.{b}.blocks.{m}.{j}.attn.fn.to_qkv.weight``:
@@ -16,10 +16,20 @@ emits), for example ``transformer.{b}.blocks.{m}.{j}.attn.fn.to_qkv.weight``:
   * per-modality LayerNorm + MLP heads on the CLS, logits averaged over
     modalities, cross-entropy with label smoothing (model_cross.py:203-212).
 
-GEMM weights are stored in ``config.compute_dtype``.  The JAX package casts
-them to that dtype on every call; casting once when they are made or loaded
-gives the same values.  Biases, LayerNorm parameters, the CLS token and the
-positional embedding stay float32, as in the JAX package.
+Weights.  The JAX package keeps every parameter in float32 and casts the
+GEMM weights to ``config.compute_dtype`` on every call.  A training model
+(``master_weights=True``) does the same, so Adam's updates below one bf16 ulp
+accumulate in the f32 masters and the gradients reach them through the cast.
+An eval or serving model (the default) casts its GEMM weights once when they
+are made or loaded, which gives the same forward values.  Biases, LayerNorm
+parameters, the CLS token and the positional embedding stay float32 either
+way, as in the JAX package.
+
+Train mode (``forward(..., train=True, generator=g)``) drops out at the JAX
+sites (rate ``config.dropout``): after the positional embedding, on the
+self-attention output projection, on the cross-attention probabilities and
+projection, after GELU and after fc2 in every feed-forward, and in the
+per-stream heads.  ``g`` is a ``torch.Generator`` on the model's device.
 """
 
 from __future__ import annotations
@@ -32,14 +42,10 @@ from torch import nn
 from ..configs import Config
 from ..ops import initializers as init_ops
 from ..ops.attention import attention_impl, cross_attention_cls, self_attention
-from ..ops.layers import feed_forward, layernorm, linear, mlp_head
+from ..ops.layers import dropout, feed_forward, layernorm, linear, mlp_head, promote_input
 from ..ops.losses import cross_entropy
 from ..ops.patchify import num_patches, patchify_3d
 from ..utils.device import resolve_device
-
-_LATER_TRAINING = ("training is the next slice of the PyTorch port (train step, "
-                   "dropout, the K2 attention backward kernel, augmentation); "
-                   "ROADMAP Queue 1, items 5-6")
 
 
 def _reject_removed_stacked_streams(config: Config) -> None:
@@ -74,6 +80,14 @@ class _Opts:
     compute_dtype: torch.dtype | None    # None: operands in the activation dtype
     impl: str                            # 'flash' or 'xla'
     gelu_approx: bool
+    dropout: float
+
+
+@dataclass(frozen=True)
+class _Run:
+    """Per-call training state threaded through the blocks."""
+    train: bool = False
+    generator: torch.Generator | None = None
 
 
 def _net(first: nn.Linear, second: nn.Linear) -> nn.ModuleDict:
@@ -120,14 +134,16 @@ class _SelfBlock(nn.Module):
         self.attn = _PreNorm(dim, _Attention(dim, opts.num_heads))
         self.ffn = _PreNorm(dim, _FeedForward(dim, mlp))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, run: _Run) -> torch.Tensor:
         o, a, f = self.opts, self.attn, self.ffn
         h = layernorm(x, a.norm.weight, a.norm.bias)
         to_out = a.fn.to_out["0"] if a.fn.to_out is not None else None
-        x = self_attention(h, a.fn.to_qkv, to_out, o.num_heads, o.compute_dtype, o.impl) + x
+        x = self_attention(h, a.fn.to_qkv, to_out, o.num_heads, o.compute_dtype, o.impl,
+                           o.dropout, run.generator, run.train) + x
         h = layernorm(x, f.norm.weight, f.norm.bias)
         net = f.fn.net
-        return feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx) + x
+        return feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx,
+                            o.dropout, run.generator, run.train) + x
 
 
 class _CrossBlock(nn.Module):
@@ -140,14 +156,16 @@ class _CrossBlock(nn.Module):
         self.attn = _PreNorm(dim, _CrossAttention(dim))
         self.ffn = _PreNorm(dim, _FeedForward(dim, mlp))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, run: _Run) -> torch.Tensor:
         o, a, f = self.opts, self.attn, self.ffn
         h = layernorm(x, a.norm.weight, a.norm.bias)
-        fused = cross_attention_cls(h, a.fn.wq, a.fn.wk, a.fn.wv, a.fn.proj,
-                                    o.num_heads, o.compute_dtype) + x[:, 0:1]
+        fused = cross_attention_cls(h, a.fn.wq, a.fn.wk, a.fn.wv, a.fn.proj, o.num_heads,
+                                    o.compute_dtype, o.dropout, run.generator,
+                                    run.train) + x[:, 0:1]
         h = layernorm(fused, f.norm.weight, f.norm.bias)
         net = f.fn.net
-        return feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx) + fused
+        return feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx,
+                            o.dropout, run.generator, run.train) + fused
 
 
 class _MultiScaleBlock(nn.Module):
@@ -164,18 +182,18 @@ class _MultiScaleBlock(nn.Module):
         self.fusion = nn.ModuleList(_CrossBlock(H, mlp, opts) for _ in pairs)
         self.routing = dict(pairs)     # cls_stream -> token_stream
 
-    def forward(self, streams: list[torch.Tensor]) -> list[torch.Tensor]:
+    def forward(self, streams: list[torch.Tensor], run: _Run) -> list[torch.Tensor]:
         attn = []
         for stack, x in zip(self.blocks, streams):
             for blk in stack:
-                x = blk(x)
+                x = blk(x, run)
             attn.append(x)
         outs = []
         cross = 0
         for i, x in enumerate(attn):
             if i in self.routing:
                 tmp = torch.cat([x[:, 0:1], attn[self.routing[i]][:, 1:]], dim=1)
-                tmp = self.fusion[cross](tmp)
+                tmp = self.fusion[cross](tmp, run)
                 outs.append(torch.cat([tmp, x[:, 1:]], dim=1))
                 cross += 1
             else:
@@ -184,15 +202,17 @@ class _MultiScaleBlock(nn.Module):
 
 
 class ModelCross(nn.Module):
-    """Eval-mode ModelCross.  ``forward(img, labels=None)`` takes
-    img (B, M, C, D, H, W) and returns logits (B, num_classes) float32, or
-    (logits, loss) when labels are given — as the JAX ``apply``.
+    """ModelCross.  ``forward(img, labels=None, train=False, generator=None)``
+    takes img (B, M, C, D, H, W) and returns logits (B, num_classes) float32,
+    or (logits, loss) when labels are given — as the JAX ``apply``.
 
     Parameters are made on ``device`` (default CUDA; raises on a host without
-    it) from ``generator`` with the reference's init distributions."""
+    it) from ``generator`` with the reference's init distributions.
+    ``master_weights=True`` keeps every parameter in float32 (the model to
+    train); otherwise GEMM weights are cast once to the compute dtype."""
 
     def __init__(self, config: Config, device: str | torch.device = "cuda",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, master_weights: bool = False):
         super().__init__()
         device = resolve_device(device)
         img, patch = tuple(config.img_size), tuple(config.patch_size)
@@ -209,7 +229,8 @@ class ModelCross(nn.Module):
         opts = _Opts(num_heads=config.num_heads,
                      compute_dtype=None if cdt == torch.float32 else cdt,
                      impl=attention_impl(config),
-                     gelu_approx=bool(config.get("gelu_approx", False)))
+                     gelu_approx=bool(config.get("gelu_approx", False)),
+                     dropout=float(config.get("dropout", 0.0)))
         self.opts = opts
         self.activation_dtype = getattr(torch, config.get("activation_dtype", "float32"))
         n = num_patches(img, patch)
@@ -226,7 +247,8 @@ class ModelCross(nn.Module):
                                                nn.Linear(config.mlp_dim, config.num_classes))
                                           for _ in range(M))
         self.reset_parameters(generator)
-        if opts.compute_dtype is not None:
+        self.master_weights = master_weights
+        if opts.compute_dtype is not None and not master_weights:
             for mod in self.modules():
                 if isinstance(mod, nn.Linear):
                     mod.weight.data = mod.weight.data.to(opts.compute_dtype)
@@ -247,12 +269,13 @@ class ModelCross(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     def forward(self, img: torch.Tensor, labels: torch.Tensor | None = None,
-                train: bool = False):
-        if train:
-            raise NotImplementedError(_LATER_TRAINING)
+                train: bool = False, generator: torch.Generator | None = None):
         cfg, o = self.config, self.opts
-        if img.dtype in (torch.bfloat16, torch.float16):
-            img = img.float()   # low-precision transfer batches re-promote at entry
+        if train and o.dropout and generator is None:
+            raise ValueError("train mode with dropout needs a torch.Generator on the "
+                             "model's device")
+        run = _Run(train, generator)
+        img = promote_input(img)   # low-precision transfer batches re-promote at entry
         B, M = img.shape[:2]
         if M != len(self.norm):
             raise ValueError(f"img has {M} modalities, the model {len(self.norm)}")
@@ -264,13 +287,14 @@ class ModelCross(nn.Module):
             cls = self.cls_token.to(x.dtype).expand(B, 1, x.shape[-1])
             x = torch.cat([cls, x], dim=1)
             x = x + self.pos_embedding.to(x.dtype)
-            streams.append(x)
+            streams.append(dropout(x, o.dropout, generator, train))
         for block in self.transformer:
-            streams = block(streams)
+            streams = block(streams, run)
         per_mod = []
         for x, norm, head in zip(streams, self.norm, self.mlp_head):
             cls = layernorm(x[:, 0], norm.weight, norm.bias)
-            per_mod.append(mlp_head(cls, head["0"], head["3"], o.compute_dtype, o.gelu_approx))
+            per_mod.append(mlp_head(cls, head["0"], head["3"], o.compute_dtype, o.gelu_approx,
+                                    o.dropout, generator, train))
         # jnp.mean of the activation dtype: f32 accumulation, rounded back
         logits = torch.stack(per_mod).float().mean(0).to(per_mod[0].dtype).float()
         if labels is None:

@@ -1,16 +1,19 @@
 """Attention ops: multi-head self-attention and CLS-query cross-attention.
 
-Port of ``cross_attention_vit_tpu/ops/attention.py`` (eval mode).  Reference
-semantics (model_cross.py:33-102):
+Port of ``cross_attention_vit_tpu/ops/attention.py``.  Reference semantics
+(model_cross.py:33-102):
   * Self-attention: one fused **bias-free** QKV projection Linear(H → 3H)
     chunked into thirds, heads split as 'b n (h d) -> b h n d', scale
-    head_dim**-0.5, softmax, AV, output projection.
+    head_dim**-0.5, softmax, AV, output projection + dropout.  No dropout on
+    the attention probabilities.
   * Cross-attention: separate **biased** wq/wk/wv; queries come from the CLS
-    token only (x[:, 0:1]), so attn is (B, K, 1, N).
+    token only (x[:, 0:1]), so attn is (B, K, 1, N); dropout on both the
+    attention probabilities and the projected output.
 
-``impl="flash"`` runs the hand-written kernel through
-``kernels.flash_attention.fused_qkv_attention``; ``impl="xla"`` (the JAX
-name for the plain path) runs ``_sdpa`` in plain PyTorch.
+``impl="flash"`` runs the hand-written kernels (K1 forward, K2 backward)
+through ``kernels.flash_attention.fused_qkv_attention``; ``impl="xla"`` (the
+JAX name for the plain path) runs ``_sdpa`` in plain PyTorch and
+differentiates through autograd.
 """
 
 from __future__ import annotations
@@ -19,23 +22,27 @@ import torch
 from torch import nn
 
 from ..kernels.flash_attention import fused_qkv_attention
-from .layers import linear
+from .layers import dropout, linear
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+          attn_dropout: float = 0.0, generator: torch.Generator | None = None,
+          train: bool = False) -> torch.Tensor:
     """Scaled-dot-product attention on (B, K, N, D) operands.
 
     Softmax in float32 from the operand dtype; both products take the
     already-rounded operands upcast to f32 (the JAX preferred_element_type=f32
-    up to summation order); probabilities are normalised, then cast to v's
-    dtype — unlike the flash kernel, which normalises after AV."""
+    up to summation order); probabilities are normalised, dropped out in
+    train mode, then cast to v's dtype — unlike the flash kernel, which
+    normalises after AV."""
     dots = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    attn = torch.softmax(dots, dim=-1).to(v.dtype)
+    attn = torch.softmax(dots, dim=-1)
+    attn = dropout(attn, attn_dropout, generator, train).to(v.dtype)
     return torch.matmul(attn.float(), v.float()).to(v.dtype)
 
 
 def attention_impl(config) -> str:
-    """SDPA implementation a config selects: 'flash' (the CUDA kernel) or
+    """SDPA implementation a config selects: 'flash' (the CUDA kernels) or
     'xla' (plain PyTorch).  Sequence parallelism ('ring') is not ported."""
     if config.get("seq_parallel", 0) > 1:
         raise NotImplementedError(
@@ -44,21 +51,17 @@ def attention_impl(config) -> str:
     return "flash" if config.use_flash_attention else "xla"
 
 
-def _project_out(out: torch.Tensor, proj: nn.Linear, in_dtype: torch.dtype) -> torch.Tensor:
-    """out @ projᵀ in out's dtype with f32 accumulation, f32 bias, cast once."""
-    y = torch.matmul(out, proj.weight.to(out.dtype).t()).float() + proj.bias.float()
-    return y.to(in_dtype)
-
-
 def self_attention(x: torch.Tensor, to_qkv: nn.Linear, to_out: nn.Linear | None,
                    num_heads: int, compute_dtype: torch.dtype | None = None,
-                   impl: str = "xla") -> torch.Tensor:
+                   impl: str = "xla", rate: float = 0.0,
+                   generator: torch.Generator | None = None,
+                   train: bool = False) -> torch.Tensor:
     """Fused-QKV multi-head self-attention (reference model_cross.py:33-61).
 
     to_qkv.weight is the reference (3H, H) weight; to_out is ``to_out.0``.
     heads==1 quirk: the reference builds ``to_out = nn.Identity()`` when
-    num_heads == 1 (model_cross.py:37,45-48) — no output projection; the
-    model passes ``to_out=None`` then."""
+    num_heads == 1 (model_cross.py:37,45-48) — no output projection and no
+    output dropout; the model passes ``to_out=None`` then."""
     in_dtype = x.dtype
     if compute_dtype is not None:
         x = x.to(compute_dtype)
@@ -80,7 +83,8 @@ def self_attention(x: torch.Tensor, to_qkv: nn.Linear, to_out: nn.Linear | None,
     out = out.reshape(B, N, K * D)
     if to_out is None:
         return out.to(in_dtype)
-    return _project_out(out, to_out, in_dtype)
+    y = linear(out, to_out.weight, to_out.bias, out_dtype=in_dtype)
+    return dropout(y, rate, generator, train)
 
 
 def _head_in(lin: nn.Linear, x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -91,7 +95,9 @@ def _head_in(lin: nn.Linear, x: torch.Tensor, heads: int) -> torch.Tensor:
 
 def cross_attention_cls(x: torch.Tensor, wq: nn.Linear, wk: nn.Linear, wv: nn.Linear,
                         proj: nn.Linear, num_heads: int,
-                        compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+                        compute_dtype: torch.dtype | None = None, rate: float = 0.0,
+                        generator: torch.Generator | None = None,
+                        train: bool = False) -> torch.Tensor:
     """CLS-query cross-attention (reference model_cross.py:74-102).
 
     x is (B, N, H) = [fused-CLS ; other-stream tokens]; only x[:, 0:1] forms
@@ -104,5 +110,7 @@ def cross_attention_cls(x: torch.Tensor, wq: nn.Linear, wk: nn.Linear, wv: nn.Li
     q = _head_in(wq, x[:, 0:1], num_heads)      # (B, K, 1, D)
     k = _head_in(wk, x, num_heads)              # (B, K, N, D)
     v = _head_in(wv, x, num_heads)
-    out = _sdpa(q, k, v, q.shape[-1] ** -0.5)
-    return _project_out(out.transpose(1, 2).reshape(B, 1, -1), proj, in_dtype)
+    out = _sdpa(q, k, v, q.shape[-1] ** -0.5, rate, generator, train)
+    y = linear(out.transpose(1, 2).reshape(B, 1, -1), proj.weight, proj.bias,
+               out_dtype=in_dtype)
+    return dropout(y, rate, generator, train)

@@ -1,14 +1,13 @@
-"""Eval-mode layers as plain functions on tensors.
+"""Layers as plain functions on tensors.
 
 Port of ``cross_attention_vit_tpu/ops/layers.py``.  Weights are in torch's
 (out_features, in_features) layout — the reference state-dict layout the
-port's modules hold.  Dropout is the identity in eval mode and is not here:
-training is a later slice.
+port's modules hold.
 
-Rounding: the JAX ``linear`` accumulates in f32, adds the f32 bias and casts
-once.  ``torch.matmul`` on bf16 operands also accumulates in f32 but returns
-bf16, so on bf16 operands the product is rounded once before the f32 bias add.
-At f32 (the CPU parity tests) the two are the same computation.
+Rounding: the JAX ``linear`` takes the operands in the compute dtype,
+accumulates in f32, adds the f32 bias and casts once.  ``linear`` does the
+same: on low-precision operands the product comes out in f32
+(``matmul_f32``), so the result is rounded once, after the bias.
 """
 
 from __future__ import annotations
@@ -17,13 +16,59 @@ import torch
 import torch.nn.functional as F
 
 
+class _MatmulF32(torch.autograd.Function):
+    """a @ b of two same-dtype low-precision 2-D operands, returned in f32.
+
+    Forward: on CUDA ``torch.mm(..., out_dtype=torch.float32)`` (f32
+    accumulation, no rounding of the product); on the CPU the operands,
+    already rounded, are upcast to f32 (bf16×bf16 products are exact in f32).
+    Backward: JAX's transposes of a preferred_element_type=f32 dot — f32
+    accumulation, each gradient rounded once to its operand's dtype.  When
+    the caller rounds the result to the operand dtype (``lowp_backward``),
+    the incoming f32 cotangent holds operand-dtype values, so the two GEMMs
+    run in that dtype without loss; otherwise they run in f32."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor, lowp_backward: bool) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        ctx.lowp_backward = lowp_backward
+        if a.is_cuda:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.mm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        a, b = ctx.saved_tensors
+        if ctx.lowp_backward:
+            g, a_, b_ = grad.to(a.dtype), a, b
+        else:
+            g, a_, b_ = grad, a.float(), b.float()
+        da = torch.mm(g, b_.t()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = torch.mm(a_.t(), g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db, None
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor, lowp_backward: bool = False) -> torch.Tensor:
+    """(..., K) @ (K, N) in f32: the exact product of the operands as given,
+    accumulated in f32 (JAX's dot with preferred_element_type=f32).
+    ``lowp_backward``: the caller rounds the result to the operand dtype
+    (see ``_MatmulF32``)."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    lead = a.shape[:-1]
+    return _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b, lowp_backward).reshape(
+        *lead, b.shape[-1])
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
-           compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+           compute_dtype: torch.dtype | None = None,
+           out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """x @ weightᵀ + bias.  Operands go to ``compute_dtype`` when given, else
-    x.dtype; the bias is added in f32 and the result cast back to x.dtype."""
-    out_dtype = x.dtype
-    op_dtype = compute_dtype if compute_dtype is not None else out_dtype
-    y = torch.matmul(x.to(op_dtype), weight.to(op_dtype).t()).float()
+    x.dtype; the product is f32, the bias is added in f32 and the result is
+    cast once to ``out_dtype`` (default x.dtype)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    op_dtype = compute_dtype if compute_dtype is not None else x.dtype
+    y = matmul_f32(x.to(op_dtype), weight.to(op_dtype).t(), out_dtype == op_dtype)
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype)
@@ -45,19 +90,58 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+def promote_input(img: torch.Tensor) -> torch.Tensor:
+    """Re-promote a low-precision transfer batch (bf16/f16) to float32 at
+    model entry, so every downstream dtype decision is the f32 path's."""
+    if img.dtype in (torch.bfloat16, torch.float16):
+        return img.float()
+    return img
+
+
+def dropout_mask(shape, keep: float, generator: torch.Generator,
+                 device: torch.device) -> torch.Tensor:
+    """Boolean keep mask with P(keep) exactly ``keep`` where keep·2^8 is an
+    integer (8 random bits against round(keep·256): the live dropout 0.25 →
+    192/256), else to 2^-16 (16 bits) — the JAX package's 'auto' mask."""
+    bits = 8 if keep * 256 == int(keep * 256) else 16
+    thresh = int(round(keep * (1 << bits)))
+    if thresh >= (1 << bits):
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    dtype = torch.uint8 if bits == 8 else torch.int32
+    r = torch.randint(0, 1 << bits, shape, generator=generator, device=device, dtype=dtype)
+    return r < thresh
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            train: bool) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 − rate and
+    scale kept elements by 1/(1 − rate); the identity in eval mode or at
+    rate 0.  ``generator`` lives on x's device."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = dropout_mask(x.shape, keep, generator, x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def feed_forward(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,
-                 compute_dtype: torch.dtype | None = None,
-                 gelu_approx: bool = False) -> torch.Tensor:
-    """Linear→GELU→Linear (eval: both dropouts are the identity)
-    (reference model_cross.py:19-31)."""
+                 compute_dtype: torch.dtype | None = None, gelu_approx: bool = False,
+                 rate: float = 0.0, generator: torch.Generator | None = None,
+                 train: bool = False) -> torch.Tensor:
+    """Linear→GELU→Dropout→Linear→Dropout (reference model_cross.py:19-31)."""
     h = linear(x, fc1.weight, fc1.bias, compute_dtype)
-    h = gelu(h, gelu_approx)
-    return linear(h, fc2.weight, fc2.bias, compute_dtype)
+    h = dropout(gelu(h, gelu_approx), rate, generator, train)
+    h = linear(h, fc2.weight, fc2.bias, compute_dtype)
+    return dropout(h, rate, generator, train)
 
 
 def mlp_head(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,
-             compute_dtype: torch.dtype | None = None,
-             gelu_approx: bool = False) -> torch.Tensor:
-    """Linear(H→mlp)→GELU→Linear(mlp→classes) — the per-stream classification
-    head (reference model_cross.py:176-183)."""
-    return feed_forward(x, fc1, fc2, compute_dtype, gelu_approx)
+             compute_dtype: torch.dtype | None = None, gelu_approx: bool = False,
+             rate: float = 0.0, generator: torch.Generator | None = None,
+             train: bool = False) -> torch.Tensor:
+    """Linear(H→mlp)→GELU→Dropout→Linear(mlp→classes)→Dropout — the
+    per-stream classification head; its logits are dropped out too
+    (reference model_cross.py:176-183)."""
+    return feed_forward(x, fc1, fc2, compute_dtype, gelu_approx, rate, generator, train)

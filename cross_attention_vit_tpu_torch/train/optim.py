@@ -1,0 +1,50 @@
+"""Adam with torch.optim.Adam semantics — L2 weight decay added to the
+gradient before the moments, not AdamW — port of
+``cross_attention_vit_tpu/train/optim.py``:
+
+    g   = g + wd · p
+    m   = b1·m + (1 − b1)·g           v = b2·v + (1 − b2)·g²
+    p  -= lr · (m / (1 − b1^t)) / (sqrt(v / (1 − b2^t)) + eps)
+
+State and math are float32; the learning rate is a step-time argument (the
+epoch-stepped cosine schedule, ``schedule.py``).  The JAX update was plain
+XLA, so the port runs torch's own fused Adam: one pass over parameters,
+gradients and moments, updated in place (torch divides √v by √(1 − b2^t)
+where JAX takes √(v / (1 − b2^t)): the same update up to rounding).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Adam:
+    """Adam over a fixed list of float32 parameters; ``step(lr)`` consumes
+    their ``.grad``."""
+
+    def __init__(self, params, weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.params = list(params)
+        for p in self.params:
+            if p.dtype != torch.float32:
+                raise TypeError(f"Adam keeps float32 master parameters, got {p.dtype}: build "
+                                "the model with master_weights=True")
+        self._opt = torch.optim.Adam(self.params, lr=0.0, betas=(b1, b2), eps=eps,
+                                     weight_decay=weight_decay, fused=True)
+
+    @torch.no_grad()
+    def step(self, lr: float) -> None:
+        """One update at learning rate ``lr`` from the parameters' gradients."""
+        for group in self._opt.param_groups:
+            group["lr"] = lr
+        self._opt.step()
+
+    @property
+    def step_count(self) -> int:
+        return int(self._opt.state[self.params[0]]["step"]) if self._opt.state else 0
+
+    def moments(self) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+        """(first moments, second moments), one per parameter, in order."""
+        st = self._opt.state
+        return ([st[p]["exp_avg"] for p in self.params],
+                [st[p]["exp_avg_sq"] for p in self.params])

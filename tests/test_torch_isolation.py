@@ -32,7 +32,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      or m == "cross_attention_vit_tpu"
                      or m.startswith("cross_attention_vit_tpu."))
         print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 20 else 0)
+        sys.exit(1 if bad or len(names) < 29 else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
@@ -65,6 +65,8 @@ def test_model_defaults_to_cuda_and_raises_without_it():
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ModelCross(_tiny())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelCross(_tiny(), master_weights=True)    # the training model
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ModelCross(_tiny(), device="cpu").to(resolve_device())
 

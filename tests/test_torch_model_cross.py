@@ -202,6 +202,52 @@ def test_unported_options_raise(fields):
 
 
 def test_train_mode_raises():
-    _, tc, params = _pair(num_multi_blocks=1)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    """Train mode with dropout needs a generator (JAX raises for a missing
+    key the same way); MoE still raises at construction (above)."""
+    _, tc, params = _pair(num_multi_blocks=1, dropout=0.25)
+    with pytest.raises(ValueError, match="Generator"):
         _port(tc, params)(torch.from_numpy(_img(tc)), train=True)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_train_mode_at_dropout_zero_is_the_eval_forward(flash):
+    _, tc, params = _pair(num_multi_blocks=1, use_flash_attention=flash)
+    img = torch.from_numpy(_img(tc))
+    model = _port(tc, params)
+    with torch.no_grad():
+        assert torch.equal(model(img, train=True), model(img))
+
+
+def test_train_mode_drops_out_deterministically_under_a_generator():
+    _, tc, params = _pair(num_multi_blocks=1, dropout=0.25)
+    img = torch.from_numpy(_img(tc))
+    model = _port(tc, params)
+    with torch.no_grad():
+        a = model(img, train=True, generator=torch.Generator().manual_seed(0))
+        b = model(img, train=True, generator=torch.Generator().manual_seed(0))
+        c = model(img, train=True, generator=torch.Generator().manual_seed(1))
+        ev = model(img)
+    assert torch.equal(a, b) and not torch.equal(a, c) and not torch.equal(a, ev)
+
+
+def test_master_weights_stay_f32_and_forward_like_the_cast_once_model():
+    """A training model keeps f32 parameters and casts per call; its bf16
+    forward equals the serving model's, whose weights were cast once."""
+    _, tc, params = _pair(compute_dtype="bfloat16", activation_dtype="bfloat16",
+                          num_multi_blocks=1)
+    master = ModelCross(tc, device="cpu", master_weights=True)
+    tconvert.load_jax_params(master, params)
+    assert all(p.dtype == torch.float32 for p in master.parameters())
+    img = torch.from_numpy(_img(tc))
+    with torch.inference_mode():
+        assert torch.equal(master(img), _port(tc, params)(img))
+
+
+def test_master_params_round_trip_exactly_both_ways():
+    """JAX f32 params → the master model → JAX params is the identity, also
+    at bf16 compute, so a test can compare parameters after a step."""
+    _, tc, params = _pair(compute_dtype="bfloat16", attn_order=ORDERS["chain"])
+    model = ModelCross(tc, device="cpu", master_weights=True)
+    tconvert.load_jax_params(model, params)
+    back = tconvert.jax_params_from_model(model)
+    jax.tree.map(np.testing.assert_array_equal, back, params)
