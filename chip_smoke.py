@@ -10,7 +10,7 @@ Phases, each printed as one JSON line with a ``phase`` key:
              power limit; TF32 switched off for matmuls and cuDNN.
 2. build   — compiles every kernel of the serving and training paths from
              ``cross_attention_vit_tpu_torch/kernels/csrc/`` with nvcc, one
-             process per source, all started together.
+             process per source (five), all started together.
 3. kernels — holds each kernel (K1 attention forward, K2 its backward, K3
              the windowed resample, K4 the same over all taps) against its
              plain PyTorch version on the card (normalised max error within
@@ -19,7 +19,12 @@ Phases, each printed as one JSON line with a ``phase`` key:
              torch.profiler — beside the card's bound.  At the training
              shape, K1/K2 and the plain attention are also held against an
              f32 attention, forward and backward.
-4. serve   — the full-width live ModelCross (3 streams, hidden 1024, 16
+4. kernels_k7 — the same for K7, the streaming attention (forward with
+             logsumexp, the dq and dk/dv kernels of its blocked backward) at
+             N = 1041, 1537, 2049, 4096 in bf16 and f32, timed at the 3-stream
+             ModelVIT training shape (B=8, K=16, N=1537, bf16) beside
+             scaled_dot_product_attention and its autograd backward.
+5. serve   — the full-width live ModelCross (3 streams, hidden 1024, 16
              heads, N = 513, bf16, tanh GELU; 241.9M random parameters from
              a seed) written as a JAX-layout npz checkpoint, served by the
              port's InferenceServer (buckets 1/2/4/8) and asked 6 requests of
@@ -28,7 +33,15 @@ Phases, each printed as one JSON line with a ``phase`` key:
              per bucket forward, and the kernel path against the plain path;
              times bucket 8 with the weights cast once and with f32 masters
              cast on every call.
-5. train   — the same model, full width, with f32 master weights, trained
+6. serve_vit — two full-width ModelVITs (hidden 1024, 16 heads, 4 layers,
+             bf16, tanh GELU, random weights from a seed): the live 2-stream
+             grid point params_list2[1] (SWI, DWI; N = 1025, 57.7M parameters)
+             and the same with DWI, SWI, ASL (N = 1537, 58.3M), each written
+             as a JAX-layout npz and served by InferenceServer(model="vit"),
+             6 requests.  Checks the answers against a direct forward, 4 K1
+             launches per bucket forward (2 streams) or 4 K7-forward and no K1
+             launches (3 streams), and the kernel path against the plain path.
+7. train   — the live ModelCross, full width, with f32 master weights, trained
              ``TRAIN_STEPS`` Adam steps at batch 8 with augmentation (bf16
              pipeline) and dropout 0.25 through ``make_train_step``.  Checks
              finite losses, changed parameters, 12 K1 and 12 K2 launches per
@@ -39,6 +52,13 @@ Phases, each printed as one JSON line with a ``phase`` key:
              normalised by its own maximum), both beside an f32 step; the
              step time by CUDA events, split into augmentation and trunk; one
              profiled step; peak memory.
+8. train_vit — both ModelVITs, f32 masters, ``TRAIN_STEPS`` Adam steps at
+             batch 8 with params_list2[1]'s dropout 0.1 and augmentation (bf16
+             pipeline).  Checks 4 K1 + 4 K2 launches per step (2 streams) or
+             4 K7-forward + 4 of each K7 backward kernel and no K1/K2 (3
+             streams), K3 over the run, and every parameter's gradient, kernel
+             path against plain path, from the seeded masters; step ms, one
+             profiled step, peak memory.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 serving and training runs and its timings, the card's name and power limit as
@@ -49,6 +69,7 @@ exits 1.
 
 from __future__ import annotations
 
+import gc
 import io
 import itertools
 import json
@@ -66,8 +87,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cross_attention_vit_tpu_torch.configs import (Params, get_mgmt_cross_config,
-                                                   modify_config)
+from cross_attention_vit_tpu_torch.configs import (Params, get_mgmt_config,
+                                                   get_mgmt_cross_config, modify_config)
 from cross_attention_vit_tpu_torch.data import augment
 from cross_attention_vit_tpu_torch.drivers.serve import InferenceServer, serve
 from cross_attention_vit_tpu_torch.kernels import _build
@@ -75,6 +96,7 @@ from cross_attention_vit_tpu_torch.kernels import flash_attention as fa
 from cross_attention_vit_tpu_torch.kernels import resample as rs
 from cross_attention_vit_tpu_torch.models.convert import jax_params_from_model
 from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
+from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
 from cross_attention_vit_tpu_torch.ops.attention import _sdpa
 from cross_attention_vit_tpu_torch.train.checkpoint import save_config, save_pytree
 from cross_attention_vit_tpu_torch.train.optim import Adam
@@ -99,7 +121,8 @@ KERNEL_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 # compounded through the residual stream.
 SERVE_TOL = 5e-2
 REQUEST_SIZES = (1, 3, 8, 1, 3, 8)
-LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "resample")
+LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "resample",
+             "flash_attention_stream", "flash_attention_stream_bwd")
 K1 = {"name": "flash_attention_qkv", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:759"}
@@ -112,12 +135,31 @@ K3 = {"name": "resample_axis_windowed (span)", "route": "cuda",
 K4 = {"name": "resample_axis_windowed (all taps)", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/resample.cu",
       "replaces": "cross_attention_vit_tpu/kernels/resample.py:36"}
+K7F = {"name": "flash_attention_stream_fwd", "route": "cuda",
+       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_stream.cu",
+       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:133"}
+K7DKV = {"name": "flash_attention_stream_bwd (dk/dv)", "route": "cuda",
+         "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_stream_bwd.cu",
+         "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:379"}
+K7DQ = {"name": "flash_attention_stream_bwd (dq)", "route": "cuda",
+        "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_stream_bwd.cu",
+        "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:429"}
+# K7's streaming-regime lengths (tests_tpu/test_kernels_onchip.py:42), checked
+# at B=2 K=4, and the 3-stream ModelVIT training shape (B, K, N)
+K7_NS = (1041, 1537, 2049, 4096)
+K7_TRAIN = (8, 16, 1537)
+# ModelVIT: (name, streams, parameters, tokens) — params_list2[1]'s streams
+# (drivers/experiments.py:50-57) and the three of the live ModelCross
+VIT_CONFIGS = (("vit2", ("SWI", "DWI"), 57_730_050, 1025),
+               ("vit3", ("DWI", "SWI", "ASL"), 58_254_338, 1537))
 # the live augmentation geometry and its four LU passes (data/augment.py)
 VOLUME = (128, 128, 64)
 AUG = augment.AugmentConfig()
 TRAIN_STEPS = 6
 # profiler kernel names → the layers of PERF.md §3 (first match wins)
-PROFILE_LAYERS = (("K1 attention forward", ("attn_fwd_qkv",)),
+PROFILE_LAYERS = (("K7 attention forward", ("attn_stream_fwd",)),
+                  ("K7 attention backward", ("attn_stream_bwd",)),
+                  ("K1 attention forward", ("attn_fwd_qkv",)),
                   ("K2 attention backward", ("attn_bwd_",)),
                   ("K3/K4 resample", ("resample_kernel",)),
                   ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
@@ -129,11 +171,16 @@ PROFILE_LAYERS = (("K1 attention forward", ("attn_fwd_qkv",)),
                                                   "index", "reduce")))
 TRAIN_SEED = 3          # host generator seed: at least one step draws the affine
 # parameter-name parts followed by a block or stream index
-_INDEXED = {"transformer", "blocks", "fusion", "norm", "mlp_head"}
+_INDEXED = {"transformer", "blocks", "fusion", "norm", "mlp_head", "layers"}
 # the cross-attention key bias adds q·b to a whole row of scores, which the
 # softmax cancels: its gradient is zero in exact arithmetic, so its own
 # maximum is rounding noise and cannot normalise it (the gate skips it)
 ZERO_GRAD_LEAF = ".attn.fn.wk.bias"
+# ModelVIT's classifier bias: for two classes its gradient is ±Σ_b (p_b − y_b)/B,
+# with balanced labels at near-chance logits a difference of near-equal class
+# sums, so its own maximum is not the scale of its summands; the gate
+# normalises it by the largest summand, max_b |p_b − y_b| / B of the plain step
+HEAD_BIAS = "mlp_head.4.bias"
 
 
 class SmokeFailure(RuntimeError):
@@ -191,6 +238,12 @@ def device_ms(fn, calls: int = 10, warmup: int = 3) -> float:
     torch.profiler, summed over ``calls`` back-to-back calls.  Unlike
     ``cuda_ms`` it leaves out the host's dispatch gaps, which exceed the
     device time of a short kernel on a slow host."""
+    return device_ms_split(fn, {"all": ""}, calls, warmup)["all"]
+
+
+def device_ms_split(fn, marks: dict[str, str], calls: int = 10, warmup: int = 3) -> dict:
+    """``device_ms`` split by kernel: for each label, the kernels whose names
+    hold its mark (for a call that launches more than one kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -201,10 +254,12 @@ def device_ms(fn, calls: int = 10, warmup: int = 3) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(ms for _, ms, _ in _kernel_rows(prof))
-        if total > 0:
-            return total / calls
-    raise SmokeFailure("torch.profiler recorded no kernel in three tries")
+        rows = _kernel_rows(prof)
+        split = {label: sum(ms for key, ms, _ in rows if mark in key) / calls
+                 for label, mark in marks.items()}
+        if all(ms > 0 for ms in split.values()):
+            return split
+    raise SmokeFailure(f"torch.profiler recorded no {sorted(marks)} kernel in three tries")
 
 
 def timings(entry: dict, kernel, plain, library=None) -> None:
@@ -336,27 +391,34 @@ def _norm_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return max_abs, max_abs / max(want.float().abs().max().item(), 1e-30)
 
 
-def _attention_vs_f32(qkv: torch.Tensor, dout: torch.Tensor, scale: float) -> dict:
-    """How far the kernel path (K1, then K2 on its output) and the plain path
-    (autograd through the model's plain ``_sdpa``) each come from an f32
-    attention on the same bf16 operands (autograd through ``_sdpa`` in f32):
-    the forward output and dq, dk, dv, each normalised by the f32 maximum."""
+def _attention_vs_f32(q, k, v, dout, scale: float, kernel_path) -> dict:
+    """How far a kernel path and the model's plain path (autograd through
+    ``_sdpa``) each come from an f32 attention on the same bf16 operands
+    (autograd through ``_sdpa`` in f32): out and dq, dk, dv, each normalised
+    by the f32 maximum.  q, k, v, dout are (B, K, N, D); ``kernel_path()``
+    returns (out, (dq, dk, dv)) in the same layout."""
     def plain(dtype):
-        q, k, v = (qkv[:, :, j].transpose(1, 2).to(dtype).contiguous().requires_grad_()
-                   for j in range(3))
-        out = _sdpa(q, k, v, scale)
-        grads = torch.autograd.grad(out, (q, k, v), dout.transpose(1, 2).to(dtype))
-        return out.detach().transpose(1, 2), [g.transpose(1, 2) for g in grads]
+        xs = [t.to(dtype).contiguous().requires_grad_() for t in (q, k, v)]
+        out = _sdpa(*xs, scale)
+        return out.detach(), torch.autograd.grad(out, xs, dout.to(dtype))
 
     ref_out, ref_grads = plain(torch.float32)
-    out_k = fa.flash_attention_qkv_fwd(qkv, scale)
-    dqkv_k = fa.flash_attention_qkv_bwd(qkv, out_k, dout, scale)
-    out_p, grads_p = plain(qkv.dtype)
+    out_k, grads_k = kernel_path()
+    out_p, grads_p = plain(q.dtype)
     names = ("dq", "dk", "dv")
-    return {"fwd": {"kernel": _norm_err(out_k, ref_out)[1], "plain": _norm_err(out_p, ref_out)[1]},
-            "bwd_kernel": {n: _norm_err(dqkv_k[:, :, j], ref_grads[j])[1]
-                           for j, n in enumerate(names)},
-            "bwd_plain": {n: _norm_err(grads_p[j], ref_grads[j])[1] for j, n in enumerate(names)}}
+    result = {"fwd": {"kernel": _norm_err(out_k, ref_out)[1], "plain": _norm_err(out_p, ref_out)[1]},
+              "bwd_kernel": {n: _norm_err(grads_k[j], ref_grads[j])[1] for j, n in enumerate(names)},
+              "bwd_plain": {n: _norm_err(grads_p[j], ref_grads[j])[1] for j, n in enumerate(names)}}
+    del ref_out, ref_grads, out_p, grads_p
+    torch.cuda.empty_cache()
+    return result
+
+
+def _k1k2_path(qkv: torch.Tensor, dout: torch.Tensor, scale: float):
+    """K1, then K2 on its output, as (B, K, N, D) views (dout is (B, N, K, D))."""
+    out = fa.flash_attention_qkv_fwd(qkv, scale)
+    dqkv = fa.flash_attention_qkv_bwd(qkv, out, dout, scale)
+    return out.transpose(1, 2), fa._stream_views(dqkv)
 
 
 def phase_kernels_k2() -> dict:
@@ -396,7 +458,8 @@ def phase_kernels_k2() -> dict:
         entry["max_abs_err"] = max(e[0] for e in errs.values())
         entry["norm_err"] = {name: e[1] for name, e in errs.items()}
         if (B, N, dtype) == (8, 513, torch.bfloat16):
-            entry["vs_f32"] = _attention_vs_f32(qkv, dout, scale)
+            entry["vs_f32"] = _attention_vs_f32(*fa._stream_views(qkv), dout.transpose(1, 2),
+                                                scale, lambda: _k1k2_path(qkv, dout, scale))
         if (B, N) == (8, 513):
             # the yardstick: backward of scaled_dot_product_attention through autograd
             q, k, v = (qkv[:, :, j].transpose(1, 2).contiguous().requires_grad_()
@@ -519,6 +582,126 @@ def phase_kernels_resample() -> tuple[dict, dict]:
     return summary(timed["K3"]), summary(timed["K4"])
 
 
+def k7_bounds(B: int, N: int, K: int, D: int) -> dict[str, tuple[float, str]]:
+    """Least time in ms of each K7 kernel and of the whole backward at bf16:
+    each input read once and each output written once (operands of
+    B·N·K·D bf16 values, lse and delta of B·K·N f32), against the tensor-core
+    operations of its products (2·B·K·N²·D each): the forward 2 products,
+    the dq kernel 3 (s, dp, dq), the dk/dv kernel 4 (s, dp, dv, dk), the
+    backward as one function 5."""
+    op, row = B * N * K * D * 2, B * K * N * 4
+    work = {"fwd": (4 * op + row, 2),              # q, k, v → out, lse
+            "dq": (6 * op + 2 * row, 3),           # q, k, v, o, dO, lse → dq, delta
+            "dkdv": (6 * op + 2 * row, 4),         # q, k, v, dO, lse, delta → dk, dv
+            "bwd": (8 * op + row, 5)}              # q, k, v, o, dO, lse → dq, dk, dv
+    bounds = {}
+    for name, (nbytes, products) in work.items():
+        t_bytes = nbytes / HBM_BYTES_S
+        t_ops = products * 2 * B * K * N * N * D / PEAK_FLOPS[torch.bfloat16]
+        bounds[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return bounds
+
+
+def _k7_operands(B: int, K: int, N: int, dtype: torch.dtype, layout: str, seed: int):
+    """(q, k, v, dout, grads) at D=64.  'stacked': q, k, v are
+    (B, K, N, D) views of one (B, N, 3, K, D) qkv, dout a view of a
+    (B, N, K, D) tensor and the gradients go into views of a stacked dqkv —
+    the model's layout; 'dminor': each operand a view of its own (B, K, D, N)
+    buffer (head-dim stride N; the f32 kernels take any strides)."""
+    D = 64
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "stacked":
+        qkv = torch.randn((B, N, 3, K, D), generator=g, device="cuda").to(dtype)
+        dout = torch.randn((B, N, K, D), generator=g, device="cuda").to(dtype).transpose(1, 2)
+        dqkv = torch.empty_like(qkv)
+        return (*fa._stream_views(qkv), dout, fa._stream_views(dqkv))
+    q, k, v, dout = (torch.randn((B, K, D, N), generator=g, device="cuda").to(dtype)
+                     .transpose(2, 3) for _ in range(4))
+    return q, k, v, dout, None
+
+
+def _k7_path(q, k, v, dout, scale: float):
+    """K7's forward, then its backward on the forward's out and lse."""
+    out, lse = fa.flash_attention_stream_fwd(q, k, v, scale)
+    return out, fa.flash_attention_stream_bwd(q, k, v, out, lse, dout, scale)
+
+
+def phase_kernels_k7() -> dict:
+    """K7's three kernels against their plain versions: the forward's out
+    and lse, and dq, dk, dv of the backward run on the kernel's out and lse.
+    Returns the training-shape readings with timings and bounds."""
+    cases = [(2, 4, N, dt, "stacked") for N in K7_NS for dt in (torch.bfloat16, torch.float32)]
+    cases.append((2, 4, 1041, torch.float32, "dminor"))
+    cases.append((*K7_TRAIN, torch.bfloat16, "stacked"))
+    checks, failures, train = [], [], {}
+    for i, (B, K, N, dtype, layout) in enumerate(cases):
+        q, k, v, dout, grads = _k7_operands(B, K, N, dtype, layout, seed=400 + i)
+        scale = 64 ** -0.5
+        out, lse = fa.flash_attention_stream_fwd(q, k, v, scale)
+        plain_out, plain_lse = fa.flash_attention_stream_reference(q, k, v, scale)
+        got = fa.flash_attention_stream_bwd(q, k, v, out, lse, dout, scale, grads=grads)
+        want = fa.flash_attention_blocked_bwd_reference(q, k, v, out, lse, dout, scale)
+        torch.cuda.synchronize()
+        errs = {"out": _norm_err(out, plain_out), "lse": _norm_err(lse, plain_lse),
+                **{n: _norm_err(got[j], want[j]) for j, n in enumerate(("dq", "dk", "dv"))}}
+        entry = {"B": B, "K": K, "D": 64, "N": N,
+                 "dtype": str(dtype).replace("torch.", ""), "layout": layout,
+                 "tol": KERNEL_TOL[dtype],
+                 "finite": all(bool(torch.isfinite(t).all()) for t in (out, lse, *got)),
+                 "max_abs_err": {n: e[0] for n, e in errs.items()},
+                 "norm_err": {n: e[1] for n, e in errs.items()}}
+        del plain_out, plain_lse, want
+        if (B, K, N) == K7_TRAIN:
+            qc, kc, vc = (t.contiguous() for t in (q, k, v))
+            timings(entry, lambda: fa.flash_attention_stream_fwd(q, k, v, scale),
+                    lambda: fa.flash_attention_stream_reference(q, k, v, scale),
+                    lambda: F.scaled_dot_product_attention(qc, kc, vc))
+            entry["bwd_kernel_ms"] = device_ms_split(
+                lambda: fa.flash_attention_stream_bwd(q, k, v, out, lse, dout, scale,
+                                                      grads=grads),
+                {"dq": "attn_stream_bwd_dq", "dkdv": "attn_stream_bwd_dkdv"})
+            entry["bwd_plain_ms"] = {
+                "dq": device_ms(lambda: fa.flash_attention_stream_bwd_dq_reference(
+                    q, k, v, out, lse, dout, scale), calls=2),
+                "dkdv": device_ms(lambda: fa.flash_attention_stream_bwd_dkdv_reference(
+                    q, k, v, out, lse, dout, scale), calls=2)}
+            # the yardstick: backward of scaled_dot_product_attention through autograd
+            xs = [t.detach().requires_grad_() for t in (qc, kc, vc)]
+            lib_out = F.scaled_dot_product_attention(*xs)
+            lib_g = dout.contiguous()
+            entry["bwd_library_ms"] = device_ms(
+                lambda: torch.autograd.grad(lib_out, xs, lib_g, retain_graph=True))
+            del xs, lib_out, lib_g, qc, kc, vc
+            entry["bound"] = {name: {"ms": ms, "by": by}
+                              for name, (ms, by) in k7_bounds(B, N, K, 64).items()}
+            entry["vs_f32"] = _attention_vs_f32(q, k, v, dout, scale,
+                                                lambda: _k7_path(q, k, v, dout, scale))
+            train = entry
+        checks.append(entry)
+        if not (entry["finite"] and max(entry["norm_err"].values()) <= entry["tol"]):
+            failures.append(entry)
+        del q, k, v, dout, grads, out, lse, got
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_k7", "kernels": [K7F, K7DKV, K7DQ], "cases": checks})
+    check(not failures, f"K7 disagrees with its plain versions: {failures}")
+    return train
+
+
+def vit_config(streams: tuple, use_flash: bool):
+    """params_list2[1] of the experiment grid with ``streams`` as its
+    img_types: dropout 0.1, augmentation on, Adam lr 1e-4 wd 5e-4, cosine
+    T_max 150; bf16 compute and activations (and augmentation), tanh GELU."""
+    p = Params(lr=1e-4, dropout=0.1, attn_order={},
+               optim_params={"T_max": 150, "eta_min": 1e-6}, weight_decay=5e-4,
+               img_types=streams, label_smoothing=0.0, img_aug=True)
+    cfg = get_mgmt_config()
+    modify_config(cfg, p)
+    modify_config(cfg, {"num_modalities": len(streams), "compute_dtype": "bfloat16",
+                        "activation_dtype": "bfloat16", "augment_dtype": "bfloat16",
+                        "use_flash_attention": use_flash, "gelu_approx": True})
+    return cfg
+
+
 def live_config(use_flash: bool):
     """bench.py's live configuration: params_list1[0] of the experiment
     grid, bf16 compute and activations, flash attention, tanh GELU."""
@@ -550,6 +733,19 @@ def _get(port: int, path: str) -> dict:
 def _forward(model, vols: np.ndarray) -> torch.Tensor:
     with torch.inference_mode():
         return model(torch.from_numpy(vols).cuda()).float()
+
+
+def _served_vs_direct(server: InferenceServer, requests: list, answers: list) -> float:
+    """Max |served − direct| over the answers: each request's logits against
+    a direct forward of the server's model at the same bucket shape."""
+    diff = 0.0
+    for vols, got in zip(requests, answers):
+        bucket = next(b for b in server.buckets if b >= vols.shape[0])
+        padded = np.concatenate([vols, np.zeros((bucket - vols.shape[0], *vols.shape[1:]),
+                                                np.float32)])
+        want = _forward(server.model, padded)[:vols.shape[0]].cpu().numpy()
+        diff = max(diff, float(np.abs(got - want).max()))
+    return diff
 
 
 def _profile(model, x: torch.Tensor) -> dict:
@@ -636,15 +832,8 @@ def phase_serve(tmp: Path) -> dict:
     check(launches == 12 * forwards,
           f"kernel launched {launches} times in {forwards} bucket forwards (12 each expected)")
 
-    # the server's answers against a direct forward at the same bucket shape
     model = server.model
-    direct_diff = 0.0
-    for vols, got in zip(requests, answers):
-        bucket = next(b for b in server.buckets if b >= vols.shape[0])
-        padded = np.concatenate([vols, np.zeros((bucket - vols.shape[0], *vols.shape[1:]),
-                                                np.float32)])
-        want = _forward(model, padded)[:vols.shape[0]].cpu().numpy()
-        direct_diff = max(direct_diff, float(np.abs(got - want).max()))
+    direct_diff = _served_vs_direct(server, requests, answers)
     check(direct_diff == 0.0, f"served logits differ from a direct forward by {direct_diff}")
 
     # kernel path against the plain path (and both against f32) at bucket 8
@@ -709,28 +898,58 @@ def phase_serve(tmp: Path) -> dict:
     return result
 
 
+# each kernel's launch count: (wrapper, attribute)
+_COUNTERS = {"K1": (fa.flash_attention_qkv, "launches"),
+             "K2": (fa.flash_attention_qkv_bwd, "launches"),
+             "K3": (rs.resample_axis_windowed_batched, "launches"),
+             "K4": (rs.resample_axis_windowed_batched, "full_launches"),
+             "K7F": (fa.flash_attention_stream_fwd, "launches"),
+             "K7DQ": (fa.flash_attention_stream_bwd, "dq_launches"),
+             "K7DKV": (fa.flash_attention_stream_bwd, "dkdv_launches")}
+
+
 def _counts() -> dict:
-    return {"K1": fa.flash_attention_qkv.launches, "K2": fa.flash_attention_qkv_bwd.launches,
-            "K3": rs.resample_axis_windowed_batched.launches,
-            "K4": rs.resample_axis_windowed_batched.full_launches}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _COUNTERS.items()}
 
 
 def _zero_counts() -> None:
-    fa.flash_attention_qkv.launches = 0
-    fa.flash_attention_qkv_bwd.launches = 0
-    rs.resample_axis_windowed_batched.launches = 0
-    rs.resample_axis_windowed_batched.full_launches = 0
+    for fn, attr in _COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
-def _grads_after_step(cfg, state: dict, img: torch.Tensor,
-                      labels: torch.Tensor) -> dict[str, torch.Tensor]:
+def _run_steps(step, img: torch.Tensor, labels: torch.Tensor, lr_at, host_gen) -> tuple:
+    """TRAIN_STEPS train steps from launch counts of 0: per step the loss,
+    the ms by CUDA events, the kernel launches and the volumes that drew the
+    affine."""
+    losses, step_ms, per_step, affine_drawn = [], [], [], []
+    _zero_counts()
+    for i in range(TRAIN_STEPS):
+        counts0 = _counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        aux = step(img, labels, lr_at(i), host_gen)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(aux["loss"]))
+        per_step.append({k: v - counts0[k] for k, v in _counts().items()})
+        affine_drawn.append(step.augmented.get("affine", 0))
+    return losses, step_ms, per_step, affine_drawn
+
+
+def _grads_after_step(cfg, state: dict, img: torch.Tensor, labels: torch.Tensor,
+                      model_cls=ModelCross, aux_out: dict | None = None
+                      ) -> dict[str, torch.Tensor]:
     """The f32 gradient of every parameter after one train step of a model
-    built from ``cfg`` and loaded with the f32 masters ``state``."""
-    model = ModelCross(cfg, device="cuda", master_weights=True)
+    built from ``cfg`` and loaded with the f32 masters ``state``; the step's
+    aux dict goes into ``aux_out`` when given."""
+    model = model_cls(cfg, device="cuda", master_weights=True)
     model.load_state_dict(state)
     step = make_train_step(model, Adam(model.parameters(), cfg.weight_decay), cfg)
     aux = step(img, labels, cfg.lr, torch.Generator().manual_seed(0))
     check(bool(torch.isfinite(aux["loss"])), "non-finite loss in the comparison step")
+    if aux_out is not None:
+        aux_out.update(aux)
     grads = {name: p.grad.float() for name, p in model.named_parameters()}
     del model, step
     torch.cuda.empty_cache()
@@ -777,19 +996,7 @@ def phase_train() -> dict:
     state0 = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     host_gen = torch.Generator().manual_seed(TRAIN_SEED)
 
-    losses, step_ms, per_step, affine_drawn = [], [], [], []
-    _zero_counts()
-    for i in range(TRAIN_STEPS):
-        counts0 = _counts()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        aux = step(img, labels, lr_at(i), host_gen)
-        end.record()
-        end.synchronize()
-        step_ms.append(start.elapsed_time(end))
-        losses.append(float(aux["loss"]))
-        per_step.append({k: v - counts0[k] for k, v in _counts().items()})
-        affine_drawn.append(step.augmented.get("affine", 0))
+    losses, step_ms, per_step, affine_drawn = _run_steps(step, img, labels, lr_at, host_gen)
     launches = _counts()
     changed = max((p.detach() - state0[name].cuda()).abs().max().item()
                   for name, p in model.named_parameters())
@@ -867,6 +1074,185 @@ def phase_train() -> dict:
     return result
 
 
+def _vit_expected(tokens: int, per: int) -> dict:
+    """Kernel launches of ``per`` attention layers: K1/K2 up to the switch,
+    K7 above it (the same rule as the JAX package's)."""
+    short = tokens <= fa._SINGLE_BLOCK_MAX
+    return {"K1": per * short, "K2": per * short, "K7F": per * (not short),
+            "K7DQ": per * (not short), "K7DKV": per * (not short)}
+
+
+def phase_serve_vit(tmp: Path) -> dict:
+    """Both ModelVIT configurations served from a JAX-layout checkpoint."""
+    results = {}
+    for name, streams, want_params, tokens in VIT_CONFIGS:
+        cfg = vit_config(streams, use_flash=True)
+        source = ModelVIT(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+        n_params = source.num_params()
+        check(n_params == want_params, f"{name}: {n_params} params, expected {want_params}")
+        check(source.pos_embedding.shape[1] == tokens, f"{name}: {source.pos_embedding.shape}")
+        sub = tmp / name
+        sub.mkdir()
+        ckpt = sub / "epoch=00-val_loss=0.0000.npz"
+        save_pytree(ckpt, {"params": jax_params_from_model(source),
+                           "epoch": np.zeros((), np.int32)})
+        save_config(sub, cfg)
+        del source
+        torch.cuda.empty_cache()
+
+        server = InferenceServer(ckpt, "vit", img_types=streams, buckets=(1, 2, 4, 8),
+                                 device="cuda")
+        health = server.health()
+        check(health["model"] == "vit" and health["params"] == n_params, f"healthz: {health}")
+        server.warmup()
+        server.start()
+        rng = np.random.default_rng(10 + len(streams))
+        requests = [(rng.normal(size=(b, len(streams), 1, *cfg.img_size)) * 100)
+                    .astype(np.float32) for b in REQUEST_SIZES]
+        try:
+            forwards_before = len(server.stats["device_ms"])
+            _zero_counts()
+            answers = [server.predict(vols) for vols in requests]
+            counts = _counts()
+            forwards = len(server.stats["device_ms"]) - forwards_before
+        finally:
+            server.stop()
+        check(not server._dispatcher.is_alive(), "dispatcher thread did not stop")
+        check(forwards == len(requests), f"{forwards} bucket forwards for {len(requests)} requests")
+        want = _vit_expected(tokens, cfg.num_layers)
+        per_forward = {k: counts[k] / forwards for k in ("K1", "K7F")}
+        check(per_forward == {k: want[k] for k in per_forward},
+              f"{name}: launches per bucket forward {per_forward}, expected K1 {want['K1']}, "
+              f"K7 forward {want['K7F']}")
+        for vols, got in zip(requests, answers):
+            check(got.shape == (vols.shape[0], cfg.num_classes) and bool(np.isfinite(got).all()),
+                  f"{name}: logits {got.shape}, finite {np.isfinite(got).all()}")
+        model = server.model
+        direct_diff = _served_vs_direct(server, requests, answers)
+        check(direct_diff == 0.0, f"{name}: served logits differ from a direct forward by "
+                                  f"{direct_diff}")
+
+        b8 = requests[2]
+        flash8 = torch.from_numpy(answers[2])
+        plain = ModelVIT(vit_config(streams, use_flash=False), device="cuda")
+        plain.load_state_dict(model.state_dict())
+        plain8 = _forward(plain, b8).cpu()
+        del plain
+        torch.cuda.empty_cache()
+        flash_vs_plain = (flash8 - plain8).abs().max().item() / plain8.abs().max().item()
+        x8 = torch.from_numpy(b8).cuda()
+        with torch.inference_mode():
+            ms8 = cuda_ms(lambda: model(x8), runs=3, calls=3)
+        profile = _profile(model, x8)
+        result = {"phase": "serve_vit", "config": name, "model": "ModelVIT", "params": n_params,
+                  "streams": list(streams), "tokens": tokens, "layers": cfg.num_layers,
+                  "hidden": cfg.hidden_dim, "heads": cfg.num_heads, "dtype": "bfloat16",
+                  "gelu": "tanh", "requests": len(requests), "bucket_forwards": forwards,
+                  "launches": counts, "launches_per_forward": per_forward,
+                  "served_vs_direct_max_abs": direct_diff, "flash_vs_plain_norm": flash_vs_plain,
+                  "tol": SERVE_TOL, "bucket8_ms": ms8, "profile_bucket8": profile,
+                  "server_device_ms": server.stats_view()["device_ms"]}
+        emit(result)
+        check(flash_vs_plain <= SERVE_TOL,
+              f"{name} bucket-8 logits: kernel path vs plain path {flash_vs_plain:.3e} "
+              f"> {SERVE_TOL}")
+        del server, model, x8
+        torch.cuda.empty_cache()
+        results[name] = result
+    return results
+
+
+def phase_train_vit() -> dict:
+    """Both ModelVIT configurations trained TRAIN_STEPS steps at batch 8."""
+    results = {}
+    for name, streams, want_params, tokens in VIT_CONFIGS:
+        cfg = vit_config(streams, use_flash=True)
+        gc.collect()      # what earlier phases dropped, out of this phase's peak
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = ModelVIT(cfg, device="cuda", master_weights=True,
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+        check(model.num_params() == want_params, f"{name}: {model.num_params()} params")
+        optimizer = Adam(model.parameters(), weight_decay=cfg.weight_decay)
+        step = make_train_step(model, optimizer, cfg)
+        op = cfg.optim_params
+        lr_at = cosine_annealing_lr(cfg.lr, op["T_max"], op["eta_min"])
+        rng = np.random.default_rng(20 + len(streams))
+        img = torch.from_numpy((rng.normal(size=(8, len(streams), 1, *cfg.img_size)) * 100)
+                               .astype(np.float32)).cuda()
+        labels = torch.tensor([0, 1] * 4, device="cuda")
+        state0 = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        host_gen = torch.Generator().manual_seed(TRAIN_SEED)
+
+        losses, step_ms, per_step, affine_drawn = _run_steps(step, img, labels, lr_at,
+                                                             host_gen)
+        launches = _counts()
+        changed = max((p.detach() - state0[n].cuda()).abs().max().item()
+                      for n, p in model.named_parameters())
+        check(all(np.isfinite(losses)), f"{name}: non-finite training loss: {losses}")
+        check(changed > 0, f"{name}: the parameters did not change over the training steps")
+        want = _vit_expected(tokens, cfg.num_layers)
+        for i, (c, drawn) in enumerate(zip(per_step, affine_drawn)):
+            got = {k: c[k] for k in want}
+            check(got == want, f"{name} step {i}: attention launches {got}, expected {want}")
+            check(c["K3"] == (4 if drawn else 0) and c["K4"] == 0,
+                  f"{name} step {i}: K3 launched {c['K3']} times with {drawn} affine volumes")
+        check(launches["K3"] > 0, f"{name}: no step drew the affine: K3 never ran")
+        profile = _profiled(lambda: step(img, labels, lr_at(0), host_gen))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del model, optimizer, step
+        torch.cuda.empty_cache()
+
+        def cmp_cfg(use_flash: bool):
+            c = vit_config(streams, use_flash)
+            modify_config(c, {"dropout": 0.0, "img_aug": False})
+            return c
+        _zero_counts()
+        g_flash = _grads_after_step(cmp_cfg(True), state0, img, labels, ModelVIT)
+        cmp_launches = _counts()
+        aux_plain = {}
+        g_plain = _grads_after_step(cmp_cfg(False), state0, img, labels, ModelVIT, aux_plain)
+        del state0
+        check({k: cmp_launches[k] for k in want} == want,
+              f"{name}: comparison step launches {cmp_launches}")
+        flash_vs_plain = _leaf_errs(g_flash, g_plain)
+        head_bias_own = flash_vs_plain[HEAD_BIAS]
+        summand = (aux_plain["probs"] - labels.float()).abs().max().item() / len(labels)
+        flash_vs_plain[HEAD_BIAS] = (g_flash[HEAD_BIAS] - g_plain[HEAD_BIAS]).abs().max().item() \
+            / summand
+        worst = max(flash_vs_plain, key=flash_vs_plain.get)
+        del g_flash, g_plain
+        torch.cuda.empty_cache()
+        result = {"phase": "train_vit", "config": name, "model": "ModelVIT",
+                  "params": want_params, "streams": list(streams), "tokens": tokens,
+                  "batch": 8, "dtype": "bfloat16", "augment_dtype": cfg.augment_dtype,
+                  "dropout": cfg.dropout, "steps": TRAIN_STEPS, "losses": losses,
+                  "max_param_change": changed, "launches": launches,
+                  "launches_per_step": per_step, "affine_volumes_per_step": affine_drawn,
+                  "step_ms": step_ms, "step_ms_steady": statistics.median(step_ms[1:]),
+                  "profile": profile, "peak_device_gb": peak_gb,
+                  "grad_leaves": len(flash_vs_plain),
+                  "grad_flash_vs_plain_worst_leaf": [worst, flash_vs_plain[worst]],
+                  "tol": SERVE_TOL, "grad_by_kind": _by_kind(flash_vs_plain),
+                  "head_bias_norm_by_own_max": head_bias_own,
+                  "head_bias_norm_by_summand": flash_vs_plain[HEAD_BIAS]}
+        emit(result)
+        check(flash_vs_plain[worst] <= SERVE_TOL,
+              f"{name}: gradient of {worst}: kernel path vs plain path "
+              f"{flash_vs_plain[worst]:.3e} > {SERVE_TOL}")
+        results[name] = result
+    return results
+
+
+def _launch_rows(paths: dict[str, dict]) -> dict[str, dict]:
+    """Each kernel's launches summed over the main paths' runs, and by path."""
+    rows = {}
+    for kernel in _COUNTERS:
+        by_path = {path: counts[kernel] for path, counts in paths.items() if counts.get(kernel)}
+        rows[kernel] = {"launches": sum(by_path.values()), "launches_by_path": by_path}
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -875,30 +1261,57 @@ def main() -> int:
         k1 = phase_kernels()
         k2 = phase_kernels_k2()
         k3, k4 = phase_kernels_resample()
+        k7 = phase_kernels_k7()
         with tempfile.TemporaryDirectory() as tmp:
             served = phase_serve(Path(tmp))
+            served_vit = phase_serve_vit(Path(tmp))
         trained = phase_train()
+        trained_vit = phase_train_vit()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    train_launches = trained["launches"]
+    paths = {"serve": {"K1": served["kernel_launches"]}, "train": trained["launches"]}
+    for name, result in served_vit.items():
+        paths[f"serve_{name}"] = result["launches"]
+    for name, result in trained_vit.items():
+        paths[f"train_{name}"] = result["launches"]
+    launches = _launch_rows(paths)
+    attn = "B=8 K=16 D=64 N=513 bfloat16"
+    k7_shape = "B=8 K=16 D=64 N=1537 bfloat16 (3-stream ModelVIT training shape)"
+    bound = k7["bound"]
     emit({"kernels": [
-        {**K1, "launches": served["kernel_launches"] + train_launches["K1"],
-         "launches_by_path": {"serve": served["kernel_launches"], "train": train_launches["K1"]},
+        {**K1, **launches["K1"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_us"] / 1e3, "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"], "shape": "B=8 K=16 D=64 N=513 bfloat16"},
-        {**K2, "launches": train_launches["K2"],
-         "launches_by_path": {"train": train_launches["K2"]},
+         "library_ms": k1["library_ms"], "shape": attn},
+        {**K2, **launches["K2"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["kernel_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_us"] / 1e3, "bound_by": k2["bound_by"],
-         "library_ms": k2["library_ms"], "shape": "B=8 K=16 D=64 N=513 bfloat16"},
-        {**K3, "launches": train_launches["K3"],
-         "launches_by_path": {"train": train_launches["K3"]}, **k3,
+         "library_ms": k2["library_ms"], "shape": attn},
+        {**K3, **launches["K3"], **k3,
          "shape": "V=8 (128, 128, 64) bfloat16, per launch over the 4 live LU passes"},
-        {**K4, "launches": train_launches["K4"],
-         "launches_by_path": {"train": train_launches["K4"]}, **k4,
-         "shape": "V=8 (128, 128, 64) bfloat16, LU pass U0 with all 44 taps"}]})
+        {**K4, **launches["K4"], **k4,
+         "shape": "V=8 (128, 128, 64) bfloat16, LU pass U0 with all 44 taps"},
+        {**K7F, **launches["K7F"],
+         "max_abs_err": k7["max_abs_err"]["out"], "lse_max_abs_err": k7["max_abs_err"]["lse"],
+         "ms": k7["kernel_ms"], "plain_ms": k7["plain_ms"], "bound_ms": bound["fwd"]["ms"],
+         "bound_by": bound["fwd"]["by"], "library_ms": k7["library_ms"],
+         "library": "scaled_dot_product_attention", "shape": k7_shape},
+        {**K7DKV, **launches["K7DKV"],
+         "max_abs_err": max(k7["max_abs_err"]["dk"], k7["max_abs_err"]["dv"]),
+         "ms": k7["bwd_kernel_ms"]["dkdv"], "plain_ms": k7["bwd_plain_ms"]["dkdv"],
+         "bound_ms": bound["dkdv"]["ms"], "bound_by": bound["dkdv"]["by"],
+         "library_ms": k7["bwd_library_ms"],
+         "library": "backward of scaled_dot_product_attention through autograd: dq, dk and "
+                    "dv together, as the dq and dk/dv kernels are together",
+         "backward_bound_ms": bound["bwd"]["ms"], "shape": k7_shape},
+        {**K7DQ, **launches["K7DQ"],
+         "max_abs_err": k7["max_abs_err"]["dq"],
+         "ms": k7["bwd_kernel_ms"]["dq"], "plain_ms": k7["bwd_plain_ms"]["dq"],
+         "bound_ms": bound["dq"]["ms"], "bound_by": bound["dq"]["by"],
+         "library_ms": k7["bwd_library_ms"],
+         "library": "backward of scaled_dot_product_attention through autograd (dq, dk, dv)",
+         "shape": k7_shape}]})
     print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

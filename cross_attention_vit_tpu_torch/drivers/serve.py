@@ -17,8 +17,9 @@ Port of ``cross_attention_vit_tpu/drivers/serve.py``:
 
 The checkpoint is the JAX package's npz layout with its config JSON beside it
 (``train/checkpoint.py``); ``gelu_approx`` and the dtypes saved with the run
-rebuild the model exactly.  Only the ModelCross family is served; int8
-(``quantize``) and sharded (``mesh``) serving are later slices of the port.
+rebuild the model exactly.  Both live families are served, ModelCross
+(``model="cross"``) and ModelVIT (``model="vit"``); int8 (``quantize``) and
+sharded (``mesh``) serving are later slices of the port.
 
 Endpoints:
   GET  /healthz           — model family, param count, buckets, config dims
@@ -32,7 +33,7 @@ Endpoints:
 CLI:
     python -m cross_attention_vit_tpu_torch.drivers.serve \\
         --checkpoint runs/checkpoints/cross/epoch=..npz --port 8000 \\
-        --data /path/to/ucsf-data --img-types DWI SWI ASL
+        --data /path/to/ucsf-data --img-types DWI SWI ASL [--model vit]
 """
 
 from __future__ import annotations
@@ -48,11 +49,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..configs import get_mgmt_cross_config, modify_config
+from ..configs import get_mgmt_config, get_mgmt_cross_config, modify_config
 from ..models.convert import load_jax_params, params_from_flat
 from ..models.model_cross import ModelCross
+from ..models.model_vit import ModelVIT
 from ..train.checkpoint import load_config_for, restore_flat
 from ..utils.device import resolve_device
+
+_FAMILIES = {"cross": (ModelCross, get_mgmt_cross_config),
+             "vit": (ModelVIT, get_mgmt_config)}
 
 
 class Overloaded(RuntimeError):
@@ -76,7 +81,8 @@ class _Request:
 
 
 class InferenceServer:
-    """Checkpoint → ModelCross on ``device`` → micro-batching dispatcher."""
+    """Checkpoint → ModelCross or ModelVIT on ``device`` → micro-batching
+    dispatcher."""
 
     def __init__(self, checkpoint: str | Path, model: str = "cross",
                  img_types=("DWI", "SWI", "ASL"), data_folder: str | None = None,
@@ -84,10 +90,10 @@ class InferenceServer:
                  config_overrides=None, quantize: str | None = None,
                  mesh=None, max_queue_volumes: int = 64,
                  device: str | torch.device = "cuda"):
-        if model != "cross":
-            raise NotImplementedError(
-                f"model family {model!r} is not ported yet: ModelVIT is a later "
-                "slice of the PyTorch port (ROADMAP Queue 1, item 7)")
+        if model not in _FAMILIES:
+            raise ValueError(f"unknown model family {model!r}: expected one of "
+                             f"{sorted(_FAMILIES)}")
+        model_cls, factory = _FAMILIES[model]
         if quantize:
             raise NotImplementedError(
                 "int8 serving (quantize) is a later slice of the PyTorch port "
@@ -99,7 +105,7 @@ class InferenceServer:
         self.device = resolve_device(device)
         cfg = load_config_for(checkpoint)
         if cfg is None:
-            cfg = get_mgmt_cross_config()
+            cfg = factory()
             modify_config(cfg, dict(
                 num_modalities=len(img_types), dropout=0.0, lr=1e-4,
                 weight_decay=0.0, label_smoothing=0.0, attn_order={},
@@ -114,7 +120,7 @@ class InferenceServer:
         self.buckets = tuple(sorted(buckets))
         self.max_wait_s = max_wait_ms / 1e3
 
-        self.model = ModelCross(cfg, device=self.device)
+        self.model = model_cls(cfg, device=self.device)
         load_jax_params(self.model, params_from_flat(restore_flat(checkpoint)))
         self.model.eval()
         self.n_params = self.model.num_params()
@@ -381,8 +387,10 @@ def serve(server: InferenceServer, host: str = "127.0.0.1",
 def main(argv=None):
     import argparse
 
-    p = argparse.ArgumentParser(description="serve a ModelCross checkpoint")
+    p = argparse.ArgumentParser(description="serve a ModelCross or ModelVIT checkpoint")
     p.add_argument("--checkpoint", required=True)
+    p.add_argument("--model", choices=sorted(_FAMILIES), default="cross",
+                   help="model family of the checkpoint")
     p.add_argument("--img-types", nargs="+", default=["DWI", "SWI", "ASL"])
     p.add_argument("--data", default=None,
                    help="NIfTI root for /predict_subject")
@@ -397,13 +405,13 @@ def main(argv=None):
                    help="torch device; 'cpu' runs the plain PyTorch path")
     args = p.parse_args(argv)
 
-    server = InferenceServer(args.checkpoint, img_types=tuple(args.img_types),
+    server = InferenceServer(args.checkpoint, args.model, img_types=tuple(args.img_types),
                              data_folder=args.data, buckets=args.buckets,
                              max_wait_ms=args.max_wait_ms,
                              max_queue_volumes=args.max_queue_volumes,
                              device=args.device)
     httpd = serve(server, args.host, args.port)
-    print(f"serving cross ({server.n_params / 1e6:.1f}M params) on "
+    print(f"serving {args.model} ({server.n_params / 1e6:.1f}M params) on "
           f"{server.device} at http://{args.host}:{args.port}  buckets={args.buckets}")
     try:
         httpd.serve_forever()

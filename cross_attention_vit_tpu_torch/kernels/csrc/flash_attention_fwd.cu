@@ -80,7 +80,6 @@ __device__ __forceinline__ uint32_t pack_e(const float s[4], int i, float c, flo
 // Keys ≥ N (only in the last tile) score −inf.
 __device__ __forceinline__ void mma_scores(float s[BK / 8][4], const uint32_t qf[D / 16][4],
                                            const bf16* ks, int g, int t, int k0, int N) {
-  constexpr int LD = D + PADH;
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
@@ -104,8 +103,6 @@ __device__ __forceinline__ void mma_scores(float s[BK / 8][4], const uint32_t qf
 __global__ void __launch_bounds__(MMA_THREADS)
 attn_fwd_qkv_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
                          Strides st, float scale) {
-  constexpr int LD = D + PADH;      // qs, ks row stride
-  constexpr int LDV = BK + PADH;    // vt row stride
   extern __shared__ float4 smem4[];
   bf16* qs = reinterpret_cast<bf16*>(smem4);   // [BQ][LD]  q tile
   bf16* ks = qs + BQ * LD;                     // [BK][LD]  k tile
@@ -120,7 +117,7 @@ attn_fwd_qkv_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, i
   const int tiles = (N + BK - 1) / BK;
   // exp(scale·(s − m)) = exp2(c·s − c·m): one FMA and one ex2 per score; row
   // maxima are taken on the unscaled scores (scale > 0 keeps the order)
-  const float c = scale * 1.4426950408889634f;
+  const float c = scale * LOG2E;
 
   Tile kr, vr;
   kr.load_rows(qb, q0, N, st.n);
@@ -230,39 +227,10 @@ attn_fwd_qkv_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, i
 // f32: scalar FMAs on the CUDA cores (no TF32)
 // ---------------------------------------------------------------------------
 
-constexpr int F32_THREADS = 256;   // a 16 × 16 grid; each thread owns 4 rows
-constexpr int LDT = BQ + 4;        // transposed tiles: the pad spreads the
-                                   // staging stores over the banks and keeps
-                                   // float4 reads 16-byte aligned
-
-// rows [n0, n0 + 64) of one (64, D) f32 operand, transposed to [D][LDT]
-__device__ __forceinline__ void stage_transposed(float* dst, const float* src, int n0, int N,
-                                                 const Strides& st) {
-  for (int i = threadIdx.x; i < BQ * D; i += F32_THREADS) {
-    const int r = i / D, d = i % D;
-    const int n = n0 + r;
-    dst[d * LDT + r] = n < N ? src[n * st.n + d * st.d] : 0.f;
-  }
-}
-
 // s[i][j] = scale · Σ_d q[ty·4+i, d] k[tx·4+j, d], −inf for key columns ≥ N.
 __device__ __forceinline__ void f32_scores(float s[4][4], const float* qt, const float* kt,
                                            int tx, int ty, int k0, int N, float scale) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(&qt[d * LDT + ty * 4]);
-    const float4 b = *reinterpret_cast<const float4*>(&kt[d * LDT + tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
+  f32_tn(s, qt, kt, tx, ty);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const bool valid = k0 + tx * 4 + j < N;
@@ -288,7 +256,7 @@ attn_fwd_qkv_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, 
   const float* vb = qb + 2 * st.s;
   const int tiles = (N + BK - 1) / BK;
 
-  stage_transposed(qt, qb, q0, N, st);
+  stage_t(qt, qb, q0, N, st.n, st.d);
 
   // pass 1: each thread keeps (max, sum) over its own columns, online
   float m[4], l[4];
@@ -297,7 +265,7 @@ attn_fwd_qkv_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, 
   for (int tile = 0; tile < tiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();
-    stage_transposed(kt, kb, k0, N, st);
+    stage_t(kt, kb, k0, N, st.n, st.d);
     __syncthreads();
     float s[4][4];
     f32_scores(s, qt, kt, tx, ty, k0, N, scale);
@@ -338,12 +306,8 @@ attn_fwd_qkv_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, 
   for (int tile = 0; tile < tiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();
-    stage_transposed(kt, kb, k0, N, st);
-    for (int i = threadIdx.x; i < BK * D; i += F32_THREADS) {
-      const int r = i / D, d = i % D;
-      const int n = k0 + r;
-      vs[r * D + d] = n < N ? vb[n * st.n + d * st.d] : 0.f;
-    }
+    stage_t(kt, kb, k0, N, st.n, st.d);
+    stage_rows(vs, vb, k0, N, st.n, st.d);
     __syncthreads();
     float s[4][4];
     f32_scores(s, qt, kt, tx, ty, k0, N, scale);
@@ -354,17 +318,7 @@ attn_fwd_qkv_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, 
       for (int j = 0; j < 4; ++j) pt[(tx * 4 + j) * LDT + ty * 4 + i] = exp_shift(s[i][j], mi);
     }
     __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 p = *reinterpret_cast<const float4*>(&pt[c * LDT + ty * 4]);
-      const float4 v = *reinterpret_cast<const float4*>(&vs[c * D + tx * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-      const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
+    f32_acc(acc, pt, vs, tx, ty);
   }
 
 #pragma unroll
@@ -395,7 +349,7 @@ cudaError_t launch(void (*kernel)(const T*, T*, int, Strides, float), int thread
   return cudaGetLastError();
 }
 
-constexpr size_t BF16_SMEM = ((BQ + BK) * (D + PADH) + D * (BK + PADH)) * sizeof(bf16);
+constexpr size_t BF16_SMEM = ((BQ + BK) * LD + D * LDV) * sizeof(bf16);
 constexpr size_t F32_SMEM = (2 * D * LDT + BK * D + BK * LDT) * sizeof(float);
 
 }  // namespace

@@ -1,28 +1,52 @@
 """Fused self-attention, forward and backward: the Hopper port of the TPU
-kernels ``cross_attention_vit_tpu/kernels/flash_attention.py::
-_attn_kernel_qkv_tn`` (K1, forward) and ``_attn_bwd_kernel_qkv_tn`` (K2, its
-backward with the saved output).
+kernels in ``cross_attention_vit_tpu/kernels/flash_attention.py``:
 
-``flash_attention_qkv`` is the differentiable entry point: a
-``torch.autograd.Function`` whose forward is K1 (it saves qkv and the output)
-and whose backward is K2 (it returns the stacked dqkv).  The raw wrappers are
-``flash_attention_qkv_fwd`` and ``flash_attention_qkv_bwd``.  On a CUDA
-tensor each launches its hand-written kernel (``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu``) or raises; on a CPU tensor it runs the plain
-PyTorch version of the same function (``flash_attention_qkv_reference``,
-``flash_attention_qkv_bwd_reference``), which the CPU tests hold against the
-JAX kernels and ``chip_smoke.py`` holds the CUDA kernels against on the card.
+  K1  ``_attn_kernel_qkv_tn``      forward on a stacked qkv, N ≤ 1040
+  K2  ``_attn_bwd_kernel_qkv_tn``  its backward with the saved output
+  K7  ``_attn_kernel_stream``      streaming (online-softmax) forward that
+                                   also writes the row logsumexp, N > 1040
+      ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``
+                                   its blocked backward from (out, lse)
 
-``flash_attention_qkv.launches`` counts K1 launches and
-``flash_attention_qkv_bwd.launches`` K2 launches (never plain calls), so a run
-can show that its main path went through the kernels.
+``flash_attention_qkv`` is the differentiable entry point on a stacked qkv.
+Like the JAX ``flash_attention_qkv_tn`` / ``_qkv_tn_bwd`` it switches on the
+sequence length at ``_SINGLE_BLOCK_MAX = 1040``: up to it the forward is K1
+(it saves qkv and the output) and the backward K2 (it returns the stacked
+dqkv); above it the forward is K7's streaming kernel on strided views of the
+stacked qkv (it saves qkv, the output and the logsumexp) and the backward
+K7's two blocked kernels, which write the same stacked dqkv.  The JAX
+backward re-runs the streaming forward to get the logsumexp; the port keeps
+it from its one forward (same values, one launch fewer per layer).
 
-The kernels read qkv in the layout the QKV projection produces,
+``flash_attention`` is the public op on (B, K, N, D) operands (JAX
+``flash_attention``), a ``torch.autograd.Function`` over K7 for N > 1040.
+Its short-N kernel (K5) is not ported: on a CUDA tensor with N ≤ 1040 it
+raises.
+
+Raw wrappers: ``flash_attention_qkv_fwd`` / ``flash_attention_qkv_bwd`` (K1,
+K2) and ``flash_attention_stream_fwd`` / ``flash_attention_stream_bwd`` (K7).
+On a CUDA tensor each launches its hand-written kernel (``csrc/*.cu``) or
+raises; on a CPU tensor it runs the plain PyTorch version of the same
+function (``flash_attention_qkv_reference``,
+``flash_attention_qkv_bwd_reference``, ``flash_attention_stream_reference``,
+``flash_attention_blocked_bwd_reference``), which the CPU tests hold against
+the JAX kernels and ``chip_smoke.py`` holds the CUDA kernels against on the
+card.  Launch counts (never plain calls), so that a run can show that its
+main path went through the kernels: ``flash_attention_qkv.launches`` (K1),
+``flash_attention_qkv_bwd.launches`` (K2),
+``flash_attention_stream_fwd.launches`` (K7 forward), and
+``flash_attention_stream_bwd.dq_launches`` / ``.dkdv_launches`` (K7's two
+backward kernels).
+
+The K1/K2 kernels read qkv in the layout the QKV projection produces,
 (B, N, 3, K, D); the output and its cotangent are (B, N, K, D) and K2 writes
-dqkv as (B, N, 3, K, D).  ``fused_qkv_attention`` keeps the JAX signature and
-value — (B, N, H) x, (H, 3, K, D) w → (B, K, D, N) — and returns that result
-as a permuted view of the kernel's output.  Its backward is JAX's unfused
-rule: K2, then dx = dqkv·Wᵀ and dW = xᵀ·dqkv as plain GEMMs (autograd of the
+dqkv as (B, N, 3, K, D).  The K7 kernels take each of q, k, v, out, dout and
+dq, dk, dv as a (B, K, N, D) tensor of any strides (16-byte rows for bf16),
+so they read and write views of the stacked tensors without a copy.
+``fused_qkv_attention`` keeps the JAX signature and value — (B, N, H) x,
+(H, 3, K, D) w → (B, K, D, N) — and returns that result as a permuted view
+of the kernel's output.  Its backward is JAX's unfused rule: K2 (or K7),
+then dx = dqkv·Wᵀ and dW = xᵀ·dqkv as plain GEMMs (autograd of the
 projection's ``torch.matmul``).
 """
 
@@ -37,6 +61,13 @@ from . import _build
 _HEAD_DIM = 64     # the kernels' compile-time head dim (all repo configurations)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
+# Above this sequence length the JAX package switches from the single-block
+# kernels (K1/K2, K5, K6) to the streaming ones (K7) — its _SINGLE_BLOCK_MAX
+# (kernels/flash_attention.py:187); the port switches at the same N.
+_SINGLE_BLOCK_MAX = 1040
+# K7's key block in the plain versions: the TPU kernels' 512-key tiles
+# (_BLOCK_KV), so the running max and the rescaling round as there
+_STREAM_BLOCK = 512
 
 
 def flash_attention_qkv_reference(qkv: torch.Tensor, scale: float) -> torch.Tensor:
@@ -83,6 +114,94 @@ def flash_attention_qkv_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
     return torch.stack([dq, dk, dv], dim=2).to(dt).permute(0, 3, 2, 1, 4)
 
 
+def flash_attention_stream_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K7's forward (``_attn_kernel_stream``): q, k,
+    v (B, K, N, D) → out (B, K, N, D) in q's dtype and the row logsumexp lse
+    (B, K, N) f32.
+
+    Follows the TPU kernel rounding for rounding, over its 512-key blocks: a
+    running row max m; p = exp(s − m_new) in f32, cast to the operand dtype
+    before the AV product; acc·alpha + p·v and l·alpha + Σp in f32;
+    out = acc / l, cast; lse = m + log l.  (K1 instead casts e with the final
+    row max and multiplies by 1/l.)  The ragged last block is short instead
+    of padded with −inf columns, which is the same arithmetic."""
+    dt = q.dtype
+    qf = q.float()
+    B, K, N, _ = q.shape
+    m = torch.full((B, K, N, 1), -torch.inf, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, N, _STREAM_BLOCK):
+        kb = k[:, :, k0:k0 + _STREAM_BLOCK].float()
+        vb = v[:, :, k0:k0 + _STREAM_BLOCK]
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        # a row with no valid key yet keeps m = −inf: guard −inf − −inf
+        m_safe = torch.where(m_new == -torch.inf, 0.0, m_new)
+        p = torch.exp(s - m_safe)
+        alpha = torch.exp(m - m_safe)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(dt).float(), vb.float())
+        m = m_new
+    return (acc / l).to(dt), (m + torch.log(l)).squeeze(-1)
+
+
+def _stream_bwd_common(q, out, dout):
+    """f32 q and dO, and delta = Σ_d f32(dO)·f32(O) from the rounded forward
+    output (``_flash_backward_blocked``)."""
+    do = dout.float()
+    return q.float(), do, (do * out.float()).sum(dim=-1, keepdim=True)
+
+
+def _stream_ds(qf, kb, vb, do, lse, delta, scale, dt):
+    """p = exp(s − lse) (the saved lse already normalises it) and
+    ds = p·(dp − delta)·scale cast to the operand dtype, for the keys of one
+    block and every query row."""
+    s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.unsqueeze(-1))
+    dp = torch.matmul(do, vb.transpose(-1, -2))
+    return p, (p * (dp - delta) * scale).to(dt).float()
+
+
+def flash_attention_stream_bwd_dq_reference(q, k, v, out, lse, dout, scale) -> torch.Tensor:
+    """Plain PyTorch version of ``_bwd_dq_kernel``: dq (B, K, N, D) in q's
+    dtype, accumulated in f32 over the 512-key blocks (dq += ds·k)."""
+    qf, do, delta = _stream_bwd_common(q, out, dout)
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, q.shape[2], _STREAM_BLOCK):
+        kb = k[:, :, k0:k0 + _STREAM_BLOCK].float()
+        vb = v[:, :, k0:k0 + _STREAM_BLOCK].float()
+        _, ds = _stream_ds(qf, kb, vb, do, lse, delta, scale, q.dtype)
+        dq = dq + torch.matmul(ds, kb)
+    return dq.to(q.dtype)
+
+
+def flash_attention_stream_bwd_dkdv_reference(q, k, v, out, lse, dout,
+                                              scale) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``_bwd_dkv_kernel``: (dk, dv), each
+    (B, K, N, D) in q's dtype.  dv = Σ bf16(p)ᵀ·dO with dO not scaled,
+    dk = dsᵀ·q, both over every query row in f32."""
+    qf, do, delta = _stream_bwd_common(q, out, dout)
+    dks, dvs = [], []
+    for k0 in range(0, q.shape[2], _STREAM_BLOCK):
+        kb = k[:, :, k0:k0 + _STREAM_BLOCK].float()
+        vb = v[:, :, k0:k0 + _STREAM_BLOCK].float()
+        p, ds = _stream_ds(qf, kb, vb, do, lse, delta, scale, q.dtype)
+        dvs.append(torch.matmul(p.to(q.dtype).float().transpose(-1, -2), do))
+        dks.append(torch.matmul(ds.transpose(-1, -2), qf))
+    return torch.cat(dks, dim=2).to(q.dtype), torch.cat(dvs, dim=2).to(q.dtype)
+
+
+def flash_attention_blocked_bwd_reference(q, k, v, out, lse, dout, scale):
+    """Plain PyTorch version of K7's backward (``_flash_backward_blocked``):
+    (dq, dk, dv) from q, k, v, the forward's out, its lse and dout, all
+    (B, K, N, D) but lse (B, K, N).  Not K2's rounding: K2 rounds e and
+    dO·r, this rounds the already normalised p."""
+    dk, dv = flash_attention_stream_bwd_dkdv_reference(q, k, v, out, lse, dout, scale)
+    return flash_attention_stream_bwd_dq_reference(q, k, v, out, lse, dout, scale), dk, dv
+
+
 def _check(qkv: torch.Tensor) -> None:
     if qkv.dim() != 5 or qkv.shape[2] != 3:
         raise ValueError(f"qkv must be (B, N, 3, K, D), got {tuple(qkv.shape)}")
@@ -92,11 +211,11 @@ def _check(qkv: torch.Tensor) -> None:
         raise ValueError(f"qkv has an empty dimension: {tuple(qkv.shape)}")
 
 
-def _check_cuda(qkv: torch.Tensor, name: str, scale: float) -> None:
-    """What both CUDA kernels need beyond ``_check``."""
-    if qkv.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, got {qkv.device}")
-    B, N, _, K, D = qkv.shape
+def _check_cuda(device: torch.device, B: int, K: int, D: int, name: str,
+                scale: float) -> None:
+    """What every CUDA kernel here needs beyond the shape and dtype checks."""
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {device}")
     if D != _HEAD_DIM:
         raise ValueError(f"the CUDA kernels are built for head dim {_HEAD_DIM}, got D={D}")
     if not scale > 0:
@@ -120,7 +239,7 @@ def flash_attention_qkv_fwd(qkv: torch.Tensor, scale: float | None = None) -> to
     scale = D ** -0.5 if scale is None else float(scale)
     if qkv.device.type == "cpu":
         return flash_attention_qkv_reference(qkv, scale)
-    _check_cuda(qkv, "flash_attention_qkv", scale)
+    _check_cuda(qkv.device, B, K, D, "flash_attention_qkv", scale)
     if qkv.dtype == torch.bfloat16 and not _rows_16b_aligned(qkv):
         raise ValueError("the bf16 kernel moves 16-byte chunks: qkv needs a unit head-dim "
                          f"stride and strides that are multiples of 8, got {qkv.stride()}")
@@ -148,7 +267,7 @@ def flash_attention_qkv_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Te
     scale = D ** -0.5 if scale is None else float(scale)
     if qkv.device.type == "cpu":
         return flash_attention_qkv_bwd_reference(qkv, out, dout, scale)
-    _check_cuda(qkv, "flash_attention_qkv_bwd", scale)
+    _check_cuda(qkv.device, B, K, D, "flash_attention_qkv_bwd", scale)
     if qkv.dtype == torch.bfloat16 and not all(map(_rows_16b_aligned, (qkv, out, dout))):
         raise ValueError("the bf16 kernel moves 16-byte chunks: qkv, out and dout need a "
                          "unit head-dim stride and strides that are multiples of 8")
@@ -184,16 +303,196 @@ class _FlashAttentionQKV(torch.autograd.Function):
         return flash_attention_qkv_bwd(qkv, out, dout.contiguous(), ctx.scale), None
 
 
+def _stream_views(qkv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v of a stacked (B, N, 3, K, D) tensor as (B, K, N, D) views."""
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+class _FlashAttentionStreamQKV(torch.autograd.Function):
+    """K7 on views of a stacked qkv: the streaming forward, saving (qkv, out,
+    lse); the blocked backward writing the stacked dqkv (B, N, 3, K, D)."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, scale: float) -> torch.Tensor:
+        out, lse = flash_attention_stream_fwd(*_stream_views(qkv), scale)
+        out = out.transpose(1, 2)                     # (B, N, K, D)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        qkv, out, lse = ctx.saved_tensors
+        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        flash_attention_stream_bwd(*_stream_views(qkv), out.transpose(1, 2), lse,
+                                   dout.contiguous().transpose(1, 2), ctx.scale,
+                                   grads=_stream_views(dqkv))
+        return dqkv, None
+
+
 def flash_attention_qkv(qkv: torch.Tensor, scale: float | None = None) -> torch.Tensor:
     """Differentiable softmax attention on a stacked (B, N, 3, K, D) qkv;
-    returns (B, N, K, D) in qkv's dtype.  scale defaults to D^-0.5.  The
-    forward is K1, the backward K2."""
+    returns (B, N, K, D) in qkv's dtype.  scale defaults to D^-0.5.  Up to
+    N = ``_SINGLE_BLOCK_MAX`` the forward is K1 and the backward K2; above
+    it K7's streaming forward and blocked backward, on views of qkv — the
+    switch of the JAX ``flash_attention_qkv_tn`` (:784) and ``_qkv_tn_bwd``
+    (:823)."""
     _check(qkv)
     scale = qkv.shape[-1] ** -0.5 if scale is None else float(scale)
+    if qkv.shape[1] > _SINGLE_BLOCK_MAX:
+        return _FlashAttentionStreamQKV.apply(qkv, scale)
     return _FlashAttentionQKV.apply(qkv, scale)
 
 
 flash_attention_qkv.launches = 0
+
+
+# --- K7: the streaming kernels on (B, K, N, D) operands ------------------------
+
+def _check_operands(name: str, want: tuple, dtype: torch.dtype, device: torch.device,
+                    **tensors: torch.Tensor) -> None:
+    for key, t in tensors.items():
+        if tuple(t.shape) != want or t.dtype != dtype or t.device != device:
+            raise ValueError(f"{name}: {key} must be {want} {dtype} on {device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _check_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be (B, K, N, D), got {tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype must be bfloat16 or float32, got {q.dtype}")
+    if 0 in q.shape:
+        raise ValueError(f"{name}: q has an empty dimension: {tuple(q.shape)}")
+    _check_operands(name, tuple(q.shape), q.dtype, q.device, k=k, v=v)
+
+
+def _strides(*tensors: torch.Tensor) -> list[int]:
+    return [s for t in tensors for s in t.stride()]
+
+
+def _stream_cuda(name: str, scale: float, *tensors: torch.Tensor) -> None:
+    """What K7's kernels need on the card: ``_check_cuda``, and for bf16
+    16-byte rows (unit head-dim stride, strides in multiples of 8)."""
+    B, K, _, D = tensors[0].shape
+    _check_cuda(tensors[0].device, B, K, D, name, scale)
+    if tensors[0].dtype == torch.bfloat16 and not all(map(_rows_16b_aligned, tensors)):
+        raise ValueError(f"{name}: the bf16 kernels move 16-byte chunks: every operand "
+                         "needs a unit head-dim stride and strides that are multiples of 8, "
+                         f"got {[t.stride() for t in tensors]}")
+
+
+def flash_attention_stream_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's forward: q, k, v (B, K, N, D), any strides → (out, lse).  out is
+    (B, K, N, D) in q's dtype, a view of a contiguous (B, N, K, D) tensor
+    (the output projection's input layout); lse is (B, K, N) f32.  One pass
+    over the keys with an online softmax (``csrc/flash_attention_stream.cu``)."""
+    _check_stream(q, k, v, "flash_attention_stream_fwd")
+    B, K, N, D = q.shape
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_stream_reference(q, k, v, scale)
+    _stream_cuda("flash_attention_stream_fwd", scale, q, k, v)
+    out = torch.empty((B, N, K, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((B, K, N), dtype=torch.float32, device=q.device)
+    lib = _library("flash_attention_stream")
+    err = lib.flash_attention_stream_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        _DTYPE_CODES[q.dtype], B, N, K, D, *_strides(q, k, v, out), scale,
+        torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
+    _raise_on(lib, err, "flash_attention_stream_fwd")
+    flash_attention_stream_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_stream_fwd.launches = 0
+
+
+def flash_attention_stream_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                               scale: float | None = None,
+                               grads: tuple[torch.Tensor, ...] | None = None):
+    """K7's backward: (dq, dk, dv) from q, k, v, the forward's out and lse
+    and out's cotangent dout, all (B, K, N, D) of any strides but lse
+    (B, K, N) f32 contiguous.  ``grads``: three (B, K, N, D) tensors to write
+    dq, dk, dv into (views of a stacked dqkv, say); by default they are made.
+
+    Two kernels (``csrc/flash_attention_stream_bwd.cu``): the dq kernel, one
+    block per query tile, which also writes delta = Σ_d dO·O to a (B, K, N)
+    scratch; then the dk/dv kernel, one block per key tile, which reads it."""
+    name = "flash_attention_stream_bwd"
+    _check_stream(q, k, v, name)
+    B, K, N, D = q.shape
+    _check_operands(name, (B, K, N, D), q.dtype, q.device, out=out, dout=dout)
+    _check_operands(name, (B, K, N), torch.float32, q.device, lse=lse)
+    if grads is not None:
+        _check_operands(name, (B, K, N, D), q.dtype, q.device,
+                        **dict(zip(("dq", "dk", "dv"), grads)))
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        result = flash_attention_blocked_bwd_reference(q, k, v, out, lse, dout, scale)
+        if grads is None:
+            return result
+        for dst, src in zip(grads, result):
+            dst.copy_(src)
+        return tuple(grads)
+    if grads is None:
+        grads = tuple(torch.empty((B, N, K, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+                      for _ in range(3))
+    _stream_cuda(name, scale, q, k, v, out, dout, *grads)
+    if not lse.is_contiguous():
+        raise ValueError(f"{name}: lse must be contiguous")
+    delta = torch.empty((B, K, N), dtype=torch.float32, device=q.device)
+    dq, dk, dv = grads
+    lib = _library("flash_attention_stream_bwd")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, N, K, D, *_strides(q, k, v, out, dout, dq, dk, dv),
+            scale, torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
+    _raise_on(lib, lib.flash_attention_stream_bwd_dq(*args), f"{name} (dq)")
+    flash_attention_stream_bwd.dq_launches += 1
+    _raise_on(lib, lib.flash_attention_stream_bwd_dkdv(*args), f"{name} (dk/dv)")
+    flash_attention_stream_bwd.dkdv_launches += 1
+    return dq, dk, dv
+
+
+flash_attention_stream_bwd.dq_launches = 0
+flash_attention_stream_bwd.dkdv_launches = 0
+
+
+class _FlashAttentionStream(torch.autograd.Function):
+    """K7 forward saving (q, k, v, out, lse); K7 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        out, lse = flash_attention_stream_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_stream_bwd(q, k, v, out, lse, dout, ctx.scale), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float | None = None) -> torch.Tensor:
+    """Differentiable softmax attention on (B, K, N, D) q, k, v of any
+    strides (the JAX public ``flash_attention``); returns (B, K, N, D).  For
+    N > ``_SINGLE_BLOCK_MAX`` the forward is K7's streaming kernel and the
+    backward its blocked kernels.  At N ≤ 1040 the JAX op runs its
+    single-block kernel K5, which is not ported: a CUDA tensor raises there,
+    a CPU tensor runs K7's plain versions at any N."""
+    _check_stream(q, k, v, "flash_attention")
+    N, D = q.shape[2:]
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cuda" and N <= _SINGLE_BLOCK_MAX:
+        raise NotImplementedError(
+            f"flash_attention at N = {N} <= {_SINGLE_BLOCK_MAX} is the single-block kernel K5 "
+            "(_attn_kernel / _attn_bwd_kernel), which is not ported yet (ROADMAP Queue 2)")
+    return _FlashAttentionStream.apply(q, k, v, scale)
 
 
 def _raise_on(lib: ctypes.CDLL, err: int, fn: str) -> None:
@@ -204,26 +503,38 @@ def _raise_on(lib: ctypes.CDLL, err: int, fn: str) -> None:
 
 _ARGTYPES = {
     # qkv, out, dtype, B, N, K, D, 5 qkv strides, 4 out strides, scale, stream, device
-    "flash_attention_fwd": ("flash_attention_qkv_fwd",
-                            [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5
+    "flash_attention_fwd": {"flash_attention_qkv_fwd":
+                            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 9
-                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]),
+                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]},
     # qkv, out, dout, dqkv, stats, dtype, B, N, K, D, 5 qkv, 4 out, 4 dout
     # strides, scale, stream, device
-    "flash_attention_bwd": ("flash_attention_qkv_bwd",
+    "flash_attention_bwd": {"flash_attention_qkv_bwd":
                             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 13
-                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]),
+                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]},
+    # q, k, v, out, lse, dtype, B, N, K, D, 4 strides each of q, k, v, out,
+    # scale, stream, device
+    "flash_attention_stream": {"flash_attention_stream_fwd":
+                               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                               + [ctypes.c_longlong] * 16
+                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]},
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, dtype, B, N, K, D, 4 strides
+    # each of q, k, v, out, dout, dq, dk, dv, scale, stream, device
+    "flash_attention_stream_bwd": {
+        fn: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 32
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
+        for fn in ("flash_attention_stream_bwd_dq", "flash_attention_stream_bwd_dkdv")},
 }
 
 
 def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
-    fn_name, argtypes = _ARGTYPES[name]
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    if lib.flash_attention_error_string.restype is not ctypes.c_char_p:
+        for fn_name, argtypes in _ARGTYPES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -235,7 +546,8 @@ def fused_qkv_attention(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     Same signature and value as the JAX ``fused_qkv_attention``.  The result
     is a permuted view of the kernel's (B, N, K, D) output: permute it back
     (``out.permute(0, 3, 1, 2)``) to feed the output projection without a
-    copy.  Differentiable: K2 gives dqkv, and the projection's autograd gives
+    copy.  Differentiable: K2 (K7 above ``_SINGLE_BLOCK_MAX``) gives dqkv,
+    and the projection's autograd gives
     dx = dqkv·Wᵀ and dW = xᵀ·dqkv in x's dtype with f32 accumulation (the JAX
     unfused backward, ``kernels/flash_attention.py:1016-1023``)."""
     B, N, H = x.shape

@@ -1,9 +1,10 @@
-"""JAX param tree ⇄ the port's state dict, for ModelCross.
+"""JAX param tree ⇄ the port's state dict, for ModelCross and ModelVIT.
 
 The port's parameter names are the reference torch state-dict names, so the
 mapping is the JAX package's ``export_model_cross`` / ``import_model_cross``
-(``cross_attention_vit_tpu/models/convert.py:95-137, 199-228``), of which this
-module keeps its own copy on numpy arrays:
+and ``export_model_vit`` / ``import_model_vit``
+(``cross_attention_vit_tpu/models/convert.py:95-253``), of which this module
+keeps its own copy on numpy arrays:
 
   ModelCross state dict                     JAX param tree
   ------------------------------------------------------------------
@@ -18,8 +19,18 @@ module keeps its own copy on numpy arrays:
                                             multi_blocks[b].cross_blocks[c].attn
   norm.{m}.* / mlp_head.{m}.{0,3}.*         norm[m] / mlp_head[m].fc1/.fc2
 
-The heads-axis layouts are reshapes of the 2-D weights, so the mapping is
-exact in both directions.
+  ModelVIT state dict                       JAX param tree
+  ------------------------------------------------------------------
+  transformer.layers.{i}.0.*  (as .attn.*)  layers[i].attn_norm / .attn
+  transformer.layers.{i}.2.*  (as .ffn.*)   layers[i].ffn_norm / .ffn
+  mlp_head.0 / mlp_head.1 / mlp_head.4      head.norm / head.fc1 / head.fc2
+
+Both directions dispatch on the family: a JAX tree with ``layers`` and a
+state dict with ``transformer.layers.*`` keys are ModelVIT's.  A heads==1
+model has no ``to_out`` / ``out`` projection (the reference's Identity); the
+port skips it both ways, where the JAX ``export_model_cross`` /
+``export_model_vit`` raise KeyError.  The heads-axis layouts are reshapes of
+the 2-D weights, so the mapping is exact in both directions.
 """
 
 from __future__ import annotations
@@ -61,8 +72,37 @@ def _exp_self_block(blk: dict, p: str, out: dict) -> None:
     _exp_linear(blk["ffn"]["fc2"], f"{p}.ffn.fn.net.3", out)
 
 
+def _is_vit_tree(params: dict) -> bool:
+    return "layers" in params
+
+
+def _is_vit_state_dict(sd: dict) -> bool:
+    return any(k.startswith("transformer.layers.") for k in sd)
+
+
+def _exp_vit(params: dict) -> dict[str, np.ndarray]:
+    out = {"pos_embedding": np.asarray(params["pos_embedding"]),
+           "cls_token": np.asarray(params["cls_token"])}
+    _exp_linear(params["patch_to_embedding"], "patch_to_embedding", out)
+    for i, blk in enumerate(params["layers"]):
+        p = f"transformer.layers.{i}"
+        # the attention block is index 0, the feed-forward block index 2:
+        # _exp_self_block writes them as .attn.* and .ffn.*
+        layer: dict[str, np.ndarray] = {}
+        _exp_self_block(blk, p, layer)
+        out.update({k.replace(f"{p}.attn.", f"{p}.0.").replace(f"{p}.ffn.", f"{p}.2."): v
+                    for k, v in layer.items()})
+    _exp_norm(params["head"]["norm"], "mlp_head.0", out)
+    _exp_linear(params["head"]["fc1"], "mlp_head.1", out)
+    _exp_linear(params["head"]["fc2"], "mlp_head.4", out)
+    return out
+
+
 def state_dict_from_jax(params: dict, config: Config) -> dict[str, np.ndarray]:
-    """JAX model_cross param tree (numpy leaves) → the port's state dict."""
+    """JAX model_cross or model_vit param tree (numpy leaves) → the port's
+    state dict."""
+    if _is_vit_tree(params):
+        return _exp_vit(params)
     out = {
         "pos_embedding": np.asarray(params["pos_embedding"]),
         "cls_token": np.asarray(params["cls_token"]),
@@ -137,9 +177,32 @@ def _self_block_from(sd, p: str, heads: int) -> dict:
     }
 
 
+def _vit_from(sd: dict, heads: int) -> dict:
+    layers = []
+    i = 0
+    while f"transformer.layers.{i}.0.norm.weight" in sd:
+        p = f"transformer.layers.{i}"
+        # _self_block_from reads .attn.* and .ffn.*: the blocks at 0 and 2
+        layer = {k.replace(f"{p}.0.", f"{p}.attn.").replace(f"{p}.2.", f"{p}.ffn."): v
+                 for k, v in sd.items() if k.startswith(f"{p}.")}
+        layers.append(_self_block_from(layer, p, heads))
+        i += 1
+    return {
+        "pos_embedding": np.asarray(sd["pos_embedding"]),
+        "cls_token": np.asarray(sd["cls_token"]),
+        "patch_to_embedding": _linear(sd, "patch_to_embedding"),
+        "layers": layers,
+        "head": {"norm": _norm(sd, "mlp_head.0"), "fc1": _linear(sd, "mlp_head.1"),
+                 "fc2": _linear(sd, "mlp_head.4")},
+    }
+
+
 def jax_params_from_state_dict(sd: dict, config: Config) -> dict:
-    """The port's state dict (numpy values) → JAX model_cross param tree."""
+    """The port's state dict (numpy values) → JAX model_cross or model_vit
+    param tree."""
     heads = config.num_heads
+    if _is_vit_state_dict(sd):
+        return _vit_from(sd, heads)
     M = config.num_modalities
     params = {
         "pos_embedding": np.asarray(sd["pos_embedding"]),
@@ -191,15 +254,17 @@ def params_from_flat(flat: dict[str, np.ndarray]) -> dict:
 
 
 def load_jax_params(model: torch.nn.Module, params: dict) -> None:
-    """Load a JAX param tree into the port's ModelCross (strict: every key and
-    shape must match).  Values are cast to each parameter's dtype on copy —
-    the compute-dtype cast the JAX package makes on every call."""
+    """Load a JAX param tree into the port's ModelCross or ModelVIT (strict:
+    every key and shape must match).  Values are cast to each parameter's
+    dtype on copy — the compute-dtype cast the JAX package makes on every
+    call."""
     sd = state_dict_from_jax(params, model.config)
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
                           strict=True)
 
 
 def jax_params_from_model(model: torch.nn.Module) -> dict:
-    """The port's ModelCross → JAX param tree of float32 numpy arrays."""
+    """The port's ModelCross or ModelVIT → JAX param tree of float32 numpy
+    arrays."""
     sd = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
     return jax_params_from_state_dict(sd, model.config)

@@ -112,18 +112,34 @@ def dropout_mask(shape, keep: float, generator: torch.Generator,
     return r < thresh
 
 
+def _drop(x: torch.Tensor, rate: float, generator: torch.Generator | None, train: bool,
+          mask_shape: tuple) -> torch.Tensor:
+    """Keep with probability 1 − rate (``dropout_mask`` on ``mask_shape``,
+    broadcast over x) and scale kept values by 1/(1 − rate)."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout and stochastic depth in train mode need a torch.Generator")
+    keep = 1.0 - rate
+    mask = dropout_mask(mask_shape, keep, generator, x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
             train: bool) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 − rate and
     scale kept elements by 1/(1 − rate); the identity in eval mode or at
     rate 0.  ``generator`` lives on x's device."""
-    if not train or rate == 0.0:
-        return x
-    if generator is None:
-        raise ValueError("dropout in train mode needs a torch.Generator")
-    keep = 1.0 - rate
-    mask = dropout_mask(x.shape, keep, generator, x.device)
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    return _drop(x, rate, generator, train, x.shape)
+
+
+def stochastic_depth_row(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+                         train: bool) -> torch.Tensor:
+    """torchvision StochasticDepth(mode='row'): keep each sample's whole
+    branch with probability 1 − rate, scaled by 1/(1 − rate), or zero it
+    (JAX ``ops/layers.py:271-279``): dropout's keep mask on a (B, 1, ..., 1)
+    shape.  The identity in eval mode or at rate 0."""
+    return _drop(x, rate, generator, train, (x.shape[0],) + (1,) * (x.dim() - 1))
 
 
 def feed_forward(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,

@@ -1,7 +1,9 @@
 """Train and eval steps — port of ``make_train_step`` and ``make_eval_step``
 (``cross_attention_vit_tpu/train/trainer.py:90-231``).
 
-One train step: promote the input to f32, cast it to bf16 when
+The steps take either live family, ``ModelCross`` or ``ModelVIT``: both are
+called as ``model(img, labels, train=..., generator=...)`` and return
+(logits, loss).  One train step: promote the input to f32, cast it to bf16 when
 ``config.augment_dtype`` says so, augment it on the device (when
 ``config.img_aug``), promote again; the model's forward and backward in train
 mode (dropout); Adam at a step-time learning rate.  It returns the aux dict
@@ -10,7 +12,7 @@ of the JAX step: loss, confusion counts, probs[:, 1] and labels.
 The model, the optimizer state and the generators are objects that the step
 updates in place, where the JAX step is a pure function of (params,
 opt_state, rng).  ``remat_policy`` is a memory knob of the JAX step; at batch
-8 the live model's activations fit on one H100 without recomputation, so the
+8 the live models' activations fit on one H100 without recomputation, so the
 port ignores it.  The epoch ``Trainer``, its loggers and the checkpoint
 manager are a later slice.
 """

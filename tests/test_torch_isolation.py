@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from cross_attention_vit_tpu_torch.configs import get_mgmt_cross_config, modify_config
+from cross_attention_vit_tpu_torch.configs import (get_mgmt_config, get_mgmt_cross_config,
+                                                   modify_config)
 from cross_attention_vit_tpu_torch.drivers.serve import InferenceServer
 from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
+from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
 from cross_attention_vit_tpu_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -32,7 +34,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      or m == "cross_attention_vit_tpu"
                      or m.startswith("cross_attention_vit_tpu."))
         print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 29 else 0)
+        sys.exit(1 if bad or len(names) < 30 else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
@@ -49,6 +51,13 @@ def _tiny():
     modify_config(cfg, dict(hidden_dim=32, mlp_dim=64, num_heads=4, num_multi_blocks=1,
                             num_self_blocks=1, img_size=(16, 16, 8), patch_size=(8, 8, 8),
                             num_modalities=2, attn_order={"0": "1"}))
+    return cfg
+
+
+def _tiny_vit():
+    cfg = get_mgmt_config()
+    modify_config(cfg, dict(hidden_dim=32, mlp_dim=64, num_heads=4, num_layers=1,
+                            img_size=(16, 16, 8), patch_size=(8, 8, 8), num_modalities=2))
     return cfg
 
 
@@ -69,6 +78,10 @@ def test_model_defaults_to_cuda_and_raises_without_it():
         ModelCross(_tiny(), master_weights=True)    # the training model
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ModelCross(_tiny(), device="cpu").to(resolve_device())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelVIT(_tiny_vit())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelVIT(_tiny_vit(), master_weights=True)
 
 
 def test_server_defaults_to_cuda_and_raises_without_it(tmp_path):
@@ -84,5 +97,22 @@ def test_server_defaults_to_cuda_and_raises_without_it(tmp_path):
         InferenceServer(path, img_types=("T1c", "T2"))
     srv = InferenceServer(path, img_types=("T1c", "T2"), device="cpu")
     assert srv.device.type == "cpu"
+    x = np.zeros((1, 2, 1, 16, 16, 8), np.float32)
+    assert srv._run_padded(x, 1).shape == (1, 2)
+
+
+def test_vit_server_defaults_to_cuda_and_raises_without_it(tmp_path):
+    _no_cuda()
+    from cross_attention_vit_tpu_torch.models.convert import jax_params_from_model
+    from cross_attention_vit_tpu_torch.train.checkpoint import save_config, save_pytree
+
+    cfg = _tiny_vit()
+    path = tmp_path / "epoch=00-val_loss=0.5000.npz"
+    save_pytree(path, {"params": jax_params_from_model(ModelVIT(cfg, device="cpu"))})
+    save_config(tmp_path, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceServer(path, "vit", img_types=("T1c", "T2"))
+    srv = InferenceServer(path, "vit", img_types=("T1c", "T2"), device="cpu")
+    assert srv.device.type == "cpu" and isinstance(srv.model, ModelVIT)
     x = np.zeros((1, 2, 1, 16, 16, 8), np.float32)
     assert srv._run_padded(x, 1).shape == (1, 2)

@@ -328,7 +328,8 @@ def test_checkpoint_layout_round_trips_with_jax(ckpt, tmp_path):
 
 @pytest.mark.parametrize("kw,match", [({"quantize": "int8"}, "later slice"),
                                       ({"mesh": object()}, "later slice"),
-                                      ({"model": "vit"}, "later slice")])
+                                      ({"model": "vit", "quantize": "int8+attn"},
+                                       "later slice")])
 def test_unported_serving_modes_raise(ckpt, kw, match):
     path, _, _ = ckpt
     kw = {"img_types": TYPES, "device": "cpu", **kw}
