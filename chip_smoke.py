@@ -10,7 +10,7 @@ Phases, each printed as one JSON line with a ``phase`` key:
              power limit; TF32 switched off for matmuls and cuDNN.
 2. build   — compiles every kernel of the serving and training paths from
              ``cross_attention_vit_tpu_torch/kernels/csrc/`` with nvcc, one
-             process per source (five), all started together.
+             process per source (seven), all started together.
 3. kernels — holds each kernel (K1 attention forward, K2 its backward, K3
              the windowed resample, K4 the same over all taps) against its
              plain PyTorch version on the card (normalised max error within
@@ -24,7 +24,14 @@ Phases, each printed as one JSON line with a ``phase`` key:
              N = 1041, 1537, 2049, 4096 in bf16 and f32, timed at the 3-stream
              ModelVIT training shape (B=8, K=16, N=1537, bf16) beside
              scaled_dot_product_attention and its autograd backward.
-5. serve   — the full-width live ModelCross (3 streams, hidden 1024, 16
+5. kernels_k5 — the same for K5, the single-block attention of the public
+             ``flash_attention`` (forward; dq and dk/dv kernels of its
+             recompute-form backward) at N = 100, 513, 1025, 1040 in bf16 and
+             f32, contiguous and as views of a stacked qkv; timed at the
+             int8+attn serving shapes (B=8, K=16, N=513 and 1025, bf16)
+             beside scaled_dot_product_attention and its autograd backward,
+             and held, with the plain path, against an f32 attention.
+6. serve   — the full-width live ModelCross (3 streams, hidden 1024, 16
              heads, N = 513, bf16, tanh GELU; 241.9M random parameters from
              a seed) written as a JAX-layout npz checkpoint, served by the
              port's InferenceServer (buckets 1/2/4/8) and asked 6 requests of
@@ -33,7 +40,7 @@ Phases, each printed as one JSON line with a ``phase`` key:
              per bucket forward, and the kernel path against the plain path;
              times bucket 8 with the weights cast once and with f32 masters
              cast on every call.
-6. serve_vit — two full-width ModelVITs (hidden 1024, 16 heads, 4 layers,
+7. serve_vit — two full-width ModelVITs (hidden 1024, 16 heads, 4 layers,
              bf16, tanh GELU, random weights from a seed): the live 2-stream
              grid point params_list2[1] (SWI, DWI; N = 1025, 57.7M parameters)
              and the same with DWI, SWI, ASL (N = 1537, 58.3M), each written
@@ -41,7 +48,18 @@ Phases, each printed as one JSON line with a ``phase`` key:
              6 requests.  Checks the answers against a direct forward, 4 K1
              launches per bucket forward (2 streams) or 4 K7-forward and no K1
              launches (3 streams), and the kernel path against the plain path.
-7. train   — the live ModelCross, full width, with f32 master weights, trained
+8. serve_int8 — the live ModelCross from phase serve's checkpoint served
+             under quantize="int8" and "int8+attn" (buckets 1/2/4/8, 6
+             requests, one over HTTP): 39 and 63 quantized layers, exactly
+             12 K1 (int8) or 12 K5 (int8+attn) launches per bucket forward,
+             served logits equal to a direct forward, kernel path vs plain
+             path with the same int8 weights; the drift from bf16, weight
+             bytes, bucket-8 device ms and idle share of bf16, int8 and
+             int8+attn timed in turns, and one FFN GEMM int8 vs bf16.  Then
+             both ModelVITs under int8+attn at buckets 1 and 8: 17 quantized
+             layers, 4 K5 launches per forward at N = 1025, 4 K7-forward and
+             no K5 at N = 1537.
+9. train   — the live ModelCross, full width, with f32 master weights, trained
              ``TRAIN_STEPS`` Adam steps at batch 8 with augmentation (bf16
              pipeline) and dropout 0.25 through ``make_train_step``.  Checks
              finite losses, changed parameters, 12 K1 and 12 K2 launches per
@@ -52,7 +70,7 @@ Phases, each printed as one JSON line with a ``phase`` key:
              normalised by its own maximum), both beside an f32 step; the
              step time by CUDA events, split into augmentation and trunk; one
              profiled step; peak memory.
-8. train_vit — both ModelVITs, f32 masters, ``TRAIN_STEPS`` Adam steps at
+10. train_vit — both ModelVITs, f32 masters, ``TRAIN_STEPS`` Adam steps at
              batch 8 with params_list2[1]'s dropout 0.1 and augmentation (bf16
              pipeline).  Checks 4 K1 + 4 K2 launches per step (2 streams) or
              4 K7-forward + 4 of each K7 backward kernel and no K1/K2 (3
@@ -97,7 +115,11 @@ from cross_attention_vit_tpu_torch.kernels import resample as rs
 from cross_attention_vit_tpu_torch.models.convert import jax_params_from_model
 from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
 from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
+from cross_attention_vit_tpu_torch.models.quantize import count_quantized
 from cross_attention_vit_tpu_torch.ops.attention import _sdpa
+from cross_attention_vit_tpu_torch.ops.layers import linear
+from cross_attention_vit_tpu_torch.ops.quant import (QuantLinear, dynamic_quantize, qlinear,
+                                                     quantize_weight)
 from cross_attention_vit_tpu_torch.train.checkpoint import save_config, save_pytree
 from cross_attention_vit_tpu_torch.train.optim import Adam
 from cross_attention_vit_tpu_torch.train.schedule import cosine_annealing_lr
@@ -122,7 +144,8 @@ KERNEL_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 SERVE_TOL = 5e-2
 REQUEST_SIZES = (1, 3, 8, 1, 3, 8)
 LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "resample",
-             "flash_attention_stream", "flash_attention_stream_bwd")
+             "flash_attention_stream", "flash_attention_stream_bwd", "flash_attention_single",
+             "flash_attention_single_bwd")
 K1 = {"name": "flash_attention_qkv", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:759"}
@@ -135,6 +158,12 @@ K3 = {"name": "resample_axis_windowed (span)", "route": "cuda",
 K4 = {"name": "resample_axis_windowed (all taps)", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/resample.cu",
       "replaces": "cross_attention_vit_tpu/kernels/resample.py:36"}
+K5F = {"name": "flash_attention_single_fwd", "route": "cuda",
+       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_single.cu",
+       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:109"}
+K5B = {"name": "flash_attention_single_bwd (dq and dk/dv kernels)", "route": "cuda",
+       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_single_bwd.cu",
+       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:280"}
 K7F = {"name": "flash_attention_stream_fwd", "route": "cuda",
        "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_stream.cu",
        "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:133"}
@@ -148,6 +177,17 @@ K7DQ = {"name": "flash_attention_stream_bwd (dq)", "route": "cuda",
 # at B=2 K=4, and the 3-stream ModelVIT training shape (B, K, N)
 K7_NS = (1041, 1537, 2049, 4096)
 K7_TRAIN = (8, 16, 1537)
+# K5's lengths: ragged, the single-block shapes of tests_tpu/test_kernels_onchip.py:42
+# and the switch's edge, checked at B=2 K=4; its serving shapes (B, K, N):
+# ModelCross int8+attn and the 2-stream ModelVIT
+K5_NS = (100, 513, 1025, 1040)
+K5_SERVE = ((8, 16, 513), (8, 16, 1025))
+# quantized layers of the live ModelCross (JAX count_quantized: 2 multi × 3
+# streams × 2 self blocks, 3 cross pairs, 3 heads) and of a 4-layer ModelVIT
+QUANTIZED = {"int8": 39, "int8+attn": 63}
+VIT_QUANTIZED = 17
+# one FFN GEMM of the ModelCross bucket-8 forward: (8·513, 1024) × (1024, 4096)
+FFN_GEMM = (8 * 513, 1024, 4096)
 # ModelVIT: (name, streams, parameters, tokens) — params_list2[1]'s streams
 # (drivers/experiments.py:50-57) and the three of the live ModelCross
 VIT_CONFIGS = (("vit2", ("SWI", "DWI"), 57_730_050, 1025),
@@ -157,12 +197,14 @@ VOLUME = (128, 128, 64)
 AUG = augment.AugmentConfig()
 TRAIN_STEPS = 6
 # profiler kernel names → the layers of PERF.md §3 (first match wins)
-PROFILE_LAYERS = (("K7 attention forward", ("attn_stream_fwd",)),
+PROFILE_LAYERS = (("K5 attention forward", ("attn_single_fwd",)),
+                  ("K5 attention backward", ("attn_single_bwd",)),
+                  ("K7 attention forward", ("attn_stream_fwd",)),
                   ("K7 attention backward", ("attn_stream_bwd",)),
                   ("K1 attention forward", ("attn_fwd_qkv",)),
                   ("K2 attention backward", ("attn_bwd_",)),
                   ("K3/K4 resample", ("resample_kernel",)),
-                  ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+                  ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma", "imma")),
                   ("Adam (fused)", ("multi_tensor_apply",)),
                   ("LayerNorm", ("layer_norm",)),
                   ("softmax", ("softmax",)),
@@ -687,6 +729,97 @@ def phase_kernels_k7() -> dict:
     return train
 
 
+def k5_bounds(B: int, N: int, K: int, D: int) -> dict[str, tuple[float, str]]:
+    """Least time in ms of K5's forward and backward at bf16: each input read
+    once and each output written once (operands of B·N·K·D bf16 values),
+    against the tensor-core operations of the least products (2·B·K·N²·D
+    each): the forward 2 (s, p·v); the backward 5 (s, dp, dv, dq, dk —
+    delta as rowsum(pb ⊙ dp) needs no sixth)."""
+    op = B * N * K * D * 2
+    bounds = {}
+    for name, (nbytes, products) in {"fwd": (4 * op, 2),        # q, k, v → out
+                                     "bwd": (7 * op, 5)}.items():  # q, k, v, dO → dq, dk, dv
+        t_bytes = nbytes / HBM_BYTES_S
+        t_ops = products * 2 * B * K * N * N * D / PEAK_FLOPS[torch.bfloat16]
+        bounds[name] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return bounds
+
+
+def _k5_operands(B: int, K: int, N: int, dtype: torch.dtype, layout: str, seed: int):
+    """(q, k, v, dout) at D=64.  'stacked': q, k, v are (B, K, N, D) views of
+    one (B, N, 3, K, D) tensor — the int8 qkv projection's output, the
+    serving layout; 'contiguous': each its own (B, K, N, D) tensor."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "stacked":
+        qkv = torch.randn((B, N, 3, K, 64), generator=g, device="cuda").to(dtype)
+        q, k, v = fa._stream_views(qkv)
+    else:
+        q, k, v = (torch.randn((B, K, N, 64), generator=g, device="cuda").to(dtype)
+                   for _ in range(3))
+    return q, k, v, torch.randn((B, K, N, 64), generator=g, device="cuda").to(dtype)
+
+
+def _k5_path(q, k, v, dout, scale: float):
+    return (fa.flash_attention_single_fwd(q, k, v, scale),
+            fa.flash_attention_single_bwd(q, k, v, dout, scale))
+
+
+def phase_kernels_k5() -> dict:
+    """K5's forward and backward (dq, dk, dv) against their plain versions,
+    contiguous and as views of a stacked qkv; at the two serving shapes the
+    timings, bounds, library yardsticks and the distance of kernel and plain
+    path from an f32 attention.  Returns the serving-shape readings by N."""
+    cases = [(2, 4, N, dt, layout) for N in K5_NS for dt in (torch.bfloat16, torch.float32)
+             for layout in ("contiguous", "stacked")]
+    cases += [(*shape, torch.bfloat16, "stacked") for shape in K5_SERVE]
+    checks, failures, timed = [], [], {}
+    for i, (B, K, N, dtype, layout) in enumerate(cases):
+        q, k, v, dout = _k5_operands(B, K, N, dtype, layout, seed=500 + i)
+        scale = 64 ** -0.5
+        out = fa.flash_attention_single_fwd(q, k, v, scale)
+        plain_out = fa.flash_attention_single_reference(q, k, v, scale)
+        got = fa.flash_attention_single_bwd(q, k, v, dout, scale)
+        want = fa.flash_attention_single_bwd_reference(q, k, v, dout, scale)
+        torch.cuda.synchronize()
+        errs = {"out": _norm_err(out, plain_out),
+                **{n: _norm_err(got[j], want[j]) for j, n in enumerate(("dq", "dk", "dv"))}}
+        entry = {"B": B, "K": K, "D": 64, "N": N, "dtype": str(dtype).replace("torch.", ""),
+                 "layout": layout, "tol": KERNEL_TOL[dtype],
+                 "finite": all(bool(torch.isfinite(t).all()) for t in (out, *got)),
+                 "max_abs_err": {n: e[0] for n, e in errs.items()},
+                 "norm_err": {n: e[1] for n, e in errs.items()}}
+        del plain_out, want
+        if (B, K, N) in K5_SERVE:
+            qc, kc, vc = (t.contiguous() for t in (q, k, v))
+            timings(entry, lambda: fa.flash_attention_single_fwd(q, k, v, scale),
+                    lambda: fa.flash_attention_single_reference(q, k, v, scale),
+                    lambda: F.scaled_dot_product_attention(qc, kc, vc))
+            entry["bwd_kernel_ms"] = device_ms_split(
+                lambda: fa.flash_attention_single_bwd(q, k, v, dout, scale),
+                {"dq": "attn_single_bwd_dq", "dkdv": "attn_single_bwd_dkdv"})
+            entry["bwd_plain_ms"] = device_ms(
+                lambda: fa.flash_attention_single_bwd_reference(q, k, v, dout, scale), calls=2)
+            xs = [t.detach().requires_grad_() for t in (qc, kc, vc)]
+            lib_out = F.scaled_dot_product_attention(*xs)
+            lib_g = dout.contiguous()
+            entry["bwd_library_ms"] = device_ms(
+                lambda: torch.autograd.grad(lib_out, xs, lib_g, retain_graph=True))
+            del xs, lib_out, lib_g, qc, kc, vc
+            entry["bound"] = {name: {"ms": ms, "by": by}
+                              for name, (ms, by) in k5_bounds(B, N, K, 64).items()}
+            entry["vs_f32"] = _attention_vs_f32(q, k, v, dout, scale,
+                                                lambda: _k5_path(q, k, v, dout, scale))
+            timed[N] = entry
+        checks.append(entry)
+        if not (entry["finite"] and max(entry["norm_err"].values()) <= entry["tol"]):
+            failures.append(entry)
+        del q, k, v, dout, out, got
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_k5", "kernels": [K5F, K5B], "cases": checks})
+    check(not failures, f"K5 disagrees with its plain versions: {failures}")
+    return timed
+
+
 def vit_config(streams: tuple, use_flash: bool):
     """params_list2[1] of the experiment grid with ``streams`` as its
     img_types: dropout 0.1, augmentation on, Adam lr 1e-4 wd 5e-4, cosine
@@ -903,6 +1036,9 @@ _COUNTERS = {"K1": (fa.flash_attention_qkv, "launches"),
              "K2": (fa.flash_attention_qkv_bwd, "launches"),
              "K3": (rs.resample_axis_windowed_batched, "launches"),
              "K4": (rs.resample_axis_windowed_batched, "full_launches"),
+             "K5F": (fa.flash_attention_single_fwd, "launches"),
+             "K5DQ": (fa.flash_attention_single_bwd, "dq_launches"),
+             "K5DKV": (fa.flash_attention_single_bwd, "dkdv_launches"),
              "K7F": (fa.flash_attention_stream_fwd, "launches"),
              "K7DQ": (fa.flash_attention_stream_bwd, "dq_launches"),
              "K7DKV": (fa.flash_attention_stream_bwd, "dkdv_launches")}
@@ -1100,38 +1236,19 @@ def phase_serve_vit(tmp: Path) -> dict:
         del source
         torch.cuda.empty_cache()
 
-        server = InferenceServer(ckpt, "vit", img_types=streams, buckets=(1, 2, 4, 8),
-                                 device="cuda")
-        health = server.health()
-        check(health["model"] == "vit" and health["params"] == n_params, f"healthz: {health}")
-        server.warmup()
-        server.start()
         rng = np.random.default_rng(10 + len(streams))
         requests = [(rng.normal(size=(b, len(streams), 1, *cfg.img_size)) * 100)
                     .astype(np.float32) for b in REQUEST_SIZES]
-        try:
-            forwards_before = len(server.stats["device_ms"])
-            _zero_counts()
-            answers = [server.predict(vols) for vols in requests]
-            counts = _counts()
-            forwards = len(server.stats["device_ms"]) - forwards_before
-        finally:
-            server.stop()
-        check(not server._dispatcher.is_alive(), "dispatcher thread did not stop")
-        check(forwards == len(requests), f"{forwards} bucket forwards for {len(requests)} requests")
+        server, answers, counts, forwards = _serve_mode(ckpt, "vit", streams, None, (1, 2, 4, 8),
+                                                        requests, http=False)
+        health = server.health()
+        check(health["model"] == "vit" and health["params"] == n_params, f"healthz: {health}")
         want = _vit_expected(tokens, cfg.num_layers)
         per_forward = {k: counts[k] / forwards for k in ("K1", "K7F")}
         check(per_forward == {k: want[k] for k in per_forward},
               f"{name}: launches per bucket forward {per_forward}, expected K1 {want['K1']}, "
               f"K7 forward {want['K7F']}")
-        for vols, got in zip(requests, answers):
-            check(got.shape == (vols.shape[0], cfg.num_classes) and bool(np.isfinite(got).all()),
-                  f"{name}: logits {got.shape}, finite {np.isfinite(got).all()}")
         model = server.model
-        direct_diff = _served_vs_direct(server, requests, answers)
-        check(direct_diff == 0.0, f"{name}: served logits differ from a direct forward by "
-                                  f"{direct_diff}")
-
         b8 = requests[2]
         flash8 = torch.from_numpy(answers[2])
         plain = ModelVIT(vit_config(streams, use_flash=False), device="cuda")
@@ -1149,7 +1266,7 @@ def phase_serve_vit(tmp: Path) -> dict:
                   "hidden": cfg.hidden_dim, "heads": cfg.num_heads, "dtype": "bfloat16",
                   "gelu": "tanh", "requests": len(requests), "bucket_forwards": forwards,
                   "launches": counts, "launches_per_forward": per_forward,
-                  "served_vs_direct_max_abs": direct_diff, "flash_vs_plain_norm": flash_vs_plain,
+                  "flash_vs_plain_norm": flash_vs_plain,
                   "tol": SERVE_TOL, "bucket8_ms": ms8, "profile_bucket8": profile,
                   "server_device_ms": server.stats_view()["device_ms"]}
         emit(result)
@@ -1159,6 +1276,167 @@ def phase_serve_vit(tmp: Path) -> dict:
         del server, model, x8
         torch.cuda.empty_cache()
         results[name] = result
+    return results
+
+
+def _in_turns(models: dict, x: torch.Tensor) -> dict:
+    """Device ms per forward of each model on x, timed in turns (the models
+    in order, then in reverse) and averaged over both readings, with one
+    profiled forward each for the idle share."""
+    order = list(models) + list(models)[::-1]
+    readings: dict[str, list[float]] = {name: [] for name in models}
+    with torch.inference_mode():
+        for name in order:
+            readings[name].append(device_ms(lambda: models[name](x), calls=5))
+    return {name: {"device_ms": statistics.mean(ms), "readings": ms,
+                   "profile": _profile(models[name], x)}
+            for name, ms in readings.items()}
+
+
+def _int8_gemm_timing() -> dict:
+    """One FFN GEMM of the ModelCross bucket-8 forward, (8·513, 1024) ×
+    (1024, 4096): torch._int_mm with its rescale, the whole ``qlinear``
+    (with the dynamic activation quantization), the bf16 GEMM alone and the
+    port's float ``linear`` (f32 output, bias, one cast)."""
+    M, K, N = FFN_GEMM
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((N, K), generator=g, device="cuda") * K ** -0.5
+    bias = torch.zeros(N, device="cuda")
+    layer = QuantLinear(*quantize_weight(w), bias)
+    wb = w.to(torch.bfloat16)
+    xq, xs = dynamic_quantize(x)
+    exact = layer.int_mm(xq)
+    check(torch.equal(exact, (xq.double() @ layer.weight_q.double().t()).int()),
+          "torch._int_mm differs from the exact integer product")
+    return {"shape": list(FFN_GEMM),
+            "int8_gemm_rescale_ms": device_ms(
+                lambda: layer.int_mm(xq).float() * (xs * layer.weight_scale)),
+            "qlinear_ms": device_ms(lambda: qlinear(x, layer)),
+            "bf16_gemm_ms": device_ms(lambda: torch.matmul(x, wb.t())),
+            "bf16_linear_ms": device_ms(lambda: linear(x, wb, bias))}
+
+
+def _serve_mode(ckpt: Path, family: str, streams: tuple, mode: str | None, buckets: tuple,
+                requests: list, http: bool) -> tuple:
+    """A server of ``ckpt`` under ``mode``, asked ``requests`` (the first
+    over HTTP when ``http``) from launch counts of 0.  Returns (server,
+    answers, counts, bucket forwards); the server is stopped."""
+    server = InferenceServer(ckpt, family, img_types=streams, buckets=buckets, quantize=mode,
+                             device="cuda")
+    httpd = serve(server, host="127.0.0.1", port=0)    # warms up every bucket, starts
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        forwards_before = len(server.stats["device_ms"])
+        _zero_counts()
+        answers = [_post_predict(port, vols) if http and i == 0 else server.predict(vols)
+                   for i, vols in enumerate(requests)]
+        counts = _counts()
+        forwards = len(server.stats["device_ms"]) - forwards_before
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.stop()
+    check(not server._dispatcher.is_alive(), "dispatcher thread did not stop")
+    check(forwards == len(requests), f"{forwards} bucket forwards for {len(requests)} requests")
+    for vols, got in zip(requests, answers):
+        check(got.shape == (vols.shape[0], 2) and bool(np.isfinite(got).all()),
+              f"{family} {mode}: logits {got.shape}, finite {np.isfinite(got).all()}")
+    direct_diff = _served_vs_direct(server, requests, answers)
+    check(direct_diff == 0.0, f"{family} {mode}: served logits differ from a direct forward "
+                              f"by {direct_diff}")
+    return server, answers, counts, forwards
+
+
+def _plain_logits(ckpt: Path, family: str, streams: tuple, mode: str, vols: np.ndarray):
+    """Bucket logits of the plain path (impl 'xla': ``_sdpa`` and K1's plain
+    GEMMs) with the same quantized weights."""
+    plain = InferenceServer(ckpt, family, img_types=streams, quantize=mode, device="cuda",
+                            config_overrides={"use_flash_attention": False})
+    logits = _forward(plain.model, vols).cpu()
+    del plain
+    torch.cuda.empty_cache()
+    return logits
+
+
+def phase_serve_int8(tmp: Path) -> dict:
+    """The live ModelCross from phase_serve's checkpoint served under
+    quantize="int8" and "int8+attn", then both ModelVITs under int8+attn."""
+    ckpt = tmp / "epoch=00-val_loss=0.0000.npz"
+    rng = np.random.default_rng(0)          # phase_serve's requests
+    requests = [(rng.normal(size=(b, len(MODALITIES), 1, *VOLUME)) * 100).astype(np.float32)
+                for b in REQUEST_SIZES]
+    b8 = requests[2]
+    float_server = InferenceServer(ckpt, img_types=MODALITIES, device="cuda")
+    models = {"bf16": float_server.model}
+    bf16_8 = _forward(float_server.model, b8).cpu()
+    results = {"phase": "serve_int8", "model": "ModelCross", "tol": SERVE_TOL, "modes": {}}
+    for mode in ("int8", "int8+attn"):
+        server, answers, counts, forwards = _serve_mode(
+            ckpt, "cross", MODALITIES, mode, (1, 2, 4, 8), requests, http=True)
+        health = server.health()
+        check(health["quantize"] == mode and health["quantized_kernels"] == QUANTIZED[mode],
+              f"{mode}: healthz {health}")
+        per = {k: counts[k] / forwards for k in ("K1", "K5F", "K7F")}
+        want = {"K1": 12.0 * (mode == "int8"), "K5F": 12.0 * (mode == "int8+attn"), "K7F": 0.0}
+        check(per == want, f"{mode}: launches per bucket forward {per}, expected {want}")
+        flash8 = torch.from_numpy(answers[2])
+        plain8 = _plain_logits(ckpt, "cross", MODALITIES, mode, b8)
+        flash_vs_plain = (flash8 - plain8).abs().max().item() / plain8.abs().max().item()
+        n_q, q_bytes = count_quantized(server.model)
+        results["modes"][mode] = {
+            "quantized_kernels": n_q, "int8_weight_bytes": q_bytes,
+            "same_layers_bf16_bytes": 2 * q_bytes,
+            "model_weight_bytes": sum(t.numel() * t.element_size()
+                                      for t in server.model.state_dict().values()),
+            "requests": len(requests), "http_requests": 1, "bucket_forwards": forwards,
+            "launches": counts, "launches_per_forward": per,
+            "flash_vs_plain_norm": flash_vs_plain,
+            "vs_bf16_norm": (flash8 - bf16_8).abs().max().item() / bf16_8.abs().max().item(),
+            "argmax_equal_bf16": bool((flash8.argmax(1) == bf16_8.argmax(1)).all()),
+            "server_device_ms": server.stats_view()["device_ms"]}
+        check(flash_vs_plain <= SERVE_TOL, f"{mode} bucket-8 logits: kernel path vs plain path "
+                                           f"{flash_vs_plain:.3e} > {SERVE_TOL}")
+        models[mode] = server.model
+    results["bf16_model_weight_bytes"] = sum(t.numel() * t.element_size()
+                                             for t in float_server.model.state_dict().values())
+    results["bucket8_in_turns"] = _in_turns(models, torch.from_numpy(b8).cuda())
+    del models, float_server
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["ffn_gemm"] = _int8_gemm_timing()
+    emit(results)
+
+    vit = {}
+    for name, streams, _, tokens in VIT_CONFIGS:
+        vckpt = tmp / name / "epoch=00-val_loss=0.0000.npz"
+        vrng = np.random.default_rng(30 + len(streams))
+        vreq = [(vrng.normal(size=(b, len(streams), 1, *VOLUME)) * 100).astype(np.float32)
+                for b in (1, 8)]
+        server, answers, counts, forwards = _serve_mode(
+            vckpt, "vit", streams, "int8+attn", (1, 8), vreq, http=False)
+        check(server.health()["quantized_kernels"] == VIT_QUANTIZED,
+              f"{name}: healthz {server.health()}")
+        per = {k: counts[k] / forwards for k in ("K1", "K5F", "K7F")}
+        short = tokens <= fa._SINGLE_BLOCK_MAX
+        want = {"K1": 0.0, "K5F": 4.0 * short, "K7F": 4.0 * (not short)}
+        check(per == want, f"{name} int8+attn: launches per bucket forward {per}, "
+                           f"expected {want}")
+        plain8 = _plain_logits(vckpt, "vit", streams, "int8+attn", vreq[1])
+        flash8 = torch.from_numpy(answers[1])
+        flash_vs_plain = (flash8 - plain8).abs().max().item() / plain8.abs().max().item()
+        vit[name] = {"phase": "serve_int8_vit", "config": name, "mode": "int8+attn",
+                     "tokens": tokens, "quantized_kernels": VIT_QUANTIZED,
+                     "bucket_forwards": forwards, "launches": counts,
+                     "launches_per_forward": per, "flash_vs_plain_norm": flash_vs_plain,
+                     "tol": SERVE_TOL, "server_device_ms": server.stats_view()["device_ms"]}
+        emit(vit[name])
+        check(flash_vs_plain <= SERVE_TOL, f"{name} int8+attn bucket-8 logits: kernel path vs "
+                                           f"plain path {flash_vs_plain:.3e} > {SERVE_TOL}")
+        del server
+        torch.cuda.empty_cache()
+    results["vit"] = vit
     return results
 
 
@@ -1262,9 +1540,11 @@ def main() -> int:
         k2 = phase_kernels_k2()
         k3, k4 = phase_kernels_resample()
         k7 = phase_kernels_k7()
+        k5 = phase_kernels_k5()
         with tempfile.TemporaryDirectory() as tmp:
             served = phase_serve(Path(tmp))
             served_vit = phase_serve_vit(Path(tmp))
+            served_int8 = phase_serve_int8(Path(tmp))
         trained = phase_train()
         trained_vit = phase_train_vit()
     except SmokeFailure as e:
@@ -1275,7 +1555,13 @@ def main() -> int:
         paths[f"serve_{name}"] = result["launches"]
     for name, result in trained_vit.items():
         paths[f"train_{name}"] = result["launches"]
+    for mode, result in served_int8["modes"].items():
+        paths[f"serve_{mode}"] = result["launches"]
+    for name, result in served_int8["vit"].items():
+        paths[f"serve_int8+attn_{name}"] = result["launches"]
     launches = _launch_rows(paths)
+    k5s, k5v = k5[513], k5[1025]
+    k5_shape = "B=8 K=16 D=64 N=513 bfloat16 (ModelCross int8+attn serving shape)"
     attn = "B=8 K=16 D=64 N=513 bfloat16"
     k7_shape = "B=8 K=16 D=64 N=1537 bfloat16 (3-stream ModelVIT training shape)"
     bound = k7["bound"]
@@ -1311,7 +1597,27 @@ def main() -> int:
          "bound_ms": bound["dq"]["ms"], "bound_by": bound["dq"]["by"],
          "library_ms": k7["bwd_library_ms"],
          "library": "backward of scaled_dot_product_attention through autograd (dq, dk, dv)",
-         "shape": k7_shape}]})
+         "shape": k7_shape},
+        {**K5F, **launches["K5F"],
+         "max_abs_err": k5s["max_abs_err"]["out"], "ms": k5s["kernel_ms"],
+         "plain_ms": k5s["plain_ms"], "bound_ms": k5s["bound"]["fwd"]["ms"],
+         "bound_by": k5s["bound"]["fwd"]["by"], "library_ms": k5s["library_ms"],
+         "library": "scaled_dot_product_attention", "shape": k5_shape,
+         "at_n1025": {"ms": k5v["kernel_ms"], "plain_ms": k5v["plain_ms"],
+                      "bound_ms": k5v["bound"]["fwd"]["ms"], "bound_by": k5v["bound"]["fwd"]["by"],
+                      "library_ms": k5v["library_ms"]}},
+        {**K5B, **launches["K5DQ"],
+         "launches_note": "0 on every main path: no model trains through the public "
+                          "flash_attention; its gradient is checked in phase kernels_k5",
+         "max_abs_err": max(k5s["max_abs_err"][n] for n in ("dq", "dk", "dv")),
+         "ms": sum(k5s["bwd_kernel_ms"].values()), "ms_by_kernel": k5s["bwd_kernel_ms"],
+         "plain_ms": k5s["bwd_plain_ms"], "bound_ms": k5s["bound"]["bwd"]["ms"],
+         "bound_by": k5s["bound"]["bwd"]["by"], "library_ms": k5s["bwd_library_ms"],
+         "library": "backward of scaled_dot_product_attention through autograd (dq, dk, dv)",
+         "shape": k5_shape,
+         "at_n1025": {"ms": sum(k5v["bwd_kernel_ms"].values()), "plain_ms": k5v["bwd_plain_ms"],
+                      "bound_ms": k5v["bound"]["bwd"]["ms"], "bound_by": k5v["bound"]["bwd"]["by"],
+                      "library_ms": k5v["bwd_library_ms"]}}]})
     print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

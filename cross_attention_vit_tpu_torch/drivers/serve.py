@@ -18,8 +18,11 @@ Port of ``cross_attention_vit_tpu/drivers/serve.py``:
 The checkpoint is the JAX package's npz layout with its config JSON beside it
 (``train/checkpoint.py``); ``gelu_approx`` and the dtypes saved with the run
 rebuild the model exactly.  Both live families are served, ModelCross
-(``model="cross"``) and ModelVIT (``model="vit"``); int8 (``quantize``) and
-sharded (``mesh``) serving are later slices of the port.
+(``model="cross"``) and ModelVIT (``model="vit"``), in float or quantized:
+``quantize="int8"`` runs the FFN and head GEMMs w8a8, ``"int8+attn"`` also
+the self-attention projections, with the attention itself on the public
+``flash_attention`` (``models/quantize.py``).  Sharded serving (``mesh``) is
+a later slice of the port.
 
 Endpoints:
   GET  /healthz           — model family, param count, buckets, config dims
@@ -33,7 +36,8 @@ Endpoints:
 CLI:
     python -m cross_attention_vit_tpu_torch.drivers.serve \\
         --checkpoint runs/checkpoints/cross/epoch=..npz --port 8000 \\
-        --data /path/to/ucsf-data --img-types DWI SWI ASL [--model vit]
+        --data /path/to/ucsf-data --img-types DWI SWI ASL [--model vit] \\
+        [--quantize {int8,int8+attn}]
 """
 
 from __future__ import annotations
@@ -53,11 +57,13 @@ from ..configs import get_mgmt_config, get_mgmt_cross_config, modify_config
 from ..models.convert import load_jax_params, params_from_flat
 from ..models.model_cross import ModelCross
 from ..models.model_vit import ModelVIT
+from ..models.quantize import count_quantized, quantize_for_inference
 from ..train.checkpoint import load_config_for, restore_flat
 from ..utils.device import resolve_device
 
 _FAMILIES = {"cross": (ModelCross, get_mgmt_cross_config),
              "vit": (ModelVIT, get_mgmt_config)}
+_QUANTIZE_MODES = ("int8", "int8+attn")
 
 
 class Overloaded(RuntimeError):
@@ -94,10 +100,9 @@ class InferenceServer:
             raise ValueError(f"unknown model family {model!r}: expected one of "
                              f"{sorted(_FAMILIES)}")
         model_cls, factory = _FAMILIES[model]
-        if quantize:
-            raise NotImplementedError(
-                "int8 serving (quantize) is a later slice of the PyTorch port "
-                "(ROADMAP Queue 1, item 12)")
+        if quantize and quantize not in _QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize mode {quantize!r}: expected one of "
+                             f"{_QUANTIZE_MODES}")
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving (mesh) is a later slice of the PyTorch port "
@@ -121,9 +126,20 @@ class InferenceServer:
         self.max_wait_s = max_wait_ms / 1e3
 
         self.model = model_cls(cfg, device=self.device)
-        load_jax_params(self.model, params_from_flat(restore_flat(checkpoint)))
+        params = params_from_flat(restore_flat(checkpoint))
+        load_jax_params(self.model, params)
+        self.quantize = quantize or None
+        self.quantized_kernels = 0
+        if quantize:
+            # from the checkpoint's f32 arrays, as the JAX server quantizes
+            # its f32 params; the other GEMM weights stay cast once
+            quantize_for_inference(self.model, attn=quantize == "int8+attn", source=params)
+            self.quantized_kernels = count_quantized(self.model)[0]
+        del params
         self.model.eval()
-        self.n_params = self.model.num_params()
+        # every leaf, the int8 weights and their scales included (JAX counts
+        # the leaves of its rewritten tree)
+        self.n_params = sum(t.numel() for t in self.model.state_dict().values())
         self._staging: dict[tuple, torch.Tensor] = {}   # pinned H2D buffers
 
         self.max_queue_volumes = int(max_queue_volumes)
@@ -294,6 +310,7 @@ class InferenceServer:
     def health(self) -> dict:
         return {"status": "ok", "model": self.model_name,
                 "params": self.n_params, "buckets": list(self.buckets),
+                "quantize": self.quantize, "quantized_kernels": self.quantized_kernels,
                 "device": str(self.device),
                 "num_modalities": int(self.cfg.num_modalities),
                 "img_size": list(self.cfg.img_size),
@@ -401,13 +418,17 @@ def main(argv=None):
     p.add_argument("--max-queue-volumes", type=int, default=64,
                    help="admission bound: volumes allowed in the queue; "
                         "beyond it requests shed with 503 + Retry-After")
+    p.add_argument("--quantize", choices=_QUANTIZE_MODES, default=None,
+                   help="int8 w8a8 FFN and head GEMMs (inference only; ops/quant.py); "
+                        "int8+attn also quantizes the self-attention qkv/out projections "
+                        "(the attention stays float, on its kernels)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     args = p.parse_args(argv)
 
     server = InferenceServer(args.checkpoint, args.model, img_types=tuple(args.img_types),
                              data_folder=args.data, buckets=args.buckets,
-                             max_wait_ms=args.max_wait_ms,
+                             max_wait_ms=args.max_wait_ms, quantize=args.quantize,
                              max_queue_volumes=args.max_queue_volumes,
                              device=args.device)
     httpd = serve(server, args.host, args.port)

@@ -3,6 +3,9 @@ kernels in ``cross_attention_vit_tpu/kernels/flash_attention.py``:
 
   K1  ``_attn_kernel_qkv_tn``      forward on a stacked qkv, N ≤ 1040
   K2  ``_attn_bwd_kernel_qkv_tn``  its backward with the saved output
+  K5  ``_attn_kernel``             single-block forward on separate q, k, v
+                                   (the public op), N ≤ 1040
+      ``_attn_bwd_kernel``         its recompute-form backward
   K7  ``_attn_kernel_stream``      streaming (online-softmax) forward that
                                    also writes the row logsumexp, N > 1040
       ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``
@@ -19,30 +22,37 @@ backward re-runs the streaming forward to get the logsumexp; the port keeps
 it from its one forward (same values, one launch fewer per layer).
 
 ``flash_attention`` is the public op on (B, K, N, D) operands (JAX
-``flash_attention``), a ``torch.autograd.Function`` over K7 for N > 1040.
-Its short-N kernel (K5) is not ported: on a CUDA tensor with N ≤ 1040 it
-raises.
+``flash_attention``, which the int8+attn serving path calls).  It switches
+at the same N as the JAX ``_fwd`` / ``_bwd``: up to 1040 the forward is K5
+(it saves q, k, v only) and the backward K5's recompute-form kernels; above
+it K7's streaming forward and blocked backward.  K5 normalises p by a
+division before rounding it and takes delta from the unrounded o = pb·v, so
+at N ≤ 1040 it agrees with K7 only to bf16 rounding.
 
 Raw wrappers: ``flash_attention_qkv_fwd`` / ``flash_attention_qkv_bwd`` (K1,
-K2) and ``flash_attention_stream_fwd`` / ``flash_attention_stream_bwd`` (K7).
+K2), ``flash_attention_single_fwd`` / ``flash_attention_single_bwd`` (K5) and
+``flash_attention_stream_fwd`` / ``flash_attention_stream_bwd`` (K7).
 On a CUDA tensor each launches its hand-written kernel (``csrc/*.cu``) or
 raises; on a CPU tensor it runs the plain PyTorch version of the same
 function (``flash_attention_qkv_reference``,
-``flash_attention_qkv_bwd_reference``, ``flash_attention_stream_reference``,
+``flash_attention_qkv_bwd_reference``, ``flash_attention_single_reference``,
+``flash_attention_single_bwd_reference``, ``flash_attention_stream_reference``,
 ``flash_attention_blocked_bwd_reference``), which the CPU tests hold against
 the JAX kernels and ``chip_smoke.py`` holds the CUDA kernels against on the
 card.  Launch counts (never plain calls), so that a run can show that its
 main path went through the kernels: ``flash_attention_qkv.launches`` (K1),
 ``flash_attention_qkv_bwd.launches`` (K2),
-``flash_attention_stream_fwd.launches`` (K7 forward), and
+``flash_attention_single_fwd.launches`` (K5 forward),
+``flash_attention_single_bwd.dq_launches`` / ``.dkdv_launches`` (K5's two
+backward kernels), ``flash_attention_stream_fwd.launches`` (K7 forward), and
 ``flash_attention_stream_bwd.dq_launches`` / ``.dkdv_launches`` (K7's two
 backward kernels).
 
 The K1/K2 kernels read qkv in the layout the QKV projection produces,
 (B, N, 3, K, D); the output and its cotangent are (B, N, K, D) and K2 writes
-dqkv as (B, N, 3, K, D).  The K7 kernels take each of q, k, v, out, dout and
-dq, dk, dv as a (B, K, N, D) tensor of any strides (16-byte rows for bf16),
-so they read and write views of the stacked tensors without a copy.
+dqkv as (B, N, 3, K, D).  The K5 and K7 kernels take each of q, k, v, out,
+dout and dq, dk, dv as a (B, K, N, D) tensor of any strides (16-byte rows for
+bf16), so they read and write views of the stacked tensors without a copy.
 ``fused_qkv_attention`` keeps the JAX signature and value — (B, N, H) x,
 (H, 3, K, D) w → (B, K, D, N) — and returns that result as a permuted view
 of the kernel's output.  Its backward is JAX's unfused rule: K2 (or K7),
@@ -112,6 +122,49 @@ def flash_attention_qkv_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
     dq = torch.matmul(ds, k)
     dk = torch.matmul(ds.transpose(-1, -2), q)
     return torch.stack([dq, dk, dv], dim=2).to(dt).permute(0, 3, 2, 1, 4)
+
+
+def _single_softmax(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """jax.nn.softmax of the f32 scores: e = exp(s − rowmax), divided by Σe."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def flash_attention_single_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K5's forward (``_attn_kernel``): q, k, v
+    (B, K, N, D) → out (B, K, N, D) in q's dtype.
+
+    Follows the TPU kernel rounding for rounding: f32 scores from the
+    operands upcast; p = exp(s − rowmax) / Σ in f32 (a division, as
+    ``jax.nn.softmax``); p cast to v's dtype; out = p·v in f32, cast.  (K1
+    rounds the unnormalised e and multiplies after AV; K7 rounds p with the
+    running max.)"""
+    p = _single_softmax(q, k, scale)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def flash_attention_single_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                         dout: torch.Tensor, scale: float):
+    """Plain PyTorch version of K5's backward (``_attn_bwd_kernel``): (dq,
+    dk, dv), each (B, K, N, D) in q's dtype, from q, k, v and out's cotangent.
+
+    Recompute form: p = softmax(s) in f32 and pb = p cast to the operand
+    dtype; o = pb·v in f32, never rounded; delta = Σ_d f32(dO)·o;
+    dv = pbᵀ·dO with dO unscaled; dp = dO·vᵀ; ds = p·(dp − delta)·scale with
+    the f32 p, cast to the operand dtype; dq = ds·k, dk = dsᵀ·q.  Neither
+    K2's rounding nor K7's (which takes delta from the rounded output)."""
+    dt = q.dtype
+    qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+    p = _single_softmax(q, k, scale)
+    pb = p.to(dt).float()
+    delta = (do * torch.matmul(pb, vf)).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(pb.transpose(-1, -2), do)
+    dp = torch.matmul(do, vf.transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(dt).float()
+    return (torch.matmul(ds, kf).to(dt), torch.matmul(ds.transpose(-1, -2), qf).to(dt),
+            dv.to(dt))
 
 
 def flash_attention_stream_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -477,21 +530,103 @@ class _FlashAttentionStream(torch.autograd.Function):
         return (*flash_attention_stream_bwd(q, k, v, out, lse, dout, ctx.scale), None)
 
 
+# --- K5: the single-block kernels of the public op, N ≤ 1040 -------------------
+
+def flash_attention_single_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float | None = None) -> torch.Tensor:
+    """K5's forward: q, k, v (B, K, N, D), any strides → out (B, K, N, D) in
+    q's dtype, a view of a contiguous (B, N, K, D) tensor (the output
+    projection's input layout).  Two passes over the keys, p normalised
+    before it is rounded (``csrc/flash_attention_single.cu``)."""
+    name = "flash_attention_single_fwd"
+    _check_stream(q, k, v, name)
+    B, K, N, D = q.shape
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_single_reference(q, k, v, scale)
+    _stream_cuda(name, scale, q, k, v)
+    out = torch.empty((B, N, K, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lib = _library("flash_attention_single")
+    err = lib.flash_attention_single_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
+        B, N, K, D, *_strides(q, k, v, out), scale,
+        torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
+    _raise_on(lib, err, name)
+    flash_attention_single_fwd.launches += 1
+    return out
+
+
+flash_attention_single_fwd.launches = 0
+
+
+def flash_attention_single_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               dout: torch.Tensor, scale: float | None = None):
+    """K5's backward: (dq, dk, dv), each (B, K, N, D) in q's dtype (views of
+    contiguous (B, N, K, D) tensors on the card), from q, k, v and out's
+    cotangent dout, all (B, K, N, D) of any strides.  Nothing of the forward
+    is needed: p and o are recomputed.
+
+    Two kernels (``csrc/flash_attention_single_bwd.cu``): the dq kernel, one
+    block per query tile, which also writes the row statistics (m, l, delta)
+    to a (3, B, K, N) scratch; then the dk/dv kernel, one block per key tile,
+    which reads them."""
+    name = "flash_attention_single_bwd"
+    _check_stream(q, k, v, name)
+    B, K, N, D = q.shape
+    _check_operands(name, (B, K, N, D), q.dtype, q.device, dout=dout)
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_single_bwd_reference(q, k, v, dout, scale)
+    grads = tuple(torch.empty((B, N, K, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+                  for _ in range(3))
+    _stream_cuda(name, scale, q, k, v, dout)
+    stats = torch.empty((3, B, K, N), dtype=torch.float32, device=q.device)
+    dq, dk, dv = grads
+    lib = _library("flash_attention_single_bwd")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], B, N, K, D,
+            *_strides(q, k, v, dout, dq, dk, dv), scale,
+            torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
+    _raise_on(lib, lib.flash_attention_single_bwd_dq(*args), f"{name} (dq)")
+    flash_attention_single_bwd.dq_launches += 1
+    _raise_on(lib, lib.flash_attention_single_bwd_dkdv(*args), f"{name} (dk/dv)")
+    flash_attention_single_bwd.dkdv_launches += 1
+    return dq, dk, dv
+
+
+flash_attention_single_bwd.dq_launches = 0
+flash_attention_single_bwd.dkdv_launches = 0
+
+
+class _FlashAttentionSingle(torch.autograd.Function):
+    """K5 forward saving (q, k, v) only, as the JAX ``_fwd`` at short N; K5's
+    recompute-form backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return flash_attention_single_fwd(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_single_bwd(q, k, v, dout.contiguous(), ctx.scale), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> torch.Tensor:
     """Differentiable softmax attention on (B, K, N, D) q, k, v of any
-    strides (the JAX public ``flash_attention``); returns (B, K, N, D).  For
-    N > ``_SINGLE_BLOCK_MAX`` the forward is K7's streaming kernel and the
-    backward its blocked kernels.  At N ≤ 1040 the JAX op runs its
-    single-block kernel K5, which is not ported: a CUDA tensor raises there,
-    a CPU tensor runs K7's plain versions at any N."""
+    strides (the JAX public ``flash_attention``); returns (B, K, N, D).  Up to
+    N = ``_SINGLE_BLOCK_MAX`` the forward is K5 and the backward K5's
+    recompute-form kernels; above it K7's streaming forward and blocked
+    backward — the switch of the JAX ``_fwd`` (:1084) and ``_bwd`` (:1103),
+    on CPU and CUDA tensors alike."""
     _check_stream(q, k, v, "flash_attention")
     N, D = q.shape[2:]
     scale = D ** -0.5 if scale is None else float(scale)
-    if q.device.type == "cuda" and N <= _SINGLE_BLOCK_MAX:
-        raise NotImplementedError(
-            f"flash_attention at N = {N} <= {_SINGLE_BLOCK_MAX} is the single-block kernel K5 "
-            "(_attn_kernel / _attn_bwd_kernel), which is not ported yet (ROADMAP Queue 2)")
+    if N <= _SINGLE_BLOCK_MAX:
+        return _FlashAttentionSingle.apply(q, k, v, scale)
     return _FlashAttentionStream.apply(q, k, v, scale)
 
 
@@ -525,6 +660,18 @@ _ARGTYPES = {
         fn: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 32
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
         for fn in ("flash_attention_stream_bwd_dq", "flash_attention_stream_bwd_dkdv")},
+    # q, k, v, out, dtype, B, N, K, D, 4 strides each of q, k, v, out, scale,
+    # stream, device
+    "flash_attention_single": {"flash_attention_single_fwd":
+                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                               + [ctypes.c_longlong] * 16
+                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]},
+    # q, k, v, dout, stats, dq, dk, dv, dtype, B, N, K, D, 4 strides each of
+    # q, k, v, dout, dq, dk, dv, scale, stream, device
+    "flash_attention_single_bwd": {
+        fn: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 28
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
+        for fn in ("flash_attention_single_bwd_dq", "flash_attention_single_bwd_dkdv")},
 }
 
 

@@ -34,8 +34,8 @@ from torch import nn
 from ..configs import Config
 from ..ops import initializers as init_ops
 from ..ops.attention import attention_impl, self_attention
-from ..ops.layers import (dropout, feed_forward, gelu, layernorm, linear, promote_input,
-                          stochastic_depth_row)
+from ..ops.layers import (dropout, feed_forward, gelu, layernorm, linear, linear_layer,
+                          promote_input, stochastic_depth_row)
 from ..ops.losses import cross_entropy
 from ..ops.patchify import num_patches, patchify_3d
 from ..utils.device import resolve_device
@@ -149,9 +149,9 @@ class ModelVIT(nn.Module):
             x = stochastic_depth_row(y, self.drop_path, generator, train) + x
         head = self.mlp_head
         h = layernorm(x[:, 0], head["0"].weight, head["0"].bias)
-        h = linear(h, head["1"].weight, head["1"].bias, o.compute_dtype)
+        h = linear_layer(head["1"], h, o.compute_dtype)
         h = dropout(gelu(h, approximate=False), o.dropout, generator, train)
-        h = linear(h, head["4"].weight, head["4"].bias, o.compute_dtype)
+        h = linear_layer(head["4"], h, o.compute_dtype)
         logits = dropout(h, o.dropout, generator, train).float()
         if labels is None:
             return logits

@@ -13,7 +13,9 @@ Port of ``cross_attention_vit_tpu/ops/attention.py``.  Reference semantics
 ``impl="flash"`` runs the hand-written kernels (K1 forward, K2 backward)
 through ``kernels.flash_attention.fused_qkv_attention``; ``impl="xla"`` (the
 JAX name for the plain path) runs ``_sdpa`` in plain PyTorch and
-differentiates through autograd.
+differentiates through autograd.  With the projections in int8 form
+(serving ``int8+attn``), ``impl="flash"`` runs the public
+``flash_attention`` (K5, or K7 above N = 1040) between the int8 GEMMs.
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..kernels.flash_attention import fused_qkv_attention
+from ..kernels.flash_attention import flash_attention, fused_qkv_attention
 from .layers import dropout, linear
+from .quant import QuantLinear, attn_out_projection, qkv_projection
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -61,13 +64,21 @@ def self_attention(x: torch.Tensor, to_qkv: nn.Linear, to_out: nn.Linear | None,
     to_qkv.weight is the reference (3H, H) weight; to_out is ``to_out.0``.
     heads==1 quirk: the reference builds ``to_out = nn.Identity()`` when
     num_heads == 1 (model_cross.py:37,45-48) — no output projection and no
-    output dropout; the model passes ``to_out=None`` then."""
+    output dropout; the model passes ``to_out=None`` then.
+
+    A ``to_qkv`` in int8 form (``models/quantize`` with attn=True) takes the
+    w8a8 branch of JAX ``:82-112``: the int8 QKV projection, then the public
+    ``flash_attention`` (K5 at N ≤ 1040, K7 above) or ``_sdpa``, then the
+    output projection, int8 or float."""
     in_dtype = x.dtype
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     B, N, H = x.shape
     K = num_heads
-    D = to_qkv.weight.shape[0] // (3 * K)
+    D = to_qkv.out_features // (3 * K)
+    if isinstance(to_qkv, QuantLinear):
+        return _self_attention_int8(x, to_qkv, to_out, K, D, in_dtype, impl, rate, generator,
+                                    train)
     w = to_qkv.weight.to(x.dtype)
     if impl == "flash":
         # (H, 3, K, D) is the JAX kernel layout: a view of the (3H, H) weight
@@ -84,6 +95,32 @@ def self_attention(x: torch.Tensor, to_qkv: nn.Linear, to_out: nn.Linear | None,
     if to_out is None:
         return out.to(in_dtype)
     y = linear(out, to_out.weight, to_out.bias, out_dtype=in_dtype)
+    return dropout(y, rate, generator, train)
+
+
+def _self_attention_int8(x: torch.Tensor, to_qkv: QuantLinear, to_out: nn.Module | None,
+                         K: int, D: int, in_dtype: torch.dtype, impl: str, rate: float,
+                         generator: torch.Generator | None, train: bool) -> torch.Tensor:
+    """The int8 QKV projection to (B, N, 3, K, D) in x's dtype, whose q, k, v
+    the attention reads as strided (B, K, N, D) views (no copies); the
+    attention in float; the output projection in int8 (f32 result) or float,
+    then the f32 bias, the cast and dropout."""
+    B, N, _ = x.shape
+    qkv = qkv_projection(x, to_qkv).view(B, N, 3, K, D)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    if impl == "flash":
+        out = flash_attention(q, k, v, D ** -0.5)
+    elif impl == "xla":
+        out = _sdpa(q, k, v, D ** -0.5)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    out = out.transpose(1, 2).reshape(B, N, K * D)
+    if to_out is None:                     # heads==1: no projection, no dropout
+        return out.to(in_dtype)
+    if isinstance(to_out, QuantLinear):
+        y = (attn_out_projection(out, to_out) + to_out.bias.float()).to(in_dtype)
+    else:
+        y = linear(out, to_out.weight, to_out.bias, out_dtype=in_dtype)
     return dropout(y, rate, generator, train)
 
 

@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .quant import QuantLinear, qlinear
+
 
 class _MatmulF32(torch.autograd.Function):
     """a @ b of two same-dtype low-precision 2-D operands, returned in f32.
@@ -72,6 +74,17 @@ def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = No
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype)
+
+
+def linear_layer(lin: torch.nn.Module, x: torch.Tensor,
+                 compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``linear`` with a module's weight and bias, or, for a layer that
+    ``models/quantize`` rewrote into int8 form, the w8a8 ``qlinear`` (which
+    returns x's dtype and ignores ``compute_dtype``, as the JAX ``linear``
+    dispatch does)."""
+    if isinstance(lin, QuantLinear):
+        return qlinear(x, lin)
+    return linear(x, lin.weight, lin.bias, compute_dtype)
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -146,10 +159,11 @@ def feed_forward(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,
                  compute_dtype: torch.dtype | None = None, gelu_approx: bool = False,
                  rate: float = 0.0, generator: torch.Generator | None = None,
                  train: bool = False) -> torch.Tensor:
-    """Linear→GELU→Dropout→Linear→Dropout (reference model_cross.py:19-31)."""
-    h = linear(x, fc1.weight, fc1.bias, compute_dtype)
+    """Linear→GELU→Dropout→Linear→Dropout (reference model_cross.py:19-31);
+    either Linear may be in int8 form (``linear_layer``)."""
+    h = linear_layer(fc1, x, compute_dtype)
     h = dropout(gelu(h, gelu_approx), rate, generator, train)
-    h = linear(h, fc2.weight, fc2.bias, compute_dtype)
+    h = linear_layer(fc2, h, compute_dtype)
     return dropout(h, rate, generator, train)
 
 

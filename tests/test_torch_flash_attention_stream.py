@@ -108,9 +108,12 @@ def test_k7_backward_is_not_k2s_rounding():
 
 
 def test_public_op_runs_k7_on_cpu_at_any_n_and_differentiates():
+    """Above N = 1040 the public op is K7 on a CPU tensor too (below it K5:
+    tests/test_torch_flash_attention_single.py)."""
     q, k, v, g = (torch.from_numpy(x).requires_grad_(i < 3)
-                  for i, x in enumerate(_operands(2, 2, 33, seed=8, n=4)))
+                  for i, x in enumerate(_operands(1, 2, 1041, seed=8, n=4)))
     out = tfa.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionStreamBackward"
     want = torch.softmax(q @ k.transpose(-1, -2) * SCALE, -1) @ v
     torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
     (out * g).sum().backward()

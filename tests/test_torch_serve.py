@@ -2,9 +2,13 @@
 CheckpointManager, served by the port's InferenceServer on the CPU
 (device="cpu"), answers as the JAX ``model_cross.apply`` does — bucket
 padding, micro-batching, backpressure, the HTTP surface, shape validation
-and the NIfTI subject path (mirrors tests/test_serve.py).
+and the NIfTI subject path (mirrors tests/test_serve.py) — and int8 serving
+answers as ``apply`` on the JAX ``quantize_for_inference`` params.
 
-Tolerance: logits within 1e-4 absolute of JAX (f32 on both sides)."""
+Tolerance: logits within 1e-4 absolute of JAX (f32 on both sides); int8
+logits within 1e-3 (the parity contract: an int8 rounding can flip on a
+summation-order difference) with the same argmax, and equal to a direct
+forward of the server's model."""
 
 import gzip
 import io
@@ -20,11 +24,13 @@ import pytest
 
 import jax
 import jax.numpy as jnp
+import torch
 
-from cross_attention_vit_tpu.configs import get_mgmt_cross_config, modify_config
+from cross_attention_vit_tpu.configs import get_mgmt_config, get_mgmt_cross_config, modify_config
 from cross_attention_vit_tpu.data import nifti as jnifti
 from cross_attention_vit_tpu.data import preprocess as jpre
-from cross_attention_vit_tpu.models import model_cross
+from cross_attention_vit_tpu.models import model_cross, model_vit
+from cross_attention_vit_tpu.models.quantize import count_quantized, quantize_for_inference
 from cross_attention_vit_tpu.train.checkpoint import CheckpointManager, restore_pytree
 from cross_attention_vit_tpu_torch.data import nifti as tnifti
 from cross_attention_vit_tpu_torch.data import preprocess as tpre
@@ -326,13 +332,93 @@ def test_checkpoint_layout_round_trips_with_jax(ckpt, tmp_path):
     assert saved.name == "config.json"
 
 
-@pytest.mark.parametrize("kw,match", [({"quantize": "int8"}, "later slice"),
-                                      ({"mesh": object()}, "later slice"),
-                                      ({"model": "vit", "quantize": "int8+attn"},
-                                       "later slice")])
-def test_unported_serving_modes_raise(ckpt, kw, match):
+@pytest.mark.parametrize("kw,exc,match", [({"mesh": object()}, NotImplementedError, "later slice"),
+                                          ({"quantize": "int4"}, ValueError,
+                                           "unknown quantize mode")])
+def test_unported_serving_modes_raise(ckpt, kw, exc, match):
+    """Sharded serving is a later slice; an unknown quantize mode raises as
+    in the JAX server (its two modes are served: test_quantized_server_*)."""
     path, _, _ = ckpt
     kw = {"img_types": TYPES, "device": "cpu", **kw}
     model = kw.pop("model", "cross")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         InferenceServer(path, model, **kw)
+
+
+# --- int8 serving ------------------------------------------------------------------
+
+_Q_FIELDS = dict(hidden_dim=256, mlp_dim=1024, num_heads=4, img_size=(16, 16, 8),
+                 num_modalities=2, dropout=0.0, lr=1e-3, weight_decay=1e-4, img_aug=False,
+                 optim_params={"T_max": 10, "eta_min": 1e-6})
+
+
+@pytest.fixture(scope="module")
+def qckpts(tmp_path_factory):
+    """One checkpoint per family, wide enough (hidden 256, MLP 1024) that the
+    JAX default min_size (2**16) quantizes the FFNs, the head fc1 and, under
+    int8+attn, both self-attention projections."""
+    out = {}
+    for family, factory, module, extra in (
+            ("cross", get_mgmt_cross_config, model_cross,
+             dict(num_multi_blocks=1, num_self_blocks=1, patch_size=(8, 8, 8),
+                  attn_order={"0": "1", "1": "0"}, label_smoothing=0.0)),
+            ("vit", get_mgmt_config, model_vit, dict(num_layers=1, patch_size=(8, 8, 4)))):
+        cfg = factory()
+        modify_config(cfg, {**_Q_FIELDS, **extra})
+        params = module.init(jax.random.key(1), cfg)
+        mgr = CheckpointManager(tmp_path_factory.mktemp(f"torch_q_{family}"), monitor="val_loss",
+                                save_top_k=1, config=cfg)
+        path = mgr.save(0, 0.5, {"params": params, "epoch": jnp.zeros((), jnp.int32)})
+        out[family] = (path, cfg, module, jax.tree.map(np.asarray, params))
+    return out
+
+
+@pytest.mark.parametrize("family,mode,kernels", [("cross", "int8", 10), ("cross", "int8+attn", 14),
+                                                 ("vit", "int8", 3), ("vit", "int8+attn", 5)])
+def test_quantized_server_matches_jax_and_a_direct_forward(qckpts, family, mode, kernels):
+    path, cfg, module, params = qckpts[family]
+    srv = InferenceServer(path, family, img_types=TYPES, buckets=(2, 4), max_wait_ms=1.0,
+                          quantize=mode, device="cpu")
+    health = srv.health()
+    qparams = quantize_for_inference(params, attn=mode == "int8+attn")
+    assert health["quantize"] == mode and health["quantized_kernels"] == kernels
+    assert count_quantized(qparams)[0] == kernels
+    assert health["params"] == sum(int(np.prod(p.shape)) for p in jax.tree.leaves(qparams))
+    srv.start()
+    try:
+        vols = _vols(cfg, 3, seed=5)
+        got = srv.predict(vols)
+    finally:
+        srv.stop()
+    want = np.asarray(module.apply(qparams, cfg, jnp.asarray(vols), train=False))
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+    with torch.inference_mode():
+        direct = srv.model(torch.from_numpy(np.concatenate([vols, np.zeros_like(vols[:1])])))
+    np.testing.assert_array_equal(got, direct[:3].numpy())
+
+
+def test_float_server_reports_no_quantization(ckpt):
+    health = _server(ckpt[0]).health()
+    assert health["quantize"] is None and health["quantized_kernels"] == 0
+
+
+def test_serve_cli_accepts_quantize(qckpts, monkeypatch):
+    from cross_attention_vit_tpu_torch.drivers import serve as tserve
+
+    made = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_serve(server, host, port):
+        made["server"] = server
+        raise Stop
+
+    monkeypatch.setattr(tserve, "serve", fake_serve)
+    with pytest.raises(Stop):
+        tserve.main(["--checkpoint", str(qckpts["cross"][0]), "--img-types", *TYPES,
+                     "--quantize", "int8+attn", "--device", "cpu"])
+    assert made["server"].health()["quantize"] == "int8+attn"
+    with pytest.raises(SystemExit):
+        tserve.main(["--checkpoint", str(qckpts["cross"][0]), "--quantize", "int4"])
