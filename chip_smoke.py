@@ -78,6 +78,33 @@ Phases, each printed as one JSON line with a ``phase`` key:
              path against plain path, from the seeded masters; step ms, one
              profiled step, peak memory.
 
+11. kernels_k6 — K6, the public ``flash_attention_tn`` on (B, K, D, N)
+             operands (forward; dq and dk/dv kernels of its backward, o
+             recomputed) against its plain versions at N = 100, 513, 1025,
+             1040 in bf16 and f32, as D-minor views and as contiguous
+             (B, K, D, N) tensors; the public op at N = 1041 routes to K7;
+             timed at B=8 K=16 N=513 bf16 beside scaled_dot_product_attention
+             and its autograd backward.
+12. kernels_k8 — K8, the fused QKV-projection backward (K2's attention
+             kernels, then dx = dqkv·Wᵀ and dW = xᵀ·dqkv by the hand-written
+             tile product), against its plain version at B=8 K=16 D=64
+             H=1024 and N = 513, 1025 and 100; two identical calls compared
+             bit for bit; timed beside the unfused route (K2 and two cuBLAS
+             GEMMs) and beside SDPA's autograd backward and the same GEMMs.
+             Phase train also runs its comparison step with
+             ``FUSED_QKV_GRADS`` on: 12 K8 calls, no K2, every gradient
+             within ``SERVE_TOL`` of the plain path's.
+13. train_cli — a synthetic cohort of 16 subjects (DWI, SWI, ASL at
+             240×240×155 int16, written as NIfTI) and a labels CSV with one
+             blacklisted and one indeterminate row; the port's
+             ``experiments.main`` trains the full-width live ModelCross
+             (grid point 0, seed 2004, batch 8, bf16, flash attention,
+             ``FUSED_QKV_GRADS`` on) one epoch, then again to two epochs,
+             resuming from the rolling checkpoint; ``evaluate.main`` on the
+             best checkpoint against a direct forward.  Checks the history,
+             the resume, 12 K8 calls per step and no K2, the files; reports
+             the decoder, the transfer dtype and the checkpoint-write time.
+
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 serving and training runs and its timings, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.  Any
@@ -87,10 +114,12 @@ exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import io
 import itertools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -107,7 +136,9 @@ import torch.nn.functional as F
 
 from cross_attention_vit_tpu_torch.configs import (Params, get_mgmt_config,
                                                    get_mgmt_cross_config, modify_config)
-from cross_attention_vit_tpu_torch.data import augment
+from cross_attention_vit_tpu_torch.data import augment, native
+from cross_attention_vit_tpu_torch.data.nifti import write_volume
+from cross_attention_vit_tpu_torch.drivers import evaluate, experiments
 from cross_attention_vit_tpu_torch.drivers.serve import InferenceServer, serve
 from cross_attention_vit_tpu_torch.kernels import _build
 from cross_attention_vit_tpu_torch.kernels import flash_attention as fa
@@ -120,7 +151,10 @@ from cross_attention_vit_tpu_torch.ops.attention import _sdpa
 from cross_attention_vit_tpu_torch.ops.layers import linear
 from cross_attention_vit_tpu_torch.ops.quant import (QuantLinear, dynamic_quantize, qlinear,
                                                      quantize_weight)
+from cross_attention_vit_tpu_torch.models.convert import params_from_flat
+from cross_attention_vit_tpu_torch.train import checkpoint as ckpt
 from cross_attention_vit_tpu_torch.train.checkpoint import save_config, save_pytree
+from cross_attention_vit_tpu_torch.train.metrics import binary_auroc, compute_metrics
 from cross_attention_vit_tpu_torch.train.optim import Adam
 from cross_attention_vit_tpu_torch.train.schedule import cosine_annealing_lr
 from cross_attention_vit_tpu_torch.train.trainer import make_train_step
@@ -145,7 +179,7 @@ SERVE_TOL = 5e-2
 REQUEST_SIZES = (1, 3, 8, 1, 3, 8)
 LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "resample",
              "flash_attention_stream", "flash_attention_stream_bwd", "flash_attention_single",
-             "flash_attention_single_bwd")
+             "flash_attention_single_bwd", "fused_qkv_bwd")
 K1 = {"name": "flash_attention_qkv", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:759"}
@@ -173,6 +207,26 @@ K7DKV = {"name": "flash_attention_stream_bwd (dk/dv)", "route": "cuda",
 K7DQ = {"name": "flash_attention_stream_bwd (dq)", "route": "cuda",
         "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_stream_bwd.cu",
         "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:429"}
+K6F = {"name": "flash_attention_tn_fwd", "route": "cuda",
+       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
+       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:587"}
+K6B = {"name": "flash_attention_tn_bwd (dq and dk/dv kernels)", "route": "cuda",
+       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:618"}
+K8 = {"name": "fused_qkv_bwd (dq, dk/dv, dx and dW kernels)", "route": "cuda",
+      "source": "cross_attention_vit_tpu_torch/kernels/csrc/fused_qkv_bwd.cu",
+      "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:879"}
+# K6's lengths (those of K5) at B=2 K=4, and its timed shape (B, K, N)
+K6_NS = (100, 513, 1025, 1040)
+K6_TIMED = (8, 16, 513)
+# K8's shapes (B, N) at K=16 D=64 H=1024: the live ModelCross, the 2-stream
+# ModelVIT and a ragged one
+K8_SHAPES = ((8, 513), (8, 1025), (8, 100))
+# train_cli: the synthetic cohort (subjects, raw volume size) and the room
+# its checkpoints need: four full-state npz files of ~2.9 GB
+CLI_SUBJECTS = 16
+RAW_VOLUME = (240, 240, 155)
+CLI_DISK_BYTES = 14e9
 # K7's streaming-regime lengths (tests_tpu/test_kernels_onchip.py:42), checked
 # at B=2 K=4, and the 3-stream ModelVIT training shape (B, K, N)
 K7_NS = (1041, 1537, 2049, 4096)
@@ -202,7 +256,8 @@ PROFILE_LAYERS = (("K5 attention forward", ("attn_single_fwd",)),
                   ("K7 attention forward", ("attn_stream_fwd",)),
                   ("K7 attention backward", ("attn_stream_bwd",)),
                   ("K1 attention forward", ("attn_fwd_qkv",)),
-                  ("K2 attention backward", ("attn_bwd_",)),
+                  ("K2/K6/K8 attention backward", ("attn_bwd_",)),
+                  ("K8 dx/dW products", ("gemm_nt_kernel",)),
                   ("K3/K4 resample", ("resample_kernel",)),
                   ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma", "imma")),
                   ("Adam (fused)", ("multi_tensor_apply",)),
@@ -820,6 +875,182 @@ def phase_kernels_k5() -> dict:
     return timed
 
 
+def _k6_operands(B: int, K: int, N: int, dtype: torch.dtype, layout: str, seed: int):
+    """(q, k, v, dout), each (B, K, D, N) at D=64: 'contiguous' tensors of
+    that shape (N is the unit stride: the bf16 kernels stage them element by
+    element) or 'dminor' views of (B, K, N, D) tensors (16-byte rows)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "contiguous":
+        return tuple(torch.randn((B, K, 64, N), generator=g, device="cuda").to(dtype)
+                     for _ in range(4))
+    return tuple(torch.randn((B, K, N, 64), generator=g, device="cuda").to(dtype)
+                 .transpose(-1, -2) for _ in range(4))
+
+
+def _k6_errs(q, k, v, dout, scale: float) -> tuple[dict, bool]:
+    """Normalised errors of K6's out, dq, dk, dv against the plain versions,
+    and whether all are finite."""
+    out = fa.flash_attention_tn_fwd(q, k, v, scale)
+    got = fa.flash_attention_tn_bwd(q, k, v, dout, scale)
+    errs = {"out": _norm_err(out, fa.flash_attention_tn_reference(q, k, v, scale))}
+    want = fa.flash_attention_tn_bwd_reference(q, k, v, dout, scale)
+    errs.update({n: _norm_err(got[j], want[j]) for j, n in enumerate(("dq", "dk", "dv"))})
+    torch.cuda.synchronize()
+    return errs, all(bool(torch.isfinite(t).all()) for t in (out, *got))
+
+
+def phase_kernels_k6() -> dict:
+    """K6's forward and backward against their plain versions in both
+    layouts; the public op's switch to K7 at N = 1041; at K6_TIMED the
+    timings, bounds and library yardsticks in both layouts.  Returns the
+    timed readings by layout."""
+    scale = 64 ** -0.5
+    cases = [(2, 4, N, dt, layout) for N in K6_NS for dt in (torch.bfloat16, torch.float32)
+             for layout in ("dminor", "contiguous")]
+    cases += [(*K6_TIMED, torch.bfloat16, layout) for layout in ("dminor", "contiguous")]
+    checks, failures, timed = [], [], {}
+    for i, (B, K, N, dtype, layout) in enumerate(cases):
+        q, k, v, dout = _k6_operands(B, K, N, dtype, layout, seed=600 + i)
+        errs, finite = _k6_errs(q, k, v, dout, scale)
+        entry = {"B": B, "K": K, "D": 64, "N": N, "dtype": str(dtype).replace("torch.", ""),
+                 "layout": layout, "tol": KERNEL_TOL[dtype], "finite": finite,
+                 "max_abs_err": {n: e[0] for n, e in errs.items()},
+                 "norm_err": {n: e[1] for n, e in errs.items()}}
+        if (B, K, N) == K6_TIMED:
+            # the library yardstick reads (B, K, N, D) tensors: the D-minor layout
+            qc, kc, vc, gc = (t.transpose(-1, -2).contiguous() for t in (q, k, v, dout))
+            timings(entry, lambda: fa.flash_attention_tn_fwd(q, k, v, scale),
+                    lambda: fa.flash_attention_tn_reference(q, k, v, scale),
+                    lambda: F.scaled_dot_product_attention(qc, kc, vc))
+            entry["bwd_kernel_ms"] = device_ms_split(
+                lambda: fa.flash_attention_tn_bwd(q, k, v, dout, scale),
+                {"dq": "attn_bwd_dq", "dkdv": "attn_bwd_dkdv"})
+            entry["bwd_plain_ms"] = device_ms(
+                lambda: fa.flash_attention_tn_bwd_reference(q, k, v, dout, scale), calls=2)
+            xs = [t.detach().requires_grad_() for t in (qc, kc, vc)]
+            lib_out = F.scaled_dot_product_attention(*xs)
+            entry["bwd_library_ms"] = device_ms(
+                lambda: torch.autograd.grad(lib_out, xs, gc, retain_graph=True))
+            del xs, lib_out, qc, kc, vc, gc
+            entry["bound"] = {name: {"ms": ms, "by": by}
+                              for name, (ms, by) in k5_bounds(B, N, K, 64).items()}
+            timed[layout] = entry
+        checks.append(entry)
+        if not (finite and max(entry["norm_err"].values()) <= entry["tol"]):
+            failures.append(entry)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+
+    # above N = 1040 the public op is K7 on (B, K, N, D) copies, both ways
+    q, k, v, dout = _k6_operands(2, 4, 1041, torch.bfloat16, "contiguous", seed=690)
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    _zero_counts()
+    out = fa.flash_attention_tn(*xs, scale)
+    grads = torch.autograd.grad(out, xs, dout)
+    torch.cuda.synchronize()
+    routed = {n: c for n, c in _counts().items() if c}
+    want = {"K7F": 1, "K7DQ": 1, "K7DKV": 1}
+    switch = {"N": 1041, "launches": routed, "expected": want,
+              "out_vs_k6_plain": _norm_err(out, fa.flash_attention_tn_reference(q, k, v, scale))[1],
+              "finite": all(bool(torch.isfinite(t).all()) for t in (out, *grads))}
+    emit({"phase": "kernels_k6", "kernels": [K6F, K6B], "cases": checks, "switch": switch})
+    check(not failures, f"K6 disagrees with its plain versions: {failures}")
+    check(routed == want and switch["finite"]
+          and switch["out_vs_k6_plain"] <= KERNEL_TOL[torch.bfloat16],
+          f"flash_attention_tn at N = 1041 did not route to K7: {switch}")
+    return timed
+
+
+def k8_bound(B: int, N: int, K: int, D: int, H: int) -> tuple[float, str, float, float]:
+    """Least time in ms of one K8 call: the JAX cost estimate's operations
+    (:960), 2·B·K·N·(5·N·D + 6·D·H), at the bf16 peak, against the bytes of
+    qkv, o, dO, x and W read once and dx (bf16) and dW (f32) written once.
+    Returns (ms, bound_by, GFLOP, MB)."""
+    flops = 2 * B * K * N * (5 * N * D + 6 * D * H)
+    nbytes = (5 * B * N * K * D + 2 * B * N * H + 3 * K * D * H) * 2 + 3 * K * D * H * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.bfloat16], nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            flops / 1e9, nbytes / 1e6)
+
+
+def _k8_operands(B: int, N: int, seed: int, K: int = 16, D: int = 64, H: int = 1024):
+    """x (B, N, H), w (H, 3, K, D) as the model passes it (a view of a
+    (3H, H) Linear weight), qkv = x·W, K1's output on it and a cotangent."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, N, H), generator=g, device="cuda").bfloat16()
+    weight = (torch.randn((3 * K * D, H), generator=g, device="cuda") * H ** -0.5).bfloat16()
+    w = weight.t().reshape(H, 3, K, D)
+    qkv = torch.matmul(x, weight.t()).view(B, N, 3, K, D)
+    out = fa.flash_attention_qkv_fwd(qkv)
+    dout = torch.randn((B, N, K, D), generator=g, device="cuda").bfloat16()
+    return x, w, qkv, out, dout
+
+
+def phase_kernels_k8() -> dict:
+    """K8 against its plain version (dx and dW), the spread of two identical
+    calls, and at the live shape the timings beside the unfused route and
+    the library yardstick.  Returns the live-shape reading."""
+    K, D, H = 16, 64, 1024
+    scale = D ** -0.5
+    checks, failures, live = [], [], {}
+    for i, (B, N) in enumerate(K8_SHAPES):
+        x, w, qkv, out, dout = _k8_operands(B, N, seed=800 + i)
+        counts0 = {n: getattr(fa.fused_qkv_bwd, n) for n in
+                   ("launches", "dq_launches", "dkdv_launches", "dx_launches", "dw_launches")}
+        dx, dw = fa.fused_qkv_bwd(x, w, qkv, out, dout, scale)
+        dx2, dw2 = fa.fused_qkv_bwd(x, w, qkv, out, dout, scale)
+        per_call = {n: (getattr(fa.fused_qkv_bwd, n) - c0) / 2 for n, c0 in counts0.items()}
+        want_dx, want_dw = fa.fused_qkv_bwd_reference(x, w, qkv, out, dout, scale)
+        torch.cuda.synchronize()
+        errs = {"dx": _norm_err(dx, want_dx), "dW": _norm_err(dw, want_dw)}
+        entry = {"B": B, "N": N, "K": K, "D": D, "H": H, "dtype": "bfloat16",
+                 "tol": KERNEL_TOL[torch.bfloat16], "launches_per_call": per_call,
+                 "finite": all(bool(torch.isfinite(t).all()) for t in (dx, dw)),
+                 "max_abs_err": {n: e[0] for n, e in errs.items()},
+                 "norm_err": {n: e[1] for n, e in errs.items()},
+                 # f32 sums in a fixed order per output tile: no run-to-run spread
+                 "run_to_run_max_abs": {"dx": (dx.float() - dx2.float()).abs().max().item(),
+                                        "dW": (dw.float() - dw2.float()).abs().max().item()}}
+        del want_dx, want_dw, dx2, dw2
+        if (B, N) == K8_SHAPES[0]:
+            dqkv = fa.flash_attention_qkv_bwd(qkv, out, dout, scale)
+            # the unfused route reads the same dqkv bits: the two differ only
+            # in the products' summation order before their single rounding
+            ux, uw = fa._qkv_grads_plain(x, w, dqkv)
+            entry["vs_unfused"] = {"dx": _norm_err(dx, ux)[1], "dW": _norm_err(dw, uw)[1],
+                                   "dx_elements_differing": int((dx != ux).sum()),
+                                   "dW_elements_differing": int((dw != uw).sum())}
+            del ux, uw
+            entry["kernel_ms_by_kernel"] = device_ms_split(
+                lambda: fa.fused_qkv_bwd(x, w, qkv, out, dout, scale),
+                {"dq": "attn_bwd_dq", "dkdv": "attn_bwd_dkdv", "dx_dW": "gemm_nt_kernel"})
+            entry["kernel_ms"] = sum(entry["kernel_ms_by_kernel"].values())
+            entry["plain_ms"] = device_ms(
+                lambda: fa.fused_qkv_bwd_reference(x, w, qkv, out, dout, scale), calls=2)
+            entry["unfused_ms"] = device_ms(
+                lambda: fa._qkv_grads_plain(x, w, fa.flash_attention_qkv_bwd(qkv, out, dout,
+                                                                               scale)))
+            qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in fa._stream_views(qkv))
+            lib_out = F.scaled_dot_product_attention(qc, kc, vc)
+            lib_g = dout.transpose(1, 2).contiguous()
+            entry["library_ms"] = device_ms(
+                lambda: (torch.autograd.grad(lib_out, (qc, kc, vc), lib_g, retain_graph=True),
+                         fa._qkv_grads_plain(x, w, dqkv)))
+            del qc, kc, vc, lib_out, lib_g, dqkv
+            ms, by, gflop, mb = k8_bound(B, N, K, D, H)
+            entry["bound"] = {"ms": ms, "by": by, "gflop": gflop, "mb": mb}
+            live = entry
+        checks.append(entry)
+        if not (entry["finite"] and max(entry["norm_err"].values()) <= entry["tol"]
+                and per_call["launches"] == 1):
+            failures.append(entry)
+        del x, w, qkv, out, dout, dx, dw
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_k8", "kernels": [K8], "cases": checks})
+    check(not failures, f"K8 disagrees with its plain version: {failures}")
+    return live
+
+
 def vit_config(streams: tuple, use_flash: bool):
     """params_list2[1] of the experiment grid with ``streams`` as its
     img_types: dropout 0.1, augmentation on, Adam lr 1e-4 wd 5e-4, cosine
@@ -1041,7 +1272,11 @@ _COUNTERS = {"K1": (fa.flash_attention_qkv, "launches"),
              "K5DKV": (fa.flash_attention_single_bwd, "dkdv_launches"),
              "K7F": (fa.flash_attention_stream_fwd, "launches"),
              "K7DQ": (fa.flash_attention_stream_bwd, "dq_launches"),
-             "K7DKV": (fa.flash_attention_stream_bwd, "dkdv_launches")}
+             "K7DKV": (fa.flash_attention_stream_bwd, "dkdv_launches"),
+             "K6F": (fa.flash_attention_tn_fwd, "launches"),
+             "K6DQ": (fa.flash_attention_tn_bwd, "dq_launches"),
+             "K6DKV": (fa.flash_attention_tn_bwd, "dkdv_launches"),
+             "K8": (fa.fused_qkv_bwd, "launches")}
 
 
 def _counts() -> dict:
@@ -1171,12 +1406,24 @@ def phase_train() -> dict:
     _zero_counts()
     g_flash = _grads_after_step(cmp_cfg(True), state0, img, labels)
     cmp_launches = _counts()
+    # the same step with the fused QKV-projection backward (K8)
+    fa.FUSED_QKV_GRADS = True
+    try:
+        _zero_counts()
+        g_fused = _grads_after_step(cmp_cfg(True), state0, img, labels)
+        fused_launches = _counts()
+    finally:
+        fa.FUSED_QKV_GRADS = False
     g_plain = _grads_after_step(cmp_cfg(False), state0, img, labels)
     g_f32 = _grads_after_step(cmp_cfg(False, "float32"), state0, img, labels)
     del state0
-    check(cmp_launches["K1"] == 12 and cmp_launches["K2"] == 12,
+    check(cmp_launches["K1"] == 12 and cmp_launches["K2"] == 12 and cmp_launches["K8"] == 0,
           f"comparison step launches {cmp_launches}")
+    check(fused_launches["K1"] == 12 and fused_launches["K8"] == 12
+          and fused_launches["K2"] == 0,
+          f"comparison step with FUSED_QKV_GRADS on: launches {fused_launches}")
     flash_vs_plain = _leaf_errs(g_flash, g_plain)
+    fused_vs_plain, fused_vs_flash = _leaf_errs(g_fused, g_plain), _leaf_errs(g_fused, g_flash)
     flash_vs_f32, plain_vs_f32 = _leaf_errs(g_flash, g_f32), _leaf_errs(g_plain, g_f32)
     gated = [n for n in flash_vs_plain if not n.endswith(ZERO_GRAD_LEAF)]
     worst = max(gated, key=flash_vs_plain.get)
@@ -1184,7 +1431,8 @@ def phase_train() -> dict:
     key_bias_rel = max(g_flash[n].abs().max().item()
                        / g_flash[n[:-len("bias")] + "weight"].abs().max().item()
                        for n in flash_vs_plain if n.endswith(ZERO_GRAD_LEAF))
-    del g_flash, g_plain, g_f32
+    worst_fused = max(gated, key=fused_vs_plain.get)
+    del g_flash, g_fused, g_plain, g_f32
     torch.cuda.empty_cache()
 
     result = {"phase": "train", "model": "ModelCross", "params": n_params, "batch": 8,
@@ -1201,12 +1449,20 @@ def phase_train() -> dict:
               "grad_flash_vs_f32_worst_leaf": max(flash_vs_f32[n] for n in gated),
               "grad_plain_vs_f32_worst_leaf": max(plain_vs_f32[n] for n in gated),
               "grad_key_bias_vs_key_weight": key_bias_rel,
+              "fused_qkv_grads": {"launches": fused_launches,
+                                  "grad_fused_vs_plain_worst_leaf":
+                                      [worst_fused, fused_vs_plain[worst_fused]],
+                                  "grad_fused_vs_unfused_worst_leaf":
+                                      max(fused_vs_flash[n] for n in gated)},
               # [kernel vs plain, kernel vs f32, plain vs f32] per parameter kind
               "grad_by_kind": _by_kind(flash_vs_plain, flash_vs_f32, plain_vs_f32)}
     emit(result)
     check(flash_vs_plain[worst] <= SERVE_TOL,
           f"gradient of {worst}: kernel path vs plain path {flash_vs_plain[worst]:.3e} "
           f"> {SERVE_TOL}")
+    check(fused_vs_plain[worst_fused] <= SERVE_TOL,
+          f"gradient of {worst_fused}: FUSED_QKV_GRADS path vs plain path "
+          f"{fused_vs_plain[worst_fused]:.3e} > {SERVE_TOL}")
     return result
 
 
@@ -1522,6 +1778,150 @@ def phase_train_vit() -> dict:
     return results
 
 
+def _write_cohort(root: Path) -> tuple[Path, Path, list[str]]:
+    """CLI_SUBJECTS subjects of DWI, SWI and ASL volumes at the raw UCSF-PDGM
+    size (int16 with a scaling slope, gzipped NIfTI), and a labels CSV that
+    also holds one blacklisted ID and one indeterminate row, neither on disk.
+    Returns (labels CSV, data folder, the subjects' folder IDs)."""
+    data = root / "ucsf-data"
+    data.mkdir(parents=True)
+    ids = [f"UCSF-PDGM-{n}" for n in range(1, CLI_SUBJECTS + 1)]    # unpadded, as the CSV
+    rows = [(i, "positive" if j % 2 else "negative") for j, i in enumerate(ids)]
+    rows += [("UCSF-PDGM-138", "positive"), ("UCSF-PDGM-500", "indeterminate")]
+    labels = root / "labels.csv"
+    labels.write_text("ID,MGMT status\n" + "".join(f"{i},{t}\n" for i, t in rows))
+    padded = [f"UCSF-PDGM-{n:04d}" for n in range(1, CLI_SUBJECTS + 1)]
+
+    def write(job):
+        j, case, mod = job
+        rng = np.random.default_rng(j)
+        (data / f"{case}_nifti").mkdir(parents=True, exist_ok=True)
+        vol = rng.integers(0, 1200, size=RAW_VOLUME, dtype=np.int16)
+        write_volume(data / f"{case}_nifti" / f"{case}_{mod}.nii.gz", vol, scl_slope=0.5)
+
+    jobs = [(j, c, m) for j, (c, m) in enumerate(itertools.product(padded, MODALITIES))]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    return labels, data, padded
+
+
+def phase_train_cli(tmp: Path) -> dict:
+    """The experiments CLI on a synthetic NIfTI cohort: one epoch, then a
+    resumed second; the evaluate CLI on the best checkpoint."""
+    from cross_attention_vit_tpu_torch.data.dataset import BrainDataset
+    from cross_attention_vit_tpu_torch.data.labels import clean_data, load_labels
+    from cross_attention_vit_tpu_torch.data.loader import transfer_dtype_for
+
+    free = shutil.disk_usage(tmp).free
+    check(free >= CLI_DISK_BYTES,
+          f"train_cli writes ~12 GB of checkpoints under {tmp}: {free / 1e9:.1f} GB free, "
+          f"{CLI_DISK_BYTES / 1e9:.0f} GB needed")
+    root = tmp / "train_cli"
+    try:
+        t0 = time.perf_counter()
+        labels, data, padded = _write_cohort(root)
+        cohort_s = time.perf_counter() - t0
+        out = root / "runs"
+        args = ["--model", "cross", "--grid-index", "0", "--seeds", "2004", "--batch-size", "8",
+                "--only-available", "--labels", str(labels), "--data", str(data),
+                "--out", str(out),
+                # the live bench configuration: bf16, flash attention, tanh GELU
+                "--set", "compute_dtype='bfloat16'", "--set", "activation_dtype='bfloat16'",
+                "--set", "augment_dtype='bfloat16'", "--set", "use_flash_attention=True",
+                "--set", "gelu_approx=True"]
+        run = "test_200_0_0_0"
+        runs = []
+        fa.FUSED_QKV_GRADS = True
+        try:
+            for epochs in (1, 2):
+                _zero_counts()
+                write0 = ckpt.write_seconds()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(sys.stderr):    # its epoch lines
+                    histories = experiments.main(args + ["--epochs", str(epochs)])
+                torch.cuda.synchronize()
+                runs.append({"epochs": epochs, "wall_s": time.perf_counter() - t0,
+                             "checkpoint_write_s": ckpt.write_seconds() - write0,
+                             "launches": _counts(), "history": histories[run]})
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            fa.FUSED_QKV_GRADS = False
+        cfg = ckpt.load_config_for(next((out / "checkpoints" / "cross").glob("*.npz")))
+        # the split of train_full: 16 subjects, ceil(15%) test, ceil(18%) of the rest val
+        n_test = -(-CLI_SUBJECTS * 15 // 100)
+        n_val = -(-(CLI_SUBJECTS - n_test) * 18 // 100)
+        steps = -(-(CLI_SUBJECTS - n_test - n_val) // 8)
+        manifest = json.loads((out / "checkpoints" / "cross" / f"manifest_{run}.json").read_text())
+        best = out / "checkpoints" / "cross" / manifest[0]["file"]
+        files = sorted(str(p.relative_to(out)) for p in out.rglob("*")
+                       if p.is_file() and "vol_cache" not in p.parts)
+        csv_rows = (out / "csv_logs" / "cross" / run / "metrics.csv").read_text().splitlines()
+
+        args_eval = ["--checkpoint", str(best), "--model", "cross", "--labels", str(labels),
+                     "--data", str(data), "--img-types", *MODALITIES, "--only-available"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):            # its JSON report
+            metrics = evaluate.main(args_eval)
+        eval_s = time.perf_counter() - t0
+        # the direct forward: the checkpoint's params in a fresh model, every
+        # subject on disk in label order, batches of 8
+        model = ModelCross(cfg, device="cuda", master_weights=True)
+        from cross_attention_vit_tpu_torch.models.convert import load_jax_params
+        load_jax_params(model, params_from_flat(ckpt.restore_flat(best)))
+        table = clean_data(load_labels(labels), "MGMT status")
+        ds = BrainDataset(table, cfg, types=MODALITIES, is_train=False, folder=data)
+        logits, targets = [], []
+        with torch.inference_mode():
+            for b0 in range(0, len(ds), 8):
+                imgs, lab = ds.batch(range(b0, min(b0 + 8, len(ds))))
+                x = torch.from_numpy(imgs).to(torch.bfloat16).cuda()
+                logits.append(model(x).float().cpu())
+                targets.append(torch.from_numpy(lab))
+        logits, targets = torch.cat(logits), torch.cat(targets)
+        direct = {k: float(v) for k, v in compute_metrics(logits.argmax(1), targets).items()}
+        probs = np.exp(logits.numpy() - logits.numpy().max(1, keepdims=True))
+        probs = (probs / probs.sum(1, keepdims=True))[:, 1]     # as evaluate computes them
+        direct["auc_roc"] = float(binary_auroc(torch.from_numpy(probs), targets))
+        direct["n"] = len(targets)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    hist = [row for r in runs for row in r["history"]]
+    result = {"phase": "train_cli", "model": "ModelCross", "subjects": CLI_SUBJECTS,
+              "raw_volume": list(RAW_VOLUME), "cohort_write_s": cohort_s,
+              "split": {"test": n_test, "val": n_val, "train": CLI_SUBJECTS - n_test - n_val},
+              "steps_per_epoch": steps, "decoder": "native" if native.available() else "python",
+              "transfer_dtype": transfer_dtype_for(cfg), "fused_qkv_grads": True,
+              "runs": [{k: v for k, v in r.items() if k != "history"} for r in runs],
+              "history": hist, "files": files, "csv_rows": len(csv_rows) - 1,
+              "evaluate": metrics, "direct": direct, "evaluate_s": eval_s,
+              "epoch_time_s": [row["epoch_time_s"] for row in hist],
+              "step_s": [row["epoch_time_s"] / steps for row in hist],
+              "checkpoint_write_share": sum(r["checkpoint_write_s"] for r in runs)
+                                        / sum(r["wall_s"] for r in runs)}
+    emit(result)
+    check(len(runs[0]["history"]) == 1 and len(runs[1]["history"]) == 1,
+          f"epochs run: {[len(r['history']) for r in runs]} (1, then 1 resumed, expected)")
+    check(all(np.isfinite(v) for row in hist for v in row.values()),
+          f"non-finite history: {hist}")
+    for r in runs:
+        c = r["launches"]
+        check(c["K8"] == 12 * steps and c["K2"] == 0,
+              f"run to {r['epochs']} epochs: K8 {c['K8']} calls, K2 {c['K2']} launches "
+              f"({12 * steps} and 0 expected)")
+    want = {f"checkpoints/cross/config_{run}.json", f"checkpoints/cross/manifest_{run}.json",
+            f"csv_logs/cross/{run}/metrics.csv", f"latest/{run}/step={steps}.npz",
+            f"latest/{run}/step={2 * steps}.npz"}
+    check(want <= set(files) and sum(f.startswith("checkpoints/cross/epoch=") for f in files) == 2
+          and any(f.startswith(f"lightning_logs/cross/{run}/events.out.tfevents") for f in files)
+          and len(csv_rows) == 3, f"run files: {files}, {len(csv_rows)} CSV lines")
+    check(metrics == direct, f"evaluate.main {metrics} != direct forward {direct}")
+    return result
+
+
 def _launch_rows(paths: dict[str, dict]) -> dict[str, dict]:
     """Each kernel's launches summed over the main paths' runs, and by path."""
     rows = {}
@@ -1541,12 +1941,16 @@ def main() -> int:
         k3, k4 = phase_kernels_resample()
         k7 = phase_kernels_k7()
         k5 = phase_kernels_k5()
+        k6 = phase_kernels_k6()
+        k8 = phase_kernels_k8()
         with tempfile.TemporaryDirectory() as tmp:
             served = phase_serve(Path(tmp))
             served_vit = phase_serve_vit(Path(tmp))
             served_int8 = phase_serve_int8(Path(tmp))
         trained = phase_train()
         trained_vit = phase_train_vit()
+        with tempfile.TemporaryDirectory() as tmp:
+            trained_cli = phase_train_cli(Path(tmp))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -1559,12 +1963,16 @@ def main() -> int:
         paths[f"serve_{mode}"] = result["launches"]
     for name, result in served_int8["vit"].items():
         paths[f"serve_int8+attn_{name}"] = result["launches"]
+    for r in trained_cli["runs"]:
+        paths[f"train_cli_{r['epochs']}_epochs"] = r["launches"]
     launches = _launch_rows(paths)
     k5s, k5v = k5[513], k5[1025]
     k5_shape = "B=8 K=16 D=64 N=513 bfloat16 (ModelCross int8+attn serving shape)"
     attn = "B=8 K=16 D=64 N=513 bfloat16"
     k7_shape = "B=8 K=16 D=64 N=1537 bfloat16 (3-stream ModelVIT training shape)"
     bound = k7["bound"]
+    k6d, k6c = k6["dminor"], k6["contiguous"]
+    k6_shape = "B=8 K=16 D=64 N=513 bfloat16, (B, K, D, N) views of (B, K, N, D) tensors"
     emit({"kernels": [
         {**K1, **launches["K1"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
@@ -1617,7 +2025,37 @@ def main() -> int:
          "shape": k5_shape,
          "at_n1025": {"ms": sum(k5v["bwd_kernel_ms"].values()), "plain_ms": k5v["bwd_plain_ms"],
                       "bound_ms": k5v["bound"]["bwd"]["ms"], "bound_by": k5v["bound"]["bwd"]["by"],
-                      "library_ms": k5v["bwd_library_ms"]}}]})
+                      "library_ms": k5v["bwd_library_ms"]}},
+        {**K6F, **launches["K6F"],
+         "launches_note": "0 on every main path: K6 is the public flash_attention_tn, which "
+                          "no module calls; it is checked in phase kernels_k6",
+         "max_abs_err": k6d["max_abs_err"]["out"], "ms": k6d["kernel_ms"],
+         "plain_ms": k6d["plain_ms"], "bound_ms": k6d["bound"]["fwd"]["ms"],
+         "bound_by": k6d["bound"]["fwd"]["by"], "library_ms": k6d["library_ms"],
+         "library": "scaled_dot_product_attention", "shape": k6_shape,
+         "contiguous_bkdn": {"ms": k6c["kernel_ms"], "max_abs_err": k6c["max_abs_err"]["out"]}},
+        {**K6B, **launches["K6DQ"],
+         "launches_note": "0 on every main path (the public flash_attention_tn)",
+         "max_abs_err": max(k6d["max_abs_err"][n] for n in ("dq", "dk", "dv")),
+         "ms": sum(k6d["bwd_kernel_ms"].values()), "ms_by_kernel": k6d["bwd_kernel_ms"],
+         "plain_ms": k6d["bwd_plain_ms"], "bound_ms": k6d["bound"]["bwd"]["ms"],
+         "bound_by": k6d["bound"]["bwd"]["by"], "library_ms": k6d["bwd_library_ms"],
+         "library": "backward of scaled_dot_product_attention through autograd (dq, dk, dv)",
+         "shape": k6_shape,
+         "contiguous_bkdn": {"ms": sum(k6c["bwd_kernel_ms"].values()),
+                             "max_abs_err": max(k6c["max_abs_err"][n]
+                                                for n in ("dq", "dk", "dv"))}},
+        {**K8, **launches["K8"],
+         "launches_note": "K8 calls (4 kernels each) on the FUSED_QKV_GRADS runs of "
+                          "train_cli; the default training path leaves the flag off",
+         "max_abs_err": max(k8["max_abs_err"].values()), "ms": k8["kernel_ms"],
+         "ms_by_kernel": k8["kernel_ms_by_kernel"], "plain_ms": k8["plain_ms"],
+         "bound_ms": k8["bound"]["ms"], "bound_by": k8["bound"]["by"],
+         "library_ms": k8["library_ms"],
+         "library": "backward of scaled_dot_product_attention through autograd, then dx and "
+                    "dW as two cuBLAS GEMMs",
+         "unfused_ms": k8["unfused_ms"], "run_to_run_max_abs": k8["run_to_run_max_abs"],
+         "shape": "B=8 N=513 K=16 D=64 H=1024 bfloat16 (live ModelCross training shape)"}]})
     print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

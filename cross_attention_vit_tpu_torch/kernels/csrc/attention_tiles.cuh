@@ -162,7 +162,67 @@ struct Tile {
         dst[((c / BK) * 8 + j) * ld + c % BK] = __float2bfloat16_rn(__bfloat162float(e[j]) * r);
     }
   }
+  // the interface TileAny shares: the head-dim stride is 1 here
+  __device__ __forceinline__ void load_rows(const bf16* src, int n0, int N, long long sn,
+                                            long long) {
+    load_rows(src, n0, N, sn);
+  }
+  __device__ __forceinline__ void load_cols(const bf16* src, int n0, int N, long long sn,
+                                            long long) {
+    load_cols(src, n0, N, sn);
+  }
 };
+
+// The same 64-row tile of a (rows, D) bf16 operand for ANY strides, one
+// element at a time: consecutive threads take consecutive rows, so the loads
+// coalesce when the row stride is 1 — a contiguous (B, K, D, N) operand,
+// whose rows cannot be read as 16-byte chunks when N is not a multiple of 8.
+// Rows ≥ N load as zeros.  Same interface as Tile.
+struct TileAny {
+  static constexpr int kElems = BK * D / MMA_THREADS;   // per thread
+  bf16 v[kElems];
+
+  __device__ __forceinline__ void load_rows(const bf16* src, int n0, int N, long long sn,
+                                            long long sd) {
+#pragma unroll
+    for (int i = 0; i < kElems; ++i) {
+      const int c = threadIdx.x + i * MMA_THREADS;
+      const int n = n0 + c % BK;
+      v[i] = n < N ? src[n * sn + (c / BK) * sd] : __float2bfloat16_rn(0.f);
+    }
+  }
+  __device__ __forceinline__ void load_cols(const bf16* src, int n0, int N, long long sn,
+                                            long long sd) {
+    load_rows(src, n0, N, sn, sd);
+  }
+  __device__ __forceinline__ void store_rows(bf16* dst, int ld) const {
+#pragma unroll
+    for (int i = 0; i < kElems; ++i) {
+      const int c = threadIdx.x + i * MMA_THREADS;
+      dst[(c % BK) * ld + c / BK] = v[i];
+    }
+  }
+  __device__ __forceinline__ void store_transposed(bf16* dst, int ld) const {
+#pragma unroll
+    for (int i = 0; i < kElems; ++i) {
+      const int c = threadIdx.x + i * MMA_THREADS;
+      dst[(c / BK) * ld + c % BK] = v[i];
+    }
+  }
+  __device__ __forceinline__ void store_transposed_scaled(bf16* dst, int ld,
+                                                          const float* row_scale) const {
+#pragma unroll
+    for (int i = 0; i < kElems; ++i) {
+      const int c = threadIdx.x + i * MMA_THREADS;
+      dst[(c / BK) * ld + c % BK] = __float2bfloat16_rn(__bfloat162float(v[i]) * row_scale[c % BK]);
+    }
+  }
+};
+
+// the two bf16 values of a packed fragment register, as f32
+__device__ __forceinline__ float2 unpack(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
 
 // ---------------------------------------------------------------------------
 // f32: scalar FMAs on the CUDA cores (no TF32)

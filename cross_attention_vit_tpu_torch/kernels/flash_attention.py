@@ -6,10 +6,15 @@ kernels in ``cross_attention_vit_tpu/kernels/flash_attention.py``:
   K5  ``_attn_kernel``             single-block forward on separate q, k, v
                                    (the public op), N ≤ 1040
       ``_attn_bwd_kernel``         its recompute-form backward
+  K6  ``_attn_kernel_tn``          K1's forward on separate (B, K, D, N)
+                                   q, k, v (the public "tn" op), N ≤ 1040
+      ``_attn_bwd_kernel_tn``      K2's backward with o recomputed
   K7  ``_attn_kernel_stream``      streaming (online-softmax) forward that
                                    also writes the row logsumexp, N > 1040
       ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``
                                    its blocked backward from (out, lse)
+  K8  ``_fused_qkv_bwd_kernel``    the fused QKV-projection backward: K2's
+                                   dq/dk/dv, then dx and dW
 
 ``flash_attention_qkv`` is the differentiable entry point on a stacked qkv.
 Like the JAX ``flash_attention_qkv_tn`` / ``_qkv_tn_bwd`` it switches on the
@@ -21,44 +26,49 @@ K7's two blocked kernels, which write the same stacked dqkv.  The JAX
 backward re-runs the streaming forward to get the logsumexp; the port keeps
 it from its one forward (same values, one launch fewer per layer).
 
+``fused_qkv_attention`` (the model's flash path) is the JAX custom VJP over
+(x, w): the projection, then K1 (K7); its backward follows
+``_fused_qkv_bwd_rule`` — K8 when ``FUSED_QKV_GRADS`` is on and the operands
+are bf16 with N ≤ 1040, otherwise K2 (K7) and two plain GEMMs.
+
 ``flash_attention`` is the public op on (B, K, N, D) operands (JAX
 ``flash_attention``, which the int8+attn serving path calls).  It switches
 at the same N as the JAX ``_fwd`` / ``_bwd``: up to 1040 the forward is K5
 (it saves q, k, v only) and the backward K5's recompute-form kernels; above
 it K7's streaming forward and blocked backward.  K5 normalises p by a
 division before rounding it and takes delta from the unrounded o = pb·v, so
-at N ≤ 1040 it agrees with K7 only to bf16 rounding.
+at N ≤ 1040 it agrees with K7 only to bf16 rounding.  ``flash_attention_tn``
+is the public op on (B, K, D, N) operands: K6 up to 1040, K7 on
+(B, K, N, D) copies above.
 
 Raw wrappers: ``flash_attention_qkv_fwd`` / ``flash_attention_qkv_bwd`` (K1,
-K2), ``flash_attention_single_fwd`` / ``flash_attention_single_bwd`` (K5) and
-``flash_attention_stream_fwd`` / ``flash_attention_stream_bwd`` (K7).
-On a CUDA tensor each launches its hand-written kernel (``csrc/*.cu``) or
-raises; on a CPU tensor it runs the plain PyTorch version of the same
-function (``flash_attention_qkv_reference``,
-``flash_attention_qkv_bwd_reference``, ``flash_attention_single_reference``,
-``flash_attention_single_bwd_reference``, ``flash_attention_stream_reference``,
-``flash_attention_blocked_bwd_reference``), which the CPU tests hold against
-the JAX kernels and ``chip_smoke.py`` holds the CUDA kernels against on the
-card.  Launch counts (never plain calls), so that a run can show that its
-main path went through the kernels: ``flash_attention_qkv.launches`` (K1),
-``flash_attention_qkv_bwd.launches`` (K2),
-``flash_attention_single_fwd.launches`` (K5 forward),
-``flash_attention_single_bwd.dq_launches`` / ``.dkdv_launches`` (K5's two
-backward kernels), ``flash_attention_stream_fwd.launches`` (K7 forward), and
-``flash_attention_stream_bwd.dq_launches`` / ``.dkdv_launches`` (K7's two
-backward kernels).
+K2), ``flash_attention_single_fwd`` / ``flash_attention_single_bwd`` (K5),
+``flash_attention_tn_fwd`` / ``flash_attention_tn_bwd`` (K6),
+``flash_attention_stream_fwd`` / ``flash_attention_stream_bwd`` (K7) and
+``fused_qkv_bwd`` (K8).  On a CUDA tensor each launches its hand-written
+kernel (``csrc/*.cu``) or raises; on a CPU tensor it runs the plain PyTorch
+version of the same function (``*_reference``), which the CPU tests hold
+against the JAX kernels and ``chip_smoke.py`` holds the CUDA kernels against
+on the card.  Launch counts (never plain calls), so that a run can show that
+its main path went through the kernels: ``flash_attention_qkv.launches``
+(K1), ``flash_attention_qkv_bwd.launches`` (K2),
+``flash_attention_single_fwd.launches`` and
+``flash_attention_single_bwd.dq_launches`` / ``.dkdv_launches`` (K5),
+``flash_attention_tn_fwd.launches`` and ``flash_attention_tn_bwd.dq_launches``
+/ ``.dkdv_launches`` (K6), ``flash_attention_stream_fwd.launches`` and
+``flash_attention_stream_bwd.dq_launches`` / ``.dkdv_launches`` (K7), and
+``fused_qkv_bwd.launches`` (K8 calls) with ``.dq_launches``,
+``.dkdv_launches``, ``.dx_launches``, ``.dw_launches`` (its four kernels).
 
 The K1/K2 kernels read qkv in the layout the QKV projection produces,
 (B, N, 3, K, D); the output and its cotangent are (B, N, K, D) and K2 writes
-dqkv as (B, N, 3, K, D).  The K5 and K7 kernels take each of q, k, v, out,
-dout and dq, dk, dv as a (B, K, N, D) tensor of any strides (16-byte rows for
-bf16), so they read and write views of the stacked tensors without a copy.
-``fused_qkv_attention`` keeps the JAX signature and value — (B, N, H) x,
-(H, 3, K, D) w → (B, K, D, N) — and returns that result as a permuted view
-of the kernel's output.  Its backward is JAX's unfused rule: K2 (or K7),
-then dx = dqkv·Wᵀ and dW = xᵀ·dqkv as plain GEMMs (autograd of the
-projection's ``torch.matmul``).
+dqkv as (B, N, 3, K, D).  The K5, K6 and K7 kernels take each operand as a
+(B, K, N, D) view of any strides, so they read and write views of the
+stacked tensors without a copy; bf16 operands without a unit head-dim
+stride and 16-byte rows (a contiguous (B, K, D, N) operand) are read
+element by element by K6, and rejected by K5 and K7.
 """
+
 
 from __future__ import annotations
 
@@ -96,32 +106,39 @@ def flash_attention_qkv_reference(qkv: torch.Tensor, scale: float) -> torch.Tens
     return out.to(qkv.dtype).permute(0, 2, 1, 3)
 
 
-def flash_attention_qkv_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
-                                      dout: torch.Tensor, scale: float) -> torch.Tensor:
-    """Plain PyTorch version of K2: the stacked dqkv (B, N, 3, K, D) from the
-    saved qkv (B, N, 3, K, D), the saved output and its cotangent (B, N, K, D).
-
-    Follows ``_tn_bwd_math`` with the saved O: p is recomputed from the row
-    max m and r = 1/Σe; e cast to the operand dtype feeds dv through
-    do_r = (do·r) cast to the operand dtype; delta = rowsum(do⊙o) in f32;
-    ds = (e·((dp − delta)·(r·scale))) cast to the operand dtype feeds dq and
-    dk.  Every product takes the rounded operands upcast to f32."""
-    dt = qkv.dtype
-    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3).float() for i in range(3))  # (B,K,N,D)
-    o = out.permute(0, 2, 1, 3).float()
-    do = dout.permute(0, 2, 1, 3).float()
+def _tn_bwd_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                 scale: float, dt: torch.dtype, o: torch.Tensor | None = None):
+    """``_tn_bwd_math`` on f32 (B, K, N, D) operands holding ``dt`` values:
+    (dq, dk, dv) in f32.  p is recomputed from the row max m and r = 1/Σe;
+    e cast to ``dt`` feeds dv through do_r = (do·r) cast to ``dt``;
+    delta = rowsum(do⊙o) in f32, with o the saved output (K2) or, when
+    ``o`` is None, recomputed as (eb·v)·r in f32 and never rounded (K6);
+    ds = (e·((dp − delta)·(r·scale))) cast to ``dt`` feeds dq and dk.  Every
+    product takes the rounded operands upcast to f32."""
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     r = 1.0 / e.sum(dim=-1, keepdim=True)                      # (B,K,N,1)
     eb = e.to(dt).float()
+    if o is None:
+        o = torch.matmul(eb, v) * r
     delta = (do * o).sum(dim=-1, keepdim=True)
     do_r = (do * r).to(dt).float()
     dv = torch.matmul(eb.transpose(-1, -2), do_r)
     dp = torch.matmul(do, v.transpose(-1, -2))
     ds = (e * ((dp - delta) * (r * scale))).to(dt).float()
-    dq = torch.matmul(ds, k)
-    dk = torch.matmul(ds.transpose(-1, -2), q)
-    return torch.stack([dq, dk, dv], dim=2).to(dt).permute(0, 3, 2, 1, 4)
+    return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv
+
+
+def flash_attention_qkv_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
+                                      dout: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K2: the stacked dqkv (B, N, 3, K, D) from the
+    saved qkv (B, N, 3, K, D), the saved output and its cotangent (B, N, K, D):
+    ``_tn_bwd_math`` with the saved O."""
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3).float() for i in range(3))  # (B,K,N,D)
+    o = out.permute(0, 2, 1, 3).float()
+    do = dout.permute(0, 2, 1, 3).float()
+    dq, dk, dv = _tn_bwd_math(q, k, v, do, scale, qkv.dtype, o)
+    return torch.stack([dq, dk, dv], dim=2).to(qkv.dtype).permute(0, 3, 2, 1, 4)
 
 
 def _single_softmax(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -361,14 +378,30 @@ def _stream_views(qkv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.
     return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
 
 
+def _stream_qkv_fwd(qkv: torch.Tensor, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7's forward on views of a stacked qkv: out (B, N, K, D) and lse."""
+    out, lse = flash_attention_stream_fwd(*_stream_views(qkv), scale)
+    return out.transpose(1, 2), lse
+
+
+def _stream_qkv_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                    dout: torch.Tensor, scale: float) -> torch.Tensor:
+    """K7's blocked backward writing the stacked dqkv (B, N, 3, K, D); out and
+    dout are (B, N, K, D)."""
+    dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+    flash_attention_stream_bwd(*_stream_views(qkv), out.transpose(1, 2), lse,
+                               dout.contiguous().transpose(1, 2), scale,
+                               grads=_stream_views(dqkv))
+    return dqkv
+
+
 class _FlashAttentionStreamQKV(torch.autograd.Function):
     """K7 on views of a stacked qkv: the streaming forward, saving (qkv, out,
     lse); the blocked backward writing the stacked dqkv (B, N, 3, K, D)."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, scale: float) -> torch.Tensor:
-        out, lse = flash_attention_stream_fwd(*_stream_views(qkv), scale)
-        out = out.transpose(1, 2)                     # (B, N, K, D)
+        out, lse = _stream_qkv_fwd(qkv, scale)
         ctx.save_for_backward(qkv, out, lse)
         ctx.scale = scale
         return out
@@ -376,11 +409,7 @@ class _FlashAttentionStreamQKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
         qkv, out, lse = ctx.saved_tensors
-        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
-        flash_attention_stream_bwd(*_stream_views(qkv), out.transpose(1, 2), lse,
-                                   dout.contiguous().transpose(1, 2), ctx.scale,
-                                   grads=_stream_views(dqkv))
-        return dqkv, None
+        return _stream_qkv_bwd(qkv, out, lse, dout, ctx.scale), None
 
 
 def flash_attention_qkv(qkv: torch.Tensor, scale: float | None = None) -> torch.Tensor:
@@ -527,7 +556,10 @@ class _FlashAttentionStream(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
         q, k, v, out, lse = ctx.saved_tensors
-        return (*flash_attention_stream_bwd(q, k, v, out, lse, dout, ctx.scale), None)
+        # a cotangent of another layout (the transposed one flash_attention_tn
+        # passes on) is copied to the unit head-dim stride the kernels need
+        return (*flash_attention_stream_bwd(q, k, v, out, lse, dout.contiguous(), ctx.scale),
+                None)
 
 
 # --- K5: the single-block kernels of the public op, N ≤ 1040 -------------------
@@ -630,6 +662,155 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttentionStream.apply(q, k, v, scale)
 
 
+# --- K6: the public "tn" op on (B, K, D, N) operands, N ≤ 1040 -------------
+
+def _nd(t: torch.Tensor) -> torch.Tensor:
+    """A (B, K, D, N) operand as the (B, K, N, D) view the kernels index."""
+    return t.transpose(-1, -2)
+
+
+def flash_attention_tn_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K6's forward (``_attn_kernel_tn``): q, k, v
+    (B, K, D, N) → out (B, K, D, N) in q's dtype.  K1's arithmetic
+    (``_tn_fwd_math``) on three separate operands: f32 scores, e = exp(s −
+    rowmax) cast to the operand dtype before AV, out = (e·v)·(1/Σe) in f32,
+    then cast."""
+    qn, kn, vn = (_nd(t).float() for t in (q, k, v))
+    s = torch.matmul(qn, kn.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    r = 1.0 / e.sum(dim=-1, keepdim=True)
+    return _nd((torch.matmul(e.to(q.dtype).float(), vn) * r).to(q.dtype))
+
+
+def flash_attention_tn_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     dout: torch.Tensor, scale: float):
+    """Plain PyTorch version of K6's backward (``_attn_bwd_kernel_tn``):
+    (dq, dk, dv), each (B, K, D, N) in q's dtype, from q, k, v and out's
+    cotangent, all (B, K, D, N): ``_tn_bwd_math`` with o=None — o = (eb·v)·r
+    recomputed in f32 and never rounded, delta = Σ_d f32(dO)·o.  Neither K2's
+    rounding (delta from the saved, rounded output) nor K5's (p divided before
+    it is rounded, dv = bf16(p)ᵀ·dO)."""
+    grads = _tn_bwd_math(*(_nd(t).float() for t in (q, k, v, dout)), scale, q.dtype)
+    return tuple(_nd(t.to(q.dtype)) for t in grads)
+
+
+def _check_tn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> None:
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be (B, K, D, N), got {tuple(q.shape)}")
+    _check_stream(q, k, v, name)
+
+
+def _any_strides(*tensors: torch.Tensor) -> bool:
+    """Whether a bf16 kernel must stage these (B, K, D, N) operands element by
+    element: true unless each, as a (B, K, N, D) view, has a unit head-dim
+    stride and 16-byte rows."""
+    return tensors[0].dtype == torch.bfloat16 and not all(
+        _rows_16b_aligned(_nd(t)) for t in tensors)
+
+
+def _new_tn(q: torch.Tensor) -> torch.Tensor:
+    """An output for (B, K, D, N) operands: a view of a contiguous (B, K, N, D)
+    tensor, whose unit head-dim stride the kernels' row stores need."""
+    B, K, D, N = q.shape
+    return _nd(torch.empty((B, K, N, D), dtype=q.dtype, device=q.device))
+
+
+def flash_attention_tn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           scale: float | None = None) -> torch.Tensor:
+    """K6's forward: q, k, v (B, K, D, N) of any strides, N ≤ 1040 → out
+    (B, K, D, N) in q's dtype, a view of a contiguous (B, K, N, D) tensor.
+    K1's kernel on three operands (``csrc/flash_attention_fwd.cu``); no
+    operand is copied."""
+    name = "flash_attention_tn_fwd"
+    _check_tn(q, k, v, name)
+    B, K, D, N = q.shape
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_tn_reference(q, k, v, scale)
+    _check_cuda(q.device, B, K, D, name, scale)
+    out = _new_tn(q)
+    lib = _library("flash_attention_fwd")
+    err = lib.flash_attention_tn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
+        int(_any_strides(q, k, v)), B, N, K, D, *_strides(*map(_nd, (q, k, v, out))), scale,
+        torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
+    _raise_on(lib, err, name)
+    flash_attention_tn_fwd.launches += 1
+    return out
+
+
+flash_attention_tn_fwd.launches = 0
+
+
+def flash_attention_tn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           dout: torch.Tensor, scale: float | None = None):
+    """K6's backward: (dq, dk, dv), each (B, K, D, N) in q's dtype (views of
+    contiguous (B, K, N, D) tensors on the card), from q, k, v and out's
+    cotangent, all (B, K, D, N) of any strides.  Nothing of the forward is
+    needed.  Two kernels (``csrc/flash_attention_bwd.cu``, K2's with o
+    recomputed): the dq kernel, one block per query tile, which writes the
+    row statistics (m, r, delta) to a (3, B, K, N) scratch; then the dk/dv
+    kernel, one block per key tile, which reads them."""
+    name = "flash_attention_tn_bwd"
+    _check_tn(q, k, v, name)
+    B, K, D, N = q.shape
+    _check_operands(name, (B, K, D, N), q.dtype, q.device, dout=dout)
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_tn_bwd_reference(q, k, v, dout, scale)
+    _check_cuda(q.device, B, K, D, name, scale)
+    dq, dk, dv = (_new_tn(q) for _ in range(3))
+    stats = torch.empty((3, B, K, N), dtype=torch.float32, device=q.device)
+    lib = _library("flash_attention_bwd")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype],
+            int(_any_strides(q, k, v, dout)), B, N, K, D,
+            *_strides(*map(_nd, (q, k, v, dout, dq, dk, dv))), scale,
+            torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
+    _raise_on(lib, lib.flash_attention_tn_bwd_dq(*args), f"{name} (dq)")
+    flash_attention_tn_bwd.dq_launches += 1
+    _raise_on(lib, lib.flash_attention_tn_bwd_dkdv(*args), f"{name} (dk/dv)")
+    flash_attention_tn_bwd.dkdv_launches += 1
+    return dq, dk, dv
+
+
+flash_attention_tn_bwd.dq_launches = 0
+flash_attention_tn_bwd.dkdv_launches = 0
+
+
+class _FlashAttentionTN(torch.autograd.Function):
+    """K6 forward saving (q, k, v) only, as the JAX ``_tn_fwd``; K6's backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return flash_attention_tn_fwd(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_tn_bwd(q, k, v, dout, ctx.scale), None)
+
+
+def flash_attention_tn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float | None = None) -> torch.Tensor:
+    """Differentiable softmax attention on TRANSPOSED (B, K, D, N) q, k, v of
+    any strides (the JAX public ``flash_attention_tn``); returns (B, K, D, N).
+    Up to N = ``_SINGLE_BLOCK_MAX`` the forward is K6 and the backward K6's
+    two kernels, with no layout copy; above it the public
+    ``flash_attention`` (K7) on (B, K, N, D) copies, transposed back — the
+    switch of the JAX ``flash_attention_tn`` (:1038) and ``_tn_bwd`` (:1052),
+    which transposes there too."""
+    _check_tn(q, k, v, "flash_attention_tn")
+    D, N = q.shape[2:]
+    scale = D ** -0.5 if scale is None else float(scale)
+    if N <= _SINGLE_BLOCK_MAX:
+        return _FlashAttentionTN.apply(q, k, v, scale)
+    return _nd(flash_attention(*(_nd(t).contiguous() for t in (q, k, v)), scale))
+
+
 def _raise_on(lib: ctypes.CDLL, err: int, fn: str) -> None:
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
@@ -637,17 +818,31 @@ def _raise_on(lib: ctypes.CDLL, err: int, fn: str) -> None:
 
 
 _ARGTYPES = {
-    # qkv, out, dtype, B, N, K, D, 5 qkv strides, 4 out strides, scale, stream, device
+    # K1: qkv, out, dtype, B, N, K, D, 5 qkv strides, 4 out strides, scale,
+    # stream, device; K6: q, k, v, out, dtype, any_strides, B, N, K, D, 4
+    # strides each of q, k, v, out, scale, stream, device
     "flash_attention_fwd": {"flash_attention_qkv_fwd":
                             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 9
+                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
+                            "flash_attention_tn_fwd":
+                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                            + [ctypes.c_longlong] * 16
                             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]},
     # qkv, out, dout, dqkv, stats, dtype, B, N, K, D, 5 qkv, 4 out, 4 dout
     # strides, scale, stream, device
+    # K6's two kernels: q, k, v, dout, stats, dq, dk, dv, dtype, any_strides,
+    # B, N, K, D, 4 strides each of q, k, v, dout, dq, dk, dv, scale, stream,
+    # device
     "flash_attention_bwd": {"flash_attention_qkv_bwd":
                             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 13
-                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]},
+                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
+                            **{fn: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                               + [ctypes.c_longlong] * 28
+                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
+                               for fn in ("flash_attention_tn_bwd_dq",
+                                          "flash_attention_tn_bwd_dkdv")}},
     # q, k, v, out, lse, dtype, B, N, K, D, 4 strides each of q, k, v, out,
     # scale, stream, device
     "flash_attention_stream": {"flash_attention_stream_fwd":
@@ -672,6 +867,17 @@ _ARGTYPES = {
         fn: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 28
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
         for fn in ("flash_attention_single_bwd_dq", "flash_attention_single_bwd_dkdv")},
+    # K8: its dq and dk/dv kernels take K2's arguments without the dtype;
+    # dx: dqkv, w, dx, M, H, J, 2 w strides, stream, device; dW: x, dqkv, dW,
+    # M, H, J, x's row stride, stream, device
+    "fused_qkv_bwd": {
+        **{fn: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 13
+           + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
+           for fn in ("fused_qkv_bwd_dq", "fused_qkv_bwd_dkdv")},
+        "fused_qkv_bwd_dx": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p, ctypes.c_int],
+        "fused_qkv_bwd_dw": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]},
 }
 
 
@@ -687,17 +893,169 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+# --- K8: the fused QKV projection + attention backward ----------------------
+
+# The JAX package's switch (kernels/flash_attention.py:982), same default and
+# same gate: with it on, the backward of fused_qkv_attention runs K8 when the
+# operands are bf16, N ≤ 1040 and D % 8 == 0; otherwise K2 (K7) and two plain
+# GEMMs.  The JAX package measured the fused kernel slower on its TPU and
+# left it off; the port keeps the default and measures its own in PERF.md.
+FUSED_QKV_GRADS = False
+
+
+def _qkv_matrices(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x as a (B·N, H) matrix and w, cast to x's dtype, as an (H, 3·K·D) one
+    (views where the strides allow)."""
+    return x.reshape(-1, x.shape[-1]), w.to(x.dtype).reshape(w.shape[0], -1)
+
+
+def _qkv_grads_plain(x: torch.Tensor, w: torch.Tensor, dqkv: torch.Tensor):
+    """The two contractions of the unfused rule on a (B, N, 3, K, D) dqkv in
+    x's dtype: dx = dqkv·Wᵀ cast to x's dtype, dW = xᵀ·dqkv cast to w's dtype,
+    both accumulated in f32 (a product of two bf16 operands accumulates in f32
+    and rounds once; an f32 result takes the f32 product of the upcast
+    operands)."""
+    x2, w2 = _qkv_matrices(x, w)
+    d2 = dqkv.reshape(x2.shape[0], -1)
+    dx = torch.matmul(d2, w2.t()).view(x.shape)
+    if w.dtype == x.dtype:
+        dw = torch.matmul(x2.t(), d2)
+    else:
+        dw = torch.matmul(x2.t().float(), d2.float()).to(w.dtype)
+    return dx, dw.view(w.shape)
+
+
+def fused_qkv_bwd_reference(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor,
+                            out: torch.Tensor, dout: torch.Tensor, scale: float):
+    """Plain PyTorch version of K8 (``_fused_qkv_bwd``): (dx (B, N, H) in x's
+    dtype, dW (H, 3, K, D) in w's dtype) from x, w, the saved qkv
+    (B, N, 3, K, D) and output (B, N, K, D) and the output's cotangent.  K2's
+    plain version gives dq, dk, dv rounded to the operand dtype (``dsb``);
+    dx = Σ dqkv·Wᵀ and dW = Σ xᵀ·dqkv from them in f32, each cast once."""
+    dqkv = flash_attention_qkv_bwd_reference(qkv, out, dout, scale).float()
+    x2, w2 = (t.float() for t in _qkv_matrices(x, w))
+    d2 = dqkv.reshape(x2.shape[0], -1)
+    return (torch.matmul(d2, w2.t()).to(x.dtype).view(x.shape),
+            torch.matmul(x2.t(), d2).to(w.dtype).view(w.shape))
+
+
+def fused_qkv_bwd(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor, out: torch.Tensor,
+                  dout: torch.Tensor, scale: float | None = None):
+    """K8: (dx, dW) of fused_qkv_attention from x (B, N, H), w (H, 3, K, D),
+    the saved qkv (B, N, 3, K, D) and output (B, N, K, D) and the output's
+    cotangent (B, N, K, D).  bf16 only, N ≤ 1040.
+
+    Four kernels (``csrc/fused_qkv_bwd.cu``): K2's dq and dk/dv kernels,
+    which write dq, dk, dv rounded to bf16 into a (B, N, 3, K, D) scratch,
+    then the products dx = dqkv·Wᵀ (bf16, f32 accumulation) and
+    dW = xᵀ·dqkv (f32), each output tile summed by one block in a fixed
+    order: two identical calls give identical bits.  dW is returned in w's
+    dtype.  Counts: ``launches`` per call and ``dq_launches``,
+    ``dkdv_launches``, ``dx_launches``, ``dw_launches`` per kernel."""
+    name = "fused_qkv_bwd"
+    _check(qkv)
+    B, N, _, K, D = qkv.shape
+    H = x.shape[-1]
+    if tuple(x.shape) != (B, N, H) or tuple(w.shape) != (H, 3, K, D):
+        raise ValueError(f"{name}: x must be {(B, N, H)} and w {(H, 3, K, D)}, "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    _check_operands(name, (B, N, K, D), qkv.dtype, qkv.device, out=out, dout=dout)
+    scale = D ** -0.5 if scale is None else float(scale)
+    if qkv.device.type == "cpu":
+        return fused_qkv_bwd_reference(x, w, qkv, out, dout, scale)
+    if qkv.dtype != torch.bfloat16 or x.dtype != torch.bfloat16 or N > _SINGLE_BLOCK_MAX:
+        raise ValueError(f"{name} runs bf16 operands at N <= {_SINGLE_BLOCK_MAX}, "
+                         f"got {qkv.dtype} x {x.dtype}, N={N}")
+    _check_cuda(qkv.device, B, K, D, name, scale)
+    if not all(map(_rows_16b_aligned, (qkv, out, dout))):
+        raise ValueError(f"{name}: qkv, out and dout need a unit head-dim stride and strides "
+                         "that are multiples of 8")
+    x2, w2 = _qkv_matrices(x, w)
+    if x2.stride(1) != 1 or not _rows_16b_aligned(x2):
+        x2 = x2.contiguous()
+    if 1 not in w2.stride() or not all(s % 8 == 0 for s in w2.stride() if s != 1) \
+            or w2.data_ptr() % 16:
+        w2 = w2.contiguous()
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    dqkv = torch.empty((B, N, 3, K, D), dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty((3, B, K, N), dtype=torch.float32, device=qkv.device)
+    dx = torch.empty((B, N, H), dtype=x.dtype, device=x.device)
+    dw = torch.empty((H, 3 * K * D), dtype=torch.float32, device=x.device)
+    lib = _library("fused_qkv_bwd")
+    args = (qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            B, N, K, D, *qkv.stride(), *out.stride(), *dout.stride(), scale, stream,
+            qkv.device.index)
+    _raise_on(lib, lib.fused_qkv_bwd_dq(*args), f"{name} (dq)")
+    fused_qkv_bwd.dq_launches += 1
+    _raise_on(lib, lib.fused_qkv_bwd_dkdv(*args), f"{name} (dk/dv)")
+    fused_qkv_bwd.dkdv_launches += 1
+    _raise_on(lib, lib.fused_qkv_bwd_dx(dqkv.data_ptr(), w2.data_ptr(), dx.data_ptr(), B * N, H,
+                                        3 * K * D, *w2.stride(), stream, qkv.device.index),
+              f"{name} (dx)")
+    fused_qkv_bwd.dx_launches += 1
+    _raise_on(lib, lib.fused_qkv_bwd_dw(x2.data_ptr(), dqkv.data_ptr(), dw.data_ptr(), B * N, H,
+                                        3 * K * D, x2.stride(0), stream, qkv.device.index),
+              f"{name} (dW)")
+    fused_qkv_bwd.dw_launches += 1
+    fused_qkv_bwd.launches += 1
+    return dx, dw.view(w.shape).to(w.dtype)
+
+
+fused_qkv_bwd.launches = 0
+fused_qkv_bwd.dq_launches = 0
+fused_qkv_bwd.dkdv_launches = 0
+fused_qkv_bwd.dx_launches = 0
+fused_qkv_bwd.dw_launches = 0
+
+
+def _use_fused_grads(qkv: torch.Tensor) -> bool:
+    """The JAX rule's gate (``_fused_qkv_bwd_rule``, :1011-1013)."""
+    return (FUSED_QKV_GRADS and qkv.dtype == torch.bfloat16
+            and qkv.shape[1] <= _SINGLE_BLOCK_MAX and qkv.shape[-1] % 8 == 0)
+
+
+class _FusedQKVAttention(torch.autograd.Function):
+    """The JAX ``fused_qkv_attention`` custom VJP: the forward is the QKV
+    projection, then K1 (K7 above ``_SINGLE_BLOCK_MAX``), saving
+    (x, w, qkv, out); the backward follows ``_fused_qkv_bwd_rule``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor):
+        B, N, H = x.shape
+        _, _, K, D = w.shape
+        x2, w2 = _qkv_matrices(x, w)
+        qkv = torch.matmul(x2, w2).view(B, N, 3, K, D)
+        scale = D ** -0.5
+        if N > _SINGLE_BLOCK_MAX:
+            out, lse = _stream_qkv_fwd(qkv, scale)   # (B, N, K, D)
+        else:
+            out, lse = flash_attention_qkv_fwd(qkv, scale), None
+        ctx.save_for_backward(x, w, qkv, out, lse)
+        ctx.scale = scale
+        return out.permute(0, 2, 3, 1)                # (B, K, D, N)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w, qkv, out, lse = ctx.saved_tensors
+        dout = g.permute(0, 3, 1, 2).contiguous()     # (B, N, K, D)
+        if _use_fused_grads(qkv):
+            return fused_qkv_bwd(x, w, qkv, out, dout, ctx.scale)
+        if lse is None:
+            dqkv = flash_attention_qkv_bwd(qkv, out, dout, ctx.scale)
+        else:
+            dqkv = _stream_qkv_bwd(qkv, out, lse, dout, ctx.scale)
+        return _qkv_grads_plain(x, w, dqkv)
+
+
 def fused_qkv_attention(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """QKV projection + fused SDPA: (B, N, H) x, (H, 3, K, D) w → (B, K, D, N).
 
-    Same signature and value as the JAX ``fused_qkv_attention``.  The result
-    is a permuted view of the kernel's (B, N, K, D) output: permute it back
-    (``out.permute(0, 3, 1, 2)``) to feed the output projection without a
-    copy.  Differentiable: K2 (K7 above ``_SINGLE_BLOCK_MAX``) gives dqkv,
-    and the projection's autograd gives
-    dx = dqkv·Wᵀ and dW = xᵀ·dqkv in x's dtype with f32 accumulation (the JAX
-    unfused backward, ``kernels/flash_attention.py:1016-1023``)."""
-    B, N, H = x.shape
-    _, _, K, D = w.shape
-    qkv = torch.matmul(x, w.reshape(H, 3 * K * D).to(x.dtype)).view(B, N, 3, K, D)
-    return flash_attention_qkv(qkv, D ** -0.5).permute(0, 2, 3, 1)
+    Same signature, value and backward rule as the JAX
+    ``fused_qkv_attention``.  The result is a permuted view of the kernel's
+    (B, N, K, D) output: permute it back (``out.permute(0, 3, 1, 2)``) to feed
+    the output projection without a copy.  w is cast to x's dtype inside.
+    Backward: with ``FUSED_QKV_GRADS`` on, bf16 and N ≤ 1040, K8
+    (``fused_qkv_bwd``); otherwise K2 (K7 above ``_SINGLE_BLOCK_MAX``) for
+    dqkv, then dx = dqkv·Wᵀ and dW = xᵀ·dqkv as plain GEMMs, f32 accumulation,
+    cast to x's and w's dtypes (``kernels/flash_attention.py:1016-1023``)."""
+    return _FusedQKVAttention.apply(x, w)

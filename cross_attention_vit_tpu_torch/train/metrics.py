@@ -41,6 +41,11 @@ def metrics_from_counts(c: dict) -> dict:
     }
 
 
+def compute_metrics(preds: torch.Tensor, labels: torch.Tensor) -> dict:
+    """The reference's utils.compute_metrics(preds, labels)."""
+    return metrics_from_counts(confusion_counts(preds, labels))
+
+
 def binary_auroc(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """AUROC via the Mann-Whitney U statistic with tie-averaged ranks; 0.0
     when a class is absent (torchmetrics returns NaN there)."""
@@ -60,3 +65,42 @@ def binary_auroc(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     u = (avg_rank * lab).sum() - n_pos * (n_pos + 1) / 2.0
     denom = n_pos * n_neg
     return torch.where(denom > 0, u / torch.clamp(denom, min=1.0), torch.zeros_like(denom))
+
+
+class MetricAccumulator:
+    """Epoch accumulator with one host sync per epoch: ``update()`` adds the
+    confusion counts and the batch-size-weighted loss as device tensors and
+    keeps each batch's scores and labels where they live; ``result()``
+    fetches them once.  The loss mean is weighted by batch size (Lightning's
+    on_epoch aggregation); the classification metrics come from the epoch's
+    confusion counts and AUROC is epoch-global, as in the JAX package."""
+
+    def __init__(self):
+        self.counts: dict | None = None
+        self.loss_sum = None
+        self.n = 0
+        self.scores: list[torch.Tensor] = []
+        self.labels: list[torch.Tensor] = []
+
+    def update(self, loss, counts: dict, scores, labels) -> None:
+        bs = int(labels.shape[0])
+        w_loss = loss.detach().float() * bs
+        if self.counts is None:
+            self.counts = dict(counts)
+            self.loss_sum = w_loss
+        else:
+            self.counts = {k: self.counts[k] + counts[k] for k in counts}
+            self.loss_sum = self.loss_sum + w_loss
+        self.n += bs
+        self.scores.append(scores.detach())
+        self.labels.append(labels.detach())
+
+    def result(self) -> dict:
+        if self.counts is None:
+            return {}
+        counts = {k: v.cpu() for k, v in self.counts.items()}
+        out = {k: float(v) for k, v in metrics_from_counts(counts).items()}
+        out["loss"] = float(self.loss_sum.cpu()) / max(self.n, 1)
+        out["auc_roc"] = float(binary_auroc(torch.cat(self.scores).cpu(),
+                                            torch.cat(self.labels).cpu()))
+        return out

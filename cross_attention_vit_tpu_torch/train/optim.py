@@ -48,3 +48,14 @@ class Adam:
         st = self._opt.state
         return ([st[p]["exp_avg"] for p in self.params],
                 [st[p]["exp_avg_sq"] for p in self.params])
+
+    @torch.no_grad()
+    def load_state(self, step: int, exp_avgs, exp_avg_sqs) -> None:
+        """Set the update count and both moments, one of each per parameter
+        in order (a resumed run; tensors or arrays of the parameters' shapes)."""
+        for p, m, v in zip(self.params, exp_avgs, exp_avg_sqs, strict=True):
+            self._opt.state[p] = {
+                # the fused update keeps its step as an f32 tensor on the device
+                "step": torch.tensor(float(step), dtype=torch.float32, device=p.device),
+                "exp_avg": torch.as_tensor(m, dtype=torch.float32).to(p.device).clone(),
+                "exp_avg_sq": torch.as_tensor(v, dtype=torch.float32).to(p.device).clone()}

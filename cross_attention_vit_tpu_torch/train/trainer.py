@@ -1,31 +1,50 @@
-"""Train and eval steps — port of ``make_train_step`` and ``make_eval_step``
-(``cross_attention_vit_tpu/train/trainer.py:90-231``).
+"""Train and eval steps and the epoch ``Trainer`` — port of
+``cross_attention_vit_tpu/train/trainer.py``.
 
 The steps take either live family, ``ModelCross`` or ``ModelVIT``: both are
 called as ``model(img, labels, train=..., generator=...)`` and return
 (logits, loss).  One train step: promote the input to f32, cast it to bf16 when
 ``config.augment_dtype`` says so, augment it on the device (when
 ``config.img_aug``), promote again; the model's forward and backward in train
-mode (dropout); Adam at a step-time learning rate.  It returns the aux dict
-of the JAX step: loss, confusion counts, probs[:, 1] and labels.
+mode (dropout), over ``grad_accum`` equal microbatches whose f32 gradients
+are summed and divided by their number; Adam at a step-time learning rate.
+It returns the aux dict of the JAX step: loss, confusion counts, probs[:, 1]
+and labels.
 
 The model, the optimizer state and the generators are objects that the step
 updates in place, where the JAX step is a pure function of (params,
 opt_state, rng).  ``remat_policy`` is a memory knob of the JAX step; at batch
 8 the live models' activations fit on one H100 without recomputation, so the
-port ignores it.  The epoch ``Trainer``, its loggers and the checkpoint
-manager are a later slice.
+port ignores it.
+
+``Trainer`` is the epoch loop of the reference's Lightning trainer: the
+weighted sampler's order (or a seeded permutation) per epoch, cosine or
+plateau learning rate per epoch, epoch metrics logged to CSV and
+TensorBoard, top-k and rolling checkpoints in the JAX npz layout
+(``params/...``, ``opt/step``, ``opt/mu/...``, ``opt/nu/...``, ``epoch``, and
+the plateau and early-stopping state), resume from the rolling checkpoint,
+early stopping, ``test`` and ``predict``.  It runs on one device; a mesh,
+FSDP and the stateful (BatchNorm) families are later slices.
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 
 from ..configs import Config
 from ..data.augment import AugmentConfig, augment_batch
+from ..models.convert import (jax_params_from_model, jax_params_from_state_dict,
+                              load_jax_params, params_from_flat, state_dict_from_jax)
 from ..ops.layers import promote_input
-from .metrics import confusion_counts
+from ..utils.device import resolve_device
+from .checkpoint import CheckpointManager, LatestCheckpointer, flatten, unflatten, wait_for_writes
+from .loggers import MultiLogger
+from .metrics import MetricAccumulator, confusion_counts
 from .optim import Adam
+from .schedule import ReduceLROnPlateau, cosine_annealing_lr
 
 
 def _aux(logits: torch.Tensor, loss: torch.Tensor, labels: torch.Tensor) -> dict:
@@ -35,19 +54,32 @@ def _aux(logits: torch.Tensor, loss: torch.Tensor, labels: torch.Tensor) -> dict
             "labels": labels}
 
 
+def _dropout_generator(generator: torch.Generator, device: torch.device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(torch.randint(0, 2 ** 62, (), generator=generator)))
+    return gen
+
+
 def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
-                    grad_accum: int = 1, augment_cfg: AugmentConfig = AugmentConfig()):
+                    grad_accum: int = 1, augment_cfg: AugmentConfig = AugmentConfig(),
+                    accum_impl: str = "scan"):
     """Returns ``step(img, labels, lr, generator) -> aux``.
 
     ``generator`` is a CPU ``torch.Generator``: each step draws from it the
-    augmentation's gates and parameters and the seed of the dropout
-    generator on the model's device, so one seed fixes the whole step.
+    augmentation's gates and parameters and the seed of one dropout
+    generator on the model's device per microbatch, so one seed fixes the
+    whole step.  ``grad_accum`` > 1 splits the (augmented) batch into that
+    many equal microbatches; their f32 gradients are summed and divided by
+    ``grad_accum`` before the one Adam update, the loss is averaged and the
+    logits are concatenated (JAX ``make_train_step``, :150-202).
+    ``accum_impl`` names the JAX loop form ('scan' or 'unroll') and changes
+    nothing here: the microbatches run one after another either way.
     ``augmented`` (a dict attribute of the step) holds, after each step, the
     number of volumes that drew each transform."""
-    if grad_accum != 1:
-        raise NotImplementedError(
-            f"grad_accum={grad_accum}: gradient accumulation comes with the epoch Trainer, "
-            "a later slice of the PyTorch port (ROADMAP Queue 1, item 9)")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if accum_impl not in ("scan", "unroll"):
+        raise ValueError(f"accum_impl must be 'scan' or 'unroll', got {accum_impl!r}")
     if not getattr(model, "master_weights", False):
         raise ValueError("training needs float32 master weights: build the model with "
                          "master_weights=True")
@@ -65,14 +97,23 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
                 img = img.to(torch.bfloat16)
             step.augmented.clear()
             img = promote_input(augment_batch(img, generator, augment_cfg, step.augmented))
-        dropout_gen = torch.Generator(device=device)
-        dropout_gen.manual_seed(int(torch.randint(0, 2 ** 62, (), generator=generator)))
+        if img.shape[0] % grad_accum:
+            raise ValueError(f"batch {img.shape[0]} not divisible by grad_accum {grad_accum}")
         for p in params:
             p.grad = None
-        logits, loss = model(img, labels, train=True, generator=dropout_gen)
-        loss.backward()
+        logit_parts, loss_sum = [], 0.0
+        for im, lb in zip(img.chunk(grad_accum), labels.chunk(grad_accum)):
+            dropout_gen = _dropout_generator(generator, device)
+            logits, loss = model(im, lb, train=True, generator=dropout_gen)
+            loss.backward()
+            logit_parts.append(logits.detach())
+            loss_sum = loss_sum + loss.detach()
+        if grad_accum > 1:
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(grad_accum)
         optimizer.step(lr)
-        return _aux(logits.detach(), loss, labels)
+        return _aux(torch.cat(logit_parts), loss_sum / grad_accum, labels)
 
     step.augmented = {}
     return step
@@ -89,3 +130,291 @@ def make_eval_step(model: torch.nn.Module, config: Config):
         return {**_aux(logits, loss, labels), "logits": logits}
 
     return step
+
+
+class EarlyStopping:
+    """Stop after ``patience`` epochs without improvement on a monitored
+    metric (the Lightning callback the reference imports but leaves
+    commented out, main_mist.py:36-42): an epoch improves when the metric
+    beats the best by more than ``min_delta`` in the ``mode`` direction."""
+
+    def __init__(self, monitor: str = "val_loss", min_delta: float = 0.0, patience: int = 25,
+                 mode: str = "min", verbose: bool = False):
+        if mode not in ("min", "max"):
+            raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
+        self.monitor = monitor
+        self.min_delta = min_delta
+        self.patience = patience
+        self.mode = mode
+        self.verbose = verbose
+        self.best = float("inf") if mode == "min" else float("-inf")
+        self.num_bad = 0
+
+    def step(self, metric: float) -> bool:
+        """Record one epoch's monitored value; returns True → stop now."""
+        improved = (metric < self.best - self.min_delta if self.mode == "min"
+                    else metric > self.best + self.min_delta)
+        if improved:
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.num_bad >= self.patience:
+            if self.verbose:
+                print(f"EarlyStopping: {self.monitor} did not improve for "
+                      f"{self.patience} epochs (best {self.best:.4f})")
+            return True
+        return False
+
+
+def _step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
+    """The host generator of one train step, fixed by (seed, epoch, step) —
+    the JAX ``fold_in(fold_in(key(seed), epoch), step)``."""
+    state = np.random.SeedSequence((seed, epoch, step)).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state) & (2 ** 63 - 1))
+
+
+class Trainer:
+    """The epoch loop on one device.
+
+    ``model_cls`` is ``ModelCross`` or ``ModelVIT``: ``init_state`` builds it
+    with f32 master weights on ``device`` (default CUDA; raises without it),
+    from the seed or from a JAX param tree.  schedule: 'cosine'
+    (CosineAnnealingLR per epoch, the live contract) or 'plateau'
+    (ReduceLROnPlateau on val_loss).  latest_every: rolling-checkpoint
+    cadence in epochs."""
+
+    def __init__(self, model_cls, config: Config, max_epochs: int, logger=None,
+                 checkpoint: CheckpointManager | None = None,
+                 latest: LatestCheckpointer | None = None, seed: int = 0, data_sharding=None,
+                 log_every_epochs: int = 1, stateful: bool = False, schedule: str = "cosine",
+                 latest_every: int = 1, checkpoint_monitor: str = "val_loss", mesh=None,
+                 early_stopping: EarlyStopping | None = None, fsdp: bool = False,
+                 grad_accum: int = 1, accum_impl: str = "scan",
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        if mesh is not None or data_sharding is not None or fsdp:
+            raise NotImplementedError(
+                "mesh, data_sharding and fsdp are not ported yet: data parallelism and FSDP "
+                "are a later slice of the PyTorch port (ROADMAP Queue 1, item 11)")
+        if stateful:
+            raise NotImplementedError(
+                "stateful (BatchNorm) model families are not ported yet: the legacy families "
+                "are a later slice of the PyTorch port (ROADMAP Queue 1, item 14)")
+        self.model_cls = model_cls
+        self.config = config
+        self.max_epochs = max_epochs
+        self.logger = logger or MultiLogger()
+        self.checkpoint = checkpoint
+        self.latest = latest
+        self.latest_every = max(1, latest_every)
+        self.seed = seed
+        self.log_every = log_every_epochs
+        self.checkpoint_monitor = checkpoint_monitor
+        self.early_stopping = early_stopping
+        self.grad_accum = grad_accum
+        self.accum_impl = accum_impl
+        if schedule == "cosine":
+            op = config.optim_params
+            self.lr_fn = cosine_annealing_lr(config.lr, op["T_max"], op["eta_min"])
+            self.plateau = None
+        elif schedule == "plateau":
+            op = config.optim_params
+            self.plateau = ReduceLROnPlateau(config.lr, factor=op.get("factor", 0.1),
+                                             patience=op.get("patience", 10))
+            self.lr_fn = lambda epoch: self.plateau.lr
+        else:
+            raise ValueError(f"unknown schedule {schedule!r}")
+        self.model = None
+        self.optimizer = None
+        self.global_step = 0
+
+    # -- lifecycle -------------------------------------------------------------
+    def init_state(self, params: dict | None = None) -> "Trainer":
+        """Build the model (from the seed, or from ``params``, a JAX param
+        tree of arrays) and a fresh Adam."""
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.model = self.model_cls(self.config, device=self.device, generator=gen,
+                                    master_weights=True)
+        if params is not None:
+            load_jax_params(self.model, params)
+        self.optimizer = Adam(self.model.parameters(), weight_decay=self.config.weight_decay)
+        self.train_step = make_train_step(self.model, self.optimizer, self.config,
+                                          grad_accum=self.grad_accum,
+                                          accum_impl=self.accum_impl)
+        self.eval_step = make_eval_step(self.model, self.config)
+        return self
+
+    @property
+    def params(self) -> dict:
+        """The model's parameters as a JAX param tree of f32 numpy arrays."""
+        return jax_params_from_model(self.model)
+
+    def _moment_trees(self) -> tuple[dict, dict]:
+        names = [n for n, _ in self.model.named_parameters()]
+        if self.optimizer.step_count:
+            mu, nu = self.optimizer.moments()
+        else:   # JAX initialises the moments to zeros
+            mu = nu = [torch.zeros_like(p) for p in self.optimizer.params]
+        return tuple(jax_params_from_state_dict(
+            {n: t.detach().float().cpu().numpy() for n, t in zip(names, ms)}, self.config)
+            for ms in (mu, nu))
+
+    def _ckpt_state(self, epoch: int) -> dict:
+        """The host snapshot of the training state as a flat dict in the JAX
+        npz key layout."""
+        mu, nu = self._moment_trees()
+        state = {"params": self.params,
+                 "opt": {"step": np.asarray(self.optimizer.step_count, np.int32),
+                         "mu": mu, "nu": nu},
+                 "epoch": np.asarray(epoch, np.int32)}
+        if self.plateau is not None:
+            state["plateau"] = {"lr": np.asarray(self.plateau.lr, np.float32),
+                                "best": np.asarray(self.plateau.best, np.float32),
+                                "num_bad": np.asarray(self.plateau.num_bad, np.int32)}
+        if self.early_stopping is not None:
+            state["early_stop"] = {"best": np.asarray(self.early_stopping.best, np.float32),
+                                   "num_bad": np.asarray(self.early_stopping.num_bad, np.int32)}
+        return flatten(state)
+
+    def maybe_resume(self) -> int:
+        """Resume params, Adam state, plateau and early-stopping state from the
+        rolling checkpoint; returns the epoch to start at (0 without one)."""
+        if self.latest is None or self.model is None:
+            return 0
+        step, flat = self.latest.restore_latest()
+        if flat is None:
+            return 0
+        self._load_flat(flat)
+        self.global_step = step
+        return int(flat["epoch"]) + 1
+
+    def _load_flat(self, flat: dict) -> None:
+        load_jax_params(self.model, params_from_flat(flat))
+        names = [n for n, _ in self.model.named_parameters()]
+        moments = []
+        for which in ("mu", "nu"):
+            prefix = f"opt/{which}/"
+            tree = unflatten({k[len(prefix):]: v for k, v in flat.items()
+                              if k.startswith(prefix)})
+            sd = state_dict_from_jax(tree, self.config)
+            moments.append([sd[n] for n in names])
+        self.optimizer.load_state(int(flat["opt/step"]), *moments)
+        if self.plateau is not None and "plateau/lr" in flat:
+            self.plateau.lr = float(flat["plateau/lr"])
+            self.plateau.best = float(flat["plateau/best"])
+            self.plateau.num_bad = int(flat["plateau/num_bad"])
+        if self.early_stopping is not None and "early_stop/best" in flat:
+            self.early_stopping.best = float(flat["early_stop/best"])
+            self.early_stopping.num_bad = int(flat["early_stop/num_bad"])
+
+    # -- loops -------------------------------------------------------------------
+    def _run_epoch_train(self, loader, indices, lr: float, epoch: int) -> dict:
+        acc = MetricAccumulator()
+        for imgs, labels in loader(indices):
+            aux = self.train_step(imgs, labels, lr,
+                                  _step_generator(self.seed, epoch, self.global_step))
+            self.global_step += 1
+            acc.update(aux["loss"], aux["counts"], aux["probs"], aux["labels"])
+        return acc.result()
+
+    def _run_epoch_eval(self, loader, indices) -> dict:
+        acc = MetricAccumulator()
+        for imgs, labels in loader(indices):
+            aux = self.eval_step(imgs, labels)
+            acc.update(aux["loss"], aux["counts"], aux["probs"], aux["labels"])
+        return acc.result()
+
+    def fit(self, train_loader, val_loader, sampler=None, start_epoch: int | None = None,
+            verbose: bool = True) -> list[dict]:
+        """train_loader/val_loader: PrefetchLoader instances; sampler: an
+        optional WeightedRandomSampler (the train index order per epoch)."""
+        if self.model is None:
+            self.init_state()
+        if start_epoch is None:
+            start_epoch = self.maybe_resume()
+        n_train = len(train_loader.dataset)
+        n_val = len(val_loader.dataset)
+        history = []
+        for epoch in range(start_epoch, self.max_epochs):
+            t0 = time.time()
+            lr = self.lr_fn(epoch)
+            if sampler is not None:
+                train_idx = sampler.epoch_indices(epoch)
+            else:
+                train_idx = np.random.default_rng((self.seed, epoch)).permutation(n_train)
+            train_m = self._run_epoch_train(train_loader, train_idx, lr, epoch)
+            val_m = self._run_epoch_eval(val_loader, np.arange(n_val))
+
+            row = {f"train_{_short(k)}": v for k, v in train_m.items()}
+            row.update({f"val_{_short(k)}": v for k, v in val_m.items()})
+            row["lr"] = lr
+            row["epoch_time_s"] = time.time() - t0
+            if epoch % self.log_every == 0 or epoch == self.max_epochs - 1:
+                self.logger.log_metrics(row, epoch)
+            history.append(row)
+
+            if self.plateau is not None:
+                self.plateau.step(row["val_loss"])
+            # the patience counter steps before the snapshot, so a resumed run
+            # keeps this epoch's tick
+            stop = (self.early_stopping is not None
+                    and self.early_stopping.step(row[self.early_stopping.monitor]))
+            want_latest = self.latest is not None and (
+                epoch % self.latest_every == self.latest_every - 1
+                or epoch == self.max_epochs - 1 or stop)
+            if self.checkpoint is not None or want_latest:
+                state = self._ckpt_state(epoch)   # one host snapshot for both writers
+                if self.checkpoint is not None:
+                    self.checkpoint.save(epoch, row[self.checkpoint_monitor], state)
+                if want_latest:
+                    self.latest.save(self.global_step, state)
+            if verbose:
+                print(f"epoch {epoch:3d}  lr {lr:.2e}  train_loss {row['train_loss']:.4f}  "
+                      f"val_loss {row['val_loss']:.4f}  val_acc {row['val_acc']:.3f}  "
+                      f"({row['epoch_time_s']:.1f}s)")
+            if stop:
+                break
+        self.logger.finalize()
+        wait_for_writes()
+        return history
+
+    def test(self, test_loader) -> tuple[np.ndarray, np.ndarray]:
+        """Logits and targets over a loader (reference test hooks,
+        model_cross.py:294-308)."""
+        if self.model is None:
+            self.init_state()
+        logits, targets = [], []
+        for imgs, labels in test_loader(np.arange(len(test_loader.dataset))):
+            aux = self.eval_step(imgs, labels)
+            logits.append(aux["logits"].float().cpu().numpy())
+            targets.append(aux["labels"].cpu().numpy())
+        return np.concatenate(logits), np.concatenate(targets)
+
+    def predict(self, loader, probabilities: bool = True) -> np.ndarray:
+        """Softmax positive-class probabilities (or raw logits) over a loader."""
+        logits, _ = self.test(loader)
+        if not probabilities:
+            return logits
+        if logits.ndim == 1:   # single-logit BCE heads
+            return 1.0 / (1.0 + np.exp(-logits))
+        e = np.exp(logits - logits.max(axis=1, keepdims=True))
+        return (e / e.sum(axis=1, keepdims=True))[:, 1]
+
+
+def host_shard(indices: np.ndarray, pid: int, nproc: int) -> np.ndarray:
+    """This process's contiguous share of an epoch's index order, padded by
+    wrap-around so every process yields the same number of batches (the
+    torch DistributedSampler convention)."""
+    if nproc <= 1:
+        return indices
+    share = -(-len(indices) // nproc)  # ceil
+    return np.resize(indices, share * nproc)[pid * share:(pid + 1) * share]
+
+
+_SHORT = {"accuracy": "acc", "precision": "prec", "recall": "rec", "specificity": "spec",
+          "f1_score": "f1", "npv": "npv", "loss": "loss", "auc_roc": "auc_roc"}
+
+
+def _short(k: str) -> str:
+    return _SHORT.get(k, k)

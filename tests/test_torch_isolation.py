@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package, and its entry points run on CUDA unless the caller asks for the
-CPU — on a host without CUDA they raise instead of quietly running there."""
+package, nor the host libraries the card's host lacks (pandas, scikit-learn,
+ml_dtypes, tensorboardX), and its entry points run on CUDA unless the caller
+asks for the CPU — on a host without CUDA they raise instead of quietly
+running there."""
 
 import subprocess
 import sys
@@ -29,12 +31,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for name in names:
             importlib.import_module(name)
         import chip_smoke  # noqa: F401  (imports the port only; main() is not run)
-        bad = sorted(m for m in sys.modules
-                     if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-                     or m == "cross_attention_vit_tpu"
-                     or m.startswith("cross_attention_vit_tpu."))
+        banned = ("jax", "jaxlib", "cross_attention_vit_tpu", "pandas", "sklearn",
+                  "ml_dtypes", "tensorboardX")
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
         print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 32 else 0)
+        sys.exit(1 if bad or len(names) < 39 else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
@@ -116,3 +117,67 @@ def test_vit_server_defaults_to_cuda_and_raises_without_it(tmp_path):
     assert srv.device.type == "cpu" and isinstance(srv.model, ModelVIT)
     x = np.zeros((1, 2, 1, 16, 16, 8), np.float32)
     assert srv._run_padded(x, 1).shape == (1, 2)
+
+
+def _cli_cohort(root: Path) -> tuple[Path, Path]:
+    """A labels CSV and one subject's volumes for the driver entry points."""
+    from cross_attention_vit_tpu_torch.data.nifti import write_volume
+
+    case = "UCSF-PDGM-0001"
+    (root / "data" / f"{case}_nifti").mkdir(parents=True)
+    for m in ("DWI", "SWI", "ASL"):
+        write_volume(root / "data" / f"{case}_nifti" / f"{case}_{m}.nii.gz",
+                     np.zeros((8, 8, 8), np.int16))
+    (root / "labels.csv").write_text("ID,MGMT status\nUCSF-PDGM-1,positive\n")
+    return root / "labels.csv", root / "data"
+
+
+def _trainable(cfg):
+    """The training fields every grid point sets (lr, schedule, decay)."""
+    modify_config(cfg, {"lr": 1e-4, "weight_decay": 0.0, "label_smoothing": 0.0,
+                        "optim_params": {"T_max": 1, "eta_min": 0.0}})
+    return cfg
+
+
+def test_trainer_and_loader_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    from cross_attention_vit_tpu_torch.data.loader import PrefetchLoader
+    from cross_attention_vit_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(ModelCross, _trainable(_tiny()), max_epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PrefetchLoader([], batch_size=1)
+    trainer = Trainer(ModelCross, _trainable(_tiny()), max_epochs=1, device="cpu")
+    assert trainer.device.type == "cpu"
+
+
+def test_experiments_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
+    _no_cuda()
+    from cross_attention_vit_tpu_torch.drivers import experiments
+
+    labels, data = _cli_cohort(tmp_path)
+    args = ["--model", "cross", "--grid-index", "0", "--seeds", "2004", "--epochs", "1",
+            "--labels", str(labels), "--data", str(data), "--out", str(tmp_path / "runs")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        experiments.main(args)
+    assert not (tmp_path / "runs").exists()
+
+
+def test_evaluate_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
+    _no_cuda()
+    from cross_attention_vit_tpu_torch.drivers import evaluate
+    from cross_attention_vit_tpu_torch.models.convert import jax_params_from_model
+    from cross_attention_vit_tpu_torch.train.checkpoint import save_config, save_pytree
+
+    labels, data = _cli_cohort(tmp_path)
+    cfg = _trainable(_tiny())
+    modify_config(cfg, {"num_modalities": 3, "img_size": (8, 8, 8), "patch_size": (8, 8, 8),
+                        "attn_order": {}})
+    path = tmp_path / "epoch=00-val_loss=0.5000.npz"
+    save_pytree(path, {"params": jax_params_from_model(ModelCross(cfg, device="cpu"))})
+    save_config(tmp_path, cfg)
+    args = ["--checkpoint", str(path), "--labels", str(labels), "--data", str(data)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate.main(args)
+    assert evaluate.main(args, device="cpu")["n"] == 1

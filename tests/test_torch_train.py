@@ -195,8 +195,12 @@ def test_train_step_refuses_what_it_does_not_port():
     _, tc, params = _pair()
     model = _port(tc, params)
     opt = Adam(model.parameters())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        make_train_step(model, opt, tc, grad_accum=2)
+    # gradient accumulation is ported (tests/test_torch_trainer.py); what the
+    # step still refuses is an invalid count or loop form
+    with pytest.raises(ValueError, match="grad_accum"):
+        make_train_step(model, opt, tc, grad_accum=0)
+    with pytest.raises(ValueError, match="accum_impl"):
+        make_train_step(model, opt, tc, grad_accum=2, accum_impl="while")
     with pytest.raises(ValueError, match="master_weights"):
         make_train_step(ModelCross(tc, device="cpu"), opt,
                         modify_config(tc, {"compute_dtype": "bfloat16"}))
