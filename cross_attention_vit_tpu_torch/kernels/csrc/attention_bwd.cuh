@@ -1,9 +1,9 @@
 // The backward kernels of the "tn" attention (K2, K6 and K8's first two
-// kernels): the function of _tn_bwd_math
+// kernels), for Hopper (sm_90a): the function of _tn_bwd_math
 // (cross_attention_vit_tpu/kernels/flash_attention.py:628-692) for every
-// (batch b, head h):
+// (batch b, head h), given the forward's row statistics (m, r) (see `stat`):
 //
-//     s     = q·kᵀ · scale;  m = rowmax(s);  e = exp(s − m);  r = 1 / Σ_j e
+//     s     = q·kᵀ · scale;  e = exp(s − m)
 //     delta = rowsum(do ⊙ o)                        f32
 //     dv    = (e cast to the operand dtype)ᵀ · (do·r cast to the operand dtype)
 //     dp    = do·vᵀ
@@ -17,43 +17,51 @@
 // Layout.  Every operand is a (B, K, N, D) view given by its pointer and its
 // (b, h, n, d) strides in elements (View): K2 and K8 read q, k, v as views of
 // the stacked (B, N, 3, K, D) qkv and write dq, dk, dv as views of a stacked
-// dqkv; K6 reads separate tensors of any strides.  The outputs need a unit
-// head-dim stride (the wrappers allocate them so).
+// dqkv; K6 reads separate tensors.  bf16 operands need a unit head-dim
+// stride and 16-byte aligned rows (the wrappers check, or copy for K6); the
+// outputs a unit head-dim stride.
 //
 // Design.  The 513×513 f32 score and gradient planes do not fit in shared
 // memory, so the TPU's one-block-per-(b, h) program is split FlashAttention-2
 // style into two kernels launched back to back on the caller's stream:
 //
-//   dq kernel:   one block per 64-row query tile.  Pass 1 over the key tiles
-//                finds each row's max and sum; with kRecompute a second pass
-//                accumulates e·v in f32 registers for o.  The block writes the
-//                row statistics (m, r, delta) to a (3, B, K, N) f32 scratch.
-//                The last pass recomputes s and dp tile by tile, forms ds in
-//                registers and accumulates dq = ds·k.
-//   dk/dv kernel: one block per 64-key tile loops over the query tiles, reads
-//                the row statistics, recomputes sᵀ and dpᵀ and accumulates
-//                dv = ebᵀ·do_r and dk = dsᵀ·q.
+//   dq kernel:   one block per 64-row query tile.  It reads m and r (no pass
+//                recomputes them); with kRecompute a first pass over the
+//                keys accumulates e·v for o.  It writes delta to a
+//                (B, K, N) f32 scratch, then recomputes s and dp tile by
+//                tile, forms ds in registers and accumulates dq = ds·k.
+//                Products per key tile: s, dp, dq (K6 also s and e·v first).
+//   dk/dv kernel: one block per 64-key tile loops over the query tiles,
+//                reads m, r and delta, recomputes sᵀ and dpᵀ and accumulates
+//                dv = ebᵀ·do_r and dk = dsᵀ·q: four products per tile.
 //
-// Every block owns its outputs, so nothing is accumulated across blocks and
-// no atomics are needed.  The ragged last tile (513 = 8·64 + 1) is masked: in
-// the dq kernel key columns ≥ N contribute e = 0; in the dk/dv kernel query
-// rows ≥ N get a row max of +inf, so their e, and with it their ds, is 0.
-// Rows ≥ N of every operand are staged as zeros and nothing outside [0, N) is
-// stored.
+// Seven products in all (five is the minimum: s, dp, dv, dq, dk) and two
+// exponentials per score.  Every block owns its outputs and sums them in a
+// fixed order: no atomics, two identical calls give identical bits.
 //
-//   bf16: 4 warps, each owning 16 rows of the block's tile, run every product
-//   on the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).
-//   The score-shaped accumulators are re-packed in registers as the A operand
-//   of the next product (e for o and dv, ds for dq and dk), so no N×N plane
-//   touches shared memory.  Tiles move in 16-byte chunks (Tile) or element by
-//   element (TileAny, any strides).  exp(scale·(s − m)) is one FMA and an
-//   exp2.  Without kRecompute the saved o and do are read as 16-byte chunks.
+//   bf16: one warpgroup (128 threads) per block runs every product as
+//   wgmma (m64nNk16, bf16 in, f32 accumulate).  Operand tiles arrive by
+//   cp.async into a two-stage ring (the next tile's copy overlaps this
+//   tile's products), each staged ONCE, row-major in the 128-byte swizzle:
+//   read K-major for s, dp, sᵀ, dpᵀ and transposed (MN-major B) for
+//   dq = ds·k, dv = ebᵀ·do_r and dk = dsᵀ·q.  The score-shaped accumulators
+//   are packed in registers as the A operand of the next product (e for o
+//   and dv, ds for dq and dk); e is formed while the dp product runs.
+//   do_r = bf16(do·r) overwrites the do tile in place once dpᵀ has read it.
+//   The dk/dv kernel forms sᵀ and dpᵀ 32 query columns at a time, so that
+//   half a score plane is live beside its dk and dv accumulators: 160
+//   registers (ptxas -v), three blocks an SM.  The one-row tail (513 = 8·64 + 1,
+//   1025) costs 16 columns, not 64: its score products run m64n16 and the
+//   next products one 16-deep step (a longer ragged tail runs 64 wide,
+//   masked, and as many 16-deep steps as it needs); columns ≥ N get e = 0,
+//   rows ≥ N are zero-filled by the copies and never stored.  The query
+//   side of a block stays one 64-row warpgroup tile.
 //   f32: scalar f32 FMAs on the CUDA cores (256 threads, 4×4 register
 //   tiles), element-wise staging, any strides; full f32, no TF32.
 
 #pragma once
 
-#include "attention_tiles.cuh"
+#include "hopper_tiles.cuh"
 
 namespace {
 
@@ -61,164 +69,55 @@ struct BwdViews {
   View q, k, v, o, g, dq, dk, dv;   // g: the output's cotangent dO; o unused with kRecompute
 };
 
-// Row statistics scratch (3, B, K, N) f32: [0] the row max (bf16: of the
-// unscaled scores times scale·log2 e; f32: of the scaled scores), [1] r,
-// [2] delta.
-__device__ __forceinline__ float* stat(float* stats, int which, int B, int K, int N, int b,
-                                       int h) {
-  return stats + ((static_cast<long long>(which) * B + b) * K + h) * N;
-}
-
-__device__ __forceinline__ void zero(float acc[D / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-}
-
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16)
+// bf16: wgmma, tiles by cp.async
 // ---------------------------------------------------------------------------
 
-// Writes this warp's 16 rows × D of f32 accumulators as bf16 rows n_first and
-// n_first + 8 of the (b, h) slice `dst` (unit head-dim stride, row stride sn).
-__device__ __forceinline__ void store_rows_bf16(bf16* dst, long long sn,
-                                                const float acc[D / 8][4], int N, int n_first,
-                                                int t) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int n = n_first + 8 * half;
-    if (n >= N) continue;
-    bf16* row = dst + n * sn;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
-  }
-}
+constexpr int BWD_STAGES = 3;   // ring slots of both kernels
 
-template <class TileT, bool kRecompute>
-__global__ void __launch_bounds__(MMA_THREADS)
+template <bool kRecompute>
+__global__ void __launch_bounds__(WG_THREADS)
 attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ o,
                         const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                        float* __restrict__ stats, int B, int N, int K, BwdViews st,
-                        float scale) {
+                        const float* __restrict__ stats, float* __restrict__ delta_out, int B,
+                        int N, int K, BwdViews st, float scale) {
   extern __shared__ float4 smem4[];
-  bf16* rs = reinterpret_cast<bf16*>(smem4);   // [BQ][LD]  q, then do (fragments)
-  bf16* ks = rs + BQ * LD;                     // [BK][LD]  k tile
-  bf16* vs = ks + BK * LD;                     // [BK][LD]  v tile
-  bf16* kt = vs + BK * LD;                     // [D][LDV]  k (or, for o, v) tile, transposed
+  bf16* qs = aligned_smem(smem4);              // q tile
+  bf16* gs = qs + TILE;                        // do tile
+  bf16* ring = gs + TILE;                      // [stage][k, v] tiles
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int r0 = warp * 16 + g;
   const bf16* qb = base(q, st.q, b, h);
   const bf16* kb = base(k, st.k, b, h);
   const bf16* vb = base(v, st.v, b, h);
   const bf16* gb = base(dout, st.g, b, h);
-  const int tiles = (N + BK - 1) / BK;
-  const float c = scale * LOG2E;   // exp(scale·x) = exp2(c·x)
-  const int r0 = warp * 16 + g;
+  const int tiles = (N + BK - 1) / BK, steps = kRecompute ? 2 * tiles : tiles;
+  const float c = scale * LOG2E;   // exp(scale·s − m) = exp2(c·s − m·log2 e)
 
-  TileT tl, tv;
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  tl.load_rows(qb, q0, N, st.q.n, st.q.d);
-  tl.store_rows(rs, LD);
-  __syncthreads();
-  load_a(qf, rs, r0, t);
-  __syncthreads();
-  tl.load_rows(gb, q0, N, st.g.n, st.g.d);
-  tl.store_rows(rs, LD);
-  __syncthreads();
-  load_a(df, rs, r0, t);
+  auto issue = [&](int i) {
+    bf16* stage = ring + (i % BWD_STAGES) * 2 * TILE;
+    const int k0 = (i % tiles) * BK;
+    load_tile_async(stage, kb, k0, N, st.k.n);
+    load_tile_async(stage + TILE, vb, k0, N, st.v.n);
+  };
+  load_tile_async(qs, qb, q0, N, st.q.n);       // join step 0's group
+  load_tile_async(gs, gb, q0, N, st.g.n);
+  ring_begin<BWD_STAGES>(steps, issue);
 
-  // pass 1: row max and sum (online); a quad of threads shares a row
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int k0 = tile * BK;
-    tl.load_rows(kb, k0, N, st.k.n, st.k.d);
-    __syncthreads();
-    tl.store_rows(ks, LD);
-    __syncthreads();
-    float s[BK / 8][4];
-    mma_nt(s, qf, ks, g, t);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (k0 + j * 8 + 2 * t + e < N) mx = fmaxf(mx, s[j][2 * half + e]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[half], mx);      // finite: key k0 < N is valid
-      const float cm = c * mn;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (k0 + j * 8 + 2 * t + e < N) sum += exp2f(fmaf(s[j][2 * half + e], c, -cm));
-      l[half] = l[half] * exp2f(fmaf(m[half], c, -cm)) + sum;
-      m[half] = mn;
-    }
-  }
-
-  float cm[2], rr[2], delta[2];
+  // this thread's rows: m·log2 e, r and delta (rows ≥ N: 0, never stored)
+  float cm[2], rr[2], delta[2] = {0.f, 0.f};
+  float* const fstats = const_cast<float*>(stats);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
-    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
-    cm[half] = c * m[half];
-    rr[half] = 1.f / l[half];
+    const int n = q0 + r0 + 8 * half;
+    cm[half] = n < N ? stat(fstats, 0, B, K, N, b, h)[n] * LOG2E : 0.f;
+    rr[half] = n < N ? stat(fstats, 1, B, K, N, b, h)[n] : 0.f;
   }
-
-  if constexpr (kRecompute) {
-    // pass 2: o = (eb·v)·r in f32, eb = bf16(exp(s − m)); then
-    // delta = Σ_d f32(do)·o, with do from this warp's A fragments: fragment
-    // register (j % 2)·2 + half of column block kk = j / 2 holds the two
-    // columns 8j + 2t + {0, 1} of row r0 + 8·half, as o's C fragment does
-    float acc[D / 8][4];
-    zero(acc);
-    for (int tile = 0; tile < tiles; ++tile) {
-      const int k0 = tile * BK;
-      __syncthreads();
-      tl.load_rows(kb, k0, N, st.k.n, st.k.d);
-      tl.store_rows(ks, LD);
-      tv.load_cols(vb, k0, N, st.v.n, st.v.d);
-      tv.store_transposed(kt, LDV);
-      __syncthreads();
-      float s[BK / 8][4];
-      mma_nt(s, qf, ks, g, t);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = k0 + j * 8 + 2 * t + (e & 1) < N ? exp2f(fmaf(s[j][e], c, -cm[e >> 1])) : 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]), pack(s[2 * kk][2], s[2 * kk][3]),
-                               pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        mma_acc(acc, a, kt, kk, g, t);
-      }
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float dd = 0.f;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const float2 gv = unpack(df[j / 2][(j % 2) * 2 + half]);
-        dd = fmaf(gv.x, acc[j][2 * half] * rr[half], dd);
-        dd = fmaf(gv.y, acc[j][2 * half + 1] * rr[half], dd);
-      }
-      dd += __shfl_xor_sync(0xffffffffu, dd, 1);
-      dd += __shfl_xor_sync(0xffffffffu, dd, 2);
-      delta[half] = dd;
-    }
-  } else {
+  if constexpr (!kRecompute) {
     // delta = Σ_d do·o from the saved o (thread t sums d in [16t, 16t + 16),
     // then the quad adds)
     const bf16* ob = base(o, st.o, b, h);
@@ -243,147 +142,232 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       delta[half] = dd;
     }
   }
+  const float rsc[2] = {rr[0] * scale, rr[1] * scale};
+
+  float s[32], dp[32], acc[32];   // acc: o (kRecompute's first pass), then dq
+  zero32(acc);
+  for (int i = 0; i < steps; ++i) {
+    ring_step<BWD_STAGES>(i, steps, issue);
+    const bf16* ks = ring + (i % BWD_STAGES) * 2 * TILE;
+    const bf16* vs = ks + TILE;
+    const int k0 = (i % tiles) * BK;
+    const int nb = min(BK, N - k0 + 15) / 16;
+    const bool full = k0 + BK <= N;
+    uint32_t a[4][4];
+    if (kRecompute && i < tiles) {
+      // first pass: o = (eb·v)·r in f32, eb = bf16(exp(s − m))
+      wg_fence();
+      mma_tn_n(s, qs, ks, nb);
+      wg_commit();
+      wg_wait<0>();
+      settle(s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          s[4 * j + x] = full || (j < 2 * nb && k0 + 8 * j + 2 * t + (x & 1) < N)
+                             ? exp2f(fmaf(s[4 * j + x], c, -cm[x >> 1])) : 0.f;
+      pack_a(a, s);
+      wg_fence();
+      mma_nn(acc, a, vs, nb);
+      wg_commit();
+      wg_wait<0>();
+      if (i == tiles - 1) {
+        // delta = Σ_d f32(do)·o, do from the staged tile, o in acc's layout
+        settle(acc);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = r0 + 8 * half;
+          float dd = 0.f;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            const float2 gv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(gs + swz(row, 8 * j + 2 * t)));
+            dd = fmaf(gv.x, acc[4 * j + 2 * half] * rr[half], dd);
+            dd = fmaf(gv.y, acc[4 * j + 2 * half + 1] * rr[half], dd);
+          }
+          dd += __shfl_xor_sync(0xffffffffu, dd, 1);
+          dd += __shfl_xor_sync(0xffffffffu, dd, 2);
+          delta[half] = dd;
+        }
+        zero32(acc);
+      }
+    } else {
+      // ds = e·((dp − delta)·(r·scale)) in registers, dq += ds·k; e is
+      // formed while the dp product runs
+      wg_fence();
+      mma_tn_n(s, qs, ks, nb);
+      wg_commit();
+      mma_tn_n(dp, gs, vs, nb);
+      wg_commit();
+      wg_wait<1>();
+      settle(s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const bool valid = full || (j < 2 * nb && k0 + 8 * j + 2 * t + (x & 1) < N);
+          s[4 * j + x] = valid ? exp2f(fmaf(s[4 * j + x], c, -cm[x >> 1])) : 0.f;
+        }
+      wg_wait<0>();
+      settle(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          s[4 * j + x] *= (dp[4 * j + x] - delta[x >> 1]) * rsc[x >> 1];
+      pack_a(a, s);
+      wg_fence();
+      mma_nn(acc, a, ks, nb);
+      wg_commit();
+      wg_wait<0>();
+    }
+  }
+  settle(acc);
+  const float one[2] = {1.f, 1.f};
+  store_acc_bf16(base(dq, st.dq, b, h), st.dq.n, acc, N, q0 + r0, t, one);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int n = q0 + r0 + 8 * half;
-    if (t == 0 && n < N) {
-      stat(stats, 0, B, K, N, b, h)[n] = cm[half];
-      stat(stats, 1, B, K, N, b, h)[n] = rr[half];
-      stat(stats, 2, B, K, N, b, h)[n] = delta[half];
-    }
+    if (t == 0 && n < N) stat(delta_out, 0, B, K, N, b, h)[n] = delta[half];
   }
-
-  // last pass: ds = e·((dp − delta)·(r·scale)) in registers, dq += ds·k
-  float dqa[D / 8][4];
-  zero(dqa);
-  const float rsc[2] = {rr[0] * scale, rr[1] * scale};
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();
-    tl.load_rows(kb, k0, N, st.k.n, st.k.d);
-    tl.store_rows(ks, LD);
-    tv.load_rows(vb, k0, N, st.v.n, st.v.d);
-    tv.store_rows(vs, LD);
-    tl.load_cols(kb, k0, N, st.k.n, st.k.d);
-    tl.store_transposed(kt, LDV);
-    __syncthreads();
-    float s[BK / 8][4], dp[BK / 8][4];
-    mma_nt(s, qf, ks, g, t);
-    mma_nt(dp, df, vs, g, t);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const bool valid = k0 + j * 8 + 2 * t + (e & 1) < N;
-        const float ex = valid ? exp2f(fmaf(s[j][e], c, -cm[half])) : 0.f;
-        s[j][e] = ex * ((dp[j][e] - delta[half]) * rsc[half]);     // ds
-      }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]), pack(s[2 * kk][2], s[2 * kk][3]),
-                             pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      mma_acc(dqa, a, kt, kk, g, t);
-    }
-  }
-  store_rows_bf16(base(dq, st.dq, b, h), st.dq.n, dqa, N, q0 + r0, t);
 }
 
-template <class TileT>
-__global__ void __launch_bounds__(MMA_THREADS)
+// Three blocks an SM (at most 168 registers a thread), which shared memory
+// (67 KB a block) allows too.
+__global__ void __launch_bounds__(WG_THREADS, 3)
 attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          const float* __restrict__ stats, int B, int N, int K, BwdViews st,
-                          float scale) {
+                          const float* __restrict__ stats, const float* __restrict__ delta,
+                          int B, int N, int K, BwdViews st, float scale) {
   extern __shared__ float4 smem4[];
-  bf16* rs = reinterpret_cast<bf16*>(smem4);   // [BK][LD]  k, then v (fragments)
-  bf16* qs = rs + BK * LD;                     // [BQ][LD]  q tile
-  bf16* gs = qs + BQ * LD;                     // [BQ][LD]  do tile
-  bf16* qt = gs + BQ * LD;                     // [D][LDV]  q tile, transposed
-  bf16* gt = qt + D * LDV;                     // [D][LDV]  do·r, transposed
-  __shared__ float s_cm[BQ], s_r[BQ], s_rs[BQ], s_delta[BQ];
+  bf16* ks = aligned_smem(smem4);              // this block's k tile
+  bf16* vs = ks + TILE;                        // and v tile
+  bf16* ring = vs + TILE;                      // [stage][q, do] tiles
+  float* rowst = reinterpret_cast<float*>(ring + BWD_STAGES * 2 * TILE);   // [stage][m, r, delta][BQ]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int r0 = warp * 16 + g;
   const bf16* qb = base(q, st.q, b, h);
   const bf16* kb = base(k, st.k, b, h);
   const bf16* vb = base(v, st.v, b, h);
   const bf16* gb = base(dout, st.g, b, h);
   const int tiles = (N + BQ - 1) / BQ;
   const float c = scale * LOG2E;
-  const int r0 = warp * 16 + g;
-  float* const fstats = const_cast<float*>(stats);
-  const float* st_cm = stat(fstats, 0, B, K, N, b, h);
-  const float* st_r = stat(fstats, 1, B, K, N, b, h);
-  const float* st_delta = stat(fstats, 2, B, K, N, b, h);
+  // this (b, h)'s m, then r one plane further, and delta
+  const float* mrow = stat(const_cast<float*>(stats), 0, B, K, N, b, h);
+  const long long plane = static_cast<long long>(B) * K * N;
+  const float* drow = stat(const_cast<float*>(delta), 0, B, K, N, b, h);
 
-  TileT tl;
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  tl.load_rows(kb, k0, N, st.k.n, st.k.d);
-  tl.store_rows(rs, LD);
-  __syncthreads();
-  load_a(kf, rs, r0, t);
-  __syncthreads();
-  tl.load_rows(vb, k0, N, st.v.n, st.v.d);
-  tl.store_rows(rs, LD);
-  __syncthreads();
-  load_a(vf, rs, r0, t);
-
-  float dka[D / 8][4], dva[D / 8][4];
-  zero(dka);
-  zero(dva);
-
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int q0 = tile * BQ;
-    __syncthreads();
+  auto issue = [&](int i) {
+    bf16* stage = ring + (i % BWD_STAGES) * 2 * TILE;
+    const int q0 = i * BQ;
+    load_tile_async(stage, qb, q0, N, st.q.n);
+    load_tile_async(stage + TILE, gb, q0, N, st.g.n);
     if (threadIdx.x < BQ) {
-      // query rows ≥ N: a row max of +inf makes e = exp2(c·s − inf) = 0
       const int n = q0 + threadIdx.x;
-      const bool valid = n < N;
-      s_cm[threadIdx.x] = valid ? st_cm[n] : INFINITY;
-      s_r[threadIdx.x] = valid ? st_r[n] : 0.f;
-      s_rs[threadIdx.x] = valid ? st_r[n] * scale : 0.f;
-      s_delta[threadIdx.x] = valid ? st_delta[n] : 0.f;
+      const bool ok = n < N;
+      const int at = ok ? n : 0;
+      float* fs = rowst + (i % BWD_STAGES) * 3 * BQ + threadIdx.x;
+      load_f32_async(fs, mrow + at, ok);
+      load_f32_async(fs + BQ, mrow + plane + at, ok);
+      load_f32_async(fs + 2 * BQ, drow + at, ok);
     }
-    tl.load_rows(qb, q0, N, st.q.n, st.q.d);
-    tl.store_rows(qs, LD);
-    tl.load_rows(gb, q0, N, st.g.n, st.g.d);
-    tl.store_rows(gs, LD);
-    tl.load_cols(qb, q0, N, st.q.n, st.q.d);
-    tl.store_transposed(qt, LDV);
-    tl.load_cols(gb, q0, N, st.g.n, st.g.d);
-    __syncthreads();                           // s_r is read below
-    tl.store_transposed_scaled(gt, LDV, s_r);
-    __syncthreads();
+  };
+  load_tile_async(ks, kb, k0, N, st.k.n);       // join step 0's group
+  load_tile_async(vs, vb, k0, N, st.v.n);
+  ring_begin<BWD_STAGES>(tiles, issue);
 
-    float s[BQ / 8][4], dp[BQ / 8][4];
-    mma_nt(s, kf, qs, g, t);                   // sᵀ: rows keys, columns queries
-    mma_nt(dp, vf, gs, g, t);                  // dpᵀ
+  float dka[32], dva[32];
+  zero32(dka);
+  zero32(dva);
+  for (int i = 0; i < tiles; ++i) {
+    ring_step<BWD_STAGES>(i, tiles, issue);
+    bf16* qs = ring + (i % BWD_STAGES) * 2 * TILE;
+    bf16* gs = qs + TILE;
+    const float* fm = rowst + (i % BWD_STAGES) * 3 * BQ;   // m, r, delta of the 64 rows
+    const int q0 = i * BQ;
+    const int nb = min(BQ, N - q0 + 15) / 16;
+    const bool full = q0 + BQ <= N;
+
+    // sᵀ and dpᵀ (rows this block's keys, columns the tile's queries), 32
+    // query columns at a time so that only half of each score plane is live
+    // beside the dk and dv accumulators; e is formed while the dpᵀ product
+    // runs, then both are packed as the A operands of dv and dk
+    uint32_t ea[4][4], da[4][4];
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      float e[2][4], ds[2][4];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int nbh = min(nb - 2 * hh, 2);   // 16-column blocks of this half
+      if (nbh <= 0) break;
+      float s[32], dp[32];                   // columns [0, 16·nbh) are used
+      const bf16* qh = qs + 32 * hh * D;
+      const bf16* gh = gs + 32 * hh * D;
+      wg_fence();
+      if (nbh == 1) mma_tn<1>(s, ks, qh); else mma_tn<2>(s, ks, qh);
+      wg_commit();
+      if (nbh == 1) mma_tn<1>(dp, vs, gh); else mma_tn<2>(dp, vs, gh);
+      wg_commit();
+      wg_wait<1>();
+      settle<16>(s);
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
-          const int j = 2 * kk + jj;
-          const int qi = j * 8 + 2 * t + (x & 1);
-          e[jj][x] = exp2f(fmaf(s[j][x], c, -s_cm[qi]));
-          ds[jj][x] = e[jj][x] * ((dp[j][x] - s_delta[qi]) * s_rs[qi]);
+          const int qi = 32 * hh + 8 * j + 2 * t + (x & 1);
+          const bool valid = full || (j < 2 * nbh && q0 + qi < N);
+          s[4 * j + x] = valid ? exp2f(fmaf(s[4 * j + x], c, -fm[qi] * LOG2E)) : 0.f;
         }
-      const uint32_t ae[4] = {pack(e[0][0], e[0][1]), pack(e[0][2], e[0][3]),
-                              pack(e[1][0], e[1][1]), pack(e[1][2], e[1][3])};
-      const uint32_t ad[4] = {pack(ds[0][0], ds[0][1]), pack(ds[0][2], ds[0][3]),
-                              pack(ds[1][0], ds[1][1]), pack(ds[1][2], ds[1][3])};
-      mma_acc(dva, ae, gt, kk, g, t);
-      mma_acc(dka, ad, qt, kk, g, t);
+      wg_wait<0>();
+      settle<16>(dp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int qi = 32 * hh + 8 * j + 2 * t + (x & 1);
+          dp[4 * j + x] = s[4 * j + x] *
+                          ((dp[4 * j + x] - fm[2 * BQ + qi]) * (fm[BQ + qi] * scale));
+        }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          ea[2 * hh + kk][x] = pack(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+          da[2 * hh + kk][x] = pack(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+        }
     }
+    // do_r = bf16(do·r) over the do tile, in place, once every warp's share
+    // of dpᵀ has read it
+    __syncthreads();
+#pragma unroll
+    for (int x = 0; x < TILE / 8 / WG_THREADS; ++x) {
+      const int ch = threadIdx.x + x * WG_THREADS, row = ch >> 3;
+      uint4* p = reinterpret_cast<uint4*>(gs + row * D + (((ch & 7) ^ (row & 7)) << 3));
+      uint4 u = *p;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+      const float r = fm[BQ + row];
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const float2 f = unpack(w[y]);
+        w[y] = pack(f.x * r, f.y * r);
+      }
+      *p = u;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    wg_fence();
+    mma_nn(dva, ea, gs, nb);
+    mma_nn(dka, da, qs, nb);
+    wg_commit();
+    wg_wait<0>();
   }
-  store_rows_bf16(base(dk, st.dk, b, h), st.dk.n, dka, N, k0 + r0, t);
-  store_rows_bf16(base(dv, st.dv, b, h), st.dv.n, dva, N, k0 + r0, t);
+  settle(dka);
+  settle(dva);
+  const float one[2] = {1.f, 1.f};
+  store_acc_bf16(base(dk, st.dk, b, h), st.dk.n, dka, N, k0 + r0, t, one);
+  store_acc_bf16(base(dv, st.dv, b, h), st.dv.n, dva, N, k0 + r0, t, one);
 }
 
 // ---------------------------------------------------------------------------
@@ -415,8 +399,8 @@ __global__ void __launch_bounds__(F32_THREADS)
 attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ o,
                        const float* __restrict__ dout, float* __restrict__ dq,
-                       float* __restrict__ stats, int B, int N, int K, BwdViews st,
-                       float scale) {
+                       const float* __restrict__ stats, float* __restrict__ delta_out, int B,
+                       int N, int K, BwdViews st, float scale) {
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);   // [D][LDT]  q, transposed
   float* gt = qt + D * LDT;                      // [D][LDT]  do, transposed
@@ -437,49 +421,17 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   stage_t(qt, qb, q0, N, st.q.n, st.q.d);
   stage_t(gt, gb, q0, N, st.g.n, st.g.d);
 
-  // pass 1: each thread keeps (max, sum) over its own columns, online
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();
-    stage_t(kt, kb, k0, N, st.k.n, st.k.d);
-    __syncthreads();
-    float s[4][4];
-    f32_tn(s, qt, kt, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = k0 + tx * 4 + j < N ? s[i][j] * scale : -INFINITY;
-      const float mn = fmaxf(m[i], fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
-      if (mn == -INFINITY) continue;             // every column so far masked
-      float sum = exp_shift(m[i], mn) * l[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sum += exp_shift(s[i][j], mn);
-      m[i] = mn;
-      l[i] = sum;
-    }
+  // the forward's row statistics (rows ≥ N: 0, never stored)
+  if (threadIdx.x < BQ) {
+    const int n = q0 + threadIdx.x;
+    float* const fstats = const_cast<float*>(stats);
+    row_m[threadIdx.x] = n < N ? stat(fstats, 0, B, K, N, b, h)[n] : 0.f;
+    row_r[threadIdx.x] = n < N ? stat(fstats, 1, B, K, N, b, h)[n] : 0.f;
   }
-  // combine over the 16 threads (lanes differing in bits 0-3) sharing a row
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
-      const float mn = fmaxf(m[i], mo);
-      if (mn != -INFINITY) l[i] = exp_shift(m[i], mn) * l[i] + exp_shift(mo, mn) * lo;
-      m[i] = mn;
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) { row_m[ty * 4 + i] = m[i]; row_r[ty * 4 + i] = 1.f / l[i]; }
-  }
+  __syncthreads();
 
   if constexpr (kRecompute) {
-    // pass 2: o = (e·v)·r in f32 (the operand dtype is f32: e is not
+    // first pass: o = (e·v)·r in f32 (the operand dtype is f32: e is not
     // rounded), then delta = Σ_d do·o over this thread's columns, added over
     // the 16 threads of a row
     float acc[4][4];
@@ -514,7 +466,6 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (tx == 0) row_delta[r] = dd;
     }
   } else {
-    __syncthreads();                             // row_r
     if (threadIdx.x < BQ) {
       const float* ob = base(o, st.o, b, h);
       const int r = threadIdx.x, n = q0 + r;
@@ -525,12 +476,8 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();
-  if (threadIdx.x < BQ && q0 + threadIdx.x < N) {
-    const int r = threadIdx.x, n = q0 + r;
-    stat(stats, 0, B, K, N, b, h)[n] = row_m[r];
-    stat(stats, 1, B, K, N, b, h)[n] = row_r[r];
-    stat(stats, 2, B, K, N, b, h)[n] = row_delta[r];
-  }
+  if (threadIdx.x < BQ && q0 + threadIdx.x < N)
+    stat(delta_out, 0, B, K, N, b, h)[q0 + threadIdx.x] = row_delta[threadIdx.x];
 
   // last pass: ds, then dq += ds·k
   float dqa[4][4];
@@ -564,8 +511,8 @@ __global__ void __launch_bounds__(F32_THREADS)
 attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          float* __restrict__ dk, float* __restrict__ dv,
-                         const float* __restrict__ stats, int B, int N, int K, BwdViews st,
-                         float scale) {
+                         const float* __restrict__ stats, const float* __restrict__ delta,
+                         int B, int N, int K, BwdViews st, float scale) {
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);   // [D][LDT]  k tile, transposed
   float* vt = kt + D * LDT;                      // [D][LDT]  v tile, transposed
@@ -587,7 +534,7 @@ attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   float* const fstats = const_cast<float*>(stats);
   const float* st_m = stat(fstats, 0, B, K, N, b, h);
   const float* st_r = stat(fstats, 1, B, K, N, b, h);
-  const float* st_delta = stat(fstats, 2, B, K, N, b, h);
+  const float* st_delta = stat(const_cast<float*>(delta), 0, B, K, N, b, h);
 
   stage_t(kt, kb, k0, N, st.k.n, st.k.d);
   stage_t(vt, vb, k0, N, st.v.n, st.v.d);
@@ -637,16 +584,19 @@ attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 // launchers
 // ---------------------------------------------------------------------------
 
-constexpr size_t BF16_DQ_SMEM = (BQ * LD + 2 * BK * LD + D * LDV) * sizeof(bf16);
-constexpr size_t BF16_DKDV_SMEM = (BK * LD + 2 * BQ * LD + 2 * D * LDV) * sizeof(bf16);
+constexpr size_t BF16_DQ_SMEM = SMEM_ALIGN + (2 + 2 * BWD_STAGES) * TILE * sizeof(bf16);
+constexpr size_t BF16_DKDV_SMEM =
+    SMEM_ALIGN + (2 + 2 * BWD_STAGES) * TILE * sizeof(bf16) + BWD_STAGES * 3 * BQ * sizeof(float);
 constexpr size_t F32_DQ_SMEM = (4 * D * LDT + BK * D + BK * LDT) * sizeof(float);
 constexpr size_t F32_DKDV_SMEM = (4 * D * LDT + 2 * BQ * D + 2 * BQ * LDT) * sizeof(float);
 
-// One backward call: operands, outputs and the statistics scratch.
+// One backward call: operands, outputs, the forward's row statistics and the
+// delta scratch.
 struct BwdCall {
   const void *q, *k, *v, *o, *g;
   void *dq, *dk, *dv;
-  float* stats;
+  const float* stats;
+  float* delta;
   int B, N, K;
   BwdViews st;
   float scale;
@@ -656,7 +606,7 @@ struct BwdCall {
 template <typename T>
 cudaError_t launch_bwd_dq(const BwdCall& a, int threads, size_t smem,
                           void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*,
-                                         float*, int, int, int, BwdViews, float)) {
+                                         const float*, float*, int, int, int, BwdViews, float)) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -664,23 +614,40 @@ cudaError_t launch_bwd_dq(const BwdCall& a, int threads, size_t smem,
   kernel<<<grid, threads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.o), static_cast<const T*>(a.g), static_cast<T*>(a.dq), a.stats,
-      a.B, a.N, a.K, a.st, a.scale);
+      a.delta, a.B, a.N, a.K, a.st, a.scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_bwd_dkdv(const BwdCall& a, int threads, size_t smem,
                             void (*kernel)(const T*, const T*, const T*, const T*, T*, T*,
-                                           const float*, int, int, int, BwdViews, float)) {
+                                           const float*, const float*, int, int, int, BwdViews,
+                                           float)) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + BK - 1) / BK, a.K, a.B);
   kernel<<<grid, threads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.g), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.stats, a.B,
-      a.N, a.K, a.st, a.scale);
+      static_cast<const T*>(a.g), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.stats, a.delta,
+      a.B, a.N, a.K, a.st, a.scale);
   return cudaGetLastError();
+}
+
+// The dq kernel, then the dk/dv kernel, in the call's dtype (0 f32, 1 bf16).
+template <bool kRecompute>
+cudaError_t launch_bwd(const BwdCall& a, int dtype, bool dq, bool dkdv) {
+  cudaError_t err = cudaSuccess;
+  if (dtype == 0) {
+    if (dq) err = launch_bwd_dq<float>(a, F32_THREADS, F32_DQ_SMEM, attn_bwd_dq_f32_kernel<kRecompute>);
+    if (dkdv && err == cudaSuccess)
+      err = launch_bwd_dkdv<float>(a, F32_THREADS, F32_DKDV_SMEM, attn_bwd_dkdv_f32_kernel);
+    return err;
+  }
+  if (dq) err = launch_bwd_dq<bf16>(a, WG_THREADS, BF16_DQ_SMEM, attn_bwd_dq_bf16_kernel<kRecompute>);
+  if (dkdv && err == cudaSuccess)
+    err = launch_bwd_dkdv<bf16>(a, WG_THREADS, BF16_DKDV_SMEM, attn_bwd_dkdv_bf16_kernel);
+  return err;
 }
 
 // The views of the stacked layouts: q, k, v of a (B, N, 3, K, D) qkv with

@@ -1,9 +1,7 @@
-// Shared pieces of the attention kernels (flash_attention_fwd.cu, K1;
-// flash_attention_bwd.cu, K2; flash_attention_stream.cu and
-// flash_attention_stream_bwd.cu, K7): the tile sizes, the bf16 tensor-core
-// products on 64-row tiles, the 16-byte staging of bf16 tiles through
-// registers, and the f32 staging and register-tile products of the CUDA-core
-// path.
+// Shared pieces of the attention kernels: the tile sizes, the f32 staging
+// and register-tile products of the CUDA-core path (K1, K2, K5, K6, K7), and
+// the mma.sync products and 16-byte register staging of bf16 tiles that K5's
+// and K7's kernels run (K1 and K2 run wgmma: hopper_tiles.cuh).
 
 #pragma once
 
@@ -147,74 +145,6 @@ struct Tile {
       const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
 #pragma unroll
       for (int j = 0; j < 8; ++j) dst[((c / BK) * 8 + j) * ld + c % BK] = e[j];
-    }
-  }
-  // transposed, each row multiplied by row_scale[row] in f32 and rounded
-  __device__ __forceinline__ void store_transposed_scaled(bf16* dst, int ld,
-                                                          const float* row_scale) const {
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int c = threadIdx.x + i * MMA_THREADS;
-      const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
-      const float r = row_scale[c % BK];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        dst[((c / BK) * 8 + j) * ld + c % BK] = __float2bfloat16_rn(__bfloat162float(e[j]) * r);
-    }
-  }
-  // the interface TileAny shares: the head-dim stride is 1 here
-  __device__ __forceinline__ void load_rows(const bf16* src, int n0, int N, long long sn,
-                                            long long) {
-    load_rows(src, n0, N, sn);
-  }
-  __device__ __forceinline__ void load_cols(const bf16* src, int n0, int N, long long sn,
-                                            long long) {
-    load_cols(src, n0, N, sn);
-  }
-};
-
-// The same 64-row tile of a (rows, D) bf16 operand for ANY strides, one
-// element at a time: consecutive threads take consecutive rows, so the loads
-// coalesce when the row stride is 1 — a contiguous (B, K, D, N) operand,
-// whose rows cannot be read as 16-byte chunks when N is not a multiple of 8.
-// Rows ≥ N load as zeros.  Same interface as Tile.
-struct TileAny {
-  static constexpr int kElems = BK * D / MMA_THREADS;   // per thread
-  bf16 v[kElems];
-
-  __device__ __forceinline__ void load_rows(const bf16* src, int n0, int N, long long sn,
-                                            long long sd) {
-#pragma unroll
-    for (int i = 0; i < kElems; ++i) {
-      const int c = threadIdx.x + i * MMA_THREADS;
-      const int n = n0 + c % BK;
-      v[i] = n < N ? src[n * sn + (c / BK) * sd] : __float2bfloat16_rn(0.f);
-    }
-  }
-  __device__ __forceinline__ void load_cols(const bf16* src, int n0, int N, long long sn,
-                                            long long sd) {
-    load_rows(src, n0, N, sn, sd);
-  }
-  __device__ __forceinline__ void store_rows(bf16* dst, int ld) const {
-#pragma unroll
-    for (int i = 0; i < kElems; ++i) {
-      const int c = threadIdx.x + i * MMA_THREADS;
-      dst[(c % BK) * ld + c / BK] = v[i];
-    }
-  }
-  __device__ __forceinline__ void store_transposed(bf16* dst, int ld) const {
-#pragma unroll
-    for (int i = 0; i < kElems; ++i) {
-      const int c = threadIdx.x + i * MMA_THREADS;
-      dst[(c / BK) * ld + c % BK] = v[i];
-    }
-  }
-  __device__ __forceinline__ void store_transposed_scaled(bf16* dst, int ld,
-                                                          const float* row_scale) const {
-#pragma unroll
-    for (int i = 0; i < kElems; ++i) {
-      const int c = threadIdx.x + i * MMA_THREADS;
-      dst[(c / BK) * ld + c % BK] = __float2bfloat16_rn(__bfloat162float(v[i]) * row_scale[c % BK]);
     }
   }
 };

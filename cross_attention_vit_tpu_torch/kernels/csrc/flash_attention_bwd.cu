@@ -18,15 +18,20 @@
 //
 // Bound.  At the training path's shape (B=8, K=16, D=64, N=513, bf16) one K2
 // call must read qkv, o and do and write dqkv: 8·B·N·K·D·2 B = 67.2 MB, 20.1 us
-// at 3.35 TB/s.  Its five products (s recomputed, dv, dp, dq, dk) are
-// 10·B·K·N²·D = 21.6 GFLOP, 21.8 us at the 989 TFLOP/s bf16 tensor-core peak.
-// So the bound is about 22 us (operations); K6's is the same 21.8 us (it
-// reads no o: 58.8 MB, 17.6 us of bytes; o itself can be had as
-// rowsum(eb ⊙ dp)·r without a sixth product).
+// at 3.35 TB/s.  Its five necessary products (s, dp, dv, dq, dk) are
+// 10·B·K·N²·D = 21.6 GFLOP, 21.8 us at the 989 TFLOP/s bf16 tensor-core peak,
+// and its exponentials, one per score at the least, 33.7 M at about
+// 3.9 T/s: 8.6 us.  So the bound is about 22 us (operations); K6's is the same
+// 21.8 us (it reads no o: 58.8 MB, 17.6 us of bytes).  The kernels run seven
+// products (s twice: once in each kernel) and two exponentials per score.
 //
-// Not yet done (later work): prefetching the next tile during the products
-// (K1 does), wgmma and TMA, and K1 writing the row statistics so that the dq
-// kernel's first pass goes.
+// Grid: a block of one warpgroup per 64-row tile: (⌈N/64⌉, K, B) = (9, 16, 8)
+// = 1152 blocks for each kernel at the training shape, 8.7 blocks per SM on
+// 132 SMs.  Shared memory: dq kernel 65 KB (q, do, three ring slots of k and
+// v), dk/dv kernel 67 KB (k, v, three slots of q and do and their row
+// statistics): three blocks an SM.  Registers (ptxas -v, sm_90a): dq kernel
+// 150 (152 with o recomputed), dk/dv kernel 160 under its launch bound of
+// three blocks, none spilled.
 
 #include "attention_bwd.cuh"
 
@@ -37,16 +42,16 @@ bool bad_args(int head_dim, int dtype) { return head_dim != D || (dtype != 0 && 
 }  // namespace
 
 // K2.  dtype: 0 = float32, 1 = bfloat16.  D must be 64.  Strides are in
-// elements; dqkv is contiguous (B, N, 3, K, D) and stats a (3, B, K, N) f32
-// scratch.  Returns a cudaError_t (0 on success); the two launches do not
-// synchronise.
+// elements; dqkv is contiguous (B, N, 3, K, D); stats is K1's (2, B, K, N)
+// f32 row statistics and delta a (B, K, N) f32 scratch.  Returns a
+// cudaError_t (0 on success); the two launches do not synchronise.
 extern "C" int flash_attention_qkv_bwd(const void* qkv, const void* o, const void* dout,
-                                       void* dqkv, void* stats, int dtype, int B, int N, int K,
-                                       int head_dim, long long sb, long long sn, long long ss,
-                                       long long sh, long long sd, long long ob, long long on,
-                                       long long oh, long long od, long long gb, long long gn,
-                                       long long gh, long long gd, float scale, void* stream,
-                                       int device) {
+                                       void* dqkv, const void* stats, void* delta, int dtype,
+                                       int B, int N, int K, int head_dim, long long sb,
+                                       long long sn, long long ss, long long sh, long long sd,
+                                       long long ob, long long on, long long oh, long long od,
+                                       long long gb, long long gn, long long gh, long long gd,
+                                       float scale, void* stream, int device) {
   if (bad_args(head_dim, dtype)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -55,31 +60,22 @@ extern "C" int flash_attention_qkv_bwd(const void* qkv, const void* o, const voi
   char* dq = static_cast<char*>(dqkv);
   const long long slab = static_cast<long long>(K) * D;   // dk, dv offsets in dqkv
   const BwdCall a{q, q + ss * es, q + 2 * ss * es, o, dout,
-                  dq, dq + slab * es, dq + 2 * slab * es, static_cast<float*>(stats), B, N, K,
+                  dq, dq + slab * es, dq + 2 * slab * es, static_cast<const float*>(stats),
+                  static_cast<float*>(delta), B, N, K,
                   stacked_views(N, K, sb, sn, sh, sd, ob, on, oh, od, gb, gn, gh, gd), scale,
                   static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) {
-    err = launch_bwd_dq<float>(a, F32_THREADS, F32_DQ_SMEM, attn_bwd_dq_f32_kernel<false>);
-    if (err == cudaSuccess)
-      err = launch_bwd_dkdv<float>(a, F32_THREADS, F32_DKDV_SMEM, attn_bwd_dkdv_f32_kernel);
-    return err;
-  }
-  err = launch_bwd_dq<bf16>(a, MMA_THREADS, BF16_DQ_SMEM, attn_bwd_dq_bf16_kernel<Tile, false>);
-  if (err == cudaSuccess)
-    err = launch_bwd_dkdv<bf16>(a, MMA_THREADS, BF16_DKDV_SMEM, attn_bwd_dkdv_bf16_kernel<Tile>);
-  return err;
+  return launch_bwd<false>(a, dtype, true, true);
 }
 
 // K6's two kernels.  Each operand is a (B, K, N, D) view given by its
-// (b, h, n, d) strides in elements; dq, dk, dv need a unit head-dim stride
-// (and, in bf16, 4-byte aligned row starts); stats is a contiguous
-// (3, B, K, N) f32 scratch.  any_strides = 1 stages bf16 tiles element by
-// element (needed unless q, k, v, do have a unit head-dim stride and 16-byte
-// rows).  Run flash_attention_tn_bwd_dq first (it writes stats), then
-// flash_attention_tn_bwd_dkdv on the same stream.
+// (b, h, n, d) strides in elements (bf16: unit head-dim stride and 16-byte
+// rows, which the wrapper ensures by copying); dq, dk, dv need a unit
+// head-dim stride; stats is K6's forward's (2, B, K, N) f32 row statistics
+// and delta a (B, K, N) f32 scratch.  Run flash_attention_tn_bwd_dq first (it
+// writes delta), then flash_attention_tn_bwd_dkdv on the same stream.
 #define TN_BWD_PARAMS                                                                          \
-  const void *q, const void *k, const void *v, const void *g, void *stats, void *dq, void *dk, \
-      void *dv, int dtype, int any_strides, int B, int N, int K, int head_dim, long long qb,   \
+  const void *q, const void *k, const void *v, const void *g, const void *stats, void *delta,  \
+      void *dq, void *dk, void *dv, int dtype, int B, int N, int K, int head_dim, long long qb, \
       long long qh, long long qn, long long qd, long long kb, long long kh, long long kn,      \
       long long kd, long long vb, long long vh, long long vn, long long vd, long long gb,      \
       long long gh, long long gn, long long gd, long long dqb, long long dqh, long long dqn,   \
@@ -88,7 +84,8 @@ extern "C" int flash_attention_qkv_bwd(const void* qkv, const void* o, const voi
       int device
 
 #define TN_BWD_CALL                                                                            \
-  BwdCall{q, k, v, nullptr, g, dq, dk, dv, static_cast<float*>(stats), B, N, K,                \
+  BwdCall{q, k, v, nullptr, g, dq, dk, dv, static_cast<const float*>(stats),                   \
+          static_cast<float*>(delta), B, N, K,                                                 \
           BwdViews{{qb, qh, qn, qd}, {kb, kh, kn, kd}, {vb, vh, vn, vd}, {0, 0, 0, 0},         \
                    {gb, gh, gn, gd}, {dqb, dqh, dqn, dqd}, {dkb, dkh, dkn, dkd},               \
                    {dvb, dvh, dvn, dvd}},                                                      \
@@ -98,26 +95,14 @@ extern "C" int flash_attention_tn_bwd_dq(TN_BWD_PARAMS) {
   if (bad_args(head_dim, dtype)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const BwdCall a = TN_BWD_CALL;
-  if (dtype == 0)
-    return launch_bwd_dq<float>(a, F32_THREADS, F32_DQ_SMEM, attn_bwd_dq_f32_kernel<true>);
-  if (any_strides)
-    return launch_bwd_dq<bf16>(a, MMA_THREADS, BF16_DQ_SMEM,
-                               attn_bwd_dq_bf16_kernel<TileAny, true>);
-  return launch_bwd_dq<bf16>(a, MMA_THREADS, BF16_DQ_SMEM, attn_bwd_dq_bf16_kernel<Tile, true>);
+  return launch_bwd<true>(TN_BWD_CALL, dtype, true, false);
 }
 
 extern "C" int flash_attention_tn_bwd_dkdv(TN_BWD_PARAMS) {
   if (bad_args(head_dim, dtype)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const BwdCall a = TN_BWD_CALL;
-  if (dtype == 0)
-    return launch_bwd_dkdv<float>(a, F32_THREADS, F32_DKDV_SMEM, attn_bwd_dkdv_f32_kernel);
-  if (any_strides)
-    return launch_bwd_dkdv<bf16>(a, MMA_THREADS, BF16_DKDV_SMEM,
-                                 attn_bwd_dkdv_bf16_kernel<TileAny>);
-  return launch_bwd_dkdv<bf16>(a, MMA_THREADS, BF16_DKDV_SMEM, attn_bwd_dkdv_bf16_kernel<Tile>);
+  return launch_bwd<true>(TN_BWD_CALL, dtype, false, true);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

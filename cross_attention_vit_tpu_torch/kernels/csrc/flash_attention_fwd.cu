@@ -24,48 +24,56 @@
 // (b, h, n, d) strides in elements, so one kernel serves both TPU kernels:
 // K1 reads q, k, v as three views of the (B, N, 3, K, D) tensor that
 // x @ to_qkv.weightᵀ produces and writes (B, N, K, D), the (B, N, H) input of
-// the output projection; K6 reads three tensors of any strides and writes a
-// (B, K, N, D) tensor that the wrapper returns as a (B, K, D, N) view.  The
-// TPU kernels took (B, K, D, N) operands, a TPU layout choice; such an
-// operand is contiguous along N, its rows are not 16-byte aligned when N is
-// not a multiple of 8, and the bf16 path then stages it one element at a
-// time (TileAny, chosen by the wrapper) instead of in 16-byte chunks.
+// the output projection; K6 reads three tensors and writes a (B, K, N, D)
+// tensor that the wrapper returns as a (B, K, D, N) view.  The bf16 kernel
+// copies 16-byte chunks, so its operands need a unit head-dim stride and
+// 16-byte aligned rows; the K6 wrapper hands it (B, K, N, D) copies of
+// (B, K, D, N) operands that lack them (a TPU layout choice).  With a stats
+// pointer the kernel also writes each row's (m, r) for the backward
+// (hopper_tiles.cuh, `stat`).
 //
 // Bound.  At the serving path's largest bucket (B=8, K=16, D=64, N=513, bf16)
 // one launch must read 25.2 MB of q, k, v and write 8.4 MB of output: 10.0 us
-// at 3.35 TB/s.  It does 4·B·K·N²·D = 8.62 GFLOP: 8.7 us at the 989 TFLOP/s
-// bf16 tensor-core peak.  So the bound is about 10 us (bytes).
+// at 3.35 TB/s.  Its two necessary products are 4·B·K·N²·D = 8.62 GFLOP,
+// 8.7 us at the 989 TFLOP/s bf16 tensor-core peak, and its one exponential
+// per score 33.7 M, 8.6 us at about 3.9 T/s.  So the bound is about 10 us
+// (bytes).  The kernel runs three products (s twice) and one exponential
+// per score.
 //
 // Design.  A 513×513 f32 score matrix (1.05 MB) does not fit in the 227 KB of
 // shared memory a block may use, so the TPU's one-block-per-(b, h) design
 // cannot carry over.  Here one block owns a 64-row query tile of one (b, h)
 // and loops over 64-key tiles of k and v staged in shared memory.  Two passes
-// keep the TPU kernel's rounding order: pass 1 finds each row's max and sum
-// (online within the pass), pass 2 recomputes the scores, rounds
-// e = exp(s − m) with the FINAL row max to the operand dtype and accumulates
-// e·v in f32 (the bf16 path evaluates exp(scale·(s − m)) as one FMA and an
-// exp2, which differs from exp in the last bits of f32).  The ragged last
-// tile (513 = 8·64 + 1) is masked: key columns ≥ N score −inf, rows ≥ N of
-// q, k and v are staged as zeros, and no load or store leaves [0, N).
+// keep the TPU kernel's rounding order: pass 1 finds each row's max (no
+// exponential), pass 2 recomputes the scores, forms e = exp(s − m) with the
+// FINAL row max, sums it in f32 for r and rounds it to the operand dtype
+// before it meets v (the bf16 path evaluates exp(scale·s − m) as one FMA and
+// an exp2, which differs from exp in the last bits of f32).  Rows ≥ N are
+// staged as zeros, key columns ≥ N are masked, and no store leaves [0, N).
 //
-//   bf16 (the serving path): 4 warps, each owning 16 query rows, run both
-//   products on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-//   accumulate).  The score accumulators are re-packed in registers as the
-//   A operand of the e·v product (the FlashAttention-2 register layout), so
-//   e never touches shared memory.  Tiles move in 16-byte chunks (Tile: unit
-//   head-dim stride, 16-byte aligned rows) or element by element (TileAny:
-//   any strides), and the next tile's loads are issued into registers before
-//   this tile's products, so their latency hides behind the tensor cores.
+//   bf16 (the serving path): one warpgroup (128 threads) per block runs both
+//   products as wgmma m64nNk16 (bf16 in, f32 accumulate): s = q·kᵀ with q and
+//   k read K-major from shared memory, o += e·v with e packed from the score
+//   accumulators into registers (the A operand) and v read transposed
+//   (MN-major B) from its one row-major tile.  Tiles arrive by cp.async into
+//   a ring of three slots, two steps ahead of the products, one barrier a
+//   step.  The one-row last key tile (N = 513, 1025) costs 16 keys, not 64:
+//   an m64n16 score product and one 16-deep e·v step (a longer ragged tail
+//   runs 64 wide, masked, and as many 16-deep steps as it needs); the query
+//   side stays one 64-row tile.  Grid (⌈N/64⌉, K, B): 1152 blocks at B=8
+//   K=16 N=513, 8.7 per SM on 132 SMs; 57 KB of shared memory a block (q
+//   and three slots of k and v) admits three blocks an SM, and 116
+//   registers a thread (ptxas -v, sm_90a, no spills) four.
 //   f32: scalar f32 FMAs on the CUDA cores (256 threads, 4×4 register tiles),
 //   element-wise staging, any strides.  f32 operands keep full f32
 //   precision, as Precision.HIGHEST did on the TPU, so no TF32.  Capped at
 //   the 67 TFLOP/s f32 rate; f32 is not the serving path.
 //
-// Not yet done (later work): wgmma, TMA, warp specialisation, and one pass
-// with online rescaling (each 64-row query block re-reads its head's k twice
-// and v once from L2).
+// Not yet done (later work): TMA with a producer warp, more than one
+// consumer warpgroup per block, and one pass with online rescaling (each
+// 64-row query block re-reads its head's k twice and v once from L2).
 
-#include "attention_tiles.cuh"
+#include "hopper_tiles.cuh"
 
 namespace {
 
@@ -74,152 +82,111 @@ struct Views {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16)
+// bf16: wgmma, tiles by cp.async
 // ---------------------------------------------------------------------------
 
-// e = exp2(c·s − cm) for scores s[i], s[i + 1], rounded to bf16 and packed
-__device__ __forceinline__ uint32_t pack_e(const float s[4], int i, float c, float cm) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(exp2f(fmaf(s[i], c, -cm)),
-                                           exp2f(fmaf(s[i + 1], c, -cm)));
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr int FWD_STAGES = 3;   // ring slots of (k, v) tile pairs
 
-// s = q·kᵀ (unscaled) for this warp's 16 rows and the 64 keys in `ks`: 8
-// tiles of 8 keys; thread (g, t) holds rows g and g+8, keys 8j + 2t + {0, 1}.
-// Keys ≥ N (only in the last tile) score −inf.
-__device__ __forceinline__ void mma_scores(float s[BK / 8][4], const uint32_t qf[D / 16][4],
-                                           const bf16* ks, int g, int t, int k0, int N) {
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const bf16* kr = ks + (j * 8 + g) * LD + kk * 16 + 2 * t;
-      mma_bf16(s[j], qf[kk], ld_pair(kr), ld_pair(kr + 8));
-    }
-  if (k0 + BK > N) {
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (k0 + j * 8 + 2 * t + (c & 1) >= N) s[j][c] = -INFINITY;
-  }
-}
-
-template <class TileT>
-__global__ void __launch_bounds__(MMA_THREADS)
+// K1's bf16 kernel: one warpgroup per 64-row query tile of one (b, h).
+// Steps 0 .. tiles−1 are pass 1 (k tiles), tiles .. 2·tiles−1 pass 2 (k and v
+// tiles); the copies run FWD_STAGES − 1 steps ahead of the products.
+__global__ void __launch_bounds__(WG_THREADS)
 attn_fwd_qkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ out, int N, Views st,
-                         float scale) {
+                         const bf16* __restrict__ v, bf16* __restrict__ out,
+                         float* __restrict__ stats, int B, int N, int K, Views st, float scale) {
   extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);   // [BQ][LD]  q tile
-  bf16* ks = qs + BQ * LD;                     // [BK][LD]  k tile
-  bf16* vt = ks + BK * LD;                     // [D][LDV]  v tile, transposed
+  bf16* qs = aligned_smem(smem4);              // q tile
+  bf16* ring = qs + TILE;                      // [stage][k, v] tiles
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;       // mma fragment coordinates
+  const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const bf16* qb = base(q, st.q, b, h);
   const bf16* kb = base(k, st.k, b, h);
   const bf16* vb = base(v, st.v, b, h);
-  const int tiles = (N + BK - 1) / BK;
-  // exp(scale·(s − m)) = exp2(c·s − c·m): one FMA and one ex2 per score; row
-  // maxima are taken on the unscaled scores (scale > 0 keeps the order)
+  const int tiles = (N + BK - 1) / BK, steps = 2 * tiles;
+  // exp(scale·s − m) = exp2(c·s − m·log2 e) for unscaled scores s: one FMA
+  // and one ex2 per score (scale > 0 keeps the maxima's order)
   const float c = scale * LOG2E;
 
-  TileT kr, vr;
-  kr.load_rows(qb, q0, N, st.q.n, st.q.d);
-  kr.store_rows(qs, LD);
-  kr.load_rows(kb, 0, N, st.k.n, st.k.d);
-  __syncthreads();
-  uint32_t qf[D / 16][4];                      // this warp's q as A fragments
-  const int r0 = warp * 16 + g;
-  load_a(qf, qs, r0, t);
+  auto issue = [&](int i) {
+    bf16* stage = ring + (i % FWD_STAGES) * 2 * TILE;
+    const int k0 = (i % tiles) * BK;
+    load_tile_async(stage, kb, k0, N, st.k.n);
+    if (i >= tiles) load_tile_async(stage + TILE, vb, k0, N, st.v.n);
+  };
+  load_tile_async(qs, qb, q0, N, st.q.n);       // joins step 0's group
+  ring_begin<FWD_STAGES>(steps, issue);
 
-  // pass 1: row max and sum; m is shared by the 4 threads (a quad) of a row.
-  // m starts at −inf; exp2 of −inf is 0, and every tile has a valid key, so
-  // no guard is needed
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();
-    kr.store_rows(ks, LD);
-    __syncthreads();
-    if (tile + 1 < tiles) {
-      kr.load_rows(kb, k0 + BK, N, st.k.n, st.k.d);   // in flight during the products
+  float mu[2] = {-INFINITY, -INFINITY};        // pass 1: row max of the unscaled scores
+  float cm[2], l[2] = {0.f, 0.f};              // pass 2: m·log2 e, Σ e in f32
+  float s[32], o[32];
+  zero32(o);
+  for (int i = 0; i < steps; ++i) {
+    ring_step<FWD_STAGES>(i, steps, issue);
+    const bf16* ks = ring + (i % FWD_STAGES) * 2 * TILE;
+    const int k0 = (i % tiles) * BK;
+    const int nb = min(BK, N - k0 + 15) / 16;   // 16-key blocks holding a key < N
+    const bool full = k0 + BK <= N;
+    wg_fence();
+    mma_tn_n(s, qs, ks, nb);
+    wg_commit();
+    wg_wait<0>();
+    settle(s);
+    if (i < tiles) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (full || (j < 2 * nb && k0 + 8 * j + 2 * t + (x & 1) < N))
+            mu[x >> 1] = fmaxf(mu[x >> 1], s[4 * j + x]);
+      if (i == tiles - 1) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          mu[half] = fmaxf(mu[half], __shfl_xor_sync(0xffffffffu, mu[half], 1));
+          mu[half] = fmaxf(mu[half], __shfl_xor_sync(0xffffffffu, mu[half], 2));
+          cm[half] = mu[half] * scale * LOG2E;  // m = scale·max, the stats' unit
+        }
+      }
     } else {
-      kr.load_rows(kb, 0, N, st.k.n, st.k.d);         // pass 2's first tile
-      vr.load_cols(vb, 0, N, st.v.n, st.v.d);
-    }
-    float s[BK / 8][4];
-    mma_scores(s, qf, ks, g, t, k0, N);
+      // e = exp(s − m) with the final max, summed in f32 before it is rounded
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float mx = -INFINITY;
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * half], s[j][2 * half + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[half], mx);   // finite: key k0 < N is valid
-      const float cm = c * mn;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-        sum += exp2f(fmaf(s[j][2 * half], c, -cm)) + exp2f(fmaf(s[j][2 * half + 1], c, -cm));
-      l[half] = l[half] * exp2f(fmaf(m[half], c, -cm)) + sum;
-      m[half] = mn;
+        for (int x = 0; x < 4; ++x) {
+          const bool valid = full || (j < 2 * nb && k0 + 8 * j + 2 * t + (x & 1) < N);
+          const float e = valid ? exp2f(fmaf(s[4 * j + x], c, -cm[x >> 1])) : 0.f;
+          l[x >> 1] += e;
+          s[4 * j + x] = e;
+        }
+      uint32_t a[4][4];
+      pack_a(a, s);
+      wg_fence();
+      mma_nn(o, a, ks + TILE, nb);
+      wg_commit();
+      wg_wait<0>();
     }
   }
+  settle(o);
+
+  float r[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
     l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    r[half] = 1.f / l[half];
   }
-
-  // pass 2: e = exp(s − m) rounded to bf16, o += e·v on the tensor cores
-  const float cm[2] = {c * m[0], c * m[1]};
-  float o[D / 8][4];
+  const int r0 = warp * 16 + g;
+  store_acc_bf16(base(out, st.o, b, h), st.o.n, o, N, q0 + r0, t, r);
+  if (stats != nullptr && t == 0) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();
-    kr.store_rows(ks, LD);
-    vr.store_transposed(vt, LDV);
-    __syncthreads();
-    if (tile + 1 < tiles) {
-      kr.load_rows(kb, k0 + BK, N, st.k.n, st.k.d);
-      vr.load_cols(vb, k0 + BK, N, st.v.n, st.v.d);
+    for (int half = 0; half < 2; ++half) {
+      const int n = q0 + r0 + 8 * half;
+      if (n < N) {
+        stat(stats, 0, B, K, N, b, h)[n] = mu[half] * scale;
+        stat(stats, 1, B, K, N, b, h)[n] = r[half];
+      }
     }
-    float s[BK / 8][4];
-    mma_scores(s, qf, ks, g, t, k0, N);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      // the C fragments of score tiles 2kk and 2kk+1 are the A fragment of
-      // keys [16kk, 16kk + 16)
-      const uint32_t a[4] = {pack_e(s[2 * kk], 0, c, cm[0]), pack_e(s[2 * kk], 2, c, cm[1]),
-                             pack_e(s[2 * kk + 1], 0, c, cm[0]),
-                             pack_e(s[2 * kk + 1], 2, c, cm[1])};
-      mma_acc(o, a, vt, kk, g, t);
-    }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int n = q0 + r0 + 8 * half;
-    if (n >= N) continue;
-    const float r = 1.f / l[half];
-    bf16* orow = base(out, st.o, b, h) + n * st.o.n;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        orow[(j * 8 + 2 * t + e) * st.o.d] = __float2bfloat16_rn(o[j][2 * half + e] * r);
   }
 }
 
@@ -241,8 +208,8 @@ __device__ __forceinline__ void f32_scores(float s[4][4], const float* qt, const
 
 __global__ void __launch_bounds__(F32_THREADS)
 attn_fwd_qkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ out, int N, Views st,
-                        float scale) {
+                        const float* __restrict__ v, float* __restrict__ out,
+                        float* __restrict__ stats, int B, int N, int K, Views st, float scale) {
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);   // [D][LDT]  q tile, transposed
   float* kt = qt + D * LDT;                      // [D][LDT]  k tile, transposed
@@ -259,10 +226,10 @@ attn_fwd_qkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 
   stage_t(qt, qb, q0, N, st.q.n, st.q.d);
 
-  // pass 1: each thread keeps (max, sum) over its own columns, online
-  float m[4], l[4];
+  // pass 1: each thread keeps the max over its own columns
+  float m[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY;
   for (int tile = 0; tile < tiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();
@@ -271,35 +238,21 @@ attn_fwd_qkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     float s[4][4];
     f32_scores(s, qt, kt, tx, ty, k0, N, scale);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float mn = fmaxf(m[i], fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
-      if (mn == -INFINITY) continue;             // every column so far masked
-      float sum = exp_shift(m[i], mn) * l[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sum += exp_shift(s[i][j], mn);
-      m[i] = mn;
-      l[i] = sum;
-    }
+    for (int i = 0; i < 4; ++i)
+      m[i] = fmaxf(m[i], fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
   }
-  // combine over the 16 threads (lanes differing in bits 0-3) sharing a row
+  // over the 16 threads (lanes differing in bits 0-3) sharing a row
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
+  for (int off = 8; off > 0; off >>= 1)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
-      const float mn = fmaxf(m[i], mo);
-      if (mn != -INFINITY) l[i] = exp_shift(m[i], mn) * l[i] + exp_shift(mo, mn) * lo;
-      m[i] = mn;
-    }
-  }
+    for (int i = 0; i < 4; ++i) m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], off));
   if (tx == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) { row_m[ty * 4 + i] = m[i]; row_l[ty * 4 + i] = l[i]; }
+    for (int i = 0; i < 4; ++i) row_m[ty * 4 + i] = m[i];
   }
 
-  // pass 2: e with the final row max, accumulated against v
-  float acc[4][4];
+  // pass 2: e with the final row max, summed and accumulated against v
+  float acc[4][4], l[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -316,11 +269,24 @@ attn_fwd_qkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int i = 0; i < 4; ++i) {
       const float mi = row_m[ty * 4 + i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) pt[(tx * 4 + j) * LDT + ty * 4 + i] = exp_shift(s[i][j], mi);
+      for (int j = 0; j < 4; ++j) {
+        const float e = exp_shift(s[i][j], mi);
+        l[i] += e;
+        pt[(tx * 4 + j) * LDT + ty * 4 + i] = e;
+      }
     }
     __syncthreads();
     f32_acc(acc, pt, vs, tx, ty);
   }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) row_l[ty * 4 + i] = l[i];
+  }
+  __syncthreads();
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -331,6 +297,11 @@ attn_fwd_qkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
     for (int j = 0; j < 4; ++j) o[(tx * 4 + j) * st.o.d] = acc[i][j] * r;
   }
+  if (stats != nullptr && threadIdx.x < BQ && q0 + threadIdx.x < N) {
+    const int n = q0 + threadIdx.x;
+    stat(stats, 0, B, K, N, b, h)[n] = row_m[threadIdx.x];
+    stat(stats, 1, B, K, N, b, h)[n] = 1.f / row_l[threadIdx.x];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -338,46 +309,47 @@ attn_fwd_qkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 // ---------------------------------------------------------------------------
 
 template <typename T>
-cudaError_t launch(void (*kernel)(const T*, const T*, const T*, T*, int, Views, float),
+cudaError_t launch(void (*kernel)(const T*, const T*, const T*, T*, float*, int, int, int, Views,
+                                  float),
                    int threads, size_t smem, const void* q, const void* k, const void* v,
-                   void* out, int B, int N, int K, const Views& st, float scale,
+                   void* out, float* stats, int B, int N, int K, const Views& st, float scale,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BQ - 1) / BQ, K, B);
   kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                          static_cast<const T*>(v), static_cast<T*>(out), N,
-                                          st, scale);
+                                          static_cast<const T*>(v), static_cast<T*>(out), stats,
+                                          B, N, K, st, scale);
   return cudaGetLastError();
 }
 
-constexpr size_t BF16_SMEM = ((BQ + BK) * LD + D * LDV) * sizeof(bf16);
+constexpr size_t BF16_SMEM = SMEM_ALIGN + (1 + 2 * FWD_STAGES) * TILE * sizeof(bf16);
 constexpr size_t F32_SMEM = (2 * D * LDT + BK * D + BK * LDT) * sizeof(float);
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int dtype,
-                     bool any_strides, int B, int N, int K, const Views& st, float scale,
-                     void* stream, int device) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, void* stats,
+                     int dtype, int B, int N, int K, const Views& st, float scale, void* stream,
+                     int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* fs = static_cast<float*>(stats);
   if (dtype == 0)
-    return launch<float>(attn_fwd_qkv_f32_kernel, F32_THREADS, F32_SMEM, q, k, v, out, B, N, K,
-                         st, scale, s);
-  if (any_strides)
-    return launch<bf16>(attn_fwd_qkv_bf16_kernel<TileAny>, MMA_THREADS, BF16_SMEM, q, k, v, out,
-                        B, N, K, st, scale, s);
-  return launch<bf16>(attn_fwd_qkv_bf16_kernel<Tile>, MMA_THREADS, BF16_SMEM, q, k, v, out, B,
-                      N, K, st, scale, s);
+    return launch<float>(attn_fwd_qkv_f32_kernel, F32_THREADS, F32_SMEM, q, k, v, out, fs, B, N,
+                         K, st, scale, s);
+  return launch<bf16>(attn_fwd_qkv_bf16_kernel, WG_THREADS, BF16_SMEM, q, k, v, out, fs, B, N, K,
+                      st, scale, s);
 }
 
 }  // namespace
 
 // K1.  dtype: 0 = float32, 1 = bfloat16.  D must be 64.  qkv is
-// (B, N, 3, K, D) and out (B, N, K, D), strides in elements.  Returns a
-// cudaError_t (0 on success); the launch does not synchronise.
-extern "C" int flash_attention_qkv_fwd(const void* qkv, void* out, int dtype, int B, int N,
-                                       int K, int head_dim, long long sb, long long sn,
+// (B, N, 3, K, D) and out (B, N, K, D) with a unit head-dim stride, strides in
+// elements; bf16 rows 16-byte aligned.  stats: a (2, B, K, N) f32 tensor for
+// the row statistics (m, r) a backward reads, or null when none follows.
+// Returns a cudaError_t (0 on success); the launch does not synchronise.
+extern "C" int flash_attention_qkv_fwd(const void* qkv, void* out, void* stats, int dtype, int B,
+                                       int N, int K, int head_dim, long long sb, long long sn,
                                        long long ss, long long sh, long long sd, long long ob,
                                        long long on, long long oh, long long od, float scale,
                                        void* stream, int device) {
@@ -386,23 +358,23 @@ extern "C" int flash_attention_qkv_fwd(const void* qkv, void* out, int dtype, in
   const Views st{qv, qv, qv, {ob, oh, on, od}};
   const size_t esize = dtype == 0 ? sizeof(float) : sizeof(bf16);
   const char* q = static_cast<const char*>(qkv);
-  return dispatch(q, q + ss * esize, q + 2 * ss * esize, out, dtype, false, B, N, K, st, scale,
+  return dispatch(q, q + ss * esize, q + 2 * ss * esize, out, stats, dtype, B, N, K, st, scale,
                   stream, device);
 }
 
 // K6.  q, k, v and out are (B, K, N, D) views given by their (b, h, n, d)
-// strides in elements; any_strides = 1 stages bf16 tiles element by element
-// (needed unless every operand has a unit head-dim stride and 16-byte rows).
+// strides in elements (bf16: unit head-dim stride and 16-byte rows, which the
+// wrapper ensures by copying; out: unit head-dim stride); stats as K1's.
 extern "C" int flash_attention_tn_fwd(const void* q, const void* k, const void* v, void* out,
-                                      int dtype, int any_strides, int B, int N, int K,
-                                      int head_dim, long long qb, long long qh, long long qn,
-                                      long long qd, long long kb, long long kh, long long kn,
-                                      long long kd, long long vb, long long vh, long long vn,
-                                      long long vd, long long ob, long long oh, long long on,
-                                      long long od, float scale, void* stream, int device) {
+                                      void* stats, int dtype, int B, int N, int K, int head_dim,
+                                      long long qb, long long qh, long long qn, long long qd,
+                                      long long kb, long long kh, long long kn, long long kd,
+                                      long long vb, long long vh, long long vn, long long vd,
+                                      long long ob, long long oh, long long on, long long od,
+                                      float scale, void* stream, int device) {
   if (head_dim != D || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
   const Views st{{qb, qh, qn, qd}, {kb, kh, kn, kd}, {vb, vh, vn, vd}, {ob, oh, on, od}};
-  return dispatch(q, k, v, out, dtype, any_strides != 0, B, N, K, st, scale, stream, device);
+  return dispatch(q, k, v, out, stats, dtype, B, N, K, st, scale, stream, device);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

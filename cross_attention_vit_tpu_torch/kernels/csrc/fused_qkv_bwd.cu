@@ -184,12 +184,14 @@ cudaError_t launch_gemm(const bf16* a, const bf16* b, OutT* c, int M, int Nc, in
 // Kernels 1 and 2: K2's dq and dk/dv kernels (bf16) writing the contiguous
 // (B, N, 3, K, D) dqkv scratch, from qkv (B, N, 3, K, D) and the saved output
 // and its cotangent (B, N, K, D), strides in elements (unit head-dim stride,
-// 16-byte rows); stats is a (3, B, K, N) f32 scratch.  Run dq first.
+// 16-byte rows); stats is K1's (2, B, K, N) f32 row statistics and delta a
+// (B, K, N) f32 scratch.  Run dq first.
 #define FUSED_ATTN_PARAMS                                                                      \
-  const void *qkv, const void *o, const void *dout, void *dqkv, void *stats, int B, int N,     \
-      int K, int head_dim, long long sb, long long sn, long long ss, long long sh,             \
-      long long sd, long long ob, long long on, long long oh, long long od, long long gb,      \
-      long long gn, long long gh, long long gd, float scale, void *stream, int device
+  const void *qkv, const void *o, const void *dout, void *dqkv, const void *stats,             \
+      void *delta, int B, int N, int K, int head_dim, long long sb, long long sn, long long ss, \
+      long long sh, long long sd, long long ob, long long on, long long oh, long long od,      \
+      long long gb, long long gn, long long gh, long long gd, float scale, void *stream,       \
+      int device
 
 namespace {
 
@@ -200,31 +202,31 @@ BwdCall fused_attn_call(FUSED_ATTN_PARAMS) {
   (void)head_dim;
   (void)device;
   return BwdCall{q, q + ss, q + 2 * ss, o, dout, dq, dq + slab, dq + 2 * slab,
-                 static_cast<float*>(stats), B, N, K,
+                 static_cast<const float*>(stats), static_cast<float*>(delta), B, N, K,
                  stacked_views(N, K, sb, sn, sh, sd, ob, on, oh, od, gb, gn, gh, gd), scale,
                  static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
 
+#define FUSED_ATTN_ARGS                                                                        \
+  qkv, o, dout, dqkv, stats, delta, B, N, K, head_dim, sb, sn, ss, sh, sd, ob, on, oh, od, gb, \
+      gn, gh, gd, scale, stream, device
+
 extern "C" int fused_qkv_bwd_dq(FUSED_ATTN_PARAMS) {
   if (head_dim != D) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const BwdCall a = fused_attn_call(qkv, o, dout, dqkv, stats, B, N, K, head_dim, sb, sn, ss,
-                                    sh, sd, ob, on, oh, od, gb, gn, gh, gd, scale, stream,
-                                    device);
-  return launch_bwd_dq<bf16>(a, MMA_THREADS, BF16_DQ_SMEM, attn_bwd_dq_bf16_kernel<Tile, false>);
+  return launch_bwd_dq<bf16>(fused_attn_call(FUSED_ATTN_ARGS), WG_THREADS, BF16_DQ_SMEM,
+                             attn_bwd_dq_bf16_kernel<false>);
 }
 
 extern "C" int fused_qkv_bwd_dkdv(FUSED_ATTN_PARAMS) {
   if (head_dim != D) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const BwdCall a = fused_attn_call(qkv, o, dout, dqkv, stats, B, N, K, head_dim, sb, sn, ss,
-                                    sh, sd, ob, on, oh, od, gb, gn, gh, gd, scale, stream,
-                                    device);
-  return launch_bwd_dkdv<bf16>(a, MMA_THREADS, BF16_DKDV_SMEM, attn_bwd_dkdv_bf16_kernel<Tile>);
+  return launch_bwd_dkdv<bf16>(fused_attn_call(FUSED_ATTN_ARGS), WG_THREADS, BF16_DKDV_SMEM,
+                               attn_bwd_dkdv_bf16_kernel);
 }
 
 // Kernel 3: dx (M, H) bf16 = dqkv (M, J) · Wᵀ, with M = B·N and J = 3·K·D;

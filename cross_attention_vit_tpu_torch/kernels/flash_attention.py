@@ -19,10 +19,11 @@ kernels in ``cross_attention_vit_tpu/kernels/flash_attention.py``:
 ``flash_attention_qkv`` is the differentiable entry point on a stacked qkv.
 Like the JAX ``flash_attention_qkv_tn`` / ``_qkv_tn_bwd`` it switches on the
 sequence length at ``_SINGLE_BLOCK_MAX = 1040``: up to it the forward is K1
-(it saves qkv and the output) and the backward K2 (it returns the stacked
-dqkv); above it the forward is K7's streaming kernel on strided views of the
-stacked qkv (it saves qkv, the output and the logsumexp) and the backward
-K7's two blocked kernels, which write the same stacked dqkv.  The JAX
+(it saves qkv, the output and its row statistics) and the backward K2 (it
+returns the stacked dqkv); above it the forward is K7's streaming kernel on
+strided views of the stacked qkv (it saves qkv, the output and the
+logsumexp) and the backward K7's two blocked kernels, which write the same
+stacked dqkv.  The JAX
 backward re-runs the streaming forward to get the logsumexp; the port keeps
 it from its one forward (same values, one launch fewer per layer).
 
@@ -65,8 +66,16 @@ The K1/K2 kernels read qkv in the layout the QKV projection produces,
 dqkv as (B, N, 3, K, D).  The K5, K6 and K7 kernels take each operand as a
 (B, K, N, D) view of any strides, so they read and write views of the
 stacked tensors without a copy; bf16 operands without a unit head-dim
-stride and 16-byte rows (a contiguous (B, K, D, N) operand) are read
-element by element by K6, and rejected by K5 and K7.
+stride and 16-byte rows (a contiguous (B, K, D, N) operand) are copied to
+(B, K, N, D) by K6's wrapper and rejected by K5 and K7.
+
+Row statistics.  K1 (and K6's forward) finds each row's max m of the f32
+scores s = q·kᵀ·scale and r = 1/Σ exp(s − m); with ``stats=True`` it
+returns them as a (2, B, K, N) f32 tensor (``_row_stats`` defines the
+units), and K2, K6's backward and K8 read them (``stats=``) instead of
+finding them again — on the card they require them.  The autograd
+Functions ask for them only when a backward will follow
+(``_backward_follows``), so serving writes none.
 """
 
 
@@ -90,8 +99,20 @@ _SINGLE_BLOCK_MAX = 1040
 _STREAM_BLOCK = 512
 
 
-def flash_attention_qkv_reference(qkv: torch.Tensor, scale: float) -> torch.Tensor:
-    """Plain PyTorch version of K1: (B, N, 3, K, D) → (B, N, K, D).
+def _row_stats(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward's row statistics of f32 scores s (B, K, N, N): the row max
+    m, e = exp(s − m) and r = 1/Σe (m and r (B, K, N, 1)).  These are the
+    units of the (2, B, K, N) ``stats`` tensor that K1 and K6's forward write
+    and the backwards read: stats[0] = m, stats[1] = r."""
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    return m, e, 1.0 / e.sum(dim=-1, keepdim=True)
+
+
+def flash_attention_qkv_reference(qkv: torch.Tensor, scale: float, with_stats: bool = False):
+    """Plain PyTorch version of K1: (B, N, 3, K, D) → (B, N, K, D), and with
+    ``with_stats`` also the row statistics it used, a (2, B, K, N) f32 tensor
+    (``_row_stats``).
 
     Follows the TPU kernel's rounding (``_tn_fwd_math``), not ``_sdpa``'s:
     the already-rounded operands are upcast to f32 before each product (the
@@ -99,25 +120,28 @@ def flash_attention_qkv_reference(qkv: torch.Tensor, scale: float) -> torch.Tens
     is cast to the operand dtype before the AV product, and the row
     normalisation multiplies the f32 AV result."""
     q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3).float() for i in range(3))  # (B,K,N,D)
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    r = 1.0 / e.sum(dim=-1, keepdim=True)
-    out = torch.matmul(e.to(qkv.dtype).float(), v) * r
-    return out.to(qkv.dtype).permute(0, 2, 1, 3)
+    m, e, r = _row_stats(torch.matmul(q, k.transpose(-1, -2)) * scale)
+    out = (torch.matmul(e.to(qkv.dtype).float(), v) * r).to(qkv.dtype).permute(0, 2, 1, 3)
+    return (out, torch.cat([m, r], dim=-1).permute(3, 0, 1, 2)) if with_stats else out
 
 
 def _tn_bwd_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-                 scale: float, dt: torch.dtype, o: torch.Tensor | None = None):
+                 scale: float, dt: torch.dtype, o: torch.Tensor | None = None,
+                 stats: torch.Tensor | None = None):
     """``_tn_bwd_math`` on f32 (B, K, N, D) operands holding ``dt`` values:
-    (dq, dk, dv) in f32.  p is recomputed from the row max m and r = 1/Σe;
-    e cast to ``dt`` feeds dv through do_r = (do·r) cast to ``dt``;
-    delta = rowsum(do⊙o) in f32, with o the saved output (K2) or, when
+    (dq, dk, dv) in f32.  p is recomputed from the row max m and r = 1/Σe,
+    both read from the forward's ``stats`` (2, B, K, N) when given, else
+    found again; e cast to ``dt`` feeds dv through do_r = (do·r) cast to
+    ``dt``; delta = rowsum(do⊙o) in f32, with o the saved output (K2) or, when
     ``o`` is None, recomputed as (eb·v)·r in f32 and never rounded (K6);
     ds = (e·((dp − delta)·(r·scale))) cast to ``dt`` feeds dq and dk.  Every
     product takes the rounded operands upcast to f32."""
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    r = 1.0 / e.sum(dim=-1, keepdim=True)                      # (B,K,N,1)
+    if stats is None:
+        _, e, r = _row_stats(s)                                # r (B,K,N,1)
+    else:
+        e = torch.exp(s - stats[0].unsqueeze(-1))
+        r = stats[1].unsqueeze(-1)
     eb = e.to(dt).float()
     if o is None:
         o = torch.matmul(eb, v) * r
@@ -130,14 +154,16 @@ def _tn_bwd_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Te
 
 
 def flash_attention_qkv_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
-                                      dout: torch.Tensor, scale: float) -> torch.Tensor:
+                                      dout: torch.Tensor, scale: float,
+                                      stats: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version of K2: the stacked dqkv (B, N, 3, K, D) from the
-    saved qkv (B, N, 3, K, D), the saved output and its cotangent (B, N, K, D):
+    saved qkv (B, N, 3, K, D), the saved output and its cotangent (B, N, K, D)
+    and K1's row statistics (2, B, K, N) (found again when None):
     ``_tn_bwd_math`` with the saved O."""
     q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3).float() for i in range(3))  # (B,K,N,D)
     o = out.permute(0, 2, 1, 3).float()
     do = dout.permute(0, 2, 1, 3).float()
-    dq, dk, dv = _tn_bwd_math(q, k, v, do, scale, qkv.dtype, o)
+    dq, dk, dv = _tn_bwd_math(q, k, v, do, scale, qkv.dtype, o, stats)
     return torch.stack([dq, dk, dv], dim=2).to(qkv.dtype).permute(0, 3, 2, 1, 4)
 
 
@@ -301,33 +327,58 @@ def _rows_16b_aligned(t: torch.Tensor) -> bool:
     return sd == 1 and all(s % 8 == 0 for s in outer) and t.data_ptr() % 16 == 0
 
 
-def flash_attention_qkv_fwd(qkv: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+def _new_stats(B: int, K: int, N: int, device: torch.device, rows: int = 2) -> torch.Tensor:
+    """A (rows, B, K, N) f32 tensor: the forward's row statistics (m, r), or
+    with rows=1 the backward's delta scratch."""
+    return torch.empty((rows, B, K, N), dtype=torch.float32, device=device)
+
+
+def _check_stats(name: str, stats: torch.Tensor | None, B: int, K: int, N: int,
+                 device: torch.device) -> None:
+    """The forward's row statistics as a backward kernel reads them."""
+    if stats is None:
+        raise ValueError(f"{name}: the kernels read the forward's row statistics: pass the "
+                         "stats the forward returned")
+    _check_operands(name, (2, B, K, N), torch.float32, device, stats=stats)
+    if not stats.is_contiguous():
+        raise ValueError(f"{name}: stats must be contiguous")
+
+
+def flash_attention_qkv_fwd(qkv: torch.Tensor, scale: float | None = None,
+                            stats: bool = False):
     """K1: softmax attention per (batch, head) on a stacked (B, N, 3, K, D)
-    qkv; returns (B, N, K, D) in qkv's dtype.  scale defaults to D^-0.5."""
+    qkv; returns (B, N, K, D) in qkv's dtype and, with ``stats``, also the
+    row statistics (m, r) a backward reads, (2, B, K, N) f32.  scale
+    defaults to D^-0.5."""
     _check(qkv)
     B, N, _, K, D = qkv.shape
     scale = D ** -0.5 if scale is None else float(scale)
     if qkv.device.type == "cpu":
-        return flash_attention_qkv_reference(qkv, scale)
+        return flash_attention_qkv_reference(qkv, scale, stats)
     _check_cuda(qkv.device, B, K, D, "flash_attention_qkv", scale)
     if qkv.dtype == torch.bfloat16 and not _rows_16b_aligned(qkv):
         raise ValueError("the bf16 kernel moves 16-byte chunks: qkv needs a unit head-dim "
                          f"stride and strides that are multiples of 8, got {qkv.stride()}")
     out = torch.empty((B, N, K, D), dtype=qkv.dtype, device=qkv.device)
+    row_stats = _new_stats(B, K, N, qkv.device) if stats else None
     lib = _library("flash_attention_fwd")
     err = lib.flash_attention_qkv_fwd(
-        qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype], B, N, K, D,
-        *qkv.stride(), *out.stride(), scale,
+        qkv.data_ptr(), out.data_ptr(), row_stats.data_ptr() if stats else None,
+        _DTYPE_CODES[qkv.dtype], B, N, K, D, *qkv.stride(), *out.stride(), scale,
         torch.cuda.current_stream(qkv.device).cuda_stream, qkv.device.index)
     _raise_on(lib, err, "flash_attention_qkv_fwd")
     flash_attention_qkv.launches += 1
-    return out
+    return (out, row_stats) if stats else out
 
 
 def flash_attention_qkv_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
-                            scale: float | None = None) -> torch.Tensor:
+                            scale: float | None = None,
+                            stats: torch.Tensor | None = None) -> torch.Tensor:
     """K2: the stacked gradient dqkv (B, N, 3, K, D) of K1 from the saved qkv,
-    the saved output ``out`` and its cotangent ``dout`` (both (B, N, K, D))."""
+    the saved output ``out`` and its cotangent ``dout`` (both (B, N, K, D))
+    and the row statistics K1 returned with ``stats=True`` (2, B, K, N).  The
+    kernels read the statistics and never find them again, so a CUDA call
+    needs them; the plain version finds them when they are not given."""
     _check(qkv)
     B, N, _, K, D = qkv.shape
     for name, t in (("out", out), ("dout", dout)):
@@ -336,19 +387,20 @@ def flash_attention_qkv_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Te
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
     scale = D ** -0.5 if scale is None else float(scale)
     if qkv.device.type == "cpu":
-        return flash_attention_qkv_bwd_reference(qkv, out, dout, scale)
+        return flash_attention_qkv_bwd_reference(qkv, out, dout, scale, stats)
     _check_cuda(qkv.device, B, K, D, "flash_attention_qkv_bwd", scale)
+    _check_stats("flash_attention_qkv_bwd", stats, B, K, N, qkv.device)
     if qkv.dtype == torch.bfloat16 and not all(map(_rows_16b_aligned, (qkv, out, dout))):
         raise ValueError("the bf16 kernel moves 16-byte chunks: qkv, out and dout need a "
                          "unit head-dim stride and strides that are multiples of 8")
     dqkv = torch.empty((B, N, 3, K, D), dtype=qkv.dtype, device=qkv.device)
-    # per-row softmax statistics, written by the dq kernel for the dk/dv kernel
-    stats = torch.empty((3, B, K, N), dtype=torch.float32, device=qkv.device)
+    delta = _new_stats(B, K, N, qkv.device, rows=1)   # the dq kernel's, for the dk/dv kernel
     lib = _library("flash_attention_bwd")
     err = lib.flash_attention_qkv_bwd(
         qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        _DTYPE_CODES[qkv.dtype], B, N, K, D, *qkv.stride(), *out.stride(), *dout.stride(),
-        scale, torch.cuda.current_stream(qkv.device).cuda_stream, qkv.device.index)
+        delta.data_ptr(), _DTYPE_CODES[qkv.dtype], B, N, K, D, *qkv.stride(), *out.stride(),
+        *dout.stride(), scale, torch.cuda.current_stream(qkv.device).cuda_stream,
+        qkv.device.index)
     _raise_on(lib, err, "flash_attention_qkv_bwd")
     flash_attention_qkv_bwd.launches += 1
     return dqkv
@@ -357,20 +409,29 @@ def flash_attention_qkv_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Te
 flash_attention_qkv_bwd.launches = 0
 
 
+def _backward_follows(*tensors: torch.Tensor) -> bool:
+    """Whether autograd will call a Function's backward: grad mode is on and
+    an input requires its gradient.  Only then do the forwards write the
+    row statistics."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class _FlashAttentionQKV(torch.autograd.Function):
-    """K1 forward, saving (qkv, out); K2 backward returning the stacked dqkv."""
+    """K1 forward, saving (qkv, out, K1's row statistics); K2 backward
+    returning the stacked dqkv."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, scale: float) -> torch.Tensor:
-        out = flash_attention_qkv_fwd(qkv, scale)
-        ctx.save_for_backward(qkv, out)
+    def forward(ctx, qkv: torch.Tensor, scale: float, with_stats: bool) -> torch.Tensor:
+        out, stats = (flash_attention_qkv_fwd(qkv, scale, True) if with_stats
+                      else (flash_attention_qkv_fwd(qkv, scale), None))
+        ctx.save_for_backward(qkv, out, stats)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
-        qkv, out = ctx.saved_tensors
-        return flash_attention_qkv_bwd(qkv, out, dout.contiguous(), ctx.scale), None
+        qkv, out, stats = ctx.saved_tensors
+        return flash_attention_qkv_bwd(qkv, out, dout.contiguous(), ctx.scale, stats), None, None
 
 
 def _stream_views(qkv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -423,7 +484,7 @@ def flash_attention_qkv(qkv: torch.Tensor, scale: float | None = None) -> torch.
     scale = qkv.shape[-1] ** -0.5 if scale is None else float(scale)
     if qkv.shape[1] > _SINGLE_BLOCK_MAX:
         return _FlashAttentionStreamQKV.apply(qkv, scale)
-    return _FlashAttentionQKV.apply(qkv, scale)
+    return _FlashAttentionQKV.apply(qkv, scale, _backward_follows(qkv))
 
 
 flash_attention_qkv.launches = 0
@@ -670,28 +731,30 @@ def _nd(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_tn_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                 scale: float) -> torch.Tensor:
+                                 scale: float, with_stats: bool = False):
     """Plain PyTorch version of K6's forward (``_attn_kernel_tn``): q, k, v
-    (B, K, D, N) → out (B, K, D, N) in q's dtype.  K1's arithmetic
+    (B, K, D, N) → out (B, K, D, N) in q's dtype, and with ``with_stats``
+    the row statistics (2, B, K, N) (``_row_stats``).  K1's arithmetic
     (``_tn_fwd_math``) on three separate operands: f32 scores, e = exp(s −
     rowmax) cast to the operand dtype before AV, out = (e·v)·(1/Σe) in f32,
     then cast."""
     qn, kn, vn = (_nd(t).float() for t in (q, k, v))
-    s = torch.matmul(qn, kn.transpose(-1, -2)) * scale
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    r = 1.0 / e.sum(dim=-1, keepdim=True)
-    return _nd((torch.matmul(e.to(q.dtype).float(), vn) * r).to(q.dtype))
+    m, e, r = _row_stats(torch.matmul(qn, kn.transpose(-1, -2)) * scale)
+    out = _nd((torch.matmul(e.to(q.dtype).float(), vn) * r).to(q.dtype))
+    return (out, torch.cat([m, r], dim=-1).permute(3, 0, 1, 2)) if with_stats else out
 
 
 def flash_attention_tn_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                     dout: torch.Tensor, scale: float):
+                                     dout: torch.Tensor, scale: float,
+                                     stats: torch.Tensor | None = None):
     """Plain PyTorch version of K6's backward (``_attn_bwd_kernel_tn``):
     (dq, dk, dv), each (B, K, D, N) in q's dtype, from q, k, v and out's
-    cotangent, all (B, K, D, N): ``_tn_bwd_math`` with o=None — o = (eb·v)·r
+    cotangent, all (B, K, D, N), and the forward's row statistics (found
+    again when None): ``_tn_bwd_math`` with o=None — o = (eb·v)·r
     recomputed in f32 and never rounded, delta = Σ_d f32(dO)·o.  Neither K2's
     rounding (delta from the saved, rounded output) nor K5's (p divided before
     it is rounded, dv = bf16(p)ᵀ·dO)."""
-    grads = _tn_bwd_math(*(_nd(t).float() for t in (q, k, v, dout)), scale, q.dtype)
+    grads = _tn_bwd_math(*(_nd(t).float() for t in (q, k, v, dout)), scale, q.dtype, None, stats)
     return tuple(_nd(t.to(q.dtype)) for t in grads)
 
 
@@ -701,12 +764,15 @@ def _check_tn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str) -> N
     _check_stream(q, k, v, name)
 
 
-def _any_strides(*tensors: torch.Tensor) -> bool:
-    """Whether a bf16 kernel must stage these (B, K, D, N) operands element by
-    element: true unless each, as a (B, K, N, D) view, has a unit head-dim
-    stride and 16-byte rows."""
-    return tensors[0].dtype == torch.bfloat16 and not all(
-        _rows_16b_aligned(_nd(t)) for t in tensors)
+def _kernel_views(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """(B, K, D, N) operands as the (B, K, N, D) views the kernels index.  The
+    bf16 kernels copy 16-byte chunks: an operand without a unit head-dim
+    stride and 16-byte rows (a contiguous (B, K, D, N) tensor, contiguous
+    along N) becomes a contiguous (B, K, N, D) copy."""
+    views = [_nd(t) for t in tensors]
+    if tensors[0].dtype != torch.bfloat16:
+        return views
+    return [t if _rows_16b_aligned(t) else t.contiguous() for t in views]
 
 
 def _new_tn(q: torch.Tensor) -> torch.Tensor:
@@ -717,56 +783,61 @@ def _new_tn(q: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_tn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           scale: float | None = None) -> torch.Tensor:
+                           scale: float | None = None, stats: bool = False):
     """K6's forward: q, k, v (B, K, D, N) of any strides, N ≤ 1040 → out
-    (B, K, D, N) in q's dtype, a view of a contiguous (B, K, N, D) tensor.
-    K1's kernel on three operands (``csrc/flash_attention_fwd.cu``); no
-    operand is copied."""
+    (B, K, D, N) in q's dtype, a view of a contiguous (B, K, N, D) tensor,
+    and with ``stats`` the row statistics (2, B, K, N) its backward reads.
+    K1's kernel on three operands (``csrc/flash_attention_fwd.cu``); bf16
+    operands without 16-byte rows are copied (``_kernel_views``)."""
     name = "flash_attention_tn_fwd"
     _check_tn(q, k, v, name)
     B, K, D, N = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
-        return flash_attention_tn_reference(q, k, v, scale)
+        return flash_attention_tn_reference(q, k, v, scale, stats)
     _check_cuda(q.device, B, K, D, name, scale)
     out = _new_tn(q)
+    row_stats = _new_stats(B, K, N, q.device) if stats else None
+    ops = _kernel_views(q, k, v)
     lib = _library("flash_attention_fwd")
     err = lib.flash_attention_tn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-        int(_any_strides(q, k, v)), B, N, K, D, *_strides(*map(_nd, (q, k, v, out))), scale,
+        *(t.data_ptr() for t in ops), out.data_ptr(), row_stats.data_ptr() if stats else None,
+        _DTYPE_CODES[q.dtype], B, N, K, D, *_strides(*ops, _nd(out)), scale,
         torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
     _raise_on(lib, err, name)
     flash_attention_tn_fwd.launches += 1
-    return out
+    return (out, row_stats) if stats else out
 
 
 flash_attention_tn_fwd.launches = 0
 
 
 def flash_attention_tn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           dout: torch.Tensor, scale: float | None = None):
+                           dout: torch.Tensor, scale: float | None = None,
+                           stats: torch.Tensor | None = None):
     """K6's backward: (dq, dk, dv), each (B, K, D, N) in q's dtype (views of
     contiguous (B, K, N, D) tensors on the card), from q, k, v and out's
-    cotangent, all (B, K, D, N) of any strides.  Nothing of the forward is
-    needed.  Two kernels (``csrc/flash_attention_bwd.cu``, K2's with o
-    recomputed): the dq kernel, one block per query tile, which writes the
-    row statistics (m, r, delta) to a (3, B, K, N) scratch; then the dk/dv
-    kernel, one block per key tile, which reads them."""
+    cotangent, all (B, K, D, N) of any strides, and the row statistics K6's
+    forward returned with ``stats=True`` (needed on the card).  Two kernels
+    (``csrc/flash_attention_bwd.cu``, K2's with o recomputed): the dq
+    kernel, one block per query tile, which writes delta to a (B, K, N)
+    scratch; then the dk/dv kernel, one block per key tile, which reads it."""
     name = "flash_attention_tn_bwd"
     _check_tn(q, k, v, name)
     B, K, D, N = q.shape
     _check_operands(name, (B, K, D, N), q.dtype, q.device, dout=dout)
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
-        return flash_attention_tn_bwd_reference(q, k, v, dout, scale)
+        return flash_attention_tn_bwd_reference(q, k, v, dout, scale, stats)
     _check_cuda(q.device, B, K, D, name, scale)
+    _check_stats(name, stats, B, K, N, q.device)
     dq, dk, dv = (_new_tn(q) for _ in range(3))
-    stats = torch.empty((3, B, K, N), dtype=torch.float32, device=q.device)
+    delta = _new_stats(B, K, N, q.device, rows=1)
+    ops = _kernel_views(q, k, v, dout)
     lib = _library("flash_attention_bwd")
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype],
-            int(_any_strides(q, k, v, dout)), B, N, K, D,
-            *_strides(*map(_nd, (q, k, v, dout, dq, dk, dv))), scale,
+    args = (*(t.data_ptr() for t in ops), stats.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], B, N, K, D,
+            *_strides(*ops, *map(_nd, (dq, dk, dv))), scale,
             torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
     _raise_on(lib, lib.flash_attention_tn_bwd_dq(*args), f"{name} (dq)")
     flash_attention_tn_bwd.dq_launches += 1
@@ -780,18 +851,21 @@ flash_attention_tn_bwd.dkdv_launches = 0
 
 
 class _FlashAttentionTN(torch.autograd.Function):
-    """K6 forward saving (q, k, v) only, as the JAX ``_tn_fwd``; K6's backward."""
+    """K6 forward saving (q, k, v) and its row statistics (the JAX ``_tn_fwd``
+    saves q, k, v); K6's backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, scale: float, with_stats: bool):
+        out, stats = (flash_attention_tn_fwd(q, k, v, scale, True) if with_stats
+                      else (flash_attention_tn_fwd(q, k, v, scale), None))
+        ctx.save_for_backward(q, k, v, stats)
         ctx.scale = scale
-        return flash_attention_tn_fwd(q, k, v, scale)
+        return out
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
-        q, k, v = ctx.saved_tensors
-        return (*flash_attention_tn_bwd(q, k, v, dout, ctx.scale), None)
+        q, k, v, stats = ctx.saved_tensors
+        return (*flash_attention_tn_bwd(q, k, v, dout, ctx.scale, stats), None, None)
 
 
 def flash_attention_tn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -807,7 +881,7 @@ def flash_attention_tn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D, N = q.shape[2:]
     scale = D ** -0.5 if scale is None else float(scale)
     if N <= _SINGLE_BLOCK_MAX:
-        return _FlashAttentionTN.apply(q, k, v, scale)
+        return _FlashAttentionTN.apply(q, k, v, scale, _backward_follows(q, k, v))
     return _nd(flash_attention(*(_nd(t).contiguous() for t in (q, k, v)), scale))
 
 
@@ -818,27 +892,26 @@ def _raise_on(lib: ctypes.CDLL, err: int, fn: str) -> None:
 
 
 _ARGTYPES = {
-    # K1: qkv, out, dtype, B, N, K, D, 5 qkv strides, 4 out strides, scale,
-    # stream, device; K6: q, k, v, out, dtype, any_strides, B, N, K, D, 4
-    # strides each of q, k, v, out, scale, stream, device
+    # K1: qkv, out, stats (or null), dtype, B, N, K, D, 5 qkv strides, 4 out
+    # strides, scale, stream, device; K6: q, k, v, out, stats, dtype, B, N, K,
+    # D, 4 strides each of q, k, v, out, scale, stream, device
     "flash_attention_fwd": {"flash_attention_qkv_fwd":
-                            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 9
                             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
                             "flash_attention_tn_fwd":
-                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 16
                             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]},
-    # qkv, out, dout, dqkv, stats, dtype, B, N, K, D, 5 qkv, 4 out, 4 dout
-    # strides, scale, stream, device
-    # K6's two kernels: q, k, v, dout, stats, dq, dk, dv, dtype, any_strides,
-    # B, N, K, D, 4 strides each of q, k, v, dout, dq, dk, dv, scale, stream,
-    # device
+    # qkv, out, dout, dqkv, stats, delta, dtype, B, N, K, D, 5 qkv, 4 out, 4
+    # dout strides, scale, stream, device
+    # K6's two kernels: q, k, v, dout, stats, delta, dq, dk, dv, dtype, B, N,
+    # K, D, 4 strides each of q, k, v, dout, dq, dk, dv, scale, stream, device
     "flash_attention_bwd": {"flash_attention_qkv_bwd":
-                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 13
                             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
-                            **{fn: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                            **{fn: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                                + [ctypes.c_longlong] * 28
                                + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
                                for fn in ("flash_attention_tn_bwd_dq",
@@ -871,7 +944,7 @@ _ARGTYPES = {
     # dx: dqkv, w, dx, M, H, J, 2 w strides, stream, device; dW: x, dqkv, dW,
     # M, H, J, x's row stride, stream, device
     "fused_qkv_bwd": {
-        **{fn: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 13
+        **{fn: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 13
            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
            for fn in ("fused_qkv_bwd_dq", "fused_qkv_bwd_dkdv")},
         "fused_qkv_bwd_dx": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -926,13 +999,15 @@ def _qkv_grads_plain(x: torch.Tensor, w: torch.Tensor, dqkv: torch.Tensor):
 
 
 def fused_qkv_bwd_reference(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor,
-                            out: torch.Tensor, dout: torch.Tensor, scale: float):
+                            out: torch.Tensor, dout: torch.Tensor, scale: float,
+                            stats: torch.Tensor | None = None):
     """Plain PyTorch version of K8 (``_fused_qkv_bwd``): (dx (B, N, H) in x's
     dtype, dW (H, 3, K, D) in w's dtype) from x, w, the saved qkv
     (B, N, 3, K, D) and output (B, N, K, D) and the output's cotangent.  K2's
     plain version gives dq, dk, dv rounded to the operand dtype (``dsb``);
-    dx = Σ dqkv·Wᵀ and dW = Σ xᵀ·dqkv from them in f32, each cast once."""
-    dqkv = flash_attention_qkv_bwd_reference(qkv, out, dout, scale).float()
+    dx = Σ dqkv·Wᵀ and dW = Σ xᵀ·dqkv from them in f32, each cast once.
+    ``stats``: K1's row statistics, found again when None."""
+    dqkv = flash_attention_qkv_bwd_reference(qkv, out, dout, scale, stats).float()
     x2, w2 = (t.float() for t in _qkv_matrices(x, w))
     d2 = dqkv.reshape(x2.shape[0], -1)
     return (torch.matmul(d2, w2.t()).to(x.dtype).view(x.shape),
@@ -940,10 +1015,12 @@ def fused_qkv_bwd_reference(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor,
 
 
 def fused_qkv_bwd(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor, out: torch.Tensor,
-                  dout: torch.Tensor, scale: float | None = None):
+                  dout: torch.Tensor, scale: float | None = None,
+                  stats: torch.Tensor | None = None):
     """K8: (dx, dW) of fused_qkv_attention from x (B, N, H), w (H, 3, K, D),
-    the saved qkv (B, N, 3, K, D) and output (B, N, K, D) and the output's
-    cotangent (B, N, K, D).  bf16 only, N ≤ 1040.
+    the saved qkv (B, N, 3, K, D) and output (B, N, K, D), the output's
+    cotangent (B, N, K, D) and K1's row statistics (2, B, K, N; needed on the
+    card).  bf16 only, N ≤ 1040.
 
     Four kernels (``csrc/fused_qkv_bwd.cu``): K2's dq and dk/dv kernels,
     which write dq, dk, dv rounded to bf16 into a (B, N, 3, K, D) scratch,
@@ -962,11 +1039,12 @@ def fused_qkv_bwd(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor, out: torc
     _check_operands(name, (B, N, K, D), qkv.dtype, qkv.device, out=out, dout=dout)
     scale = D ** -0.5 if scale is None else float(scale)
     if qkv.device.type == "cpu":
-        return fused_qkv_bwd_reference(x, w, qkv, out, dout, scale)
+        return fused_qkv_bwd_reference(x, w, qkv, out, dout, scale, stats)
     if qkv.dtype != torch.bfloat16 or x.dtype != torch.bfloat16 or N > _SINGLE_BLOCK_MAX:
         raise ValueError(f"{name} runs bf16 operands at N <= {_SINGLE_BLOCK_MAX}, "
                          f"got {qkv.dtype} x {x.dtype}, N={N}")
     _check_cuda(qkv.device, B, K, D, name, scale)
+    _check_stats(name, stats, B, K, N, qkv.device)
     if not all(map(_rows_16b_aligned, (qkv, out, dout))):
         raise ValueError(f"{name}: qkv, out and dout need a unit head-dim stride and strides "
                          "that are multiples of 8")
@@ -978,13 +1056,13 @@ def fused_qkv_bwd(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor, out: torc
         w2 = w2.contiguous()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     dqkv = torch.empty((B, N, 3, K, D), dtype=qkv.dtype, device=qkv.device)
-    stats = torch.empty((3, B, K, N), dtype=torch.float32, device=qkv.device)
+    delta = _new_stats(B, K, N, qkv.device, rows=1)
     dx = torch.empty((B, N, H), dtype=x.dtype, device=x.device)
     dw = torch.empty((H, 3 * K * D), dtype=torch.float32, device=x.device)
     lib = _library("fused_qkv_bwd")
     args = (qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            B, N, K, D, *qkv.stride(), *out.stride(), *dout.stride(), scale, stream,
-            qkv.device.index)
+            delta.data_ptr(), B, N, K, D, *qkv.stride(), *out.stride(), *dout.stride(), scale,
+            stream, qkv.device.index)
     _raise_on(lib, lib.fused_qkv_bwd_dq(*args), f"{name} (dq)")
     fused_qkv_bwd.dq_launches += 1
     _raise_on(lib, lib.fused_qkv_bwd_dkdv(*args), f"{name} (dk/dv)")
@@ -1017,34 +1095,38 @@ def _use_fused_grads(qkv: torch.Tensor) -> bool:
 class _FusedQKVAttention(torch.autograd.Function):
     """The JAX ``fused_qkv_attention`` custom VJP: the forward is the QKV
     projection, then K1 (K7 above ``_SINGLE_BLOCK_MAX``), saving
-    (x, w, qkv, out); the backward follows ``_fused_qkv_bwd_rule``."""
+    (x, w, qkv, out) and K1's row statistics (K7's logsumexp) — the slot of
+    JAX's lse, None at short N; the backward follows ``_fused_qkv_bwd_rule``
+    and hands them to K2 or K8 (K7)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor):
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, with_stats: bool):
         B, N, H = x.shape
         _, _, K, D = w.shape
         x2, w2 = _qkv_matrices(x, w)
         qkv = torch.matmul(x2, w2).view(B, N, 3, K, D)
         scale = D ** -0.5
         if N > _SINGLE_BLOCK_MAX:
-            out, lse = _stream_qkv_fwd(qkv, scale)   # (B, N, K, D)
+            out, stats = _stream_qkv_fwd(qkv, scale)   # (B, N, K, D), lse
+        elif with_stats:
+            out, stats = flash_attention_qkv_fwd(qkv, scale, True)
         else:
-            out, lse = flash_attention_qkv_fwd(qkv, scale), None
-        ctx.save_for_backward(x, w, qkv, out, lse)
+            out, stats = flash_attention_qkv_fwd(qkv, scale), None
+        ctx.save_for_backward(x, w, qkv, out, stats)
         ctx.scale = scale
         return out.permute(0, 2, 3, 1)                # (B, K, D, N)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        x, w, qkv, out, lse = ctx.saved_tensors
+        x, w, qkv, out, stats = ctx.saved_tensors
         dout = g.permute(0, 3, 1, 2).contiguous()     # (B, N, K, D)
         if _use_fused_grads(qkv):
-            return fused_qkv_bwd(x, w, qkv, out, dout, ctx.scale)
-        if lse is None:
-            dqkv = flash_attention_qkv_bwd(qkv, out, dout, ctx.scale)
+            return (*fused_qkv_bwd(x, w, qkv, out, dout, ctx.scale, stats), None)
+        if qkv.shape[1] <= _SINGLE_BLOCK_MAX:
+            dqkv = flash_attention_qkv_bwd(qkv, out, dout, ctx.scale, stats)
         else:
-            dqkv = _stream_qkv_bwd(qkv, out, lse, dout, ctx.scale)
-        return _qkv_grads_plain(x, w, dqkv)
+            dqkv = _stream_qkv_bwd(qkv, out, stats, dout, ctx.scale)
+        return (*_qkv_grads_plain(x, w, dqkv), None)
 
 
 def fused_qkv_attention(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -1058,4 +1140,4 @@ def fused_qkv_attention(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (``fused_qkv_bwd``); otherwise K2 (K7 above ``_SINGLE_BLOCK_MAX``) for
     dqkv, then dx = dqkv·Wᵀ and dW = xᵀ·dqkv as plain GEMMs, f32 accumulation,
     cast to x's and w's dtypes (``kernels/flash_attention.py:1016-1023``)."""
-    return _FusedQKVAttention.apply(x, w)
+    return _FusedQKVAttention.apply(x, w, _backward_follows(x, w))
