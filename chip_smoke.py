@@ -10,7 +10,8 @@ Phases, each printed as one JSON line with a ``phase`` key:
              power limit; TF32 switched off for matmuls and cuDNN.
 2. build   — compiles every kernel of the serving and training paths from
              ``cross_attention_vit_tpu_torch/kernels/csrc/`` with nvcc, one
-             process per source (seven), all started together.
+             process per source (six), all started together; keeps each
+             kernel's ptxas registers and spills.
 3. kernels — holds each kernel (K1 attention forward, K2 its backward, K3
              the windowed resample, K4 the same over all taps) against its
              plain PyTorch version on the card (normalised max error within
@@ -32,12 +33,17 @@ Phases, each printed as one JSON line with a ``phase`` key:
              ModelVIT training shape (B=8, K=16, N=1537, bf16) beside
              scaled_dot_product_attention and its autograd backward.
 5. kernels_k5 — the same for K5, the single-block attention of the public
-             ``flash_attention`` (forward; dq and dk/dv kernels of its
-             recompute-form backward) at N = 100, 513, 1025, 1040 in bf16 and
-             f32, contiguous and as views of a stacked qkv; timed at the
-             int8+attn serving shapes (B=8, K=16, N=513 and 1025, bf16)
-             beside scaled_dot_product_attention and its autograd backward,
-             and held, with the plain path, against an f32 attention.
+             ``flash_attention`` (forward with its row statistics; dq and
+             dk/dv kernels of its recompute-form backward on them: K1's and
+             K2's kernels under K5's rounding rule) at N = 100, 513, 1025,
+             1040 in bf16 and f32, contiguous and as views of a stacked qkv:
+             the statistics against the plain ones, the backward against its
+             plain version given the kernel's statistics, two backward calls
+             bit for bit, no ptxas spill in a K5 kernel; timed at the
+             int8+attn serving shapes (B=8, K=16, N=513 and 1025, bf16), the
+             median of five profiled windows, beside
+             scaled_dot_product_attention and its autograd backward, and
+             held, with the plain path, against an f32 attention.
 6. serve   — the full-width live ModelCross (3 streams, hidden 1024, 16
              heads, N = 513, bf16, tanh GELU; 241.9M random parameters from
              a seed) written as a JAX-layout npz checkpoint, served by the
@@ -129,6 +135,7 @@ import gc
 import io
 import itertools
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -196,8 +203,7 @@ TIMING_WINDOWS = 5
 SERVE_TOL = 5e-2
 REQUEST_SIZES = (1, 3, 8, 1, 3, 8)
 LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "resample",
-             "flash_attention_stream", "flash_attention_stream_bwd", "flash_attention_single",
-             "flash_attention_single_bwd", "fused_qkv_bwd")
+             "flash_attention_stream", "flash_attention_stream_bwd", "fused_qkv_bwd")
 K1 = {"name": "flash_attention_qkv", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:759"}
@@ -211,10 +217,10 @@ K4 = {"name": "resample_axis_windowed (all taps)", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/resample.cu",
       "replaces": "cross_attention_vit_tpu/kernels/resample.py:36"}
 K5F = {"name": "flash_attention_single_fwd", "route": "cuda",
-       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_single.cu",
+       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
        "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:109"}
 K5B = {"name": "flash_attention_single_bwd (dq and dk/dv kernels)", "route": "cuda",
-       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_single_bwd.cu",
+       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
        "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:280"}
 K7F = {"name": "flash_attention_stream_fwd", "route": "cuda",
        "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_stream.cu",
@@ -254,6 +260,11 @@ K7_TRAIN = (8, 16, 1537)
 # ModelCross int8+attn and the 2-stream ModelVIT
 K5_NS = (100, 513, 1025, 1040)
 K5_SERVE = ((8, 16, 513), (8, 16, 1025))
+# K5's kernels, each in bf16 and f32 (their profiler names hold these)
+K5_KERNELS = ("attn_single_fwd", "attn_single_bwd_dq", "attn_single_bwd_dkdv")
+# ptxas -v of the last build: {kernel's mangled name: {"registers", "spill_stores",
+# "spill_loads"}}
+PTXAS: dict[str, dict] = {}
 # quantized layers of the live ModelCross (JAX count_quantized: 2 multi × 3
 # streams × 2 self blocks, 3 cross pairs, 3 heads) and of a 4-layer ModelVIT
 QUANTIZED = {"int8": 39, "int8+attn": 63}
@@ -422,6 +433,22 @@ def phase_device() -> dict:
     return info
 
 
+def ptxas_by_kernel(report: str) -> dict[str, dict]:
+    """Each entry function's registers and spill bytes from a ``ptxas -v``
+    report (its "Compiling entry function", "Function properties" and "Used
+    ... registers" lines)."""
+    kernels, name = {}, None
+    for ln in report.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?([\w.$]+)", ln):
+            name = m.group(1)
+            kernels.setdefault(name, {})
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            kernels[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            kernels[name]["registers"] = int(m.group(1))
+    return kernels
+
+
 def phase_build() -> None:
     """Every kernel library from source, one nvcc process per source, all
     started together."""
@@ -429,6 +456,7 @@ def phase_build() -> None:
         built = list(pool.map(lambda name: _build.build(name, force=True), LIBRARIES))
     for name, (lib, seconds, report) in zip(LIBRARIES, built):
         print(report, file=sys.stderr, flush=True)     # ptxas -v: registers, smem, spills
+        PTXAS.update(ptxas_by_kernel(report))
         emit({"phase": "build", "kernel": name,
               "library": str(lib.relative_to(ROOT)), "nvcc_s": seconds,
               "ptxas": [ln.strip() for ln in report.splitlines()
@@ -886,15 +914,28 @@ def _k5_operands(B: int, K: int, N: int, dtype: torch.dtype, layout: str, seed: 
 
 
 def _k5_path(q, k, v, dout, scale: float):
-    return (fa.flash_attention_single_fwd(q, k, v, scale),
-            fa.flash_attention_single_bwd(q, k, v, dout, scale))
+    """K5's forward with its row statistics, then its backward on them."""
+    out, stats = fa.flash_attention_single_fwd(q, k, v, scale, True)
+    return out, fa.flash_attention_single_bwd(q, k, v, dout, scale, stats)
+
+
+def _k5_ptxas() -> dict[str, dict]:
+    """The ptxas registers and spills of K5's kernels in the last build, by
+    kernel name (bf16 and f32)."""
+    return {m.group(1): report for key, report in PTXAS.items()
+            if (m := re.search(r"(attn_single_\w*?_kernel)", key))}
 
 
 def phase_kernels_k5() -> dict:
-    """K5's forward and backward (dq, dk, dv) against their plain versions,
-    contiguous and as views of a stacked qkv; at the two serving shapes the
-    timings, bounds, library yardsticks and the distance of kernel and plain
-    path from an f32 attention.  Returns the serving-shape readings by N."""
+    """K5's forward and its row statistics, and its backward (dq, dk, dv) on
+    the kernel's own statistics, against their plain versions (the
+    backward's given the same statistics), contiguous and as views of a
+    stacked qkv; two identical backward calls compared bit for bit; the
+    ptxas report of K5's kernels (no spill).  At the two serving shapes the
+    timings (median of five profiled windows), bounds, library yardsticks
+    and the distance of kernel and plain path from an f32 attention.
+    Returns the serving-shape readings by N."""
+    ptxas = _k5_ptxas()
     cases = [(2, 4, N, dt, layout) for N in K5_NS for dt in (torch.bfloat16, torch.float32)
              for layout in ("contiguous", "stacked")]
     cases += [(*shape, torch.bfloat16, "stacked") for shape in K5_SERVE]
@@ -903,9 +944,11 @@ def phase_kernels_k5() -> dict:
         q, k, v, dout = _k5_operands(B, K, N, dtype, layout, seed=500 + i)
         scale = 64 ** -0.5
         out = fa.flash_attention_single_fwd(q, k, v, scale)
-        plain_out = fa.flash_attention_single_reference(q, k, v, scale)
-        got = fa.flash_attention_single_bwd(q, k, v, dout, scale)
-        want = fa.flash_attention_single_bwd_reference(q, k, v, dout, scale)
+        out_s, stats = fa.flash_attention_single_fwd(q, k, v, scale, True)
+        plain_out, plain_stats = fa.flash_attention_single_reference(q, k, v, scale, True)
+        got = fa.flash_attention_single_bwd(q, k, v, dout, scale, stats)
+        again = fa.flash_attention_single_bwd(q, k, v, dout, scale, stats)
+        want = fa.flash_attention_single_bwd_reference(q, k, v, dout, scale, stats)
         torch.cuda.synchronize()
         errs = {"out": _norm_err(out, plain_out),
                 **{n: _norm_err(got[j], want[j]) for j, n in enumerate(("dq", "dk", "dv"))}}
@@ -913,23 +956,32 @@ def phase_kernels_k5() -> dict:
                  "layout": layout, "tol": KERNEL_TOL[dtype],
                  "finite": all(bool(torch.isfinite(t).all()) for t in (out, *got)),
                  "max_abs_err": {n: e[0] for n, e in errs.items()},
-                 "norm_err": {n: e[1] for n, e in errs.items()}}
-        del plain_out, want
+                 "norm_err": {n: e[1] for n, e in errs.items()},
+                 "stats_err": _stats_err(stats, plain_stats),
+                 "out_equal_with_stats": bool(torch.equal(out_s, out)),
+                 # every output summed by one block in a fixed order
+                 "run_to_run_max_abs": max((a.float() - b.float()).abs().max().item()
+                                           for a, b in zip(got, again))}
+        del plain_out, plain_stats, want, again, out_s
         if (B, K, N) in K5_SERVE:
             qc, kc, vc = (t.contiguous() for t in (q, k, v))
             timings(entry, lambda: fa.flash_attention_single_fwd(q, k, v, scale),
                     lambda: fa.flash_attention_single_reference(q, k, v, scale),
-                    lambda: F.scaled_dot_product_attention(qc, kc, vc))
-            entry["bwd_kernel_ms"] = device_ms_split(
-                lambda: fa.flash_attention_single_bwd(q, k, v, dout, scale),
-                {"dq": "attn_single_bwd_dq", "dkdv": "attn_single_bwd_dkdv"})
-            entry["bwd_plain_ms"] = device_ms(
-                lambda: fa.flash_attention_single_bwd_reference(q, k, v, dout, scale), calls=2)
+                    lambda: F.scaled_dot_product_attention(qc, kc, vc), windows=TIMING_WINDOWS)
+            entry["kernel_with_stats_ms"] = device_ms(
+                lambda: fa.flash_attention_single_fwd(q, k, v, scale, True))
             xs = [t.detach().requires_grad_() for t in (qc, kc, vc)]
             lib_out = F.scaled_dot_product_attention(*xs)
             lib_g = dout.contiguous()
-            entry["bwd_library_ms"] = device_ms(
-                lambda: torch.autograd.grad(lib_out, xs, lib_g, retain_graph=True))
+            def bwd():
+                return fa.flash_attention_single_bwd(q, k, v, dout, scale, stats)
+            entry["bwd"] = {}
+            timings(entry["bwd"], bwd,
+                    lambda: fa.flash_attention_single_bwd_reference(q, k, v, dout, scale, stats),
+                    lambda: torch.autograd.grad(lib_out, xs, lib_g, retain_graph=True),
+                    windows=TIMING_WINDOWS)
+            entry["bwd"]["kernel_ms_by_kernel"] = device_ms_split(
+                bwd, {"dq": "attn_single_bwd_dq", "dkdv": "attn_single_bwd_dkdv"})
             del xs, lib_out, lib_g, qc, kc, vc
             entry["bound"] = {name: {"ms": ms, "by": by}
                               for name, (ms, by) in k5_bounds(B, N, K, 64).items()}
@@ -937,12 +989,18 @@ def phase_kernels_k5() -> dict:
                                                 lambda: _k5_path(q, k, v, dout, scale))
             timed[N] = entry
         checks.append(entry)
-        if not (entry["finite"] and max(entry["norm_err"].values()) <= entry["tol"]):
+        if not (entry["finite"] and max(entry["norm_err"].values()) <= entry["tol"]
+                and max(entry["stats_err"].values()) <= STATS_TOL
+                and entry["out_equal_with_stats"] and entry["run_to_run_max_abs"] == 0.0):
             failures.append(entry)
-        del q, k, v, dout, out, got
+        del q, k, v, dout, out, got, stats
         torch.cuda.empty_cache()
-    emit({"phase": "kernels_k5", "kernels": [K5F, K5B], "cases": checks})
-    check(not failures, f"K5 disagrees with its plain versions: {failures}")
+    emit({"phase": "kernels_k5", "kernels": [K5F, K5B], "ptxas": ptxas, "cases": checks})
+    check(len(ptxas) == len(K5_KERNELS) * 2,
+          f"ptxas reported {sorted(ptxas)}, not K5's bf16 and f32 kernels")
+    check(not any(r.get("spill_stores") or r.get("spill_loads") for r in ptxas.values()),
+          f"a K5 kernel spills: {ptxas}")
+    check(not failures, f"K5 disagrees with its plain versions or between two calls: {failures}")
     return timed
 
 
@@ -2097,25 +2155,34 @@ def main() -> int:
          "library": "backward of scaled_dot_product_attention through autograd (dq, dk, dv)",
          "shape": k7_shape},
         {**K5F, **launches["K5F"],
-         "max_abs_err": k5s["max_abs_err"]["out"], "ms": k5s["kernel_ms"],
+         "max_abs_err": k5s["max_abs_err"]["out"], "stats_err": k5s["stats_err"],
+         "ms": k5s["kernel_ms"], "ms_spread": k5s["kernel_ms_spread"],
+         "with_stats_ms": k5s["kernel_with_stats_ms"],
          "plain_ms": k5s["plain_ms"], "bound_ms": k5s["bound"]["fwd"]["ms"],
          "bound_by": k5s["bound"]["fwd"]["by"], "library_ms": k5s["library_ms"],
+         "library_ms_spread": k5s["library_ms_spread"],
          "library": "scaled_dot_product_attention", "shape": k5_shape,
-         "at_n1025": {"ms": k5v["kernel_ms"], "plain_ms": k5v["plain_ms"],
+         "at_n1025": {"ms": k5v["kernel_ms"], "ms_spread": k5v["kernel_ms_spread"],
+                      "plain_ms": k5v["plain_ms"],
                       "bound_ms": k5v["bound"]["fwd"]["ms"], "bound_by": k5v["bound"]["fwd"]["by"],
                       "library_ms": k5v["library_ms"]}},
         {**K5B, **launches["K5DQ"],
          "launches_note": "0 on every main path: no model trains through the public "
                           "flash_attention; its gradient is checked in phase kernels_k5",
          "max_abs_err": max(k5s["max_abs_err"][n] for n in ("dq", "dk", "dv")),
-         "ms": sum(k5s["bwd_kernel_ms"].values()), "ms_by_kernel": k5s["bwd_kernel_ms"],
-         "plain_ms": k5s["bwd_plain_ms"], "bound_ms": k5s["bound"]["bwd"]["ms"],
-         "bound_by": k5s["bound"]["bwd"]["by"], "library_ms": k5s["bwd_library_ms"],
+         "run_to_run_max_abs": k5s["run_to_run_max_abs"],
+         "ms": k5s["bwd"]["kernel_ms"], "ms_spread": k5s["bwd"]["kernel_ms_spread"],
+         "ms_by_kernel": k5s["bwd"]["kernel_ms_by_kernel"],
+         "plain_ms": k5s["bwd"]["plain_ms"], "bound_ms": k5s["bound"]["bwd"]["ms"],
+         "bound_by": k5s["bound"]["bwd"]["by"], "library_ms": k5s["bwd"]["library_ms"],
+         "library_ms_spread": k5s["bwd"]["library_ms_spread"],
          "library": "backward of scaled_dot_product_attention through autograd (dq, dk, dv)",
          "shape": k5_shape,
-         "at_n1025": {"ms": sum(k5v["bwd_kernel_ms"].values()), "plain_ms": k5v["bwd_plain_ms"],
+         "at_n1025": {"ms": k5v["bwd"]["kernel_ms"], "ms_spread": k5v["bwd"]["kernel_ms_spread"],
+                      "ms_by_kernel": k5v["bwd"]["kernel_ms_by_kernel"],
+                      "plain_ms": k5v["bwd"]["plain_ms"],
                       "bound_ms": k5v["bound"]["bwd"]["ms"], "bound_by": k5v["bound"]["bwd"]["by"],
-                      "library_ms": k5v["bwd_library_ms"]}},
+                      "library_ms": k5v["bwd"]["library_ms"]}},
         {**K6F, **launches["K6F"],
          "launches_note": "0 on every main path: K6 is the public flash_attention_tn, which "
                           "no module calls; it is checked in phase kernels_k6",

@@ -15,7 +15,8 @@ Both ``.nii`` and ``.nii.gz`` are supported, little- and big-endian headers.
 The hot path (gunzip + frombuffer) is all C under the hood (zlib/NumPy).
 
 This is the PyTorch port's own copy of ``cross_attention_vit_tpu/data/nifti.py``
-(the pure-Python reader path; the native decoder binding is not ported yet).
+(the pure-Python reader path; the native decoder's binding is
+``data/native.py``).
 """
 
 from __future__ import annotations

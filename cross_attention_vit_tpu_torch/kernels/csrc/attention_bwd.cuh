@@ -1,5 +1,5 @@
-// The backward kernels of the "tn" attention (K2, K6 and K8's first two
-// kernels), for Hopper (sm_90a): the function of _tn_bwd_math
+// The backward kernels of the attention's single-block path (K2, K5, K6 and
+// K8's first two kernels), for Hopper (sm_90a): the function of _tn_bwd_math
 // (cross_attention_vit_tpu/kernels/flash_attention.py:628-692) for every
 // (batch b, head h), given the forward's row statistics (m, r) (see `stat`):
 //
@@ -12,7 +12,18 @@
 //
 // with o either the SAVED forward output (kRecompute = false: K2, K8) or
 // recomputed, o = (e cast to the operand dtype)·v · r in f32 and never
-// rounded (kRecompute = true: K6, _tn_bwd_math with o=None).  Head dim D = 64.
+// rounded (kRecompute = true: K6, _tn_bwd_math with o=None).
+//
+// K5 (_attn_bwd_kernel, :280-336, the public flash_attention's recompute-form
+// backward) is kRecompute under another rounding rule, kNormalised: the row
+// normalisation comes before the rounding, p = e·r (f32), pb = bf16(p),
+//
+//     o  = pb·v (f32, never rounded);   dv = pbᵀ · do  (do not scaled)
+//     ds = p · (dp − delta) · scale     cast to the operand dtype
+//
+// (jax.nn.softmax divides, e / Σe; e·r is within 2 ulp of it).  In f32 the
+// two rules are one function, so K5's f32 kernels are K6's bodies.  Head dim
+// D = 64.
 //
 // Layout.  Every operand is a (B, K, N, D) view given by its pointer and its
 // (b, h, n, d) strides in elements (View): K2 and K8 read q, k, v as views of
@@ -27,27 +38,31 @@
 //
 //   dq kernel:   one block per 64-row query tile.  It reads m and r (no pass
 //                recomputes them); with kRecompute a first pass over the
-//                keys accumulates e·v for o.  It writes delta to a
-//                (B, K, N) f32 scratch, then recomputes s and dp tile by
+//                keys accumulates e·v (K5: pb·v) for o.  It writes delta to
+//                a (B, K, N) f32 scratch, then recomputes s and dp tile by
 //                tile, forms ds in registers and accumulates dq = ds·k.
-//                Products per key tile: s, dp, dq (K6 also s and e·v first).
+//                Products per key tile: s, dp, dq (K5, K6 also s and e·v
+//                first).
 //   dk/dv kernel: one block per 64-key tile loops over the query tiles,
 //                reads m, r and delta, recomputes sᵀ and dpᵀ and accumulates
-//                dv = ebᵀ·do_r and dk = dsᵀ·q: four products per tile.
+//                dv = ebᵀ·do_r (K5: pbᵀ·do) and dk = dsᵀ·q: four products
+//                per tile.
 //
-// Seven products in all (five is the minimum: s, dp, dv, dq, dk) and two
-// exponentials per score.  Every block owns its outputs and sums them in a
-// fixed order: no atomics, two identical calls give identical bits.
+// Seven products in all (K5 and K6: nine; five is the minimum: s, dp, dv,
+// dq, dk) and two exponentials per score (K5, K6: three).  Every block owns
+// its outputs and sums them in a fixed order: no atomics, two identical
+// calls give identical bits.
 //
 //   bf16: one warpgroup (128 threads) per block runs every product as
 //   wgmma (m64nNk16, bf16 in, f32 accumulate).  Operand tiles arrive by
-//   cp.async into a two-stage ring (the next tile's copy overlaps this
+//   cp.async into a three-slot ring (the next tiles' copies overlap this
 //   tile's products), each staged ONCE, row-major in the 128-byte swizzle:
 //   read K-major for s, dp, sᵀ, dpᵀ and transposed (MN-major B) for
 //   dq = ds·k, dv = ebᵀ·do_r and dk = dsᵀ·q.  The score-shaped accumulators
 //   are packed in registers as the A operand of the next product (e for o
 //   and dv, ds for dq and dk); e is formed while the dp product runs.
-//   do_r = bf16(do·r) overwrites the do tile in place once dpᵀ has read it.
+//   do_r = bf16(do·r) overwrites the do tile in place once dpᵀ has read it
+//   (K5's dv reads do as it is: no rewrite and no barrier for it).
 //   The dk/dv kernel forms sᵀ and dpᵀ 32 query columns at a time, so that
 //   half a score plane is live beside its dk and dv accumulators: 160
 //   registers (ptxas -v), three blocks an SM.  The one-row tail (513 = 8·64 + 1,
@@ -75,13 +90,24 @@ struct BwdViews {
 
 constexpr int BWD_STAGES = 3;   // ring slots of both kernels
 
-template <bool kRecompute>
-__global__ void __launch_bounds__(WG_THREADS)
-attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                        const float* __restrict__ stats, float* __restrict__ delta_out, int B,
-                        int N, int K, BwdViews st, float scale) {
+// The kernels' parameters: operand views, outputs, the forward's row
+// statistics, the delta scratch (written by the dq kernel, read by the dk/dv
+// kernel), the sizes, the views' strides and the softmax scale.
+#define BWD_DQ_PARAMS(T)                                                                       \
+  const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v,                    \
+      const T *__restrict__ o, const T *__restrict__ dout, T *__restrict__ dq,                  \
+      const float *__restrict__ stats, float *__restrict__ delta_out, int B, int N, int K,      \
+      BwdViews st, float scale
+#define BWD_DQ_ARGS q, k, v, o, dout, dq, stats, delta_out, B, N, K, st, scale
+#define BWD_DKDV_PARAMS(T)                                                                     \
+  const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v,                    \
+      const T *__restrict__ dout, T *__restrict__ dk, T *__restrict__ dv,                       \
+      const float *__restrict__ stats, const float *__restrict__ delta, int B, int N, int K,    \
+      BwdViews st, float scale
+#define BWD_DKDV_ARGS q, k, v, dout, dk, dv, stats, delta, B, N, K, st, scale
+
+template <bool kRecompute, bool kNormalised>
+__device__ __forceinline__ void attn_bwd_dq_bf16(BWD_DQ_PARAMS(bf16)) {
   extern __shared__ float4 smem4[];
   bf16* qs = aligned_smem(smem4);              // q tile
   bf16* gs = qs + TILE;                        // do tile
@@ -155,7 +181,8 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool full = k0 + BK <= N;
     uint32_t a[4][4];
     if (kRecompute && i < tiles) {
-      // first pass: o = (eb·v)·r in f32, eb = bf16(exp(s − m))
+      // first pass: o = (eb·v)·r in f32, eb = bf16(exp(s − m)); K5:
+      // o = pb·v, pb = bf16(exp(s − m)·r)
       wg_fence();
       mma_tn_n(s, qs, ks, nb);
       wg_commit();
@@ -164,9 +191,11 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int x = 0; x < 4; ++x)
-          s[4 * j + x] = full || (j < 2 * nb && k0 + 8 * j + 2 * t + (x & 1) < N)
-                             ? exp2f(fmaf(s[4 * j + x], c, -cm[x >> 1])) : 0.f;
+        for (int x = 0; x < 4; ++x) {
+          const float e = full || (j < 2 * nb && k0 + 8 * j + 2 * t + (x & 1) < N)
+                              ? exp2f(fmaf(s[4 * j + x], c, -cm[x >> 1])) : 0.f;
+          s[4 * j + x] = kNormalised ? e * rr[x >> 1] : e;
+        }
       pack_a(a, s);
       wg_fence();
       mma_nn(acc, a, vs, nb);
@@ -174,17 +203,19 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wg_wait<0>();
       if (i == tiles - 1) {
         // delta = Σ_d f32(do)·o, do from the staged tile, o in acc's layout
+        // (K5's is normalised already)
         settle(acc);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int row = r0 + 8 * half;
+          const float orr = kNormalised ? 1.f : rr[half];
           float dd = 0.f;
 #pragma unroll
           for (int j = 0; j < D / 8; ++j) {
             const float2 gv = __bfloat1622float2(
                 *reinterpret_cast<const __nv_bfloat162*>(gs + swz(row, 8 * j + 2 * t)));
-            dd = fmaf(gv.x, acc[4 * j + 2 * half] * rr[half], dd);
-            dd = fmaf(gv.y, acc[4 * j + 2 * half + 1] * rr[half], dd);
+            dd = fmaf(gv.x, acc[4 * j + 2 * half] * orr, dd);
+            dd = fmaf(gv.y, acc[4 * j + 2 * half + 1] * orr, dd);
           }
           dd += __shfl_xor_sync(0xffffffffu, dd, 1);
           dd += __shfl_xor_sync(0xffffffffu, dd, 2);
@@ -193,8 +224,9 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         zero32(acc);
       }
     } else {
-      // ds = e·((dp − delta)·(r·scale)) in registers, dq += ds·k; e is
-      // formed while the dp product runs
+      // ds = e·((dp − delta)·(r·scale)) in registers (K5's p·(dp − delta)·
+      // scale with p = e·r, up to f32 rounding), dq += ds·k; e is formed
+      // while the dp product runs
       wg_fence();
       mma_tn_n(s, qs, ks, nb);
       wg_commit();
@@ -233,14 +265,8 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Three blocks an SM (at most 168 registers a thread), which shared memory
-// (67 KB a block) allows too.
-__global__ void __launch_bounds__(WG_THREADS, 3)
-attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          const float* __restrict__ stats, const float* __restrict__ delta,
-                          int B, int N, int K, BwdViews st, float scale) {
+template <bool kNormalised>
+__device__ __forceinline__ void attn_bwd_dkdv_bf16(BWD_DKDV_PARAMS(bf16)) {
   extern __shared__ float4 smem4[];
   bf16* ks = aligned_smem(smem4);              // this block's k tile
   bf16* vs = ks + TILE;                        // and v tile
@@ -295,8 +321,8 @@ attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
     // sᵀ and dpᵀ (rows this block's keys, columns the tile's queries), 32
     // query columns at a time so that only half of each score plane is live
-    // beside the dk and dv accumulators; e is formed while the dpᵀ product
-    // runs, then both are packed as the A operands of dv and dk
+    // beside the dk and dv accumulators; e (K5: p = e·r) is formed while the
+    // dpᵀ product runs, then both are packed as the A operands of dv and dk
     uint32_t ea[4][4], da[4][4];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -318,7 +344,8 @@ attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         for (int x = 0; x < 4; ++x) {
           const int qi = 32 * hh + 8 * j + 2 * t + (x & 1);
           const bool valid = full || (j < 2 * nbh && q0 + qi < N);
-          s[4 * j + x] = valid ? exp2f(fmaf(s[4 * j + x], c, -fm[qi] * LOG2E)) : 0.f;
+          const float e = valid ? exp2f(fmaf(s[4 * j + x], c, -fm[qi] * LOG2E)) : 0.f;
+          s[4 * j + x] = kNormalised ? e * fm[BQ + qi] : e;
         }
       wg_wait<0>();
       settle<16>(dp);
@@ -327,8 +354,8 @@ attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
           const int qi = 32 * hh + 8 * j + 2 * t + (x & 1);
-          dp[4 * j + x] = s[4 * j + x] *
-                          ((dp[4 * j + x] - fm[2 * BQ + qi]) * (fm[BQ + qi] * scale));
+          dp[4 * j + x] = s[4 * j + x] * ((dp[4 * j + x] - fm[2 * BQ + qi]) *
+                                          (kNormalised ? scale : fm[BQ + qi] * scale));
         }
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
@@ -338,25 +365,27 @@ attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           da[2 * hh + kk][x] = pack(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
         }
     }
-    // do_r = bf16(do·r) over the do tile, in place, once every warp's share
-    // of dpᵀ has read it
-    __syncthreads();
+    if constexpr (!kNormalised) {
+      // do_r = bf16(do·r) over the do tile, in place, once every warp's share
+      // of dpᵀ has read it (K5's dv reads do unscaled: no rewrite, no barrier)
+      __syncthreads();
 #pragma unroll
-    for (int x = 0; x < TILE / 8 / WG_THREADS; ++x) {
-      const int ch = threadIdx.x + x * WG_THREADS, row = ch >> 3;
-      uint4* p = reinterpret_cast<uint4*>(gs + row * D + (((ch & 7) ^ (row & 7)) << 3));
-      uint4 u = *p;
-      uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-      const float r = fm[BQ + row];
+      for (int x = 0; x < TILE / 8 / WG_THREADS; ++x) {
+        const int ch = threadIdx.x + x * WG_THREADS, row = ch >> 3;
+        uint4* p = reinterpret_cast<uint4*>(gs + row * D + (((ch & 7) ^ (row & 7)) << 3));
+        uint4 u = *p;
+        uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+        const float r = fm[BQ + row];
 #pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const float2 f = unpack(w[y]);
-        w[y] = pack(f.x * r, f.y * r);
+        for (int y = 0; y < 4; ++y) {
+          const float2 f = unpack(w[y]);
+          w[y] = pack(f.x * r, f.y * r);
+        }
+        *p = u;
       }
-      *p = u;
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
     wg_fence();
     mma_nn(dva, ea, gs, nb);
     mma_nn(dka, da, qs, nb);
@@ -368,6 +397,20 @@ attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const float one[2] = {1.f, 1.f};
   store_acc_bf16(base(dk, st.dk, b, h), st.dk.n, dka, N, k0 + r0, t, one);
   store_acc_bf16(base(dv, st.dv, b, h), st.dv.n, dva, N, k0 + r0, t, one);
+}
+
+// K2's, K6's and K8's kernels (K1's rounding rule); K5's, under their own
+// names, are in flash_attention_bwd.cu.
+template <bool kRecompute>
+__global__ void __launch_bounds__(WG_THREADS) attn_bwd_dq_bf16_kernel(BWD_DQ_PARAMS(bf16)) {
+  attn_bwd_dq_bf16<kRecompute, false>(BWD_DQ_ARGS);
+}
+
+// Three blocks an SM (at most 168 registers a thread), which shared memory
+// (67 KB a block) allows too.
+__global__ void __launch_bounds__(WG_THREADS, 3)
+attn_bwd_dkdv_bf16_kernel(BWD_DKDV_PARAMS(bf16)) {
+  attn_bwd_dkdv_bf16<false>(BWD_DKDV_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -394,13 +437,11 @@ __device__ __forceinline__ void zero4(float acc[4][4]) {
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 }
 
+// The f32 bodies serve K5 as well: rounding to f32 is the identity, so K5's
+// rule and K6's (o recomputed) are one function and differ only in the order
+// of f32 operations.
 template <bool kRecompute>
-__global__ void __launch_bounds__(F32_THREADS)
-attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ o,
-                       const float* __restrict__ dout, float* __restrict__ dq,
-                       const float* __restrict__ stats, float* __restrict__ delta_out, int B,
-                       int N, int K, BwdViews st, float scale) {
+__device__ __forceinline__ void attn_bwd_dq_f32(BWD_DQ_PARAMS(float)) {
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);   // [D][LDT]  q, transposed
   float* gt = qt + D * LDT;                      // [D][LDT]  do, transposed
@@ -507,12 +548,7 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows_f32(base(dq, st.dq, b, h), st.dq, dqa, N, q0, tx, ty);
 }
 
-__global__ void __launch_bounds__(F32_THREADS)
-attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         const float* __restrict__ stats, const float* __restrict__ delta,
-                         int B, int N, int K, BwdViews st, float scale) {
+__device__ __forceinline__ void attn_bwd_dkdv_f32(BWD_DKDV_PARAMS(float)) {
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);   // [D][LDT]  k tile, transposed
   float* vt = kt + D * LDT;                      // [D][LDT]  v tile, transposed
@@ -578,6 +614,15 @@ attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
   store_rows_f32(base(dk, st.dk, b, h), st.dk, dka, N, k0, tx, ty);
   store_rows_f32(base(dv, st.dv, b, h), st.dv, dva, N, k0, tx, ty);
+}
+
+template <bool kRecompute>
+__global__ void __launch_bounds__(F32_THREADS) attn_bwd_dq_f32_kernel(BWD_DQ_PARAMS(float)) {
+  attn_bwd_dq_f32<kRecompute>(BWD_DQ_ARGS);
+}
+
+__global__ void __launch_bounds__(F32_THREADS) attn_bwd_dkdv_f32_kernel(BWD_DKDV_PARAMS(float)) {
+  attn_bwd_dkdv_f32(BWD_DKDV_ARGS);
 }
 
 // ---------------------------------------------------------------------------

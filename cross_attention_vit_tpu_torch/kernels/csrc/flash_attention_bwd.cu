@@ -1,5 +1,5 @@
-// Backward of the fused "tn" self-attention, for Hopper (sm_90a): the kernels
-// of attention_bwd.cuh behind two entry points.
+// Backward of the single-block self-attention, for Hopper (sm_90a): the
+// kernels of attention_bwd.cuh behind three entry points.
 //
 // K2 replaces the TPU kernel cross_attention_vit_tpu/kernels/flash_attention.py
 // ::_attn_bwd_kernel_qkv_tn (defined at :768, launched by pallas_call at :835
@@ -12,18 +12,27 @@
 // _flash_backward_tn), the gradient of the public flash_attention_tn at
 // N <= 1040: _tn_bwd_math with o=None, on separate q, k, v and do of any
 // strides.  It recomputes o = (eb·v)·r in f32, never rounded, and takes
-// delta = Σ_d f32(do)·o from it, where K2 reads the rounded saved output: a
-// third rounding variant beside K2's and K5's.  The dq kernel spends one more
-// pass over the keys for it (o accumulated in registers).
+// delta = Σ_d f32(do)·o from it, where K2 reads the rounded saved output.
+// The dq kernel spends one more pass over the keys for it (o accumulated in
+// registers).
+//
+// K5 replaces ::_attn_bwd_kernel (defined at :280, launched at :351 in
+// _flash_backward_pallas), the gradient of the public flash_attention at
+// N <= 1040: K6's kernels under K5's rounding rule (kNormalised: pb =
+// bf16(e·r), o = pb·v, dv = pbᵀ·do with do unscaled), on the same separate
+// operands, reading the row statistics of K5's forward.  Its kernels carry
+// their own names (attn_single_bwd_*), so that a profile books their time to
+// K5 and not to K2.
 //
 // Bound.  At the training path's shape (B=8, K=16, D=64, N=513, bf16) one K2
 // call must read qkv, o and do and write dqkv: 8·B·N·K·D·2 B = 67.2 MB, 20.1 us
 // at 3.35 TB/s.  Its five necessary products (s, dp, dv, dq, dk) are
 // 10·B·K·N²·D = 21.6 GFLOP, 21.8 us at the 989 TFLOP/s bf16 tensor-core peak,
 // and its exponentials, one per score at the least, 33.7 M at about
-// 3.9 T/s: 8.6 us.  So the bound is about 22 us (operations); K6's is the same
-// 21.8 us (it reads no o: 58.8 MB, 17.6 us of bytes).  The kernels run seven
-// products (s twice: once in each kernel) and two exponentials per score.
+// 3.9 T/s: 8.6 us.  So the bound is about 22 us (operations); K5's and K6's
+// are the same 21.8 us (they read no o: 58.8 MB, 17.6 us of bytes).  The
+// kernels run seven products (s twice: once in each kernel; K5 and K6 nine)
+// and two exponentials per score (K5 and K6 three).
 //
 // Grid: a block of one warpgroup per 64-row tile: (⌈N/64⌉, K, B) = (9, 16, 8)
 // = 1152 blocks for each kernel at the training shape, 8.7 blocks per SM on
@@ -38,6 +47,35 @@
 namespace {
 
 bool bad_args(int head_dim, int dtype) { return head_dim != D || (dtype != 0 && dtype != 1); }
+
+// K5's kernels: attention_bwd.cuh's bodies under K5's rule (bf16) and K6's
+// f32 bodies, under K5's names.
+__global__ void __launch_bounds__(WG_THREADS) attn_single_bwd_dq_bf16_kernel(BWD_DQ_PARAMS(bf16)) {
+  attn_bwd_dq_bf16<true, true>(BWD_DQ_ARGS);
+}
+__global__ void __launch_bounds__(WG_THREADS, 3)
+attn_single_bwd_dkdv_bf16_kernel(BWD_DKDV_PARAMS(bf16)) {
+  attn_bwd_dkdv_bf16<true>(BWD_DKDV_ARGS);
+}
+__global__ void __launch_bounds__(F32_THREADS) attn_single_bwd_dq_f32_kernel(BWD_DQ_PARAMS(float)) {
+  attn_bwd_dq_f32<true>(BWD_DQ_ARGS);
+}
+__global__ void __launch_bounds__(F32_THREADS)
+attn_single_bwd_dkdv_f32_kernel(BWD_DKDV_PARAMS(float)) {
+  attn_bwd_dkdv_f32(BWD_DKDV_ARGS);
+}
+
+cudaError_t launch_single_dq(const BwdCall& a, int dtype) {
+  if (dtype == 0)
+    return launch_bwd_dq<float>(a, F32_THREADS, F32_DQ_SMEM, attn_single_bwd_dq_f32_kernel);
+  return launch_bwd_dq<bf16>(a, WG_THREADS, BF16_DQ_SMEM, attn_single_bwd_dq_bf16_kernel);
+}
+
+cudaError_t launch_single_dkdv(const BwdCall& a, int dtype) {
+  if (dtype == 0)
+    return launch_bwd_dkdv<float>(a, F32_THREADS, F32_DKDV_SMEM, attn_single_bwd_dkdv_f32_kernel);
+  return launch_bwd_dkdv<bf16>(a, WG_THREADS, BF16_DKDV_SMEM, attn_single_bwd_dkdv_bf16_kernel);
+}
 
 }  // namespace
 
@@ -67,12 +105,12 @@ extern "C" int flash_attention_qkv_bwd(const void* qkv, const void* o, const voi
   return launch_bwd<false>(a, dtype, true, true);
 }
 
-// K6's two kernels.  Each operand is a (B, K, N, D) view given by its
-// (b, h, n, d) strides in elements (bf16: unit head-dim stride and 16-byte
-// rows, which the wrapper ensures by copying); dq, dk, dv need a unit
-// head-dim stride; stats is K6's forward's (2, B, K, N) f32 row statistics
-// and delta a (B, K, N) f32 scratch.  Run flash_attention_tn_bwd_dq first (it
-// writes delta), then flash_attention_tn_bwd_dkdv on the same stream.
+// K6's and K5's two kernels each.  Each operand is a (B, K, N, D) view given
+// by its (b, h, n, d) strides in elements (bf16: unit head-dim stride and
+// 16-byte rows, which K6's wrapper ensures by copying and K5's checks); dq,
+// dk, dv need a unit head-dim stride; stats is the forward's (2, B, K, N) f32
+// row statistics and delta a (B, K, N) f32 scratch.  Run the dq kernel first
+// (it writes delta), then the dk/dv kernel on the same stream.
 #define TN_BWD_PARAMS                                                                          \
   const void *q, const void *k, const void *v, const void *g, const void *stats, void *delta,  \
       void *dq, void *dk, void *dv, int dtype, int B, int N, int K, int head_dim, long long qb, \
@@ -103,6 +141,20 @@ extern "C" int flash_attention_tn_bwd_dkdv(TN_BWD_PARAMS) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   return launch_bwd<true>(TN_BWD_CALL, dtype, false, true);
+}
+
+extern "C" int flash_attention_single_bwd_dq(TN_BWD_PARAMS) {
+  if (bad_args(head_dim, dtype)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_single_dq(TN_BWD_CALL, dtype);
+}
+
+extern "C" int flash_attention_single_bwd_dkdv(TN_BWD_PARAMS) {
+  if (bad_args(head_dim, dtype)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_single_dkdv(TN_BWD_CALL, dtype);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -1,8 +1,8 @@
 // Fused self-attention forward on separate or stacked q, k, v operands, for
 // Hopper (sm_90a).
 //
-// Replaces two TPU kernels of cross_attention_vit_tpu/kernels/flash_attention.py
-// that compute the same function, _tn_fwd_math (:593-615):
+// Replaces three TPU kernels of cross_attention_vit_tpu/kernels/flash_attention.py.
+// Two compute the same function, _tn_fwd_math (:593-615):
 //
 //   K1  _attn_kernel_qkv_tn (defined at :759, launched by pallas_call at :796
 //       in _flash_forward_qkv_tn), on one stacked qkv — the model's path;
@@ -15,22 +15,40 @@
 //     m   = rowmax(s);  e = exp(s − m);  r = 1 / Σ_j e
 //     out = (e cast to the operand dtype)·v   f32 accumulation, then × r
 //
-// The normalisation comes after the AV product, as in the TPU kernels.
+// The normalisation comes after the AV product, as in the TPU kernels.  The
+// third rounds elsewhere:
+//
+//   K5  _attn_kernel (defined at :109, launched at :218 in _flash_forward,
+//       the public flash_attention at N <= 1040) on separate q, k, v — the
+//       int8+attn serving path:
+//
+//     p   = e · r                              f32 (jax.nn.softmax divides:
+//                                              e / Σe; within 2 ulp of e·r)
+//     out = (p cast to the operand dtype)·v   f32 accumulation, not rescaled
+//
+// One body serves both rules (`kNormalised`): K5's pass 1 keeps each row's
+// sum online beside its max (the sum rescaled when the max grows: one
+// exponential per score more than K1's pass 1), and its pass 2 rounds p
+// instead of e and stores the accumulator as it is.  A three-pass form (max,
+// then sum, then p·v) would spend the same exponentials and one more score
+// product.  In f32 the rules are one function (rounding to f32 is the
+// identity), so K5's f32 kernel is K1's body under K5's name.
 //
 // Head dim D = 64, a compile-time constant: every configuration of the repo
 // has it (hidden/heads = 1024/16, 768/12, 192/3).
 //
 // Layout.  Every operand is a (B, K, N, D) view given by its pointer and its
-// (b, h, n, d) strides in elements, so one kernel serves both TPU kernels:
+// (b, h, n, d) strides in elements, so one kernel serves every TPU kernel:
 // K1 reads q, k, v as three views of the (B, N, 3, K, D) tensor that
 // x @ to_qkv.weightᵀ produces and writes (B, N, K, D), the (B, N, H) input of
-// the output projection; K6 reads three tensors and writes a (B, K, N, D)
+// the output projection; K5 reads the same views of the int8 QKV
+// projection's output; K6 reads three tensors and writes a (B, K, N, D)
 // tensor that the wrapper returns as a (B, K, D, N) view.  The bf16 kernel
 // copies 16-byte chunks, so its operands need a unit head-dim stride and
 // 16-byte aligned rows; the K6 wrapper hands it (B, K, N, D) copies of
 // (B, K, D, N) operands that lack them (a TPU layout choice).  With a stats
 // pointer the kernel also writes each row's (m, r) for the backward
-// (hopper_tiles.cuh, `stat`).
+// (hopper_tiles.cuh, `stat`), under either rule.
 //
 // Bound.  At the serving path's largest bucket (B=8, K=16, D=64, N=513, bf16)
 // one launch must read 25.2 MB of q, k, v and write 8.4 MB of output: 10.0 us
@@ -38,18 +56,19 @@
 // 8.7 us at the 989 TFLOP/s bf16 tensor-core peak, and its one exponential
 // per score 33.7 M, 8.6 us at about 3.9 T/s.  So the bound is about 10 us
 // (bytes).  The kernel runs three products (s twice) and one exponential
-// per score.
+// per score (K5: two).
 //
 // Design.  A 513×513 f32 score matrix (1.05 MB) does not fit in the 227 KB of
 // shared memory a block may use, so the TPU's one-block-per-(b, h) design
 // cannot carry over.  Here one block owns a 64-row query tile of one (b, h)
 // and loops over 64-key tiles of k and v staged in shared memory.  Two passes
 // keep the TPU kernel's rounding order: pass 1 finds each row's max (no
-// exponential), pass 2 recomputes the scores, forms e = exp(s − m) with the
-// FINAL row max, sums it in f32 for r and rounds it to the operand dtype
-// before it meets v (the bf16 path evaluates exp(scale·s − m) as one FMA and
-// an exp2, which differs from exp in the last bits of f32).  Rows ≥ N are
-// staged as zeros, key columns ≥ N are masked, and no store leaves [0, N).
+// exponential; K5 also the sum), pass 2 recomputes the scores, forms
+// e = exp(s − m) with the FINAL row max, sums it in f32 for r and rounds it
+// to the operand dtype before it meets v (K5 rounds e·r; the bf16 path
+// evaluates exp(scale·s − m) as one FMA and an exp2, which differs from exp
+// in the last bits of f32).  Rows ≥ N are staged as zeros, key columns ≥ N
+// are masked, and no store leaves [0, N).
 //
 //   bf16 (the serving path): one warpgroup (128 threads) per block runs both
 //   products as wgmma m64nNk16 (bf16 in, f32 accumulate): s = q·kᵀ with q and
@@ -87,13 +106,19 @@ struct Views {
 
 constexpr int FWD_STAGES = 3;   // ring slots of (k, v) tile pairs
 
-// K1's bf16 kernel: one warpgroup per 64-row query tile of one (b, h).
-// Steps 0 .. tiles−1 are pass 1 (k tiles), tiles .. 2·tiles−1 pass 2 (k and v
+// The kernels' parameters: q, k, v and out views, the row statistics (or
+// null), the sizes, the views' strides and the softmax scale.
+#define FWD_PARAMS(T)                                                                          \
+  const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v,                    \
+      T *__restrict__ out, float *__restrict__ stats, int B, int N, int K, Views st, float scale
+#define FWD_ARGS q, k, v, out, stats, B, N, K, st, scale
+
+// The bf16 body: one warpgroup per 64-row query tile of one (b, h).  Steps
+// 0 .. tiles−1 are pass 1 (k tiles), tiles .. 2·tiles−1 pass 2 (k and v
 // tiles); the copies run FWD_STAGES − 1 steps ahead of the products.
-__global__ void __launch_bounds__(WG_THREADS)
-attn_fwd_qkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ out,
-                         float* __restrict__ stats, int B, int N, int K, Views st, float scale) {
+// kNormalised selects K5's rounding rule over K1's (see the header).
+template <bool kNormalised>
+__device__ __forceinline__ void attn_fwd_bf16(FWD_PARAMS(bf16)) {
   extern __shared__ float4 smem4[];
   bf16* qs = aligned_smem(smem4);              // q tile
   bf16* ring = qs + TILE;                      // [stage][k, v] tiles
@@ -119,7 +144,7 @@ attn_fwd_qkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ring_begin<FWD_STAGES>(steps, issue);
 
   float mu[2] = {-INFINITY, -INFINITY};        // pass 1: row max of the unscaled scores
-  float cm[2], l[2] = {0.f, 0.f};              // pass 2: m·log2 e, Σ e in f32
+  float cm[2], l[2] = {0.f, 0.f}, r[2];        // m·log2 e, Σ e in f32, 1 / Σ e
   float s[32], o[32];
   zero32(o);
   for (int i = 0; i < steps; ++i) {
@@ -134,30 +159,70 @@ attn_fwd_qkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_wait<0>();
     settle(s);
     if (i < tiles) {
+      if constexpr (kNormalised) {
+        // K5: the max and Σ exp(s − max) together, online — the quad's max
+        // over this tile, then this thread's sum rescaled when the max grows
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int half = 0; half < 2; ++half) {
+          float mx = -INFINITY;
 #pragma unroll
-        for (int x = 0; x < 4; ++x)
-          if (full || (j < 2 * nb && k0 + 8 * j + 2 * t + (x & 1) < N))
-            mu[x >> 1] = fmaxf(mu[x >> 1], s[4 * j + x]);
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (full || (j < 2 * nb && k0 + 8 * j + 2 * t + e < N))
+                mx = fmaxf(mx, s[4 * j + 2 * half + e]);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float mn = fmaxf(mu[half], mx);   // finite: key k0 < N is valid
+          const float cmn = mn * c;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (full || (j < 2 * nb && k0 + 8 * j + 2 * t + e < N))
+                sum += exp2f(fmaf(s[4 * j + 2 * half + e], c, -cmn));
+          l[half] = l[half] * exp2f(fmaf(mu[half], c, -cmn)) + sum;
+          mu[half] = mn;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            if (full || (j < 2 * nb && k0 + 8 * j + 2 * t + (x & 1) < N))
+              mu[x >> 1] = fmaxf(mu[x >> 1], s[4 * j + x]);
+      }
       if (i == tiles - 1) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          mu[half] = fmaxf(mu[half], __shfl_xor_sync(0xffffffffu, mu[half], 1));
-          mu[half] = fmaxf(mu[half], __shfl_xor_sync(0xffffffffu, mu[half], 2));
-          cm[half] = mu[half] * scale * LOG2E;  // m = scale·max, the stats' unit
+          if constexpr (kNormalised) {
+            l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+            l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+            r[half] = 1.f / l[half];
+            cm[half] = mu[half] * c;
+          } else {
+            mu[half] = fmaxf(mu[half], __shfl_xor_sync(0xffffffffu, mu[half], 1));
+            mu[half] = fmaxf(mu[half], __shfl_xor_sync(0xffffffffu, mu[half], 2));
+            cm[half] = mu[half] * scale * LOG2E;  // m = scale·max, the stats' unit
+          }
         }
       }
     } else {
-      // e = exp(s − m) with the final max, summed in f32 before it is rounded
+      // e = exp(s − m) with the final max; K1 sums it in f32 and rounds it,
+      // K5 rounds p = e·r
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
           const bool valid = full || (j < 2 * nb && k0 + 8 * j + 2 * t + (x & 1) < N);
           const float e = valid ? exp2f(fmaf(s[4 * j + x], c, -cm[x >> 1])) : 0.f;
-          l[x >> 1] += e;
-          s[4 * j + x] = e;
+          if constexpr (kNormalised) {
+            s[4 * j + x] = e * r[x >> 1];
+          } else {
+            l[x >> 1] += e;
+            s[4 * j + x] = e;
+          }
         }
       uint32_t a[4][4];
       pack_a(a, s);
@@ -169,15 +234,17 @@ attn_fwd_qkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   settle(o);
 
-  float r[2];
+  if constexpr (!kNormalised) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
-    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
-    r[half] = 1.f / l[half];
+    for (int half = 0; half < 2; ++half) {
+      l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+      l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+      r[half] = 1.f / l[half];
+    }
   }
+  const float one[2] = {1.f, 1.f};              // K5's out is already normalised
   const int r0 = warp * 16 + g;
-  store_acc_bf16(base(out, st.o, b, h), st.o.n, o, N, q0 + r0, t, r);
+  store_acc_bf16(base(out, st.o, b, h), st.o.n, o, N, q0 + r0, t, kNormalised ? one : r);
   if (stats != nullptr && t == 0) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -188,6 +255,15 @@ attn_fwd_qkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
   }
+}
+
+// K1 and K6, then K5: the two rules under their own names, so that a
+// profile never books one's time to the other.
+__global__ void __launch_bounds__(WG_THREADS) attn_fwd_qkv_bf16_kernel(FWD_PARAMS(bf16)) {
+  attn_fwd_bf16<false>(FWD_ARGS);
+}
+__global__ void __launch_bounds__(WG_THREADS) attn_single_fwd_bf16_kernel(FWD_PARAMS(bf16)) {
+  attn_fwd_bf16<true>(FWD_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -206,10 +282,10 @@ __device__ __forceinline__ void f32_scores(float s[4][4], const float* qt, const
   }
 }
 
-__global__ void __launch_bounds__(F32_THREADS)
-attn_fwd_qkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ out,
-                        float* __restrict__ stats, int B, int N, int K, Views st, float scale) {
+// The f32 body of both rules: rounding to f32 is the identity, so K1's
+// (e·v)·r and K5's (e·r)·v are one function and differ only in the order of
+// f32 operations.
+__device__ __forceinline__ void attn_fwd_f32(FWD_PARAMS(float)) {
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);   // [D][LDT]  q tile, transposed
   float* kt = qt + D * LDT;                      // [D][LDT]  k tile, transposed
@@ -304,6 +380,13 @@ attn_fwd_qkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
+__global__ void __launch_bounds__(F32_THREADS) attn_fwd_qkv_f32_kernel(FWD_PARAMS(float)) {
+  attn_fwd_f32(FWD_ARGS);
+}
+__global__ void __launch_bounds__(F32_THREADS) attn_single_fwd_f32_kernel(FWD_PARAMS(float)) {
+  attn_fwd_f32(FWD_ARGS);
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
@@ -327,18 +410,19 @@ cudaError_t launch(void (*kernel)(const T*, const T*, const T*, T*, float*, int,
 constexpr size_t BF16_SMEM = SMEM_ALIGN + (1 + 2 * FWD_STAGES) * TILE * sizeof(bf16);
 constexpr size_t F32_SMEM = (2 * D * LDT + BK * D + BK * LDT) * sizeof(float);
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, void* stats,
-                     int dtype, int B, int N, int K, const Views& st, float scale, void* stream,
-                     int device) {
+// single: K5's kernels, else K1's (K6's).
+cudaError_t dispatch(bool single, const void* q, const void* k, const void* v, void* out,
+                     void* stats, int dtype, int B, int N, int K, const Views& st, float scale,
+                     void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* fs = static_cast<float*>(stats);
   if (dtype == 0)
-    return launch<float>(attn_fwd_qkv_f32_kernel, F32_THREADS, F32_SMEM, q, k, v, out, fs, B, N,
-                         K, st, scale, s);
-  return launch<bf16>(attn_fwd_qkv_bf16_kernel, WG_THREADS, BF16_SMEM, q, k, v, out, fs, B, N, K,
-                      st, scale, s);
+    return launch<float>(single ? attn_single_fwd_f32_kernel : attn_fwd_qkv_f32_kernel,
+                         F32_THREADS, F32_SMEM, q, k, v, out, fs, B, N, K, st, scale, s);
+  return launch<bf16>(single ? attn_single_fwd_bf16_kernel : attn_fwd_qkv_bf16_kernel,
+                      WG_THREADS, BF16_SMEM, q, k, v, out, fs, B, N, K, st, scale, s);
 }
 
 }  // namespace
@@ -358,23 +442,35 @@ extern "C" int flash_attention_qkv_fwd(const void* qkv, void* out, void* stats, 
   const Views st{qv, qv, qv, {ob, oh, on, od}};
   const size_t esize = dtype == 0 ? sizeof(float) : sizeof(bf16);
   const char* q = static_cast<const char*>(qkv);
-  return dispatch(q, q + ss * esize, q + 2 * ss * esize, out, stats, dtype, B, N, K, st, scale,
-                  stream, device);
+  return dispatch(false, q, q + ss * esize, q + 2 * ss * esize, out, stats, dtype, B, N, K, st,
+                  scale, stream, device);
 }
 
-// K6.  q, k, v and out are (B, K, N, D) views given by their (b, h, n, d)
-// strides in elements (bf16: unit head-dim stride and 16-byte rows, which the
-// wrapper ensures by copying; out: unit head-dim stride); stats as K1's.
-extern "C" int flash_attention_tn_fwd(const void* q, const void* k, const void* v, void* out,
-                                      void* stats, int dtype, int B, int N, int K, int head_dim,
-                                      long long qb, long long qh, long long qn, long long qd,
-                                      long long kb, long long kh, long long kn, long long kd,
-                                      long long vb, long long vh, long long vn, long long vd,
-                                      long long ob, long long oh, long long on, long long od,
-                                      float scale, void* stream, int device) {
+// K6 and K5 on separate operands: q, k, v and out are (B, K, N, D) views
+// given by their (b, h, n, d) strides in elements (bf16: unit head-dim
+// stride and 16-byte rows, which the K6 wrapper ensures by copying and the
+// K5 wrapper checks; out: unit head-dim stride); stats as K1's.
+#define SEPARATE_FWD_PARAMS                                                                    \
+  const void *q, const void *k, const void *v, void *out, void *stats, int dtype, int B, int N, \
+      int K, int head_dim, long long qb, long long qh, long long qn, long long qd, long long kb, \
+      long long kh, long long kn, long long kd, long long vb, long long vh, long long vn,      \
+      long long vd, long long ob, long long oh, long long on, long long od, float scale,       \
+      void *stream, int device
+#define SEPARATE_FWD_VIEWS                                                                     \
+  Views { {qb, qh, qn, qd}, {kb, kh, kn, kd}, {vb, vh, vn, vd}, {ob, oh, on, od} }
+
+// K6: K1's rule.
+extern "C" int flash_attention_tn_fwd(SEPARATE_FWD_PARAMS) {
   if (head_dim != D || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
-  const Views st{{qb, qh, qn, qd}, {kb, kh, kn, kd}, {vb, vh, vn, vd}, {ob, oh, on, od}};
-  return dispatch(q, k, v, out, stats, dtype, B, N, K, st, scale, stream, device);
+  return dispatch(false, q, k, v, out, stats, dtype, B, N, K, SEPARATE_FWD_VIEWS, scale, stream,
+                  device);
+}
+
+// K5: p = e·r rounded before p·v, out not rescaled.
+extern "C" int flash_attention_single_fwd(SEPARATE_FWD_PARAMS) {
+  if (head_dim != D || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  return dispatch(true, q, k, v, out, stats, dtype, B, N, K, SEPARATE_FWD_VIEWS, scale, stream,
+                  device);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) pieces of the redesigned K1 and K2 (and of K6 and K8, which
-// run their kernels): 64-row bf16 tiles staged by cp.async in the 128-byte
-// swizzle that wgmma reads, wgmma descriptors for those tiles read K-major or
-// transposed (MN-major), and the two products the kernels run on them.
+// Hopper (sm_90a) pieces of the redesigned K1 and K2 (and of K5, K6 and K8,
+// which run their kernels): 64-row bf16 tiles staged by cp.async in the
+// 128-byte swizzle that wgmma reads, wgmma descriptors for those tiles read
+// K-major or transposed (MN-major), and the two products the kernels run on
+// them.
 //
 // A tile is 64 rows × D = 64 bf16 (8 KB), row-major, 1024-byte aligned, with
 // the 16-byte chunk c of row r stored at chunk c ^ (r mod 8) of its row (the
@@ -20,9 +21,9 @@ constexpr int WG_THREADS = 128;           // one warpgroup: 4 warps × 16 rows
 constexpr int TILE = 64 * D;              // elements of one 64-row tile
 constexpr int SMEM_ALIGN = 1024;          // the swizzle repeats every 8 rows
 
-// The forward's row statistics, a (2, B, K, N) f32 tensor that K1 (and K6's
-// forward) write and the backward kernels read: [0] m, the row max of the
-// scaled f32 scores s = q·kᵀ·scale; [1] r = 1 / Σ_j exp(s_j − m).  The
+// The forward's row statistics, a (2, B, K, N) f32 tensor that K1 (and K5's
+// and K6's forwards) write and the backward kernels read: [0] m, the row max
+// of the scaled f32 scores s = q·kᵀ·scale; [1] r = 1 / Σ_j exp(s_j − m).  The
 // backward's delta is a (1, B, K, N) tensor of the same indexing.
 __device__ __forceinline__ float* stat(float* stats, int which, int B, int K, int N, int b,
                                        int h) {

@@ -35,10 +35,12 @@ are bf16 with N ≤ 1040, otherwise K2 (K7) and two plain GEMMs.
 ``flash_attention`` is the public op on (B, K, N, D) operands (JAX
 ``flash_attention``, which the int8+attn serving path calls).  It switches
 at the same N as the JAX ``_fwd`` / ``_bwd``: up to 1040 the forward is K5
-(it saves q, k, v only) and the backward K5's recompute-form kernels; above
-it K7's streaming forward and blocked backward.  K5 normalises p by a
-division before rounding it and takes delta from the unrounded o = pb·v, so
-at N ≤ 1040 it agrees with K7 only to bf16 rounding.  ``flash_attention_tn``
+(it saves q, k, v and, when a backward follows, its row statistics) and the
+backward K5's recompute-form kernels; above it K7's streaming forward and
+blocked backward.  K5 normalises p before rounding it and takes delta from
+the unrounded o = pb·v, so at N ≤ 1040 it agrees with K7 only to bf16
+rounding.  K5's kernels are K1's and K2's (K6's recompute form) under K5's
+rounding rule.  ``flash_attention_tn``
 is the public op on (B, K, D, N) operands: K6 up to 1040, K7 on
 (B, K, N, D) copies above.
 
@@ -69,11 +71,11 @@ stacked tensors without a copy; bf16 operands without a unit head-dim
 stride and 16-byte rows (a contiguous (B, K, D, N) operand) are copied to
 (B, K, N, D) by K6's wrapper and rejected by K5 and K7.
 
-Row statistics.  K1 (and K6's forward) finds each row's max m of the f32
-scores s = q·kᵀ·scale and r = 1/Σ exp(s − m); with ``stats=True`` it
-returns them as a (2, B, K, N) f32 tensor (``_row_stats`` defines the
-units), and K2, K6's backward and K8 read them (``stats=``) instead of
-finding them again — on the card they require them.  The autograd
+Row statistics.  K1 (and K5's and K6's forwards) finds each row's max m of
+the f32 scores s = q·kᵀ·scale and r = 1/Σ exp(s − m); with ``stats=True``
+it returns them as a (2, B, K, N) f32 tensor (``_row_stats`` defines the
+units), and K2, K5's and K6's backwards and K8 read them (``stats=``)
+instead of finding them again — on the card they require them.  The autograd
 Functions ask for them only when a backward will follow
 (``_backward_follows``), so serving writes none.
 """
@@ -167,40 +169,46 @@ def flash_attention_qkv_bwd_reference(qkv: torch.Tensor, out: torch.Tensor,
     return torch.stack([dq, dk, dv], dim=2).to(qkv.dtype).permute(0, 3, 2, 1, 4)
 
 
-def _single_softmax(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
-    """jax.nn.softmax of the f32 scores: e = exp(s − rowmax), divided by Σe."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
-
-
 def flash_attention_single_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                     scale: float) -> torch.Tensor:
+                                     scale: float, with_stats: bool = False):
     """Plain PyTorch version of K5's forward (``_attn_kernel``): q, k, v
-    (B, K, N, D) → out (B, K, N, D) in q's dtype.
+    (B, K, N, D) → out (B, K, N, D) in q's dtype, and with ``with_stats``
+    also the row statistics of its f32 scores, (2, B, K, N) f32
+    (``_row_stats``, K1's units), which K5's backward reads.
 
     Follows the TPU kernel rounding for rounding: f32 scores from the
     operands upcast; p = exp(s − rowmax) / Σ in f32 (a division, as
     ``jax.nn.softmax``); p cast to v's dtype; out = p·v in f32, cast.  (K1
     rounds the unnormalised e and multiplies after AV; K7 rounds p with the
     running max.)"""
-    p = _single_softmax(q, k, scale)
-    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+    m, e, r = _row_stats(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale)
+    p = e / e.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+    return (out, torch.cat([m, r], dim=-1).permute(3, 0, 1, 2)) if with_stats else out
 
 
 def flash_attention_single_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                         dout: torch.Tensor, scale: float):
+                                         dout: torch.Tensor, scale: float,
+                                         stats: torch.Tensor | None = None):
     """Plain PyTorch version of K5's backward (``_attn_bwd_kernel``): (dq,
-    dk, dv), each (B, K, N, D) in q's dtype, from q, k, v and out's cotangent.
+    dk, dv), each (B, K, N, D) in q's dtype, from q, k, v, out's cotangent
+    and the forward's row statistics (2, B, K, N) (found again when None).
 
-    Recompute form: p = softmax(s) in f32 and pb = p cast to the operand
-    dtype; o = pb·v in f32, never rounded; delta = Σ_d f32(dO)·o;
-    dv = pbᵀ·dO with dO unscaled; dp = dO·vᵀ; ds = p·(dp − delta)·scale with
-    the f32 p, cast to the operand dtype; dq = ds·k, dk = dsᵀ·q.  Neither
-    K2's rounding nor K7's (which takes delta from the rounded output)."""
+    Recompute form: p = exp(s − m)·r in f32 (the softmax, within 2 ulp of
+    its division) and pb = p cast to the operand dtype; o = pb·v in f32,
+    never rounded; delta = Σ_d f32(dO)·o; dv = pbᵀ·dO with dO unscaled;
+    dp = dO·vᵀ; ds = p·(dp − delta)·scale with the f32 p, cast to the
+    operand dtype; dq = ds·k, dk = dsᵀ·q.  Neither K2's rounding nor K7's
+    (which takes delta from the rounded output)."""
     dt = q.dtype
     qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
-    p = _single_softmax(q, k, scale)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if stats is None:
+        _, e, r = _row_stats(s)
+    else:
+        e = torch.exp(s - stats[0].unsqueeze(-1))
+        r = stats[1].unsqueeze(-1)
+    p = e * r
     pb = p.to(dt).float()
     delta = (do * torch.matmul(pb, vf)).sum(dim=-1, keepdim=True)
     dv = torch.matmul(pb.transpose(-1, -2), do)
@@ -626,59 +634,70 @@ class _FlashAttentionStream(torch.autograd.Function):
 # --- K5: the single-block kernels of the public op, N ≤ 1040 -------------------
 
 def flash_attention_single_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                               scale: float | None = None) -> torch.Tensor:
+                               scale: float | None = None, stats: bool = False):
     """K5's forward: q, k, v (B, K, N, D), any strides → out (B, K, N, D) in
     q's dtype, a view of a contiguous (B, N, K, D) tensor (the output
-    projection's input layout).  Two passes over the keys, p normalised
-    before it is rounded (``csrc/flash_attention_single.cu``)."""
+    projection's input layout), and with ``stats`` also the row statistics
+    (m, r) its backward reads, (2, B, K, N) f32.  K1's kernel under K5's
+    rounding rule (``csrc/flash_attention_fwd.cu``): two passes over the
+    keys, the first keeping each row's max and sum, the second rounding
+    p = e·r before p·v."""
     name = "flash_attention_single_fwd"
     _check_stream(q, k, v, name)
     B, K, N, D = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
-        return flash_attention_single_reference(q, k, v, scale)
+        return flash_attention_single_reference(q, k, v, scale, stats)
     _stream_cuda(name, scale, q, k, v)
     out = torch.empty((B, N, K, D), dtype=q.dtype, device=q.device).transpose(1, 2)
-    lib = _library("flash_attention_single")
+    row_stats = _new_stats(B, K, N, q.device) if stats else None
+    lib = _library("flash_attention_fwd")
     err = lib.flash_attention_single_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-        B, N, K, D, *_strides(q, k, v, out), scale,
-        torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        row_stats.data_ptr() if stats else None, _DTYPE_CODES[q.dtype], B, N, K, D,
+        *_strides(q, k, v, out), scale, torch.cuda.current_stream(q.device).cuda_stream,
+        q.device.index)
     _raise_on(lib, err, name)
     flash_attention_single_fwd.launches += 1
-    return out
+    return (out, row_stats) if stats else out
 
 
 flash_attention_single_fwd.launches = 0
 
 
 def flash_attention_single_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                               dout: torch.Tensor, scale: float | None = None):
+                               dout: torch.Tensor, scale: float | None = None,
+                               stats: torch.Tensor | None = None):
     """K5's backward: (dq, dk, dv), each (B, K, N, D) in q's dtype (views of
     contiguous (B, N, K, D) tensors on the card), from q, k, v and out's
-    cotangent dout, all (B, K, N, D) of any strides.  Nothing of the forward
-    is needed: p and o are recomputed.
+    cotangent dout, all (B, K, N, D) of any strides, and the row statistics
+    K5's forward returned with ``stats=True`` (2, B, K, N).  p and o are
+    recomputed from them; the kernels never find them again, so a CUDA call
+    needs them, and the plain version finds them when they are not given.
 
-    Two kernels (``csrc/flash_attention_single_bwd.cu``): the dq kernel, one
-    block per query tile, which also writes the row statistics (m, l, delta)
-    to a (3, B, K, N) scratch; then the dk/dv kernel, one block per key tile,
-    which reads them."""
+    Two kernels (``csrc/flash_attention_bwd.cu``, K6's under K5's rounding
+    rule): the dq kernel, one block per query tile, which writes delta to a
+    (B, K, N) scratch; then the dk/dv kernel, one block per key tile, which
+    reads it."""
     name = "flash_attention_single_bwd"
     _check_stream(q, k, v, name)
     B, K, N, D = q.shape
     _check_operands(name, (B, K, N, D), q.dtype, q.device, dout=dout)
+    if stats is not None:
+        _check_operands(name, (2, B, K, N), torch.float32, q.device, stats=stats)
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
-        return flash_attention_single_bwd_reference(q, k, v, dout, scale)
+        return flash_attention_single_bwd_reference(q, k, v, dout, scale, stats)
+    _check_stats(name, stats, B, K, N, q.device)
+    _stream_cuda(name, scale, q, k, v, dout)
     grads = tuple(torch.empty((B, N, K, D), dtype=q.dtype, device=q.device).transpose(1, 2)
                   for _ in range(3))
-    _stream_cuda(name, scale, q, k, v, dout)
-    stats = torch.empty((3, B, K, N), dtype=torch.float32, device=q.device)
+    delta = _new_stats(B, K, N, q.device, rows=1)   # the dq kernel's, for the dk/dv kernel
     dq, dk, dv = grads
-    lib = _library("flash_attention_single_bwd")
+    lib = _library("flash_attention_bwd")
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], B, N, K, D,
-            *_strides(q, k, v, dout, dq, dk, dv), scale,
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, N, K, D, *_strides(q, k, v, dout, dq, dk, dv), scale,
             torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
     _raise_on(lib, lib.flash_attention_single_bwd_dq(*args), f"{name} (dq)")
     flash_attention_single_bwd.dq_launches += 1
@@ -692,19 +711,22 @@ flash_attention_single_bwd.dkdv_launches = 0
 
 
 class _FlashAttentionSingle(torch.autograd.Function):
-    """K5 forward saving (q, k, v) only, as the JAX ``_fwd`` at short N; K5's
-    recompute-form backward."""
+    """K5 forward saving (q, k, v), as the JAX ``_fwd`` at short N, and its
+    row statistics; K5's recompute-form backward on them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float):
-        ctx.save_for_backward(q, k, v)
+    def forward(ctx, q, k, v, scale: float, with_stats: bool):
+        out, stats = (flash_attention_single_fwd(q, k, v, scale, True) if with_stats
+                      else (flash_attention_single_fwd(q, k, v, scale), None))
+        ctx.save_for_backward(q, k, v, stats)
         ctx.scale = scale
-        return flash_attention_single_fwd(q, k, v, scale)
+        return out
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
-        q, k, v = ctx.saved_tensors
-        return (*flash_attention_single_bwd(q, k, v, dout.contiguous(), ctx.scale), None)
+        q, k, v, stats = ctx.saved_tensors
+        return (*flash_attention_single_bwd(q, k, v, dout.contiguous(), ctx.scale, stats),
+                None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -719,7 +741,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     N, D = q.shape[2:]
     scale = D ** -0.5 if scale is None else float(scale)
     if N <= _SINGLE_BLOCK_MAX:
-        return _FlashAttentionSingle.apply(q, k, v, scale)
+        return _FlashAttentionSingle.apply(q, k, v, scale, _backward_follows(q, k, v))
     return _FlashAttentionStream.apply(q, k, v, scale)
 
 
@@ -893,20 +915,22 @@ def _raise_on(lib: ctypes.CDLL, err: int, fn: str) -> None:
 
 _ARGTYPES = {
     # K1: qkv, out, stats (or null), dtype, B, N, K, D, 5 qkv strides, 4 out
-    # strides, scale, stream, device; K6: q, k, v, out, stats, dtype, B, N, K,
-    # D, 4 strides each of q, k, v, out, scale, stream, device
+    # strides, scale, stream, device; K6 and K5: q, k, v, out, stats, dtype,
+    # B, N, K, D, 4 strides each of q, k, v, out, scale, stream, device
     "flash_attention_fwd": {"flash_attention_qkv_fwd":
                             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 9
                             + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
-                            "flash_attention_tn_fwd":
-                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                            + [ctypes.c_longlong] * 16
-                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]},
+                            **{fn: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                               + [ctypes.c_longlong] * 16
+                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
+                               for fn in ("flash_attention_tn_fwd",
+                                          "flash_attention_single_fwd")}},
     # qkv, out, dout, dqkv, stats, delta, dtype, B, N, K, D, 5 qkv, 4 out, 4
     # dout strides, scale, stream, device
-    # K6's two kernels: q, k, v, dout, stats, delta, dq, dk, dv, dtype, B, N,
-    # K, D, 4 strides each of q, k, v, dout, dq, dk, dv, scale, stream, device
+    # K6's and K5's two kernels: q, k, v, dout, stats, delta, dq, dk, dv,
+    # dtype, B, N, K, D, 4 strides each of q, k, v, dout, dq, dk, dv, scale,
+    # stream, device
     "flash_attention_bwd": {"flash_attention_qkv_bwd":
                             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 13
@@ -915,7 +939,9 @@ _ARGTYPES = {
                                + [ctypes.c_longlong] * 28
                                + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
                                for fn in ("flash_attention_tn_bwd_dq",
-                                          "flash_attention_tn_bwd_dkdv")}},
+                                          "flash_attention_tn_bwd_dkdv",
+                                          "flash_attention_single_bwd_dq",
+                                          "flash_attention_single_bwd_dkdv")}},
     # q, k, v, out, lse, dtype, B, N, K, D, 4 strides each of q, k, v, out,
     # scale, stream, device
     "flash_attention_stream": {"flash_attention_stream_fwd":
@@ -928,18 +954,6 @@ _ARGTYPES = {
         fn: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 32
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
         for fn in ("flash_attention_stream_bwd_dq", "flash_attention_stream_bwd_dkdv")},
-    # q, k, v, out, dtype, B, N, K, D, 4 strides each of q, k, v, out, scale,
-    # stream, device
-    "flash_attention_single": {"flash_attention_single_fwd":
-                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                               + [ctypes.c_longlong] * 16
-                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]},
-    # q, k, v, dout, stats, dq, dk, dv, dtype, B, N, K, D, 4 strides each of
-    # q, k, v, dout, dq, dk, dv, scale, stream, device
-    "flash_attention_single_bwd": {
-        fn: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 28
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
-        for fn in ("flash_attention_single_bwd_dq", "flash_attention_single_bwd_dkdv")},
     # K8: its dq and dk/dv kernels take K2's arguments without the dtype;
     # dx: dqkv, w, dx, M, H, J, 2 w strides, stream, device; dW: x, dqkv, dW,
     # M, H, J, x's row stride, stream, device

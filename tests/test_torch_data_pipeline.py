@@ -114,9 +114,15 @@ def _datasets(cohort, **kw):
 
 @pytest.mark.parametrize("use_native", [False, True])
 def test_dataset_items_and_batches_match_jax(cohort, use_native):
+    """The port's dataset, with its native decoder or its Python reader,
+    against the JAX dataset on JAX's Python reader.  JAX's own native
+    decoder is held equal to that reader by tests/test_native.py; it is not
+    used here because its build writes the library in place, so xdist
+    workers that build it at once can load a half-written file."""
     if use_native and not native.available():
         pytest.skip("the native decoder did not build here (no g++ or libdeflate)")
-    port, ref = _datasets(cohort, use_native=use_native, cache=False)
+    port, _ = _datasets(cohort, use_native=use_native, cache=False)
+    _, ref = _datasets(cohort, use_native=False, cache=False)
     assert len(port) == len(ref) == 14 and port.use_native == use_native
     for i in (0, 5, 13):
         (a, la), (b, lb) = port[i], ref[i]
