@@ -29,9 +29,12 @@ Phases, each printed as one JSON line with a ``phase`` key:
              against an f32 attention, forward and backward.
 4. kernels_k7 — the same for K7, the streaming attention (forward with
              logsumexp, the dq and dk/dv kernels of its blocked backward) at
-             N = 1041, 1537, 2049, 4096 in bf16 and f32, timed at the 3-stream
-             ModelVIT training shape (B=8, K=16, N=1537, bf16) beside
-             scaled_dot_product_attention and its autograd backward.
+             N = 1041, 1537, 2049, 4096, 8192 in bf16 and f32; the forward
+             also against its plain version over the kernel's own 64-key
+             tiles (reported beside the 512-key error); no ptxas spill in a
+             K7 forward kernel; timed at the 3-stream ModelVIT training shape
+             (B=8, K=16, N=1537, bf16) beside scaled_dot_product_attention
+             and its autograd backward.
 5. kernels_k5 — the same for K5, the single-block attention of the public
              ``flash_attention`` (forward with its row statistics; dq and
              dk/dv kernels of its recompute-form backward on them: K1's and
@@ -102,11 +105,16 @@ Phases, each printed as one JSON line with a ``phase`` key:
              backward.
 12. kernels_k8 — K8, the fused QKV-projection backward (K2's attention
              kernels, then dx = dqkv·Wᵀ and dW = xᵀ·dqkv by the hand-written
-             tile product), against its plain version at B=8 K=16 D=64
-             H=1024 and N = 513, 1025 and 100, on K1's row statistics; two
-             identical calls must agree bit for bit; timed beside the
-             unfused route (K2 and two cuBLAS
-             GEMMs) and beside SDPA's autograd backward and the same GEMMs.
+             wgmma products), against its plain version at B=8 K=16 D=64
+             H=1024 and N = 513, 1025 and 100, on K1's row statistics, with W
+             as the model's view of the Linear weight and contiguous; two
+             identical calls must agree bit for bit; the two products alone
+             on K2's dqkv against their plain version (``K8_PRODUCT_TOL``),
+             beside cuBLAS's; no ptxas spill in a product kernel; timed, dq,
+             dk/dv, dx and dW apart, beside the unfused route (K2 and two
+             cuBLAS GEMMs), the same two GEMMs on the same dqkv (the
+             products' yardstick), and SDPA's autograd backward and the
+             GEMMs.
              Phase train also runs its comparison step with
              ``FUSED_QKV_GRADS`` on: 12 K8 calls, no K2, every gradient
              within ``SERVE_TOL`` of the plain path's.
@@ -246,14 +254,21 @@ K6_TIMED = (8, 16, 513)
 # K8's shapes (B, N) at K=16 D=64 H=1024: the live ModelCross, the 2-stream
 # ModelVIT and a ragged one
 K8_SHAPES = ((8, 513), (8, 1025), (8, 100))
+# K8's two products alone on K2's dqkv against their plain version (f32
+# products of the same bf16 operands): dW (f32) normalised by max |dW|, and dx
+# (bf16) in bf16 ulps, element-wise (``_bf16_ulps``)
+K8_PRODUCT_TOL = {"dW_norm_err": 1e-5, "dx_max_ulps": 1.0}
 # train_cli: the synthetic cohort (subjects, raw volume size) and the room
 # its checkpoints need: four full-state npz files of ~2.9 GB
 CLI_SUBJECTS = 16
 RAW_VOLUME = (240, 240, 155)
 CLI_DISK_BYTES = 14e9
-# K7's streaming-regime lengths (tests_tpu/test_kernels_onchip.py:42), checked
+# K7's streaming-regime lengths (tests_tpu/test_kernels_onchip.py:42, with
+# 1537 and 8192, the length the JAX streaming kernel was sized for), checked
 # at B=2 K=4, and the 3-stream ModelVIT training shape (B, K, N)
-K7_NS = (1041, 1537, 2049, 4096)
+K7_NS = (1041, 1537, 2049, 4096, 8192)
+# the key-tile width of K7's forward kernel
+BK7 = 64
 K7_TRAIN = (8, 16, 1537)
 # K5's lengths: ragged, the single-block shapes of tests_tpu/test_kernels_onchip.py:42
 # and the switch's edge, checked at B=2 K=4; its serving shapes (B, K, N):
@@ -286,7 +301,7 @@ PROFILE_LAYERS = (("K5 attention forward", ("attn_single_fwd",)),
                   ("K7 attention backward", ("attn_stream_bwd",)),
                   ("K1 attention forward", ("attn_fwd_qkv",)),
                   ("K2/K6/K8 attention backward", ("attn_bwd_",)),
-                  ("K8 dx/dW products", ("gemm_nt_kernel",)),
+                  ("K8 dx/dW products", ("qkv_grad_d",)),
                   ("K3/K4 resample", ("resample_kernel",)),
                   ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma", "imma")),
                   ("Adam (fused)", ("multi_tensor_apply",)),
@@ -824,8 +839,12 @@ def _k7_path(q, k, v, dout, scale: float):
 
 def phase_kernels_k7() -> dict:
     """K7's three kernels against their plain versions: the forward's out
-    and lse, and dq, dk, dv of the backward run on the kernel's out and lse.
-    Returns the training-shape readings with timings and bounds."""
+    and lse (also against the plain version over the kernel's own 64-key
+    tiles, whose running max rounds p as the kernel's does; reported, the
+    gate is the 512-key one), and dq, dk, dv of the backward run on the
+    kernel's out and lse; no ptxas spill in a K7 forward kernel.  Returns
+    the training-shape readings with timings and bounds."""
+    ptxas = {key: r for key, r in PTXAS.items() if "attn_stream_fwd" in key}
     cases = [(2, 4, N, dt, "stacked") for N in K7_NS for dt in (torch.bfloat16, torch.float32)]
     cases.append((2, 4, 1041, torch.float32, "dminor"))
     cases.append((*K7_TRAIN, torch.bfloat16, "stacked"))
@@ -835,6 +854,7 @@ def phase_kernels_k7() -> dict:
         scale = 64 ** -0.5
         out, lse = fa.flash_attention_stream_fwd(q, k, v, scale)
         plain_out, plain_lse = fa.flash_attention_stream_reference(q, k, v, scale)
+        tile_out, tile_lse = fa.flash_attention_stream_reference(q, k, v, scale, block=BK7)
         got = fa.flash_attention_stream_bwd(q, k, v, out, lse, dout, scale, grads=grads)
         want = fa.flash_attention_blocked_bwd_reference(q, k, v, out, lse, dout, scale)
         torch.cuda.synchronize()
@@ -846,7 +866,11 @@ def phase_kernels_k7() -> dict:
                  "finite": all(bool(torch.isfinite(t).all()) for t in (out, lse, *got)),
                  "max_abs_err": {n: e[0] for n, e in errs.items()},
                  "norm_err": {n: e[1] for n, e in errs.items()}}
-        del plain_out, plain_lse, want
+        tile = {"out": _norm_err(out, tile_out), "lse": _norm_err(lse, tile_lse)}
+        entry["at_kernel_tile"] = {"block": BK7,
+                                   "max_abs_err": {n: e[0] for n, e in tile.items()},
+                                   "norm_err": {n: e[1] for n, e in tile.items()}}
+        del plain_out, plain_lse, want, tile_out, tile_lse
         if (B, K, N) == K7_TRAIN:
             qc, kc, vc = (t.contiguous() for t in (q, k, v))
             timings(entry, lambda: fa.flash_attention_stream_fwd(q, k, v, scale),
@@ -878,7 +902,12 @@ def phase_kernels_k7() -> dict:
             failures.append(entry)
         del q, k, v, dout, grads, out, lse, got
         torch.cuda.empty_cache()
-    emit({"phase": "kernels_k7", "kernels": [K7F, K7DKV, K7DQ], "cases": checks})
+    emit({"phase": "kernels_k7", "kernels": [K7F, K7DKV, K7DQ], "ptxas": ptxas,
+          "cases": checks})
+    check(len(ptxas) == 2, f"ptxas reported {sorted(ptxas)}, not K7's forward kernels (bf16 "
+                           "and f32)")
+    check(not any(r.get("spill_stores") or r.get("spill_loads") for r in ptxas.values()),
+          f"a K7 forward kernel spills: {ptxas}")
     check(not failures, f"K7 disagrees with its plain versions: {failures}")
     return train
 
@@ -1111,6 +1140,16 @@ def k8_bound(B: int, N: int, K: int, D: int, H: int) -> tuple[float, str, float,
             flops / 1e9, nbytes / 1e6)
 
 
+def k8_products_bound(B: int, N: int, K: int, D: int, H: int) -> tuple[float, str]:
+    """Least time in ms of K8's two products: 2·2·M·H·J FLOPs (M = B·N,
+    J = 3·K·D) at the bf16 peak, against dqkv, x and W read once and dx
+    (bf16) and dW (f32) written once."""
+    M, J = B * N, 3 * K * D
+    t_ops = 4 * M * H * J / PEAK_FLOPS[torch.bfloat16]
+    t_bytes = ((M * J + M * H + H * J + M * H) * 2 + H * J * 4) / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def _k8_operands(B: int, N: int, seed: int, K: int = 16, D: int = 64, H: int = 1024):
     """x (B, N, H), w (H, 3, K, D) as the model passes it (a view of a
     (3H, H) Linear weight), qkv = x·W, K1's output on it and a cotangent."""
@@ -1124,68 +1163,135 @@ def _k8_operands(B: int, N: int, seed: int, K: int = 16, D: int = 64, H: int = 1
     return x, w, qkv, out, dout, stats
 
 
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """got's distance from want element-wise, in bf16 ulps (the spacing of
+    bf16 at the larger of the two magnitudes).  ``max_ulps`` takes the
+    magnitude at no less than 2^-8 of max |want|: two f32 sums of the same
+    products in other orders differ by about 1e-6 of the largest magnitude
+    (the sum's own rounding), more than the ulp of an element that cancels to
+    near zero.  ``over_one_own_ulp`` counts the elements more than one of
+    their own ulps away, at any magnitude."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    mag = torch.maximum(g.abs(), w.abs())
+    floor = w.abs().max() * 2.0 ** -8
+
+    def ulp(a: torch.Tensor) -> torch.Tensor:
+        return torch.pow(2.0, torch.floor(torch.log2(a.clamp_min(1e-30))) - 7)
+
+    own = diff / ulp(mag)
+    return {"max_ulps": (diff / ulp(torch.maximum(mag, floor))).max().item(),
+            "max_own_ulps": own.max().item(), "over_one_own_ulp": int((own > 1).sum()),
+            "max_abs_err": diff.max().item()}
+
+
+def _products_errs(dx: torch.Tensor, dw: torch.Tensor, want_dx: torch.Tensor,
+                   want_dw: torch.Tensor) -> dict:
+    return {"dx_ulps": _bf16_ulps(dx, want_dx), "dW_norm_err": _norm_err(dw, want_dw)[1],
+            "dW_max_abs_err": _norm_err(dw, want_dw)[0]}
+
+
 def phase_kernels_k8() -> dict:
-    """K8 against its plain version (dx and dW), the spread of two identical
-    calls, and at the live shape the timings beside the unfused route and
-    the library yardstick.  Returns the live-shape reading."""
+    """K8 against its plain version (dx and dW), with W as the model's view
+    of the Linear weight and contiguous, and the spread of two identical
+    calls; its two products alone on K2's dqkv against their plain version
+    (dW f32 within ``K8_DW_TOL``, dx within one bf16 ulp, ``_bf16_ulps``),
+    beside the same products by cuBLAS; no ptxas spill in a product kernel.
+    At the live shape the timings beside the unfused route and the library
+    yardsticks.  Returns the live-shape reading."""
     K, D, H = 16, 64, 1024
     scale = D ** -0.5
+    ptxas = {key: r for key, r in PTXAS.items() if "qkv_grad_d" in key}
     checks, failures, live = [], [], {}
     for i, (B, N) in enumerate(K8_SHAPES):
         x, w, qkv, out, dout, stats = _k8_operands(B, N, seed=800 + i)
-        counts0 = {n: getattr(fa.fused_qkv_bwd, n) for n in
-                   ("launches", "dq_launches", "dkdv_launches", "dx_launches", "dw_launches")}
-        dx, dw = fa.fused_qkv_bwd(x, w, qkv, out, dout, scale, stats)
-        dx2, dw2 = fa.fused_qkv_bwd(x, w, qkv, out, dout, scale, stats)
-        per_call = {n: (getattr(fa.fused_qkv_bwd, n) - c0) / 2 for n, c0 in counts0.items()}
         want_dx, want_dw = fa.fused_qkv_bwd_reference(x, w, qkv, out, dout, scale, stats)
-        torch.cuda.synchronize()
-        errs = {"dx": _norm_err(dx, want_dx), "dW": _norm_err(dw, want_dw)}
-        entry = {"B": B, "N": N, "K": K, "D": D, "H": H, "dtype": "bfloat16",
-                 "tol": KERNEL_TOL[torch.bfloat16], "launches_per_call": per_call,
-                 "finite": all(bool(torch.isfinite(t).all()) for t in (dx, dw)),
-                 "max_abs_err": {n: e[0] for n, e in errs.items()},
-                 "norm_err": {n: e[1] for n, e in errs.items()},
-                 # f32 sums in a fixed order per output tile: no run-to-run spread
-                 "run_to_run_max_abs": {"dx": (dx.float() - dx2.float()).abs().max().item(),
-                                        "dW": (dw.float() - dw2.float()).abs().max().item()}}
-        del want_dx, want_dw, dx2, dw2
-        if (B, N) == K8_SHAPES[0]:
-            dqkv = fa.flash_attention_qkv_bwd(qkv, out, dout, scale, stats)
-            # the unfused route reads the same dqkv bits: the two differ only
-            # in the products' summation order before their single rounding
-            ux, uw = fa._qkv_grads_plain(x, w, dqkv)
-            entry["vs_unfused"] = {"dx": _norm_err(dx, ux)[1], "dW": _norm_err(dw, uw)[1],
-                                   "dx_elements_differing": int((dx != ux).sum()),
-                                   "dW_elements_differing": int((dw != uw).sum())}
-            del ux, uw
-            entry["kernel_ms_by_kernel"] = device_ms_split(
-                lambda: fa.fused_qkv_bwd(x, w, qkv, out, dout, scale, stats),
-                {"dq": "attn_bwd_dq", "dkdv": "attn_bwd_dkdv", "dx_dW": "gemm_nt_kernel"})
-            entry["kernel_ms"] = sum(entry["kernel_ms_by_kernel"].values())
-            entry["plain_ms"] = device_ms(
-                lambda: fa.fused_qkv_bwd_reference(x, w, qkv, out, dout, scale, stats), calls=2)
-            entry["unfused_ms"] = device_ms(
-                lambda: fa._qkv_grads_plain(x, w, fa.flash_attention_qkv_bwd(qkv, out, dout,
-                                                                               scale, stats)))
-            qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in fa._stream_views(qkv))
-            lib_out = F.scaled_dot_product_attention(qc, kc, vc)
-            lib_g = dout.transpose(1, 2).contiguous()
-            entry["library_ms"] = device_ms(
-                lambda: (torch.autograd.grad(lib_out, (qc, kc, vc), lib_g, retain_graph=True),
-                         fa._qkv_grads_plain(x, w, dqkv)))
-            del qc, kc, vc, lib_out, lib_g, dqkv
-            ms, by, gflop, mb = k8_bound(B, N, K, D, H)
-            entry["bound"] = {"ms": ms, "by": by, "gflop": gflop, "mb": mb}
-            live = entry
-        checks.append(entry)
-        if not (entry["finite"] and max(entry["norm_err"].values()) <= entry["tol"]
-                and per_call["launches"] == 1
-                and max(entry["run_to_run_max_abs"].values()) == 0.0):
-            failures.append(entry)
-        del x, w, qkv, out, dout, dx, dw, stats
+        # K2's dq, dk, dv: the products alone are held against their plain
+        # version on these bits
+        dqkv = fa.flash_attention_qkv_bwd(qkv, out, dout, scale, stats)
+        prod_dx, prod_dw = fa.fused_qkv_products_reference(x, w, dqkv)
+        x2 = x.reshape(B * N, H)
+        lib_dx, _ = fa._qkv_grads_plain(x, w, dqkv)
+        lib_dw = torch.mm(x2.t(), dqkv.reshape(B * N, -1), out_dtype=torch.float32)
+        library = {**_products_errs(lib_dx, lib_dw.view(w.shape), prod_dx, prod_dw)}
+        for layout in ("view", "contiguous"):
+            wl = w if layout == "view" else w.contiguous()
+            counts0 = {n: getattr(fa.fused_qkv_bwd, n) for n in
+                       ("launches", "dq_launches", "dkdv_launches", "dx_launches", "dw_launches")}
+            dx, dw = fa.fused_qkv_bwd(x, wl, qkv, out, dout, scale, stats)
+            dx2, dw2 = fa.fused_qkv_bwd(x, wl, qkv, out, dout, scale, stats)
+            per_call = {n: (getattr(fa.fused_qkv_bwd, n) - c0) / 2 for n, c0 in counts0.items()}
+            pdx, pdw = fa.fused_qkv_products(x, wl, dqkv)
+            torch.cuda.synchronize()
+            errs = {"dx": _norm_err(dx, want_dx), "dW": _norm_err(dw, want_dw)}
+            products = _products_errs(pdx, pdw, prod_dx, prod_dw)
+            entry = {"B": B, "N": N, "K": K, "D": D, "H": H, "dtype": "bfloat16",
+                     "w_layout": layout, "w_strides": list(wl.stride()),
+                     "tol": KERNEL_TOL[torch.bfloat16], "launches_per_call": per_call,
+                     "finite": all(bool(torch.isfinite(t).all()) for t in (dx, dw)),
+                     "max_abs_err": {n: e[0] for n, e in errs.items()},
+                     "norm_err": {n: e[1] for n, e in errs.items()},
+                     # f32 sums in a fixed order per output tile: no run-to-run spread
+                     "run_to_run_max_abs": {"dx": (dx.float() - dx2.float()).abs().max().item(),
+                                            "dW": (dw.float() - dw2.float()).abs().max().item()},
+                     "products": {**products, "tol": K8_PRODUCT_TOL,
+                                  "library": library,
+                                  "dx_equal_to_library": bool(torch.equal(pdx, lib_dx))}}
+            del dx2, dw2
+            if (B, N) == K8_SHAPES[0] and layout == "view":
+                # the unfused route reads the same dqkv bits: the two differ only
+                # in the products' summation order before their single rounding
+                ux, uw = fa._qkv_grads_plain(x, w, dqkv)
+                entry["vs_unfused"] = {"dx": _norm_err(dx, ux)[1], "dW": _norm_err(dw, uw)[1],
+                                       "dx_elements_differing": int((dx != ux).sum()),
+                                       "dW_elements_differing": int((dw != uw).sum())}
+                del ux, uw
+                entry["kernel_ms_by_kernel"] = device_ms_split(
+                    lambda: fa.fused_qkv_bwd(x, w, qkv, out, dout, scale, stats),
+                    {"dq": "attn_bwd_dq", "dkdv": "attn_bwd_dkdv", "dx": "qkv_grad_dx_kernel",
+                     "dW": "qkv_grad_dw_kernel"})
+                entry["kernel_ms"] = sum(entry["kernel_ms_by_kernel"].values())
+                entry["products_ms"] = (entry["kernel_ms_by_kernel"]["dx"]
+                                        + entry["kernel_ms_by_kernel"]["dW"])
+                entry["plain_ms"] = device_ms(
+                    lambda: fa.fused_qkv_bwd_reference(x, w, qkv, out, dout, scale, stats),
+                    calls=2)
+                entry["unfused_ms"] = device_ms(
+                    lambda: fa._qkv_grads_plain(x, w, fa.flash_attention_qkv_bwd(
+                        qkv, out, dout, scale, stats)))
+                # the products' yardstick: the same two products by cuBLAS on
+                # the same dqkv
+                entry["products_library_ms"] = device_ms(lambda: fa._qkv_grads_plain(x, w, dqkv))
+                entry["products_plain_ms"] = device_ms(
+                    lambda: fa.fused_qkv_products_reference(x, w, dqkv), calls=2)
+                qc, kc, vc = (t.detach().contiguous().requires_grad_()
+                              for t in fa._stream_views(qkv))
+                lib_out = F.scaled_dot_product_attention(qc, kc, vc)
+                lib_g = dout.transpose(1, 2).contiguous()
+                entry["library_ms"] = device_ms(
+                    lambda: (torch.autograd.grad(lib_out, (qc, kc, vc), lib_g, retain_graph=True),
+                             fa._qkv_grads_plain(x, w, dqkv)))
+                del qc, kc, vc, lib_out, lib_g
+                ms, by, gflop, mb = k8_bound(B, N, K, D, H)
+                entry["bound"] = {"ms": ms, "by": by, "gflop": gflop, "mb": mb}
+                entry["products_bound"] = dict(zip(("ms", "by"),
+                                                   k8_products_bound(B, N, K, D, H)))
+                live = entry
+            checks.append(entry)
+            if not (entry["finite"] and max(entry["norm_err"].values()) <= entry["tol"]
+                    and per_call["launches"] == 1
+                    and max(entry["run_to_run_max_abs"].values()) == 0.0
+                    and products["dW_norm_err"] <= K8_PRODUCT_TOL["dW_norm_err"]
+                    and products["dx_ulps"]["max_ulps"] <= K8_PRODUCT_TOL["dx_max_ulps"]):
+                failures.append(entry)
+            del dx, dw, pdx, pdw, wl
+        del x, w, qkv, out, dout, stats, dqkv, want_dx, want_dw, prod_dx, prod_dw, lib_dx, lib_dw
         torch.cuda.empty_cache()
-    emit({"phase": "kernels_k8", "kernels": [K8], "cases": checks})
+    emit({"phase": "kernels_k8", "kernels": [K8], "ptxas": ptxas, "cases": checks})
+    check(len(ptxas) == 3, f"ptxas reported {sorted(ptxas)}, not K8's dx (W K-major and "
+                           "transposed) and dW kernels")
+    check(not any(r.get("spill_stores") or r.get("spill_loads") for r in ptxas.values()),
+          f"a K8 product kernel spills: {ptxas}")
     check(not failures, f"K8 disagrees with its plain version: {failures}")
     return live
 
@@ -2136,6 +2242,7 @@ def main() -> int:
          "shape": "V=8 (128, 128, 64) bfloat16, LU pass U0 with all 44 taps"},
         {**K7F, **launches["K7F"],
          "max_abs_err": k7["max_abs_err"]["out"], "lse_max_abs_err": k7["max_abs_err"]["lse"],
+         "at_kernel_tile": k7["at_kernel_tile"],
          "ms": k7["kernel_ms"], "plain_ms": k7["plain_ms"], "bound_ms": bound["fwd"]["ms"],
          "bound_by": bound["fwd"]["by"], "library_ms": k7["library_ms"],
          "library": "scaled_dot_product_attention", "shape": k7_shape},
@@ -2211,6 +2318,13 @@ def main() -> int:
          "library_ms": k8["library_ms"],
          "library": "backward of scaled_dot_product_attention through autograd, then dx and "
                     "dW as two cuBLAS GEMMs",
+         "products": {"ms": k8["products_ms"], "plain_ms": k8["products_plain_ms"],
+                      "bound_ms": k8["products_bound"]["ms"],
+                      "bound_by": k8["products_bound"]["by"],
+                      "library_ms": k8["products_library_ms"],
+                      "library": "dx and dW as two cuBLAS GEMMs on the same dqkv",
+                      "dW_norm_err": k8["products"]["dW_norm_err"],
+                      "dx_ulps": k8["products"]["dx_ulps"]},
          "unfused_ms": k8["unfused_ms"], "run_to_run_max_abs": k8["run_to_run_max_abs"],
          "shape": "B=8 N=513 K=16 D=64 H=1024 bfloat16 (live ModelCross training shape)"}]})
     print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)

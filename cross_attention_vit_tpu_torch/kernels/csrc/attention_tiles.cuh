@@ -1,7 +1,8 @@
 // Shared pieces of the attention kernels: the tile sizes, the f32 staging
 // and register-tile products of the CUDA-core path (K1, K2, K5, K6, K7), and
 // the mma.sync products and 16-byte register staging of bf16 tiles that K7's
-// kernels run (K1, K2, K5 and K6 run wgmma: hopper_tiles.cuh).
+// backward kernels run (K1, K2, K5, K6, K7's forward and K8 run wgmma:
+// hopper_tiles.cuh).
 
 #pragma once
 

@@ -30,32 +30,44 @@
 // products are 4·B·K·N²·D = 77.4 GFLOP, 78.3 us at the 989 TFLOP/s bf16
 // tensor-core peak.  So operations bound it.
 //
-// Design.  One block per 64-row query tile of one (b, h) streams over the
-// 64-key tiles of k and v staged in shared memory; (m, l, acc) stay in
-// registers for the whole loop, so the one pass reads k and v once per
-// query tile (K1's two passes read k twice).
+// Design.  A block owns 64-row query tiles of one (b, h) and streams once
+// over the 64-key tiles of k and v; (m, l, acc) stay in registers for the
+// whole loop, so the one pass reads k and v once per query tile (K1's two
+// passes read k twice).
 //
-//   bf16 (the training and serving path): 4 warps, each owning 16 query
-//   rows, run both products on the tensor cores with mma.sync m16n8k16
-//   (bf16 in, f32 accumulate).  The score accumulators become p in place
-//   and are re-packed in registers as the A operand of the p·v product, so
-//   p never touches shared memory.  exp(scale·(s − m)) is one FMA and an
-//   exp2 on the unscaled scores (scale > 0 keeps the row order).  The next
-//   tile's 16-byte loads are issued into registers before this tile's
-//   products.  Needs a unit head-dim stride and 16-byte rows (the wrapper
-//   checks).
+//   bf16 (the training and serving path) on K1's parts (hopper_tiles.cuh):
+//   a warpgroup per 64-row query tile runs s = q·kᵀ as wgmma m64n64k16 with
+//   q and k read K-major from shared memory; each row's max over the tile is
+//   shuffled across its four threads; p = exp2(c·s − c·m) is one FMA and an
+//   ex2 per score, packed from the score accumulators into bf16 A fragments
+//   in registers; acc += p·v runs wgmma with v read transposed (MN-major)
+//   from its one row-major tile, so no operand is stored transposed.  k and
+//   v tiles arrive by cp.async into a ring of FWD_STAGES (k, v) slots, two
+//   steps ahead of the products, one barrier a step.  The one-key last tile
+//   (N = 1537) costs an m64n16 score product and one 16-deep p·v step, not
+//   64.  A block holds two warpgroups, each owning a 64-row query tile,
+//   sharing the ring: warpgroup 0 copies each step's k tile and warpgroup 1
+//   its v tile.  Two tiles a block halve the reads of each head's k and v
+//   from L2 (25 × 393 KB a head at N = 1537 with one), and while one
+//   warpgroup runs its softmax the other's products run; the cost is the
+//   last block's second tile, which may hold no row (it copies and waits,
+//   and computes nothing).  One tile a block was measured and dropped: on
+//   an H100 at B=8 K=16 N=1537, 0.3760 ms against two's 0.3311 ms, timed in
+//   turns by kernels_in_turns.py (PERF.md §6).  Needs a unit head-dim
+//   stride and 16-byte rows (the wrapper checks).
 //   f32: scalar f32 FMAs on the CUDA cores (256 threads, 4×4 register
 //   tiles), any strides, full f32 (no TF32); p goes through shared memory.
 //
-// Ragged N (1537 = 24·64 + 1): key columns ≥ N score −inf and rows ≥ N of
-// q, k and v are staged as zeros, so no NaN can enter; nothing is stored
-// for rows ≥ N.  Every key tile holds a valid key, so the running max is
-// finite after the first tile; it is guarded anyway (m = −inf gives
-// alpha = 0 and p = 0, never −inf − −inf).
+// Ragged N (1537 = 24·64 + 1): key columns ≥ N are left out of the max and
+// give p = 0, and rows ≥ N of q, k and v are staged as zeros, so no NaN can
+// enter; nothing is stored for rows ≥ N.  Every key tile holds a valid key,
+// so the running max is finite after the first tile; it is guarded anyway
+// (m = −inf gives alpha = 0, never −inf − −inf).
 //
-// Not yet done (later work): wgmma, TMA, warp specialisation, larger tiles.
+// Not yet done (later work): TMA with a producer warp, and overlapping one
+// tile's softmax with the next tile's score product inside a warpgroup.
 
-#include "attention_tiles.cuh"
+#include "hopper_tiles.cuh"
 
 namespace {
 
@@ -64,118 +76,123 @@ struct Views {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16)
+// bf16: wgmma, tiles by cp.async
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(MMA_THREADS)
+constexpr int FWD_STAGES = 3;   // ring slots of (k, v) tile pairs
+
+// Two warpgroups per block, each owning a 64-row query tile of one (b, h);
+// they share the ring of (k, v) tiles (warpgroup 0 copies the k tile and
+// warpgroup 1 the v tile of each step).
+constexpr int WGS = 2;
+
+__global__ void __launch_bounds__(WGS * WG_THREADS)
 attn_stream_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ out,
                             float* __restrict__ lse, int N, int K, Views st, float scale) {
   extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);   // [BQ][LD]  q tile
-  bf16* ks = qs + BQ * LD;                     // [BK][LD]  k tile
-  bf16* vt = ks + BK * LD;                     // [D][LDV]  v tile, transposed
+  bf16* qs = aligned_smem(smem4);              // WGS q tiles
+  bf16* ring = qs + WGS * TILE;                // [stage][k, v] tiles
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;       // mma fragment coordinates
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int wg = threadIdx.x / WG_THREADS, tid = threadIdx.x % WG_THREADS;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (blockIdx.x * WGS + wg) * BQ, h = blockIdx.y, b = blockIdx.z;
   const bf16* qb = base(q, st.q, b, h);
   const bf16* kb = base(k, st.k, b, h);
   const bf16* vb = base(v, st.v, b, h);
   const int tiles = (N + BK - 1) / BK;
-  const float c = scale * LOG2E;               // exp(scale·x) = exp2(c·x)
-  const int r0 = warp * 16 + g;
+  // exp(scale·(s − m)) = exp2(c·s − c·m) for unscaled scores s: one FMA and
+  // one ex2 per score (scale > 0 keeps the maxima's order)
+  const float c = scale * LOG2E;
+  // the last block's second warpgroup may hold no query row: it copies and
+  // waits with the others, and computes nothing
+  const bool active = q0 < N;
+  bf16* qt = qs + wg * TILE;
 
-  Tile kr, vr;
-  kr.load_rows(qb, q0, N, st.q.n);
-  kr.store_rows(qs, LD);
-  kr.load_rows(kb, 0, N, st.k.n);
-  vr.load_cols(vb, 0, N, st.v.n);
-  __syncthreads();
-  uint32_t qf[D / 16][4];                      // this warp's q as A fragments
-  load_a(qf, qs, r0, t);
+  auto issue = [&](int i) {
+    bf16* stage = ring + (i % FWD_STAGES) * 2 * TILE;
+    const int k0 = i * BK;
+    load_tile_async(stage + wg * TILE, wg ? vb : kb, k0, N, wg ? st.v.n : st.k.n, tid);
+  };
+  if (active) load_tile_async(qt, qb, q0, N, st.q.n, tid);   // joins step 0's group
+  ring_begin<FWD_STAGES>(tiles, issue);
 
-  // (m, l, acc) of rows r0 and r0 + 8; m (unscaled) is shared by the 4
-  // threads (a quad) of a row, l is this thread's partial sum
+  // (m, l, o) of rows 16·warp + g and + 8: m, the running max of the
+  // unscaled scores, is shared by the 4 threads (a quad) of a row; l is this
+  // thread's partial sum of the f32 p
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();                           // the last tile's reads are done
-    kr.store_rows(ks, LD);
-    vr.store_transposed(vt, LDV);
-    __syncthreads();
-    if (tile + 1 < tiles) {                    // in flight during the products
-      kr.load_rows(kb, k0 + BK, N, st.k.n);
-      vr.load_cols(vb, k0 + BK, N, st.v.n);
-    }
-    // s = q·kᵀ (unscaled): 8 tiles of 8 keys; thread (g, t) holds rows g and
-    // g+8, keys 8j + 2t + {0, 1}; keys ≥ N score −inf
-    float s[BK / 8][4];
-    mma_nt(s, qf, ks, g, t);
-    if (k0 + BK > N) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + j * 8 + 2 * t + (e & 1) >= N) s[j][e] = -INFINITY;
-    }
-
+  float s[32], o[32];
+  zero32(o);
+  for (int i = 0; i < tiles; ++i) {
+    ring_step<FWD_STAGES>(i, tiles, issue);
+    if (!active) continue;
+    const bf16* ks = ring + (i % FWD_STAGES) * 2 * TILE;
+    const int k0 = i * BK;
+    const int nb = min(BK, N - k0 + 15) / 16;   // 16-key blocks holding a key < N
+    const bool full = k0 + BK <= N;
+    wg_fence();
+    mma_tn_n(s, qt, ks, nb);
+    wg_commit();
+    wg_wait<0>();
+    settle(s);
+    // the new running max over the quad; acc and l rescaled by
+    // alpha = exp(scale·(m − m_new)) (0 on the first tile: m = −inf)
     float cm[2];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * half], s[j][2 * half + 1]));
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (full || (j < 2 * nb && k0 + 8 * j + 2 * t + e < N))
+            mx = fmaxf(mx, s[4 * j + 2 * half + e]);
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[half], mx);
+      const float mn = fmaxf(m[half], mx);     // finite: key k0 < N is valid
       cm[half] = mn == -INFINITY ? 0.f : c * mn;
-      // alpha = exp(scale·(m − m_new)); m = −inf (first tile) gives 0
       const float alpha = exp2f(fmaf(m[half], c, -cm[half]));
       l[half] *= alpha;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][2 * half] *= alpha;
-        o[j][2 * half + 1] *= alpha;
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j + 2 * half] *= alpha;
+        o[4 * j + 2 * half + 1] *= alpha;
       }
       m[half] = mn;
     }
-    // p = exp(scale·(s − m_new)) in f32, in place; l sums the f32 p
+    // p = exp(scale·(s − m_new)) in f32, summed into l, rounded to bf16 as
+    // the A operand of p·v (the running max's rounding, as the TPU kernel)
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(fmaf(s[j][e], c, -cm[e >> 1]));
-        l[e >> 1] += s[j][e];
+      for (int x = 0; x < 4; ++x) {
+        const bool valid = full || (j < 2 * nb && k0 + 8 * j + 2 * t + (x & 1) < N);
+        const float p = valid ? exp2f(fmaf(s[4 * j + x], c, -cm[x >> 1])) : 0.f;
+        l[x >> 1] += p;
+        s[4 * j + x] = p;
       }
-    // acc += bf16(p)·v: the C fragments of score tiles 2kk and 2kk+1 are
-    // the A fragment of keys [16kk, 16kk + 16)
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack(s[2 * kk][0], s[2 * kk][1]), pack(s[2 * kk][2], s[2 * kk][3]),
-                             pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      mma_acc(o, a, vt, kk, g, t);
-    }
+    uint32_t a[4][4];
+    pack_a(a, s);
+    wg_fence();
+    mma_nn(o, a, ks + TILE, nb);
+    wg_commit();
+    wg_wait<0>();
   }
+  if (!active) return;
+  settle(o);
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
     l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
-    const int n = q0 + r0 + 8 * half;
+    const int n = q0 + warp * 16 + g + 8 * half;
     if (n >= N) continue;
     bf16* orow = base(out, st.o, b, h) + n * st.o.n;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[j][2 * half] / l[half], o[j][2 * half + 1] / l[half]);
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * t) = __floats2bfloat162_rn(
+          o[4 * j + 2 * half] / l[half], o[4 * j + 2 * half + 1] / l[half]);
     if (t == 0) lse[(static_cast<long long>(b) * K + h) * N + n] = fmaf(m[half], scale, logf(l[half]));
   }
 }
@@ -266,19 +283,20 @@ attn_stream_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict_
 // launcher
 // ---------------------------------------------------------------------------
 
-constexpr size_t BF16_SMEM = ((BQ + BK) * LD + D * LDV) * sizeof(bf16);
+constexpr size_t BF16_SMEM = SMEM_ALIGN + (WGS + 2 * FWD_STAGES) * TILE * sizeof(bf16);
 constexpr size_t F32_SMEM = (2 * D * LDT + BK * D + BK * LDT) * sizeof(float);
 
+// rows: query rows a block owns
 template <typename T>
 cudaError_t launch(void (*kernel)(const T*, const T*, const T*, T*, float*, int, int, Views,
                                   float),
-                   int threads, size_t smem, const void* q, const void* k, const void* v,
-                   void* out, float* lse, int B, int N, int K, const Views& st, float scale,
-                   cudaStream_t stream) {
+                   int threads, int rows, size_t smem, const void* q, const void* k,
+                   const void* v, void* out, float* lse, int B, int N, int K, const Views& st,
+                   float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + BQ - 1) / BQ, K, B);
+  const dim3 grid((N + rows - 1) / rows, K, B);
   kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                           static_cast<const T*>(v), static_cast<T*>(out), lse,
                                           N, K, st, scale);
@@ -289,8 +307,8 @@ cudaError_t launch(void (*kernel)(const T*, const T*, const T*, T*, float*, int,
 
 // dtype: 0 = float32, 1 = bfloat16.  D must be 64.  Each operand's strides
 // are (b, h, n, d) of its (B, K, N, D) view, in elements; lse is a contiguous
-// (B, K, N) f32 array.  Returns a cudaError_t (0 on success); the launch
-// does not synchronise.
+// (B, K, N) f32 array.
+// Returns a cudaError_t (0 on success); the launch does not synchronise.
 extern "C" int flash_attention_stream_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, int dtype, int B, int N,
     int K, int head_dim, long long qb, long long qh, long long qn, long long qd, long long kb,
@@ -304,10 +322,10 @@ extern "C" int flash_attention_stream_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch<float>(attn_stream_fwd_f32_kernel, F32_THREADS, F32_SMEM, q, k, v, out, l, B,
-                         N, K, st, scale, s);
-  return launch<bf16>(attn_stream_fwd_bf16_kernel, MMA_THREADS, BF16_SMEM, q, k, v, out, l, B,
-                      N, K, st, scale, s);
+    return launch<float>(attn_stream_fwd_f32_kernel, F32_THREADS, BQ, F32_SMEM, q, k, v, out, l,
+                         B, N, K, st, scale, s);
+  return launch<bf16>(attn_stream_fwd_bf16_kernel, WGS * WG_THREADS, WGS * BQ, BF16_SMEM, q, k,
+                      v, out, l, B, N, K, st, scale, s);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -219,12 +219,14 @@ def flash_attention_single_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: to
 
 
 def flash_attention_stream_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                     scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+                                     scale: float, block: int = _STREAM_BLOCK
+                                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K7's forward (``_attn_kernel_stream``): q, k,
     v (B, K, N, D) → out (B, K, N, D) in q's dtype and the row logsumexp lse
     (B, K, N) f32.
 
-    Follows the TPU kernel rounding for rounding, over its 512-key blocks: a
+    Follows the TPU kernel rounding for rounding, over key blocks of
+    ``block`` keys (JAX's 512 by default; the CUDA kernel walks 64): a
     running row max m; p = exp(s − m_new) in f32, cast to the operand dtype
     before the AV product; acc·alpha + p·v and l·alpha + Σp in f32;
     out = acc / l, cast; lse = m + log l.  (K1 instead casts e with the final
@@ -236,9 +238,9 @@ def flash_attention_stream_reference(q: torch.Tensor, k: torch.Tensor, v: torch.
     m = torch.full((B, K, N, 1), -torch.inf, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
-    for k0 in range(0, N, _STREAM_BLOCK):
-        kb = k[:, :, k0:k0 + _STREAM_BLOCK].float()
-        vb = v[:, :, k0:k0 + _STREAM_BLOCK]
+    for k0 in range(0, N, block):
+        kb = k[:, :, k0:k0 + block].float()
+        vb = v[:, :, k0:k0 + block]
         s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         # a row with no valid key yet keeps m = −inf: guard −inf − −inf
@@ -1012,6 +1014,17 @@ def _qkv_grads_plain(x: torch.Tensor, w: torch.Tensor, dqkv: torch.Tensor):
     return dx, dw.view(w.shape)
 
 
+def fused_qkv_products_reference(x: torch.Tensor, w: torch.Tensor, dqkv: torch.Tensor):
+    """Plain PyTorch version of K8's two products on a given (B, N, 3, K, D)
+    dqkv: dx = dqkv·Wᵀ (B, N, H) cast once to x's dtype, and dW = xᵀ·dqkv
+    (H, 3, K, D) in f32, as the kernel writes it (``fused_qkv_bwd`` casts it
+    to w's dtype); both are f32 products of the upcast operands."""
+    x2, w2 = (t.float() for t in _qkv_matrices(x, w))
+    d2 = dqkv.float().reshape(x2.shape[0], -1)
+    return (torch.matmul(d2, w2.t()).to(x.dtype).view(x.shape),
+            torch.matmul(x2.t(), d2).view(w.shape))
+
+
 def fused_qkv_bwd_reference(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor,
                             out: torch.Tensor, dout: torch.Tensor, scale: float,
                             stats: torch.Tensor | None = None):
@@ -1019,13 +1032,59 @@ def fused_qkv_bwd_reference(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor,
     dtype, dW (H, 3, K, D) in w's dtype) from x, w, the saved qkv
     (B, N, 3, K, D) and output (B, N, K, D) and the output's cotangent.  K2's
     plain version gives dq, dk, dv rounded to the operand dtype (``dsb``);
-    dx = Σ dqkv·Wᵀ and dW = Σ xᵀ·dqkv from them in f32, each cast once.
-    ``stats``: K1's row statistics, found again when None."""
-    dqkv = flash_attention_qkv_bwd_reference(qkv, out, dout, scale, stats).float()
-    x2, w2 = (t.float() for t in _qkv_matrices(x, w))
-    d2 = dqkv.reshape(x2.shape[0], -1)
-    return (torch.matmul(d2, w2.t()).to(x.dtype).view(x.shape),
-            torch.matmul(x2.t(), d2).to(w.dtype).view(w.shape))
+    ``fused_qkv_products_reference`` gives dx = Σ dqkv·Wᵀ and dW = Σ xᵀ·dqkv
+    from them in f32, each cast once.  ``stats``: K1's row statistics, found
+    again when None."""
+    dqkv = flash_attention_qkv_bwd_reference(qkv, out, dout, scale, stats)
+    dx, dw = fused_qkv_products_reference(x, w, dqkv)
+    return dx, dw.to(w.dtype)
+
+
+def fused_qkv_products(x: torch.Tensor, w: torch.Tensor, dqkv: torch.Tensor):
+    """K8's kernels 3 and 4 alone on a given dqkv: (dx (B, N, H) bf16,
+    dW (H, 3, K, D) f32) from x (B, N, H), w (H, 3, K, D) and dqkv
+    (B, N, 3, K, D), x and dqkv bf16 — ``fused_qkv_bwd``'s products, callable on
+    the dqkv bits of another kernel so that they can be held against
+    ``fused_qkv_products_reference`` on the same input.  They count in
+    ``fused_qkv_bwd.dx_launches`` and ``.dw_launches``."""
+    B, N, H = x.shape
+    _, _, K, D = w.shape
+    if tuple(w.shape[:2]) != (H, 3) or tuple(dqkv.shape) != (B, N, 3, K, D):
+        raise ValueError(f"fused_qkv_products: x (B, N, H), w (H, 3, K, D) and dqkv "
+                         f"(B, N, 3, K, D) disagree: {tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(dqkv.shape)}")
+    if x.device.type == "cpu":
+        return fused_qkv_products_reference(x, w, dqkv)
+    return _qkv_products_cuda(x, w, dqkv.contiguous())
+
+
+def _qkv_products_cuda(x: torch.Tensor, w: torch.Tensor, dqkv: torch.Tensor):
+    """Kernels 3 and 4 on a contiguous bf16 dqkv and bf16 x; w is cast to
+    bf16.  Copies x or w only where their strides are not the kernels'."""
+    if not x.dtype == dqkv.dtype == torch.bfloat16:
+        raise ValueError(f"fused_qkv_bwd's products run bf16 x and dqkv, got {x.dtype} and "
+                         f"{dqkv.dtype}")
+    B, N, H = x.shape
+    J = w[0].numel()
+    x2, w2 = _qkv_matrices(x, w)
+    if x2.stride(1) != 1 or not _rows_16b_aligned(x2):
+        x2 = x2.contiguous()
+    if 1 not in w2.stride() or not all(s % 8 == 0 for s in w2.stride() if s != 1) \
+            or w2.data_ptr() % 16:
+        w2 = w2.contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dx = torch.empty((B, N, H), dtype=x.dtype, device=x.device)
+    dw = torch.empty((H, J), dtype=torch.float32, device=x.device)
+    lib = _library("fused_qkv_bwd")
+    _raise_on(lib, lib.fused_qkv_bwd_dx(dqkv.data_ptr(), w2.data_ptr(), dx.data_ptr(), B * N, H,
+                                        J, *w2.stride(), stream, x.device.index),
+              "fused_qkv_bwd (dx)")
+    fused_qkv_bwd.dx_launches += 1
+    _raise_on(lib, lib.fused_qkv_bwd_dw(x2.data_ptr(), dqkv.data_ptr(), dw.data_ptr(), B * N, H,
+                                        J, x2.stride(0), stream, x.device.index),
+              "fused_qkv_bwd (dW)")
+    fused_qkv_bwd.dw_launches += 1
+    return dx, dw.view(w.shape)
 
 
 def fused_qkv_bwd(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor, out: torch.Tensor,
@@ -1062,17 +1121,9 @@ def fused_qkv_bwd(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor, out: torc
     if not all(map(_rows_16b_aligned, (qkv, out, dout))):
         raise ValueError(f"{name}: qkv, out and dout need a unit head-dim stride and strides "
                          "that are multiples of 8")
-    x2, w2 = _qkv_matrices(x, w)
-    if x2.stride(1) != 1 or not _rows_16b_aligned(x2):
-        x2 = x2.contiguous()
-    if 1 not in w2.stride() or not all(s % 8 == 0 for s in w2.stride() if s != 1) \
-            or w2.data_ptr() % 16:
-        w2 = w2.contiguous()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     dqkv = torch.empty((B, N, 3, K, D), dtype=qkv.dtype, device=qkv.device)
     delta = _new_stats(B, K, N, qkv.device, rows=1)
-    dx = torch.empty((B, N, H), dtype=x.dtype, device=x.device)
-    dw = torch.empty((H, 3 * K * D), dtype=torch.float32, device=x.device)
     lib = _library("fused_qkv_bwd")
     args = (qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
             delta.data_ptr(), B, N, K, D, *qkv.stride(), *out.stride(), *dout.stride(), scale,
@@ -1081,16 +1132,9 @@ def fused_qkv_bwd(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor, out: torc
     fused_qkv_bwd.dq_launches += 1
     _raise_on(lib, lib.fused_qkv_bwd_dkdv(*args), f"{name} (dk/dv)")
     fused_qkv_bwd.dkdv_launches += 1
-    _raise_on(lib, lib.fused_qkv_bwd_dx(dqkv.data_ptr(), w2.data_ptr(), dx.data_ptr(), B * N, H,
-                                        3 * K * D, *w2.stride(), stream, qkv.device.index),
-              f"{name} (dx)")
-    fused_qkv_bwd.dx_launches += 1
-    _raise_on(lib, lib.fused_qkv_bwd_dw(x2.data_ptr(), dqkv.data_ptr(), dw.data_ptr(), B * N, H,
-                                        3 * K * D, x2.stride(0), stream, qkv.device.index),
-              f"{name} (dW)")
-    fused_qkv_bwd.dw_launches += 1
+    dx, dw = _qkv_products_cuda(x, w, dqkv)
     fused_qkv_bwd.launches += 1
-    return dx, dw.view(w.shape).to(w.dtype)
+    return dx, dw.to(w.dtype)
 
 
 fused_qkv_bwd.launches = 0

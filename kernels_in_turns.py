@@ -7,21 +7,25 @@ NVIDIA H100: the parent, this tree, this tree, the parent.
 Each turn is one process that imports ``cross_attention_vit_tpu_torch`` from
 its checkout, builds the kernel libraries from that checkout's sources and
 times, by torch.profiler device time per call (``chip_smoke.device_ms``, ten
-calls a window, the median of five windows and their spread):
+calls a window, the median of five windows and their spread), bf16, D=64:
 
-- K5, the public ``flash_attention``'s single-block kernels, at the int8+attn
-  serving shapes of ``chip_smoke.py`` (B=8 K=16 D=64, N=513 and 1025, bf16, q,
-  k, v as views of one stacked (B, N, 3, K, D) tensor): the forward as
-  serving calls it (no row statistics) and the backward (dq and dk/dv
-  kernels; a checkout whose backward reads the forward's statistics gets
-  them from one forward call);
-- as controls, at N=513: K1, K2 on K1's statistics, K6's forward and
-  backward on (B, K, D, N) views of (B, K, N, D) tensors, and K8 at H=1024.
+- K7's forward at the 3-stream ModelVIT training shape (B=8 K=16 N=1537, q,
+  k, v as views of one stacked (B, N, 3, K, D) tensor);
+- K8, the fused QKV backward, at the live ModelCross shape (B=8 N=513 K=16
+  H=1024, W the model's view of a (3H, H) Linear weight): the whole call,
+  and its dx and dW product kernels apart (by their kernel names in each
+  checkout);
+- as controls, allocated before the kernels above so that their operands
+  lie at the same addresses in both checkouts: K1 and K2 (on K1's
+  statistics) at N=513; K6's forward and backward on (B, K, D, N) views; K5's
+  forward and backward at N=513 and 1025 (views of a stacked qkv); K7's
+  backward at N=1537 on the forward's out and lse.
 
 Each turn prints one JSON line; the last two lines are the card's name and
 power limit as nvidia-smi prints them and a summary: for each kernel the
 medians of its turns per checkout and the ratio of this tree's to the
-parent's.  A compare of two versions holds only within one call of this
+parent's (kernels only one checkout has are listed with that one's
+medians).  A compare of two versions holds only within one call of this
 script, on one card.
 """
 
@@ -38,10 +42,40 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# the libraries either checkout may have (the parent's K5 had its own sources)
+# the libraries either checkout may have (an older K5 had its own sources)
 LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_single",
-             "flash_attention_single_bwd", "fused_qkv_bwd")
+             "flash_attention_single_bwd", "flash_attention_stream",
+             "flash_attention_stream_bwd", "fused_qkv_bwd")
 ORDER = ("parent", "change", "change", "parent")
+# K8's product kernels by name: the wgmma kernels, then the older tile
+# product they replaced (<true, ·, bf16> was dx, <false, false, float> dW)
+K8_PRODUCT_MARKS = ({"dx": ("qkv_grad_dx_kernel",), "dW": ("qkv_grad_dw_kernel",)},
+                    {"dx": ("gemm_nt_kernel<true", "gemm_nt_kernelILb1"),
+                     "dW": ("gemm_nt_kernel<false", "gemm_nt_kernelILb0")})
+
+
+def _split_ms(fn, marks: dict[str, tuple[str, ...]], calls: int = 10) -> dict[str, float]:
+    """Device ms per call of ``fn``'s kernels whose names hold one of each
+    label's marks, from one profiled window (after a warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import _kernel_rows
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a profile now and then records no kernel at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = _kernel_rows(prof)
+        split = {label: sum(ms for key, ms, _ in rows if any(m in key for m in ms_marks)) / calls
+                 for label, ms_marks in marks.items()}
+        if all(ms > 0 for ms in split.values()):
+            return split
+    raise RuntimeError(f"torch.profiler recorded no {sorted(marks)} kernel in three tries")
 
 
 def _time_tree(tree: Path) -> dict:
@@ -66,7 +100,7 @@ def _time_tree(tree: Path) -> dict:
         return torch.randn(shape, generator=g, device="cuda").to(bf16)
 
     # the controls first: their operands then lie at the same addresses in
-    # both checkouts (K5's allocations differ between them)
+    # both checkouts
     cases = {}
     N = 513
     qkv, dout = randn(8, N, 3, K, D), randn(8, N, K, D)
@@ -77,10 +111,6 @@ def _time_tree(tree: Path) -> dict:
     _, tn_stats = fa.flash_attention_tn_fwd(tq, tk, tv, scale, True)
     cases["K6 fwd N=513"] = lambda: fa.flash_attention_tn_fwd(tq, tk, tv, scale)
     cases["K6 bwd N=513"] = lambda: fa.flash_attention_tn_bwd(tq, tk, tv, tg, scale, tn_stats)
-    H = 1024
-    x, w = randn(8, N, H), randn(H, 3, K, D) * 0.03
-    cases["K8 N=513"] = lambda: fa.fused_qkv_bwd(x, w, qkv, out, dout, scale, stats)
-
     k5_stats = "stats" in inspect.signature(fa.flash_attention_single_bwd).parameters
     for n in (513, 1025):
         q, k, v = fa._stream_views(randn(8, n, 3, K, D))
@@ -89,10 +119,31 @@ def _time_tree(tree: Path) -> dict:
         cases[f"K5 fwd N={n}"] = lambda q=q, k=k, v=v: fa.flash_attention_single_fwd(q, k, v, scale)
         cases[f"K5 bwd N={n}"] = (lambda q=q, k=k, v=v, g5=g5, extra=extra:
                                   fa.flash_attention_single_bwd(q, k, v, g5, scale, *extra))
+    n7 = 1537
+    sq, sk, sv = fa._stream_views(randn(8, n7, 3, K, D))
+    sg = randn(8, n7, K, D).transpose(1, 2)
+    s_out, s_lse = fa.flash_attention_stream_fwd(sq, sk, sv, scale)
+    cases["K7 bwd N=1537"] = lambda: fa.flash_attention_stream_bwd(sq, sk, sv, s_out, s_lse, sg,
+                                                                   scale)
+    # the redesigned kernels
+    cases["K7 fwd N=1537"] = lambda: fa.flash_attention_stream_fwd(sq, sk, sv, scale)
+    H = 1024
+    x = randn(8, N, H)
+    w = (randn(3 * K * D, H) * H ** -0.5).t().reshape(H, 3, K, D)
+
+    def k8():
+        return fa.fused_qkv_bwd(x, w, qkv, out, dout, scale, stats)
+    cases["K8 N=513"] = k8
     times = {}
     for label, fn in cases.items():
         got = [device_ms(fn) for _ in range(TIMING_WINDOWS)]
         times[label] = {"ms": statistics.median(got), "spread": [min(got), max(got)]}
+    source = (_build.CSRC / "fused_qkv_bwd.cu").read_text()
+    marks = next(m for m in K8_PRODUCT_MARKS if m["dx"][0].split("<")[0] in source)
+    splits = [_split_ms(k8, marks) for _ in range(TIMING_WINDOWS)]
+    for part in ("dx", "dW"):
+        got = [sp[part] for sp in splits]
+        times[f"K8 {part} N=513"] = {"ms": statistics.median(got), "spread": [min(got), max(got)]}
     return {"device": torch.cuda.get_device_name(0), "times": times}
 
 
@@ -119,9 +170,12 @@ def main() -> int:
         runs[name].append(result["times"])
         print(json.dumps({"turn": turn, "tree": name, **result}), flush=True)
     summary = {}
-    for label in runs["change"][0]:
-        medians = {name: statistics.median(r[label]["ms"] for r in rs) for name, rs in runs.items()}
-        summary[label] = {**medians, "change_over_parent": medians["change"] / medians["parent"]}
+    for label in {**runs["parent"][0], **runs["change"][0]}:
+        medians = {name: statistics.median(r[label]["ms"] for r in rs)
+                   for name, rs in runs.items() if label in rs[0]}
+        if len(medians) == 2:
+            medians["change_over_parent"] = medians["change"] / medians["parent"]
+        summary[label] = medians
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
