@@ -1,5 +1,6 @@
 // The backward kernels of the attention's single-block path (K2, K5, K6 and
-// K8's first two kernels), for Hopper (sm_90a): the function of _tn_bwd_math
+// K8's first two kernels) and of the streaming path (K7), for Hopper
+// (sm_90a): the function of _tn_bwd_math
 // (cross_attention_vit_tpu/kernels/flash_attention.py:628-692) for every
 // (batch b, head h), given the forward's row statistics (m, r) (see `stat`):
 //
@@ -22,15 +23,23 @@
 //     ds = p · (dp − delta) · scale     cast to the operand dtype
 //
 // (jax.nn.softmax divides, e / Σe; e·r is within 2 ulp of it).  In f32 the
-// two rules are one function, so K5's f32 kernels are K6's bodies.  Head dim
-// D = 64.
+// two rules are one function, so K5's f32 kernels are K6's bodies.
+//
+// K7 (_bwd_dq_kernel :429 and _bwd_dkv_kernel :379, the blocked backward of
+// the streaming forward, _flash_backward_blocked :467) is the saved-o form
+// under K5's rule read through kLse: its forward saves the row logsumexp, a
+// (B, K, N) f32 lse, which is read as m with r ≡ 1, so e = exp(s − lse) is
+// the normalised p itself; ds is formed in the TPU kernel's order,
+// (p·(dp − delta))·scale.  lse is `stat`'s plane 0 (the same indexing) and
+// no plane 1 is read.  Head dim D = 64.
 //
 // Layout.  Every operand is a (B, K, N, D) view given by its pointer and its
-// (b, h, n, d) strides in elements (View): K2 and K8 read q, k, v as views of
-// the stacked (B, N, 3, K, D) qkv and write dq, dk, dv as views of a stacked
-// dqkv; K6 reads separate tensors.  bf16 operands need a unit head-dim
-// stride and 16-byte aligned rows (the wrappers check, or copy for K6); the
-// outputs a unit head-dim stride.
+// (b, h, n, d) strides in elements (View): K2, K8 and K7 read q, k, v as
+// views of the stacked (B, N, 3, K, D) qkv and write dq, dk, dv as views of
+// a stacked dqkv; K6 and K5 read separate tensors.  bf16 operands need a
+// unit head-dim stride and 16-byte aligned rows (the wrappers check, or copy
+// for K6); the outputs a unit head-dim stride.  The f32 kernels take any
+// strides.
 //
 // Design.  The 513×513 f32 score and gradient planes do not fit in shared
 // memory, so the TPU's one-block-per-(b, h) program is split FlashAttention-2
@@ -45,8 +54,8 @@
 //                first).
 //   dk/dv kernel: one block per 64-key tile loops over the query tiles,
 //                reads m, r and delta, recomputes sᵀ and dpᵀ and accumulates
-//                dv = ebᵀ·do_r (K5: pbᵀ·do) and dk = dsᵀ·q: four products
-//                per tile.
+//                dv = ebᵀ·do_r (K5, K7: pbᵀ·do) and dk = dsᵀ·q: four
+//                products per tile.
 //
 // Seven products in all (K5 and K6: nine; five is the minimum: s, dp, dv,
 // dq, dk) and two exponentials per score (K5, K6: three).  Every block owns
@@ -62,15 +71,17 @@
 //   are packed in registers as the A operand of the next product (e for o
 //   and dv, ds for dq and dk); e is formed while the dp product runs.
 //   do_r = bf16(do·r) overwrites the do tile in place once dpᵀ has read it
-//   (K5's dv reads do as it is: no rewrite and no barrier for it).
+//   (K5's and K7's dv read do as it is: no rewrite and no barrier for it).
 //   The dk/dv kernel forms sᵀ and dpᵀ 32 query columns at a time, so that
 //   half a score plane is live beside its dk and dv accumulators: 160
 //   registers (ptxas -v), three blocks an SM.  The one-row tail (513 = 8·64 + 1,
-//   1025) costs 16 columns, not 64: its score products run m64n16 and the
+//   1025, 1537) costs 16 columns, not 64: its score products run m64n16 and the
 //   next products one 16-deep step (a longer ragged tail runs 64 wide,
-//   masked, and as many 16-deep steps as it needs); columns ≥ N get e = 0,
-//   rows ≥ N are zero-filled by the copies and never stored.  The query
-//   side of a block stays one 64-row warpgroup tile.
+//   masked, and as many 16-deep steps as it needs); columns ≥ N get e = 0
+//   (key columns in the dq kernel, query columns in the dk/dv kernel, so a
+//   padded query row's p and ds are 0 whatever its m), rows ≥ N are
+//   zero-filled by the copies and never stored.  The query side of a block
+//   stays one 64-row warpgroup tile.
 //   f32: scalar f32 FMAs on the CUDA cores (256 threads, 4×4 register
 //   tiles), element-wise staging, any strides; full f32, no TF32.
 
@@ -106,8 +117,9 @@ constexpr int BWD_STAGES = 3;   // ring slots of both kernels
       BwdViews st, float scale
 #define BWD_DKDV_ARGS q, k, v, dout, dk, dv, stats, delta, B, N, K, st, scale
 
-template <bool kRecompute, bool kNormalised>
+template <bool kRecompute, bool kNormalised, bool kLse = false>
 __device__ __forceinline__ void attn_bwd_dq_bf16(BWD_DQ_PARAMS(bf16)) {
+  static_assert(!kLse || (kNormalised && !kRecompute), "K7's rule: the saved o, p normalised");
   extern __shared__ float4 smem4[];
   bf16* qs = aligned_smem(smem4);              // q tile
   bf16* gs = qs + TILE;                        // do tile
@@ -134,14 +146,15 @@ __device__ __forceinline__ void attn_bwd_dq_bf16(BWD_DQ_PARAMS(bf16)) {
   load_tile_async(gs, gb, q0, N, st.g.n);
   ring_begin<BWD_STAGES>(steps, issue);
 
-  // this thread's rows: m·log2 e, r and delta (rows ≥ N: 0, never stored)
+  // this thread's rows: m·log2 e, r and delta (rows ≥ N: 0, never stored;
+  // kLse: m = lse, r ≡ 1)
   float cm[2], rr[2], delta[2] = {0.f, 0.f};
   float* const fstats = const_cast<float*>(stats);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int n = q0 + r0 + 8 * half;
     cm[half] = n < N ? stat(fstats, 0, B, K, N, b, h)[n] * LOG2E : 0.f;
-    rr[half] = n < N ? stat(fstats, 1, B, K, N, b, h)[n] : 0.f;
+    rr[half] = n >= N ? 0.f : kLse ? 1.f : stat(fstats, 1, B, K, N, b, h)[n];
   }
   if constexpr (!kRecompute) {
     // delta = Σ_d do·o from the saved o (thread t sums d in [16t, 16t + 16),
@@ -225,8 +238,9 @@ __device__ __forceinline__ void attn_bwd_dq_bf16(BWD_DQ_PARAMS(bf16)) {
       }
     } else {
       // ds = e·((dp − delta)·(r·scale)) in registers (K5's p·(dp − delta)·
-      // scale with p = e·r, up to f32 rounding), dq += ds·k; e is formed
-      // while the dp product runs
+      // scale with p = e·r, up to f32 rounding; kLse: (p·(dp − delta))·scale,
+      // the TPU kernel's order), dq += ds·k; e is formed while the dp
+      // product runs
       wg_fence();
       mma_tn_n(s, qs, ks, nb);
       wg_commit();
@@ -246,8 +260,10 @@ __device__ __forceinline__ void attn_bwd_dq_bf16(BWD_DQ_PARAMS(bf16)) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int x = 0; x < 4; ++x)
-          s[4 * j + x] *= (dp[4 * j + x] - delta[x >> 1]) * rsc[x >> 1];
+        for (int x = 0; x < 4; ++x) {
+          const float d = dp[4 * j + x] - delta[x >> 1];
+          s[4 * j + x] = kLse ? s[4 * j + x] * d * scale : s[4 * j + x] * (d * rsc[x >> 1]);
+        }
       pack_a(a, s);
       wg_fence();
       mma_nn(acc, a, ks, nb);
@@ -265,13 +281,15 @@ __device__ __forceinline__ void attn_bwd_dq_bf16(BWD_DQ_PARAMS(bf16)) {
   }
 }
 
-template <bool kNormalised>
+template <bool kNormalised, bool kLse = false>
 __device__ __forceinline__ void attn_bwd_dkdv_bf16(BWD_DKDV_PARAMS(bf16)) {
+  static_assert(!kLse || kNormalised, "K7's rule: p normalised");
   extern __shared__ float4 smem4[];
   bf16* ks = aligned_smem(smem4);              // this block's k tile
   bf16* vs = ks + TILE;                        // and v tile
   bf16* ring = vs + TILE;                      // [stage][q, do] tiles
-  float* rowst = reinterpret_cast<float*>(ring + BWD_STAGES * 2 * TILE);   // [stage][m, r, delta][BQ]
+  // [stage][m, r, delta][BQ] (kLse: m = lse; r neither read nor used)
+  float* rowst = reinterpret_cast<float*>(ring + BWD_STAGES * 2 * TILE);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -299,7 +317,7 @@ __device__ __forceinline__ void attn_bwd_dkdv_bf16(BWD_DKDV_PARAMS(bf16)) {
       const int at = ok ? n : 0;
       float* fs = rowst + (i % BWD_STAGES) * 3 * BQ + threadIdx.x;
       load_f32_async(fs, mrow + at, ok);
-      load_f32_async(fs + BQ, mrow + plane + at, ok);
+      if constexpr (!kLse) load_f32_async(fs + BQ, mrow + plane + at, ok);
       load_f32_async(fs + 2 * BQ, drow + at, ok);
     }
   };
@@ -321,8 +339,9 @@ __device__ __forceinline__ void attn_bwd_dkdv_bf16(BWD_DKDV_PARAMS(bf16)) {
 
     // sᵀ and dpᵀ (rows this block's keys, columns the tile's queries), 32
     // query columns at a time so that only half of each score plane is live
-    // beside the dk and dv accumulators; e (K5: p = e·r) is formed while the
-    // dpᵀ product runs, then both are packed as the A operands of dv and dk
+    // beside the dk and dv accumulators; e (K5: p = e·r; K7: p = e) is
+    // formed while the dpᵀ product runs, then both are packed as the A
+    // operands of dv and dk
     uint32_t ea[4][4], da[4][4];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -345,7 +364,7 @@ __device__ __forceinline__ void attn_bwd_dkdv_bf16(BWD_DKDV_PARAMS(bf16)) {
           const int qi = 32 * hh + 8 * j + 2 * t + (x & 1);
           const bool valid = full || (j < 2 * nbh && q0 + qi < N);
           const float e = valid ? exp2f(fmaf(s[4 * j + x], c, -fm[qi] * LOG2E)) : 0.f;
-          s[4 * j + x] = kNormalised ? e * fm[BQ + qi] : e;
+          s[4 * j + x] = kNormalised && !kLse ? e * fm[BQ + qi] : e;
         }
       wg_wait<0>();
       settle<16>(dp);
@@ -354,8 +373,9 @@ __device__ __forceinline__ void attn_bwd_dkdv_bf16(BWD_DKDV_PARAMS(bf16)) {
 #pragma unroll
         for (int x = 0; x < 4; ++x) {
           const int qi = 32 * hh + 8 * j + 2 * t + (x & 1);
-          dp[4 * j + x] = s[4 * j + x] * ((dp[4 * j + x] - fm[2 * BQ + qi]) *
-                                          (kNormalised ? scale : fm[BQ + qi] * scale));
+          const float d = dp[4 * j + x] - fm[2 * BQ + qi];
+          dp[4 * j + x] = kLse ? s[4 * j + x] * d * scale
+                               : s[4 * j + x] * (d * (kNormalised ? scale : fm[BQ + qi] * scale));
         }
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk)
@@ -367,7 +387,8 @@ __device__ __forceinline__ void attn_bwd_dkdv_bf16(BWD_DKDV_PARAMS(bf16)) {
     }
     if constexpr (!kNormalised) {
       // do_r = bf16(do·r) over the do tile, in place, once every warp's share
-      // of dpᵀ has read it (K5's dv reads do unscaled: no rewrite, no barrier)
+      // of dpᵀ has read it (K5's and K7's dv read do unscaled: no rewrite, no
+      // barrier)
       __syncthreads();
 #pragma unroll
       for (int x = 0; x < TILE / 8 / WG_THREADS; ++x) {
@@ -399,8 +420,8 @@ __device__ __forceinline__ void attn_bwd_dkdv_bf16(BWD_DKDV_PARAMS(bf16)) {
   store_acc_bf16(base(dv, st.dv, b, h), st.dv.n, dva, N, k0 + r0, t, one);
 }
 
-// K2's, K6's and K8's kernels (K1's rounding rule); K5's, under their own
-// names, are in flash_attention_bwd.cu.
+// K2's, K6's and K8's kernels (K1's rounding rule); K5's and K7's, under
+// their own names, are in flash_attention_bwd.cu.
 template <bool kRecompute>
 __global__ void __launch_bounds__(WG_THREADS) attn_bwd_dq_bf16_kernel(BWD_DQ_PARAMS(bf16)) {
   attn_bwd_dq_bf16<kRecompute, false>(BWD_DQ_ARGS);
@@ -439,9 +460,11 @@ __device__ __forceinline__ void zero4(float acc[4][4]) {
 
 // The f32 bodies serve K5 as well: rounding to f32 is the identity, so K5's
 // rule and K6's (o recomputed) are one function and differ only in the order
-// of f32 operations.
-template <bool kRecompute>
+// of f32 operations.  K7 runs them with kLse: m = lse, r ≡ 1, and ds in the
+// TPU kernel's order.
+template <bool kRecompute, bool kLse = false>
 __device__ __forceinline__ void attn_bwd_dq_f32(BWD_DQ_PARAMS(float)) {
+  static_assert(!kLse || !kRecompute, "K7's rule reads the saved o");
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);   // [D][LDT]  q, transposed
   float* gt = qt + D * LDT;                      // [D][LDT]  do, transposed
@@ -467,7 +490,7 @@ __device__ __forceinline__ void attn_bwd_dq_f32(BWD_DQ_PARAMS(float)) {
     const int n = q0 + threadIdx.x;
     float* const fstats = const_cast<float*>(stats);
     row_m[threadIdx.x] = n < N ? stat(fstats, 0, B, K, N, b, h)[n] : 0.f;
-    row_r[threadIdx.x] = n < N ? stat(fstats, 1, B, K, N, b, h)[n] : 0.f;
+    row_r[threadIdx.x] = n >= N ? 0.f : kLse ? 1.f : stat(fstats, 1, B, K, N, b, h)[n];
   }
   __syncthreads();
 
@@ -539,7 +562,8 @@ __device__ __forceinline__ void attn_bwd_dq_f32(BWD_DQ_PARAMS(float)) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float e = k0 + tx * 4 + j < N ? expf(s[i][j] * scale - row_m[r]) : 0.f;
-        dst[(tx * 4 + j) * LDT + r] = e * ((dp[i][j] - row_delta[r]) * (row_r[r] * scale));
+        const float d = dp[i][j] - row_delta[r];
+        dst[(tx * 4 + j) * LDT + r] = kLse ? e * d * scale : e * (d * (row_r[r] * scale));
       }
     }
     __syncthreads();
@@ -548,6 +572,7 @@ __device__ __forceinline__ void attn_bwd_dq_f32(BWD_DQ_PARAMS(float)) {
   store_rows_f32(base(dq, st.dq, b, h), st.dq, dqa, N, q0, tx, ty);
 }
 
+template <bool kLse = false>
 __device__ __forceinline__ void attn_bwd_dkdv_f32(BWD_DKDV_PARAMS(float)) {
   extern __shared__ float4 smem4[];
   float* kt = reinterpret_cast<float*>(smem4);   // [D][LDT]  k tile, transposed
@@ -555,7 +580,7 @@ __device__ __forceinline__ void attn_bwd_dkdv_f32(BWD_DKDV_PARAMS(float)) {
   float* qt = vt + D * LDT;                      // [D][LDT]  q tile, transposed
   float* gt = qt + D * LDT;                      // [D][LDT]  do tile, transposed
   float* qs = gt + D * LDT;                      // [BQ][D]   q tile
-  float* gs = qs + BQ * D;                       // [BQ][D]   do·r tile
+  float* gs = qs + BQ * D;                       // [BQ][D]   do·r tile (kLse: do)
   float* es = gs + BQ * D;                       // [BQ][LDT] e  [query][key]
   float* dss = es + BQ * LDT;                    // [BQ][LDT] ds [query][key]
   __shared__ float s_m[BQ], s_r[BQ], s_delta[BQ];
@@ -569,7 +594,7 @@ __device__ __forceinline__ void attn_bwd_dkdv_f32(BWD_DKDV_PARAMS(float)) {
   const int tiles = (N + BQ - 1) / BQ;
   float* const fstats = const_cast<float*>(stats);
   const float* st_m = stat(fstats, 0, B, K, N, b, h);
-  const float* st_r = stat(fstats, 1, B, K, N, b, h);
+  const float* st_r = kLse ? nullptr : stat(fstats, 1, B, K, N, b, h);
   const float* st_delta = stat(const_cast<float*>(delta), 0, B, K, N, b, h);
 
   stage_t(kt, kb, k0, N, st.k.n, st.k.d);
@@ -586,14 +611,14 @@ __device__ __forceinline__ void attn_bwd_dkdv_f32(BWD_DKDV_PARAMS(float)) {
       const int n = q0 + threadIdx.x;
       const bool valid = n < N;
       s_m[threadIdx.x] = valid ? st_m[n] : INFINITY;
-      s_r[threadIdx.x] = valid ? st_r[n] : 0.f;
+      s_r[threadIdx.x] = !valid ? 0.f : kLse ? 1.f : st_r[n];
       s_delta[threadIdx.x] = valid ? st_delta[n] : 0.f;
     }
     stage_t(qt, qb, q0, N, st.q.n, st.q.d);
     stage_t(gt, gb, q0, N, st.g.n, st.g.d);
     stage_rows(qs, qb, q0, N, st.q.n, st.q.d);
     __syncthreads();                             // s_r is read below
-    stage_rows(gs, gb, q0, N, st.g.n, st.g.d, s_r);
+    stage_rows(gs, gb, q0, N, st.g.n, st.g.d, kLse ? nullptr : s_r);
     float s[4][4], dp[4][4];
     f32_tn(s, kt, qt, tx, ty);                   // sᵀ: rows keys, columns queries
     f32_tn(dp, vt, gt, tx, ty);                  // dpᵀ
@@ -604,8 +629,9 @@ __device__ __forceinline__ void attn_bwd_dkdv_f32(BWD_DKDV_PARAMS(float)) {
       for (int j = 0; j < 4; ++j) {
         const int qi = tx * 4 + j;
         const float e = expf(s[i][j] * scale - s_m[qi]);
+        const float d = dp[i][j] - s_delta[qi];
         es[qi * LDT + key] = e;
-        dss[qi * LDT + key] = e * ((dp[i][j] - s_delta[qi]) * (s_r[qi] * scale));
+        dss[qi * LDT + key] = kLse ? e * d * scale : e * (d * (s_r[qi] * scale));
       }
     }
     __syncthreads();
@@ -622,7 +648,7 @@ __global__ void __launch_bounds__(F32_THREADS) attn_bwd_dq_f32_kernel(BWD_DQ_PAR
 }
 
 __global__ void __launch_bounds__(F32_THREADS) attn_bwd_dkdv_f32_kernel(BWD_DKDV_PARAMS(float)) {
-  attn_bwd_dkdv_f32(BWD_DKDV_ARGS);
+  attn_bwd_dkdv_f32<false>(BWD_DKDV_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -649,9 +675,14 @@ struct BwdCall {
 };
 
 template <typename T>
-cudaError_t launch_bwd_dq(const BwdCall& a, int threads, size_t smem,
-                          void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*,
-                                         const float*, float*, int, int, int, BwdViews, float)) {
+using DqKernel = void (*)(const T*, const T*, const T*, const T*, const T*, T*, const float*,
+                          float*, int, int, int, BwdViews, float);
+template <typename T>
+using DkdvKernel = void (*)(const T*, const T*, const T*, const T*, T*, T*, const float*,
+                            const float*, int, int, int, BwdViews, float);
+
+template <typename T>
+cudaError_t launch_bwd_dq(const BwdCall& a, int threads, size_t smem, DqKernel<T> kernel) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -664,10 +695,7 @@ cudaError_t launch_bwd_dq(const BwdCall& a, int threads, size_t smem,
 }
 
 template <typename T>
-cudaError_t launch_bwd_dkdv(const BwdCall& a, int threads, size_t smem,
-                            void (*kernel)(const T*, const T*, const T*, const T*, T*, T*,
-                                           const float*, const float*, int, int, int, BwdViews,
-                                           float)) {
+cudaError_t launch_bwd_dkdv(const BwdCall& a, int threads, size_t smem, DkdvKernel<T> kernel) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -679,19 +707,29 @@ cudaError_t launch_bwd_dkdv(const BwdCall& a, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// The dq kernel, then the dk/dv kernel, in the call's dtype (0 f32, 1 bf16).
+// The dq kernel, or the dk/dv kernel, of a pair in the call's dtype (0 f32,
+// 1 bf16).
+inline cudaError_t launch_dq(const BwdCall& a, int dtype, DqKernel<float> f32,
+                             DqKernel<bf16> b16) {
+  if (dtype == 0) return launch_bwd_dq<float>(a, F32_THREADS, F32_DQ_SMEM, f32);
+  return launch_bwd_dq<bf16>(a, WG_THREADS, BF16_DQ_SMEM, b16);
+}
+
+inline cudaError_t launch_dkdv(const BwdCall& a, int dtype, DkdvKernel<float> f32,
+                               DkdvKernel<bf16> b16) {
+  if (dtype == 0) return launch_bwd_dkdv<float>(a, F32_THREADS, F32_DKDV_SMEM, f32);
+  return launch_bwd_dkdv<bf16>(a, WG_THREADS, BF16_DKDV_SMEM, b16);
+}
+
+// K2's or K6's dq kernel, then its dk/dv kernel.
 template <bool kRecompute>
 cudaError_t launch_bwd(const BwdCall& a, int dtype, bool dq, bool dkdv) {
   cudaError_t err = cudaSuccess;
-  if (dtype == 0) {
-    if (dq) err = launch_bwd_dq<float>(a, F32_THREADS, F32_DQ_SMEM, attn_bwd_dq_f32_kernel<kRecompute>);
-    if (dkdv && err == cudaSuccess)
-      err = launch_bwd_dkdv<float>(a, F32_THREADS, F32_DKDV_SMEM, attn_bwd_dkdv_f32_kernel);
-    return err;
-  }
-  if (dq) err = launch_bwd_dq<bf16>(a, WG_THREADS, BF16_DQ_SMEM, attn_bwd_dq_bf16_kernel<kRecompute>);
+  if (dq)
+    err = launch_dq(a, dtype, attn_bwd_dq_f32_kernel<kRecompute>,
+                    attn_bwd_dq_bf16_kernel<kRecompute>);
   if (dkdv && err == cudaSuccess)
-    err = launch_bwd_dkdv<bf16>(a, WG_THREADS, BF16_DKDV_SMEM, attn_bwd_dkdv_bf16_kernel);
+    err = launch_dkdv(a, dtype, attn_bwd_dkdv_f32_kernel, attn_bwd_dkdv_bf16_kernel);
   return err;
 }
 

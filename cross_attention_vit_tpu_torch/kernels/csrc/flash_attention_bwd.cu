@@ -1,5 +1,5 @@
-// Backward of the single-block self-attention, for Hopper (sm_90a): the
-// kernels of attention_bwd.cuh behind three entry points.
+// Backward of the self-attention, for Hopper (sm_90a): the kernels of
+// attention_bwd.cuh behind four entry points (K2, K6, K5 and K7).
 //
 // K2 replaces the TPU kernel cross_attention_vit_tpu/kernels/flash_attention.py
 // ::_attn_bwd_kernel_qkv_tn (defined at :768, launched by pallas_call at :835
@@ -24,6 +24,18 @@
 // their own names (attn_single_bwd_*), so that a profile books their time to
 // K5 and not to K2.
 //
+// K7 replaces ::_bwd_dq_kernel (defined at :429, launched at :527) and
+// ::_bwd_dkv_kernel (:379, launched at :498), the blocked backward
+// _flash_backward_blocked of the streaming forward (N > 1040): K2's kernels
+// with the SAVED output under K5's rounding rule, reading the forward's
+// (B, K, N) f32 row logsumexp as m with r ≡ 1 (kLse), so p = exp(s − lse)
+// is normalised before it is rounded, dv = bf16(p)ᵀ·dO with dO unscaled and
+// ds = (p·(dp − delta))·scale, the TPU kernel's order.  The dq kernel writes
+// delta = Σ_d f32(dO)·f32(o) to a (B, K, N) scratch that the dk/dv kernel
+// reads.  Operands are (B, K, N, D) views (the 3-stream ModelVIT's: views of
+// its stacked qkv and dqkv).  Its kernels carry their own names
+// (attn_stream_bwd_*), so that a profile books their time to K7.
+//
 // Bound.  At the training path's shape (B=8, K=16, D=64, N=513, bf16) one K2
 // call must read qkv, o and do and write dqkv: 8·B·N·K·D·2 B = 67.2 MB, 20.1 us
 // at 3.35 TB/s.  Its five necessary products (s, dp, dv, dq, dk) are
@@ -41,6 +53,12 @@
 // statistics): three blocks an SM.  Registers (ptxas -v, sm_90a): dq kernel
 // 150 (152 with o recomputed), dk/dv kernel 160 under its launch bound of
 // three blocks, none spilled.
+//
+// K7's bound at the 3-stream ModelVIT training shape (B=8, K=16, N=1537,
+// D=64, bf16): read q, k, v, o, dO and lse, write dq, dk, dv: 202 MB, 60.3 us
+// at 3.35 TB/s; five products, 10·B·K·N²·D = 193.5 GFLOP, 195.7 us at
+// 989 TFLOP/s: operations bound it.  Grid (25, 16, 8) = 3200 blocks a
+// kernel, 8.1 waves at three blocks an SM.
 
 #include "attention_bwd.cuh"
 
@@ -62,19 +80,23 @@ __global__ void __launch_bounds__(F32_THREADS) attn_single_bwd_dq_f32_kernel(BWD
 }
 __global__ void __launch_bounds__(F32_THREADS)
 attn_single_bwd_dkdv_f32_kernel(BWD_DKDV_PARAMS(float)) {
-  attn_bwd_dkdv_f32(BWD_DKDV_ARGS);
+  attn_bwd_dkdv_f32<false>(BWD_DKDV_ARGS);
 }
 
-cudaError_t launch_single_dq(const BwdCall& a, int dtype) {
-  if (dtype == 0)
-    return launch_bwd_dq<float>(a, F32_THREADS, F32_DQ_SMEM, attn_single_bwd_dq_f32_kernel);
-  return launch_bwd_dq<bf16>(a, WG_THREADS, BF16_DQ_SMEM, attn_single_bwd_dq_bf16_kernel);
+// K7's kernels: the saved-o bodies under the lse rule, under K7's names.
+__global__ void __launch_bounds__(WG_THREADS) attn_stream_bwd_dq_bf16_kernel(BWD_DQ_PARAMS(bf16)) {
+  attn_bwd_dq_bf16<false, true, true>(BWD_DQ_ARGS);
 }
-
-cudaError_t launch_single_dkdv(const BwdCall& a, int dtype) {
-  if (dtype == 0)
-    return launch_bwd_dkdv<float>(a, F32_THREADS, F32_DKDV_SMEM, attn_single_bwd_dkdv_f32_kernel);
-  return launch_bwd_dkdv<bf16>(a, WG_THREADS, BF16_DKDV_SMEM, attn_single_bwd_dkdv_bf16_kernel);
+__global__ void __launch_bounds__(WG_THREADS, 3)
+attn_stream_bwd_dkdv_bf16_kernel(BWD_DKDV_PARAMS(bf16)) {
+  attn_bwd_dkdv_bf16<true, true>(BWD_DKDV_ARGS);
+}
+__global__ void __launch_bounds__(F32_THREADS) attn_stream_bwd_dq_f32_kernel(BWD_DQ_PARAMS(float)) {
+  attn_bwd_dq_f32<false, true>(BWD_DQ_ARGS);
+}
+__global__ void __launch_bounds__(F32_THREADS)
+attn_stream_bwd_dkdv_f32_kernel(BWD_DKDV_PARAMS(float)) {
+  attn_bwd_dkdv_f32<true>(BWD_DKDV_ARGS);
 }
 
 }  // namespace
@@ -147,14 +169,56 @@ extern "C" int flash_attention_single_bwd_dq(TN_BWD_PARAMS) {
   if (bad_args(head_dim, dtype)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return launch_single_dq(TN_BWD_CALL, dtype);
+  return launch_dq(TN_BWD_CALL, dtype, attn_single_bwd_dq_f32_kernel,
+                   attn_single_bwd_dq_bf16_kernel);
 }
 
 extern "C" int flash_attention_single_bwd_dkdv(TN_BWD_PARAMS) {
   if (bad_args(head_dim, dtype)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return launch_single_dkdv(TN_BWD_CALL, dtype);
+  return launch_dkdv(TN_BWD_CALL, dtype, attn_single_bwd_dkdv_f32_kernel,
+                     attn_single_bwd_dkdv_bf16_kernel);
+}
+
+// K7's two kernels.  Each operand, o and dout included, is a (B, K, N, D)
+// view given by its (b, h, n, d) strides in elements (bf16: unit head-dim
+// stride and 16-byte rows, which the wrapper checks); lse is the forward's
+// (B, K, N) f32 row logsumexp and delta a (B, K, N) f32 scratch, both
+// contiguous.  Run the dq kernel first (it writes delta), then the dk/dv
+// kernel on the same stream.
+#define STREAM_BWD_PARAMS                                                                      \
+  const void *q, const void *k, const void *v, const void *o, const void *g, const void *lse,  \
+      void *delta, void *dq, void *dk, void *dv, int dtype, int B, int N, int K, int head_dim, \
+      long long qb, long long qh, long long qn, long long qd, long long kb, long long kh,       \
+      long long kn, long long kd, long long vb, long long vh, long long vn, long long vd,       \
+      long long ob, long long oh, long long on, long long od, long long gb, long long gh,      \
+      long long gn, long long gd, long long dqb, long long dqh, long long dqn, long long dqd,  \
+      long long dkb, long long dkh, long long dkn, long long dkd, long long dvb,               \
+      long long dvh, long long dvn, long long dvd, float scale, void *stream, int device
+
+#define STREAM_BWD_CALL                                                                        \
+  BwdCall{q, k, v, o, g, dq, dk, dv, static_cast<const float*>(lse),                           \
+          static_cast<float*>(delta), B, N, K,                                                 \
+          BwdViews{{qb, qh, qn, qd}, {kb, kh, kn, kd}, {vb, vh, vn, vd}, {ob, oh, on, od},     \
+                   {gb, gh, gn, gd}, {dqb, dqh, dqn, dqd}, {dkb, dkh, dkn, dkd},               \
+                   {dvb, dvh, dvn, dvd}},                                                      \
+          scale, static_cast<cudaStream_t>(stream)}
+
+extern "C" int flash_attention_stream_bwd_dq(STREAM_BWD_PARAMS) {
+  if (bad_args(head_dim, dtype)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_dq(STREAM_BWD_CALL, dtype, attn_stream_bwd_dq_f32_kernel,
+                   attn_stream_bwd_dq_bf16_kernel);
+}
+
+extern "C" int flash_attention_stream_bwd_dkdv(STREAM_BWD_PARAMS) {
+  if (bad_args(head_dim, dtype)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_dkdv(STREAM_BWD_CALL, dtype, attn_stream_bwd_dkdv_f32_kernel,
+                     attn_stream_bwd_dkdv_bf16_kernel);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

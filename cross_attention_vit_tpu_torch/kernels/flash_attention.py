@@ -40,7 +40,9 @@ backward K5's recompute-form kernels; above it K7's streaming forward and
 blocked backward.  K5 normalises p before rounding it and takes delta from
 the unrounded o = pb·v, so at N ≤ 1040 it agrees with K7 only to bf16
 rounding.  K5's kernels are K1's and K2's (K6's recompute form) under K5's
-rounding rule.  ``flash_attention_tn``
+rounding rule; K7's backward kernels are K2's (with the saved output) under
+the same rule, reading the logsumexp as the row max with r ≡ 1.
+``flash_attention_tn``
 is the public op on (B, K, D, N) operands: K6 up to 1040, K7 on
 (B, K, N, D) copies above.
 
@@ -571,9 +573,11 @@ def flash_attention_stream_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     (B, K, N) f32 contiguous.  ``grads``: three (B, K, N, D) tensors to write
     dq, dk, dv into (views of a stacked dqkv, say); by default they are made.
 
-    Two kernels (``csrc/flash_attention_stream_bwd.cu``): the dq kernel, one
-    block per query tile, which also writes delta = Σ_d dO·O to a (B, K, N)
-    scratch; then the dk/dv kernel, one block per key tile, which reads it."""
+    Two kernels (``csrc/flash_attention_bwd.cu``: K2's, with the saved
+    output, under K5's rounding rule, reading lse as the row max with r ≡ 1):
+    the dq kernel, one block per query tile, which also writes delta =
+    Σ_d dO·O to a (B, K, N) scratch; then the dk/dv kernel, one block per
+    key tile, which reads it."""
     name = "flash_attention_stream_bwd"
     _check_stream(q, k, v, name)
     B, K, N, D = q.shape
@@ -598,7 +602,7 @@ def flash_attention_stream_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"{name}: lse must be contiguous")
     delta = torch.empty((B, K, N), dtype=torch.float32, device=q.device)
     dq, dk, dv = grads
-    lib = _library("flash_attention_stream_bwd")
+    lib = _library("flash_attention_bwd")
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPE_CODES[q.dtype], B, N, K, D, *_strides(q, k, v, out, dout, dq, dk, dv),
@@ -933,6 +937,9 @@ _ARGTYPES = {
     # K6's and K5's two kernels: q, k, v, dout, stats, delta, dq, dk, dv,
     # dtype, B, N, K, D, 4 strides each of q, k, v, dout, dq, dk, dv, scale,
     # stream, device
+    # K7's two kernels: q, k, v, out, dout, lse, delta, dq, dk, dv, dtype, B,
+    # N, K, D, 4 strides each of q, k, v, out, dout, dq, dk, dv, scale,
+    # stream, device
     "flash_attention_bwd": {"flash_attention_qkv_bwd":
                             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                             + [ctypes.c_longlong] * 13
@@ -943,19 +950,18 @@ _ARGTYPES = {
                                for fn in ("flash_attention_tn_bwd_dq",
                                           "flash_attention_tn_bwd_dkdv",
                                           "flash_attention_single_bwd_dq",
-                                          "flash_attention_single_bwd_dkdv")}},
+                                          "flash_attention_single_bwd_dkdv")},
+                            **{fn: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                               + [ctypes.c_longlong] * 32
+                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
+                               for fn in ("flash_attention_stream_bwd_dq",
+                                          "flash_attention_stream_bwd_dkdv")}},
     # q, k, v, out, lse, dtype, B, N, K, D, 4 strides each of q, k, v, out,
     # scale, stream, device
     "flash_attention_stream": {"flash_attention_stream_fwd":
                                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                                + [ctypes.c_longlong] * 16
                                + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]},
-    # q, k, v, out, dout, lse, delta, dq, dk, dv, dtype, B, N, K, D, 4 strides
-    # each of q, k, v, out, dout, dq, dk, dv, scale, stream, device
-    "flash_attention_stream_bwd": {
-        fn: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 32
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
-        for fn in ("flash_attention_stream_bwd_dq", "flash_attention_stream_bwd_dkdv")},
     # K8: its dq and dk/dv kernels take K2's arguments without the dtype;
     # dx: dqkv, w, dx, M, H, J, 2 w strides, stream, device; dW: x, dqkv, dW,
     # M, H, J, x's row stride, stream, device

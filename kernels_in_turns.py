@@ -9,17 +9,19 @@ its checkout, builds the kernel libraries from that checkout's sources and
 times, by torch.profiler device time per call (``chip_smoke.device_ms``, ten
 calls a window, the median of five windows and their spread), bf16, D=64:
 
-- K7's forward at the 3-stream ModelVIT training shape (B=8 K=16 N=1537, q,
-  k, v as views of one stacked (B, N, 3, K, D) tensor);
-- K8, the fused QKV backward, at the live ModelCross shape (B=8 N=513 K=16
-  H=1024, W the model's view of a (3H, H) Linear weight): the whole call,
-  and its dx and dW product kernels apart (by their kernel names in each
-  checkout);
-- as controls, allocated before the kernels above so that their operands
+- K7's backward at the 3-stream ModelVIT training shape (B=8 K=16 N=1537,
+  q, k, v as views of one stacked (B, N, 3, K, D) tensor, on the forward's
+  out and lse, dq, dk, dv written into views of a stacked dqkv): the whole
+  call, and its dq and dk/dv kernels apart (by their kernel names, which
+  both checkouts share);
+- as controls, allocated before the kernel above so that their operands
   lie at the same addresses in both checkouts: K1 and K2 (on K1's
   statistics) at N=513; K6's forward and backward on (B, K, D, N) views; K5's
   forward and backward at N=513 and 1025 (views of a stacked qkv); K7's
-  backward at N=1537 on the forward's out and lse.
+  forward at N=1537; K8, the fused QKV backward, at the live ModelCross
+  shape (B=8 N=513 K=16 H=1024, W the model's view of a (3H, H) Linear
+  weight), the whole call and its dx and dW product kernels apart (by their
+  kernel names in each checkout).
 
 Each turn prints one JSON line; the last two lines are the card's name and
 power limit as nvidia-smi prints them and a summary: for each kernel the
@@ -42,7 +44,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# the libraries either checkout may have (an older K5 had its own sources)
+# the libraries either checkout may have (older K5 and K7 backwards had sources
+# of their own)
 LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_single",
              "flash_attention_single_bwd", "flash_attention_stream",
              "flash_attention_stream_bwd", "fused_qkv_bwd")
@@ -52,6 +55,8 @@ ORDER = ("parent", "change", "change", "parent")
 K8_PRODUCT_MARKS = ({"dx": ("qkv_grad_dx_kernel",), "dW": ("qkv_grad_dw_kernel",)},
                     {"dx": ("gemm_nt_kernel<true", "gemm_nt_kernelILb1"),
                      "dW": ("gemm_nt_kernel<false", "gemm_nt_kernelILb0")})
+# K7's backward kernels by name (either checkout names them so)
+K7_MARKS = {"dq": ("attn_stream_bwd_dq",), "dk/dv": ("attn_stream_bwd_dkdv",)}
 
 
 def _split_ms(fn, marks: dict[str, tuple[str, ...]], calls: int = 10) -> dict[str, float]:
@@ -121,11 +126,6 @@ def _time_tree(tree: Path) -> dict:
                                   fa.flash_attention_single_bwd(q, k, v, g5, scale, *extra))
     n7 = 1537
     sq, sk, sv = fa._stream_views(randn(8, n7, 3, K, D))
-    sg = randn(8, n7, K, D).transpose(1, 2)
-    s_out, s_lse = fa.flash_attention_stream_fwd(sq, sk, sv, scale)
-    cases["K7 bwd N=1537"] = lambda: fa.flash_attention_stream_bwd(sq, sk, sv, s_out, s_lse, sg,
-                                                                   scale)
-    # the redesigned kernels
     cases["K7 fwd N=1537"] = lambda: fa.flash_attention_stream_fwd(sq, sk, sv, scale)
     H = 1024
     x = randn(8, N, H)
@@ -134,16 +134,27 @@ def _time_tree(tree: Path) -> dict:
     def k8():
         return fa.fused_qkv_bwd(x, w, qkv, out, dout, scale, stats)
     cases["K8 N=513"] = k8
+    # the redesigned kernels: K7's backward on the forward's out and lse, as
+    # the 3-stream ModelVIT's training step runs it
+    sg = randn(8, n7, K, D).transpose(1, 2)
+    s_out, s_lse = fa.flash_attention_stream_fwd(sq, sk, sv, scale)
+    s_grads = fa._stream_views(torch.empty(8, n7, 3, K, D, dtype=bf16, device="cuda"))
+
+    def k7_bwd():
+        return fa.flash_attention_stream_bwd(sq, sk, sv, s_out, s_lse, sg, scale, grads=s_grads)
+    cases["K7 bwd N=1537"] = k7_bwd
     times = {}
     for label, fn in cases.items():
         got = [device_ms(fn) for _ in range(TIMING_WINDOWS)]
         times[label] = {"ms": statistics.median(got), "spread": [min(got), max(got)]}
     source = (_build.CSRC / "fused_qkv_bwd.cu").read_text()
     marks = next(m for m in K8_PRODUCT_MARKS if m["dx"][0].split("<")[0] in source)
-    splits = [_split_ms(k8, marks) for _ in range(TIMING_WINDOWS)]
-    for part in ("dx", "dW"):
-        got = [sp[part] for sp in splits]
-        times[f"K8 {part} N=513"] = {"ms": statistics.median(got), "spread": [min(got), max(got)]}
+    for label, fn, parts in (("K8 {} N=513", k8, marks), ("K7 bwd {} N=1537", k7_bwd, K7_MARKS)):
+        splits = [_split_ms(fn, parts) for _ in range(TIMING_WINDOWS)]
+        for part in parts:
+            got = [sp[part] for sp in splits]
+            times[label.format(part)] = {"ms": statistics.median(got),
+                                         "spread": [min(got), max(got)]}
     return {"device": torch.cuda.get_device_name(0), "times": times}
 
 
