@@ -26,7 +26,11 @@ Phases, each printed as one JSON line with a ``phase`` key:
              profiled windows with their spread, beside
              scaled_dot_product_attention and its autograd backward.  At the
              training shape, K1/K2 and the plain attention are also held
-             against an f32 attention, forward and backward.
+             against an f32 attention, forward and backward.  K3 and K4 must
+             equal their plain version bit for bit, at the live geometry (V
+             = 8 and 24) and at two shapes with no dim a multiple of 8 or
+             32, in bf16 and f32, with no ptxas spill; each live pass is
+             timed at V = 8 (bf16 and f32) beside its bound, with its GB/s.
 4. kernels_k7 — the same for K7, the streaming attention (forward with
              logsumexp, the dq and dk/dv kernels of its blocked backward: K2's
              kernels reading the lse) at N = 1041, 1537, 2049, 4096, 8192 in
@@ -304,6 +308,9 @@ VIT_CONFIGS = (("vit2", ("SWI", "DWI"), 57_730_050, 1025),
 # the live augmentation geometry and its four LU passes (data/augment.py)
 VOLUME = (128, 128, 64)
 AUG = augment.AugmentConfig()
+# (V, volume shape) of the resample checks whose dims are not multiples of 8
+# or 32, with their own LU windows and spans
+RESAMPLE_UNALIGNED = ((3, (40, 24, 20)), (1, (48, 36, 60)))
 TRAIN_STEPS = 6
 # profiler kernel names → the layers of PERF.md §3 (first match wins)
 PROFILE_LAYERS = (("K5 attention forward", ("attn_single_fwd",)),
@@ -732,20 +739,34 @@ def pass_grid(axis: int, cdelta: torch.Tensor, center: tuple) -> torch.Tensor:
     return torch.stack([(2 * full[a] + 1) / VOLUME[a] - 1 for a in (2, 1, 0)], dim=-1)
 
 
+def _resample_cases():
+    """(V, volume shape, dtype) of the resample checks: the live geometry at
+    V = 8 and 24, and two shapes whose dims are not multiples of 8 or 32
+    (rows that take no 16-byte copy, tiles of 8 and 4 lines)."""
+    for V, shape in ((8, VOLUME), (24, VOLUME), *RESAMPLE_UNALIGNED):
+        for dtype in (torch.float32, torch.bfloat16):
+            yield V, shape, dtype
+
+
 def phase_kernels_resample() -> tuple[dict, dict]:
     """K3 at the four live LU passes and K4 (all taps) at one, each against
-    the plain version; returns (K3, K4) entries with per-pass timings at
-    V = 8 bf16.  The library yardstick is ``F.grid_sample`` on an f32 copy
-    of the volumes (a bf16 grid cannot place a coordinate near 127 closer
-    than a quarter voxel), held once against the plain version."""
-    center = tuple((s - 1) / 2.0 for s in VOLUME)
-    windows, spans = augment.lu_windows(AUG, VOLUME), augment.lu_spans(AUG, VOLUME)
-    half = np.array([(s - 1) / 2.0 for s in VOLUME])
+    the plain version bit for bit, at the live geometry and at two unaligned
+    shapes; no ptxas spill in either dtype's kernel.  Returns (K3, K4)
+    entries with per-pass timings at V = 8 bf16 (the median of
+    ``TIMING_WINDOWS`` windows), achieved GB/s and share of the bound; f32 at
+    V = 8 is timed too.  The library yardstick is ``F.grid_sample`` on an f32
+    copy of the volumes (a bf16 grid cannot place a coordinate near 127
+    closer than a quarter voxel), held once against the plain version."""
+    ptxas = {k: r for k, r in PTXAS.items() if "resample_kernel" in k}
+    spills = {k: r for k, r in ptxas.items()
+              if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
     checks, failures, timed = [], [], {}
-    for V, dtype in itertools.product((8, 24), (torch.float32, torch.bfloat16)):
+    for V, shape, dtype in _resample_cases():
+        center = tuple((s - 1) / 2.0 for s in shape)
+        windows, spans = augment.lu_windows(AUG, shape), augment.lu_spans(AUG, shape)
+        half = np.array([(s - 1) / 2.0 for s in shape])
         g = torch.Generator(device="cuda").manual_seed(300 + V)
-        vols = (torch.randn((V, *VOLUME), generator=g, device="cuda") * 100).to(dtype)
-        vols32 = vols[:, None].float()
+        vols = (torch.randn((V, *shape), generator=g, device="cuda") * 100).to(dtype)
         cds = augment.lu_cdeltas(corner_matrices(V, seed=V))
         # K4 runs the last pass with span None (all 2W+2 taps)
         passes = list(zip(range(4), augment.LU_AXES, windows, spans, cds))
@@ -757,50 +778,71 @@ def phase_kernels_resample() -> tuple[dict, dict]:
             torch.cuda.synchronize()
             max_abs, norm = _norm_err(got, plain)
             entry = {"kernel": "K4" if span is None else "K3", "pass": p, "axis": axis,
-                     "window": window, "span": span, "V": V,
+                     "window": window, "span": span, "V": V, "shape": list(shape),
                      "dtype": str(dtype).replace("torch.", ""),
+                     "box": list(rs.box_geometry(shape, axis, vols.element_size())),
                      # how near the hat's taps come to the window edge ±W
                      "max_abs_rel": float((cd.abs().cpu().numpy() @ half).max()),
-                     "max_abs_err": max_abs, "norm_err": norm, "tol": KERNEL_TOL[dtype],
+                     "max_abs_err": max_abs, "norm_err": norm, "tol": 0.0,
                      "finite": bool(torch.isfinite(got).all())}
-            if V == 8 and dtype == torch.bfloat16:
+            kernel = (lambda vols=vols, axis=axis, cd=cd, center=center, window=window,
+                      span=span: rs.resample_axis_windowed_batched(vols, axis, cd, center,
+                                                                   window, span))
+            if V == 8 and shape == VOLUME and dtype == torch.bfloat16:
+                vols32 = vols[:, None].float()
                 grid = pass_grid(axis, cd, center)
 
                 def library():
                     return F.grid_sample(vols32, grid, mode="bilinear",
                                          padding_mode="reflection", align_corners=False)
                 entry["library_norm_err"] = _norm_err(library()[:, 0], plain)[1]
-                if not entry["library_norm_err"] <= entry["tol"]:
+                if not entry["library_norm_err"] <= KERNEL_TOL[dtype]:
                     failures.append(entry)
-                timings(entry, lambda: rs.resample_axis_windowed_batched(
-                            vols, axis, cd, center, window, span),
-                        lambda: rs.resample_axis_windowed_reference(
-                            vols, axis, cd, center, window, span), library)
-                del grid
+                timings(entry, kernel, lambda: rs.resample_axis_windowed_reference(
+                            vols, axis, cd, center, window, span), library,
+                        windows=TIMING_WINDOWS)
+                del grid, vols32
+            elif V == 8 and shape == VOLUME:
+                timings(entry, kernel, None, windows=TIMING_WINDOWS)
+            if "kernel_ms" in entry:
                 bound_ms, bound_by = resample_bound(V, dtype)
                 entry["bound_us"] = bound_ms * 1e3
                 entry["bound_by"] = bound_by
-                timed.setdefault(entry["kernel"], []).append(entry)
+                entry["bound_share"] = bound_ms / entry["kernel_ms"]
+                entry["gb_s"] = 2 * got.numel() * got.element_size() / entry["kernel_ms"] / 1e6
+                if dtype == torch.bfloat16:
+                    timed.setdefault(entry["kernel"], []).append(entry)
             checks.append(entry)
-            if not (entry["finite"] and norm <= entry["tol"]):
+            # bit for bit: the kernel sums the plain version's taps in its order
+            if not (entry["finite"] and max_abs == 0.0):
                 failures.append(entry)
-    emit({"phase": "kernels",
+    emit({"phase": "kernels", "resample_ptxas": ptxas,
           "checks": [{**K, "cases": [c for c in checks if c["kernel"] == name]}
                      for name, K in (("K3", K3), ("K4", K4))]})
-    check(not failures, f"resample kernel disagrees with its plain version: {failures}")
+    check(len(ptxas) == 6 and not spills,
+          f"resample kernels' ptxas report: want six kernels (three axes, two dtypes), "
+          f"no spill, got {ptxas}")
+    check(not failures, f"resample kernel differs from its plain version: {failures}")
 
     def summary(entries):
         # per launch, averaged over the timed passes (V = 8, bf16)
         n = len(entries)
-        return {"max_abs_err": max(c["max_abs_err"] for c in checks
-                                   if c["kernel"] == entries[0]["kernel"]),
+        kind = entries[0]["kernel"]
+        f32 = [c for c in checks if c["kernel"] == kind and "kernel_ms" in c
+               and c["dtype"] == "float32"]
+        return {"max_abs_err": max(c["max_abs_err"] for c in checks if c["kernel"] == kind),
                 "ms": sum(e["kernel_ms"] for e in entries) / n,
                 "plain_ms": sum(e["plain_ms"] for e in entries) / n,
                 "library_ms": sum(e["library_ms"] for e in entries) / n,
                 "bound_ms": sum(e["bound_us"] for e in entries) / n / 1e3,
                 "bound_by": entries[0]["bound_by"],
                 "per_pass_ms": [e["kernel_ms"] for e in entries],
-                "per_pass_library_ms": [e["library_ms"] for e in entries]}
+                "per_pass_ms_spread": [e["kernel_ms_spread"] for e in entries],
+                "per_pass_gb_s": [e["gb_s"] for e in entries],
+                "per_pass_bound_share": [e["bound_share"] for e in entries],
+                "per_pass_library_ms": [e["library_ms"] for e in entries],
+                "f32_per_pass_ms": [c["kernel_ms"] for c in f32],
+                "f32_bound_ms": f32[0]["bound_us"] / 1e3}
     return summary(timed["K3"]), summary(timed["K4"])
 
 

@@ -18,8 +18,11 @@ d_lo = clip(floor(min rel over the tile), −W, W + 2 − span).
 ``resample_axis_windowed_batched`` is the wrapper.  On a CUDA tensor it
 launches the hand-written kernel in ``csrc/resample.cu`` or raises; on a CPU
 tensor it runs ``resample_axis_windowed_reference``, the plain PyTorch
-version.  ``resample_axis_windowed_batched.launches`` counts kernel launches
-with a tap window (K3) and ``.full_launches`` those over all taps (K4).
+version.  A block of the kernel stages one box of the source in shared
+memory — the axis whole, a cross-section of the other dims inside one tile
+(``box_geometry``) — and reads every tap of the box's voxels from there.
+``resample_axis_windowed_batched.launches`` counts kernel launches with a
+tap window (K3) and ``.full_launches`` those over all taps (K4).
 """
 
 from __future__ import annotations
@@ -31,6 +34,15 @@ import torch
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# bytes of source a block's box aims at (8192 voxels of bf16, 4096 of f32):
+# several blocks of RING_SLOTS such slots fit on an SM, and the boxes are
+# large enough that their fixed costs stay small (4096 bf16 voxels ran a live
+# pass 15% slower on an H100)
+BOX_BYTES = 16384
+# box slots a kernel block keeps (STAGES in csrc/resample.cu)
+RING_SLOTS = 3
+# dynamic shared memory one block may use on an H100 (227 KB)
+SMEM_BYTES = 232_448
 
 
 def _block_size(size: int, want: int = 32) -> int:
@@ -44,6 +56,50 @@ def _tiles(shape: tuple[int, int, int], axis: int) -> tuple[int, int]:
     """The v2 tile extents along dims 0 and 1 (dim 2 is never blocked)."""
     D, H, _ = shape
     return (D if axis == 0 else _block_size(D), H if axis == 1 else _block_size(H))
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _largest_divisor(n: int, fits) -> int:
+    return max(e for e in range(1, n + 1) if n % e == 0 and (e == 1 or fits(e)))
+
+
+def box_geometry(shape: tuple[int, int, int], axis: int,
+                 itemsize: int) -> tuple[int, int, int, int, int]:
+    """A kernel block's box (e0, e1, cw), the pitch of its staged rows and
+    the shared memory the block stages it in: e0 × e1 lines of dims 0, 1 by
+    cw columns of dim 2, the resample axis whole, inside one tile of
+    ``_tiles`` (e0 divides b0, e1 divides b1), about ``BOX_BYTES`` of source.
+    The axes 0 and 1 cut dim 2 into columns of a multiple of 8; axis 2 keeps
+    it whole, and its staged rows are 16 bytes past a multiple of 128 apart,
+    so that the 32 rows a warp reads start in 8 different 4-bank groups.
+    Rows are whole 16-byte copies apart.  Shared memory:
+    ``RING_SLOTS`` slots of e0·e1 rows of ``pitch`` elements.  Raises
+    ValueError where not even the smallest box fits in a block's shared
+    memory."""
+    n, voxels = shape[axis], BOX_BYTES // itemsize
+    cw = shape[2] if axis == 2 else min(_round8(shape[2]), max(8, voxels // n // 8 * 8))
+    step = 16 // itemsize                  # elements of one 16-byte copy
+    pitch = -(-cw // step) * step
+    if axis == 2:
+        while pitch * itemsize % 128 != 16:
+            pitch += step
+    ext = [1, 1]
+    if axis < 2:
+        ext[axis] = n
+    for dim, block in zip((1, 0), reversed(_tiles(shape, axis))):
+        if dim != axis:
+            other = ext[1 - dim]
+            ext[dim] = _largest_divisor(
+                block, lambda e: e * other * _round8(cw) <= voxels)
+    smem = RING_SLOTS * ext[0] * ext[1] * pitch * itemsize
+    if smem > SMEM_BYTES:
+        raise ValueError(f"resample along axis {axis} of {tuple(shape)}: a box of "
+                         f"{ext[0]}x{ext[1]}x{cw} needs {smem} bytes of shared memory, "
+                         f"more than a block's {SMEM_BYTES}")
+    return ext[0], ext[1], cw, pitch, smem
 
 
 def _window_taps(window: int, span: int | None) -> int | None:
@@ -119,12 +175,13 @@ def resample_axis_windowed_batched(vols: torch.Tensor, axis: int, cdelta: torch.
     V, D, H, W = src.shape
     taps = _window_taps(window, span)
     b0, b1 = _tiles((D, H, W), axis)
+    e0, e1, cw, pitch, _ = box_geometry((D, H, W), axis, src.element_size())
     out = torch.empty_like(src)
     lib = _library()
     err = lib.resample_axis_windowed(
         src.data_ptr(), out.data_ptr(), cd.data_ptr(), _DTYPE_CODES[src.dtype], V, D, H, W,
         axis, window, -1 if taps is None else taps, b0, b1, *(float(c) for c in center),
-        torch.cuda.current_stream(vols.device).cuda_stream, vols.device.index)
+        e0, e1, cw, pitch, torch.cuda.current_stream(vols.device).cuda_stream, vols.device.index)
     if err != 0:
         msg = lib.resample_error_string(err).decode()
         raise RuntimeError(f"resample_axis_windowed failed: CUDA error {err} ({msg})")
@@ -144,9 +201,9 @@ def _library() -> ctypes.CDLL:
     fn = lib.resample_axis_windowed
     if fn.argtypes is None:
         # src, out, cdelta, dtype, V, D, H, W, axis, window, span, b0, b1,
-        # center (3), stream, device
+        # center (3), box (e0, e1, cw), pitch, stream, device
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
-                       + [ctypes.c_void_p, ctypes.c_int])
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int])
         fn.restype = ctypes.c_int
         lib.resample_error_string.argtypes = [ctypes.c_int]
         lib.resample_error_string.restype = ctypes.c_char_p

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the attention kernels of two checkouts of the port in turns on one
-NVIDIA H100: the parent, this tree, this tree, the parent.
+"""Time the kernels of two checkouts of the port in turns on one NVIDIA
+H100: the parent, this tree, this tree, the parent.
 
     python3 kernels_in_turns.py --parent DIR
 
@@ -9,19 +9,21 @@ its checkout, builds the kernel libraries from that checkout's sources and
 times, by torch.profiler device time per call (``chip_smoke.device_ms``, ten
 calls a window, the median of five windows and their spread), bf16, D=64:
 
-- K7's backward at the 3-stream ModelVIT training shape (B=8 K=16 N=1537,
-  q, k, v as views of one stacked (B, N, 3, K, D) tensor, on the forward's
-  out and lse, dq, dk, dv written into views of a stacked dqkv): the whole
-  call, and its dq and dk/dv kernels apart (by their kernel names, which
-  both checkouts share);
-- as controls, allocated before the kernel above so that their operands
+- K3, the LU-affine resample, at its four live passes (L1, the fused axis-2
+  pass, U1, U0) and K4 (pass U0 over all taps), on V = 8 and V = 24 bf16
+  volumes of 128×128×64 with the cdeltas of ``chip_smoke.corner_matrices``;
+- as controls, allocated before the kernels above so that their operands
   lie at the same addresses in both checkouts: K1 and K2 (on K1's
   statistics) at N=513; K6's forward and backward on (B, K, D, N) views; K5's
   forward and backward at N=513 and 1025 (views of a stacked qkv); K7's
   forward at N=1537; K8, the fused QKV backward, at the live ModelCross
   shape (B=8 N=513 K=16 H=1024, W the model's view of a (3H, H) Linear
   weight), the whole call and its dx and dW product kernels apart (by their
-  kernel names in each checkout).
+  kernel names in each checkout); K7's backward at the 3-stream ModelVIT
+  training shape (B=8 K=16 N=1537, q, k, v as views of one stacked
+  (B, N, 3, K, D) tensor, on the forward's out and lse, dq, dk, dv written
+  into views of a stacked dqkv): the whole call, and its dq and dk/dv
+  kernels apart (by their kernel names, which both checkouts share).
 
 Each turn prints one JSON line; the last two lines are the card's name and
 power limit as nvidia-smi prints them and a summary: for each kernel the
@@ -48,7 +50,7 @@ ROOT = Path(__file__).resolve().parent
 # of their own)
 LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_single",
              "flash_attention_single_bwd", "flash_attention_stream",
-             "flash_attention_stream_bwd", "fused_qkv_bwd")
+             "flash_attention_stream_bwd", "fused_qkv_bwd", "resample")
 ORDER = ("parent", "change", "change", "parent")
 # K8's product kernels by name: the wgmma kernels, then the older tile
 # product they replaced (<true, ·, bf16> was dx, <false, false, float> dW)
@@ -88,9 +90,11 @@ def _time_tree(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import torch
 
-    from chip_smoke import TIMING_WINDOWS, device_ms
+    from chip_smoke import AUG, TIMING_WINDOWS, VOLUME, corner_matrices, device_ms
+    from cross_attention_vit_tpu_torch.data import augment
     from cross_attention_vit_tpu_torch.kernels import _build
     from cross_attention_vit_tpu_torch.kernels import flash_attention as fa
+    from cross_attention_vit_tpu_torch.kernels import resample as rs
 
     if not torch.cuda.is_available():
         raise SystemExit("kernels_in_turns.py needs a CUDA card")
@@ -134,8 +138,8 @@ def _time_tree(tree: Path) -> dict:
     def k8():
         return fa.fused_qkv_bwd(x, w, qkv, out, dout, scale, stats)
     cases["K8 N=513"] = k8
-    # the redesigned kernels: K7's backward on the forward's out and lse, as
-    # the 3-stream ModelVIT's training step runs it
+    # K7's backward on the forward's out and lse, as the 3-stream ModelVIT's
+    # training step runs it
     sg = randn(8, n7, K, D).transpose(1, 2)
     s_out, s_lse = fa.flash_attention_stream_fwd(sq, sk, sv, scale)
     s_grads = fa._stream_views(torch.empty(8, n7, 3, K, D, dtype=bf16, device="cuda"))
@@ -143,6 +147,19 @@ def _time_tree(tree: Path) -> dict:
     def k7_bwd():
         return fa.flash_attention_stream_bwd(sq, sk, sv, s_out, s_lse, sg, scale, grads=s_grads)
     cases["K7 bwd N=1537"] = k7_bwd
+    # the redesigned kernels: K3's live passes and K4, as augmentation runs them
+    center = tuple((s - 1) / 2.0 for s in VOLUME)
+    passes = list(zip(("L1", "fused2", "U1", "U0"), augment.LU_AXES,
+                      augment.lu_windows(AUG, VOLUME), augment.lu_spans(AUG, VOLUME), range(4)))
+    passes.append(("U0 all taps", augment.LU_AXES[3], augment.lu_windows(AUG, VOLUME)[3], None, 3))
+    for V in (8, 24):
+        vols = (torch.randn((V, *VOLUME), generator=g, device="cuda") * 100).to(bf16)
+        cds = [cd.cuda() for cd in augment.lu_cdeltas(corner_matrices(V, seed=V))]
+        for name, axis, window, span, p in passes:
+            kind = "K4" if span is None else "K3"
+            cases[f"{kind} {name} V={V}"] = (
+                lambda vols=vols, axis=axis, cd=cds[p], window=window, span=span:
+                rs.resample_axis_windowed_batched(vols, axis, cd, center, window, span))
     times = {}
     for label, fn in cases.items():
         got = [device_ms(fn) for _ in range(TIMING_WINDOWS)]
