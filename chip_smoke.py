@@ -135,7 +135,27 @@ Phases, each printed as one JSON line with a ``phase`` key:
              the resume, 12 K8 calls per step and no K2, the files; reports
              the decoder, the transfer dtype and the checkpoint-write time.
 
-Then one line ``{"kernels": [...]}`` with each kernel's launches on the
+14. train_dp — run right after train: the live ModelCross through the port's
+             ``Trainer(mesh=make_mesh(1))`` (``cross_attention_vit_tpu_torch.
+             parallel``).  (a) World size 1 over NCCL in this process: with
+             no mesh, under DDP and under FSDP (FSDP2, whole-tensor shards at
+             one rank), ``TRAIN_STEPS`` steps with augmentation and dropout
+             0.25 each — finite losses, changed parameters, 12 K1 + 12 K2
+             launches a step, K3 over the run, step ms and peak memory — then
+             one step at dropout 0 without augmentation from the seeded
+             masters: every gradient of DDP and of FSDP within ``SERVE_TOL``
+             of the no-mesh step's, normalised by its own maximum.  (b) Two
+             gloo ranks sharing the card (this script with ``--dp-worker``),
+             DDP at batch 4 each, ``DP_STEPS`` steps: parameters bit for bit
+             the same on both ranks, the first step's gradients within
+             ``SERVE_TOL`` of the one-process batch-8 step's, the step ms and
+             the share of it in the gradient all-reduce (steps with and
+             without it, in turns).  NCCL between two ranks needs two cards.
+
+Then a line ``{"phase": "profiler", ...}``: the profiles taken, how many of
+them recorded no kernel, and the calls timed by CUDA events after
+``PROFILE_TRIES`` such profiles (``device_ms_split``).  Then one line
+``{"kernels": [...]}`` with each kernel's launches on the
 serving and training runs and its timings, the card's name and power limit as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``.  Any
 failure exits non-zero before the result lines are printed; without CUDA it
@@ -146,11 +166,13 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import io
 import itertools
 import json
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -188,7 +210,10 @@ from cross_attention_vit_tpu_torch.train.checkpoint import save_config, save_pyt
 from cross_attention_vit_tpu_torch.train.metrics import binary_auroc, compute_metrics
 from cross_attention_vit_tpu_torch.train.optim import Adam
 from cross_attention_vit_tpu_torch.train.schedule import cosine_annealing_lr
-from cross_attention_vit_tpu_torch.train.trainer import make_train_step
+from cross_attention_vit_tpu_torch.parallel import (full_tensor, make_mesh, multihost_init,
+                                                    shard_batch, unwrap)
+from cross_attention_vit_tpu_torch.train.trainer import Trainer, make_train_step
+from torch.distributed.tensor import DTensor
 
 ROOT = Path(__file__).resolve().parent
 MODALITIES = ("DWI", "SWI", "ASL")
@@ -312,6 +337,15 @@ AUG = augment.AugmentConfig()
 # or 32, with their own LU windows and spans
 RESAMPLE_UNALIGNED = ((3, (40, 24, 20)), (1, (48, 36, 60)))
 TRAIN_STEPS = 6
+# phase train_dp: the gloo ranks' checked steps, and the seconds a
+# collective (and the rendezvous) may wait for a peer
+DP_STEPS = 2
+DP_TIMEOUT_S = 300
+# device_ms_split: profiles tried before CUDA events time the call, and the
+# count of profiles taken, of those that recorded no kernel, and of the calls
+# timed by events
+PROFILE_TRIES = 6
+PROFILER_LOG = {"sessions": 0, "empty": 0, "event_timed": 0}
 # profiler kernel names → the layers of PERF.md §3 (first match wins)
 PROFILE_LAYERS = (("K5 attention forward", ("attn_single_fwd",)),
                   ("K5 attention backward", ("attn_single_bwd",)),
@@ -402,23 +436,47 @@ def device_ms(fn, calls: int = 10, warmup: int = 3) -> float:
 
 def device_ms_split(fn, marks: dict[str, str], calls: int = 10, warmup: int = 3) -> dict:
     """``device_ms`` split by kernel: for each label, the kernels whose names
-    hold its mark (for a call that launches more than one kernel)."""
+    hold its mark (for a call that launches more than one kernel).
+
+    A profile now and then records no kernel at all, and a process can stay
+    so for many profiles in a row.  After ``PROFILE_TRIES`` empty profiles
+    (alternately of the device alone and of host and device) CUDA events
+    time the call whole (``cuda_ms``): a single label gets that time; with
+    more, every label gets None and ``whole_ms`` the time (see ``part_ms``).
+    ``PROFILER_LOG`` counts both, for phase ``profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # a profile now and then records no kernel at all
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(PROFILE_TRIES):
+        activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * (attempt % 2)
+        with profile(activities=activities) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        PROFILER_LOG["sessions"] += 1
         rows = _kernel_rows(prof)
         split = {label: sum(ms for key, ms, _ in rows if mark in key) / calls
                  for label, mark in marks.items()}
         if all(ms > 0 for ms in split.values()):
             return split
-    raise SmokeFailure(f"torch.profiler recorded no {sorted(marks)} kernel in three tries")
+        PROFILER_LOG["empty"] += 1
+        time.sleep(0.2)
+    PROFILER_LOG["event_timed"] += 1
+    whole = cuda_ms(fn, runs=5, calls=calls, warmup=0)
+    if len(marks) == 1:
+        return {label: whole for label in marks}
+    return {**{label: None for label in marks}, "whole_ms": whole}
+
+
+def part_ms(split: dict, label: str) -> dict:
+    """``ms`` of one label of ``device_ms_split``, or, where the profiler
+    recorded no kernel, the whole call's time with a note saying so."""
+    if split[label] is not None:
+        return {"ms": split[label]}
+    return {"ms": split["whole_ms"],
+            "ms_note": "the whole call by CUDA events: the profiler recorded no kernel"}
 
 
 def timings(entry: dict, kernel, plain, library=None, windows: int = 1) -> None:
@@ -1317,9 +1375,10 @@ def phase_kernels_k8() -> dict:
                     lambda: fa.fused_qkv_bwd(x, w, qkv, out, dout, scale, stats),
                     {"dq": "attn_bwd_dq", "dkdv": "attn_bwd_dkdv", "dx": "qkv_grad_dx_kernel",
                      "dW": "qkv_grad_dw_kernel"})
-                entry["kernel_ms"] = sum(entry["kernel_ms_by_kernel"].values())
-                entry["products_ms"] = (entry["kernel_ms_by_kernel"]["dx"]
-                                        + entry["kernel_ms_by_kernel"]["dW"])
+                by_kernel = entry["kernel_ms_by_kernel"]
+                entry["kernel_ms"] = by_kernel.get("whole_ms") or sum(by_kernel.values())
+                entry["products_ms"] = (None if by_kernel["dx"] is None
+                                        else by_kernel["dx"] + by_kernel["dW"])
                 entry["plain_ms"] = device_ms(
                     lambda: fa.fused_qkv_bwd_reference(x, w, qkv, out, dout, scale, stats),
                     calls=2)
@@ -1443,6 +1502,8 @@ def _profiled(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = _kernel_rows(prof)
+    PROFILER_LOG["sessions"] += 1
+    PROFILER_LOG["empty"] += not rows
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     by_layer: dict[str, float] = {}
@@ -1776,6 +1837,208 @@ def phase_train() -> dict:
           f"gradient of {worst_fused}: FUSED_QKV_GRADS path vs plain path "
           f"{fused_vs_plain[worst_fused]:.3e} > {SERVE_TOL}")
     return result
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dp_cmp_cfg():
+    """The live configuration at dropout 0 without augmentation: the
+    comparison steps of phase train_dp."""
+    cfg = live_config(use_flash=True)
+    modify_config(cfg, {"dropout": 0.0, "img_aug": False})
+    return cfg
+
+
+def _train_batch(cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase train's batch of 8 (the same seed), on the card."""
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy((rng.normal(size=(8, len(MODALITIES), 1, *cfg.img_size)) * 100)
+                           .astype(np.float32)).cuda()
+    return img, torch.tensor([0, 1] * 4, device="cuda")
+
+
+def _full_grads(trainer) -> dict[str, torch.Tensor]:
+    return {n: full_tensor(p.grad).float()
+            for n, p in unwrap(trainer.model).named_parameters()}
+
+
+def _timed_step(step, img, labels, lr: float, gen) -> tuple[dict, float]:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    aux = step(img, labels, lr, gen)
+    end.record()
+    end.synchronize()
+    return aux, start.elapsed_time(end)
+
+
+def phase_train_dp(tmp: Path) -> dict:
+    """The live ModelCross through ``Trainer(mesh=...)``: (a) at world size 1
+    over NCCL in this process, with no mesh, under DDP and under FSDP —
+    ``TRAIN_STEPS`` steps with augmentation and dropout, then one step at
+    dropout 0 without augmentation from the seeded masters, each mesh's
+    gradients against the no-mesh step's; (b) two gloo ranks sharing the
+    card under DDP, batch 4 each (``dp_worker``)."""
+    cfg = live_config(use_flash=True)
+    op = cfg.optim_params
+    lr_at = cosine_annealing_lr(cfg.lr, op["T_max"], op["eta_min"])
+    img, labels = _train_batch(cfg)
+    multihost_init(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda", timeout_s=DP_TIMEOUT_S)
+    modes, grads, cmp_launches = {}, {}, {}
+    try:
+        mesh = make_mesh(1)
+        check(mesh.device_type == "cuda" and torch.distributed.get_backend() == "nccl",
+              f"world-1 mesh on {mesh.device_type} over {torch.distributed.get_backend()}")
+        for mode, mesh_kw in (("none", {}), ("ddp", {"mesh": mesh}),
+                              ("fsdp", {"mesh": mesh, "fsdp": True})):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = Trainer(ModelCross, cfg, max_epochs=1, device="cuda", **mesh_kw).init_state()
+            before = {n: full_tensor(p).detach().clone()
+                      for n, p in unwrap(t.model).named_parameters()}
+            losses, step_ms, per_step, affine = _run_steps(t.train_step, img, labels, lr_at,
+                                                           torch.Generator().manual_seed(TRAIN_SEED))
+            launches = _counts()
+            changed = max((full_tensor(p).detach() - before[n]).abs().max().item()
+                          for n, p in unwrap(t.model).named_parameters())
+            sharded = sum(isinstance(p, DTensor) for p in t.model.parameters())
+            modes[mode] = {"losses": losses, "step_ms": step_ms,
+                           "step_ms_steady": statistics.median(step_ms[1:]),
+                           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "max_param_change": changed, "launches": launches,
+                           "launches_per_step": per_step, "affine_volumes_per_step": affine,
+                           "dtensor_params": sharded}
+            del t, before
+            check(all(np.isfinite(losses)), f"{mode}: non-finite training loss {losses}")
+            check(changed > 0, f"{mode}: the parameters did not change")
+            for i, c in enumerate(per_step):
+                check(c["K1"] == 12 and c["K2"] == 12,
+                      f"{mode} step {i}: K1 launched {c['K1']}, K2 {c['K2']} times")
+            check(launches["K3"] > 0, f"{mode}: no step drew the affine (K3 never ran)")
+            # the comparison step from the same seeded masters
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = Trainer(ModelCross, _dp_cmp_cfg(), max_epochs=1, device="cuda",
+                        **mesh_kw).init_state()
+            _zero_counts()
+            aux, _ = _timed_step(t.train_step, img, labels, cfg.lr, torch.Generator().manual_seed(0))
+            cmp_launches[mode] = _counts()
+            check(bool(torch.isfinite(aux["loss"])), f"{mode}: non-finite comparison loss")
+            grads[mode] = _full_grads(t)
+            del t
+        check(modes["fsdp"]["dtensor_params"] > 0, "FSDP sharded no parameter")
+    finally:
+        torch.distributed.destroy_process_group()
+    errs = {mode: _leaf_errs(grads[mode], grads["none"]) for mode in ("ddp", "fsdp")}
+    torch.save({n: g.cpu() for n, g in grads["none"].items()}, tmp / "grads_one_process.pt")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    gloo = _two_gloo_ranks(tmp)
+    result = {"phase": "train_dp", "model": "ModelCross", "batch": 8,
+              "nccl_world_1": {m: {k: v for k, v in r.items() if k != "launches_per_step"}
+                               for m, r in modes.items()},
+              "grad_vs_no_mesh_worst_leaf": {m: max(e.values()) for m, e in errs.items()},
+              "comparison_launches": cmp_launches, "tol": SERVE_TOL,
+              "gloo_two_ranks": gloo}
+    emit(result)
+    for mode, e in errs.items():
+        gated = {n: v for n, v in e.items() if not n.endswith(ZERO_GRAD_LEAF)}
+        worst = max(gated, key=gated.get)
+        check(gated[worst] <= SERVE_TOL, f"{mode}: gradient of {worst} vs the no-mesh step "
+                                         f"{gated[worst]:.3e} > {SERVE_TOL}")
+    for mode, c in cmp_launches.items():
+        check(c["K1"] == 12 and c["K2"] == 12, f"{mode} comparison step launches {c}")
+    return result
+
+
+def _two_gloo_ranks(tmp: Path) -> dict:
+    """Phase train_dp (b): ``dp_worker`` in two processes on this card."""
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker",
+                               str(rank), str(port), str(tmp)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=DP_TIMEOUT_S)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"gloo rank {rank} exited {p.returncode}:\n{err[-4000:]}")
+    ranks = [json.loads((tmp / f"dp_rank{r}.json").read_text()) for r in range(2)]
+    check(ranks[0]["param_sha256"] == ranks[1]["param_sha256"],
+          "the two gloo ranks' parameters differ after the steps")
+    for r, got in enumerate(ranks):
+        check(got["grad_vs_one_process_worst_gated"] <= SERVE_TOL,
+              f"gloo rank {r}: gradient vs the one-process batch-8 step "
+              f"{got['grad_vs_one_process_worst_gated']:.3e} > {SERVE_TOL}")
+        check(all(c["K1"] == 12 and c["K2"] == 12 for c in got["launches_per_step"]),
+              f"gloo rank {r}: launches {got['launches_per_step']}")
+    return {"ranks": ranks, "params_identical": True}
+
+
+def dp_worker(rank: int, port: int, tmp: Path) -> int:
+    """One of phase train_dp's two gloo ranks on cuda:0: ``DP_STEPS`` DDP
+    steps of batch 4 at dropout 0 without augmentation from the seeded
+    masters; the first step's gradients against the one-process batch-8
+    step's; a digest of the parameters; then steps with and without the
+    gradient all-reduce, for its share of the step."""
+    multihost_init(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda",
+                   timeout_s=DP_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = _dp_cmp_cfg()
+        mesh = make_mesh(2)
+        t = Trainer(ModelCross, cfg, max_epochs=1, mesh=mesh, device="cuda").init_state()
+        img, labels = shard_batch(_train_batch(cfg), mesh)     # this rank's 4 of the 8
+        want = torch.load(tmp / "grads_one_process.pt", map_location="cuda")
+        _zero_counts()
+        losses, step_ms, per_step = [], [], []
+        for s in range(DP_STEPS):
+            counts0 = _counts()
+            aux, ms = _timed_step(t.train_step, img, labels, cfg.lr,
+                                  torch.Generator().manual_seed(s))
+            losses.append(float(aux["loss"]))
+            step_ms.append(ms)
+            per_step.append({k: v - counts0[k] for k, v in _counts().items()})
+            if s == 0:
+                errs = _leaf_errs(_full_grads(t), want)
+                del want
+        launches = _counts()
+        digest = hashlib.sha256()
+        for p in t.model.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        # the step with and without the gradient all-reduce, in turns
+        synced, unsynced = [], []
+        for sync in (True, False, True, False, True, False):
+            with contextlib.nullcontext() if sync else t.model.no_sync():
+                _, ms = _timed_step(t.train_step, img, labels, cfg.lr,
+                                    torch.Generator().manual_seed(0))
+            (synced if sync else unsynced).append(ms)
+        gated = [v for n, v in errs.items() if not n.endswith(ZERO_GRAD_LEAF)]
+        sync_ms, nosync_ms = statistics.median(synced), statistics.median(unsynced)
+        (tmp / f"dp_rank{rank}.json").write_text(json.dumps({
+            "rank": rank, "backend": torch.distributed.get_backend(), "device": str(t.device),
+            "batch": 4, "losses": losses, "step_ms": step_ms,
+            "grad_vs_one_process_worst_leaf": max(errs.values()),
+            "grad_vs_one_process_worst_gated": max(gated),
+            "param_sha256": digest.hexdigest(), "launches": launches,
+            "launches_per_step": per_step, "step_ms_synced": sync_ms,
+            "step_ms_without_grad_allreduce": nosync_ms,
+            "grad_allreduce_share": 1.0 - nosync_ms / sync_ms}))
+        check(all(np.isfinite(losses)), f"gloo rank {rank}: non-finite loss {losses}")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
 
 
 def _vit_expected(tokens: int, per: int) -> dict:
@@ -2260,6 +2523,8 @@ def main() -> int:
             served_vit = phase_serve_vit(Path(tmp))
             served_int8 = phase_serve_int8(Path(tmp))
         trained = phase_train()
+        with tempfile.TemporaryDirectory() as tmp:
+            trained_dp = phase_train_dp(Path(tmp))
         trained_vit = phase_train_vit()
         with tempfile.TemporaryDirectory() as tmp:
             trained_cli = phase_train_cli(Path(tmp))
@@ -2267,6 +2532,10 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     paths = {"serve": {"K1": served["kernel_launches"]}, "train": trained["launches"]}
+    for mode, result in trained_dp["nccl_world_1"].items():
+        paths[f"train_dp_{mode}"] = result["launches"]
+    for result in trained_dp["gloo_two_ranks"]["ranks"]:
+        paths[f"train_dp_gloo_rank{result['rank']}"] = result["launches"]
     for name, result in served_vit.items():
         paths[f"serve_{name}"] = result["launches"]
     for name, result in trained_vit.items():
@@ -2292,6 +2561,7 @@ def main() -> int:
                 "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                 "library_ms_spread": e["library_ms_spread"], **extra}
 
+    emit({"phase": "profiler", **PROFILER_LOG})
     emit({"kernels": [
         {**K1, **launches["K1"], "max_abs_err": k1[513]["max_abs_err"],
          "stats_err": k1[513]["stats_err"],
@@ -2316,7 +2586,7 @@ def main() -> int:
         {**K7DKV, **launches["K7DKV"],
          "max_abs_err": max(k7["max_abs_err"]["dk"], k7["max_abs_err"]["dv"]),
          "run_to_run_max_abs": k7["run_to_run_max_abs"],
-         "ms": k7["bwd_kernel_ms"]["dkdv"], "plain_ms": k7["bwd_plain_ms"]["dkdv"],
+         **part_ms(k7["bwd_kernel_ms"], "dkdv"), "plain_ms": k7["bwd_plain_ms"]["dkdv"],
          "bound_ms": bound["dkdv"]["ms"], "bound_by": bound["dkdv"]["by"],
          "library_ms": k7["bwd_library_ms"],
          "library": "backward of scaled_dot_product_attention through autograd: dq, dk and "
@@ -2324,7 +2594,7 @@ def main() -> int:
          "backward_bound_ms": bound["bwd"]["ms"], "shape": k7_shape},
         {**K7DQ, **launches["K7DQ"],
          "max_abs_err": k7["max_abs_err"]["dq"], "run_to_run_max_abs": k7["run_to_run_max_abs"],
-         "ms": k7["bwd_kernel_ms"]["dq"], "plain_ms": k7["bwd_plain_ms"]["dq"],
+         **part_ms(k7["bwd_kernel_ms"], "dq"), "plain_ms": k7["bwd_plain_ms"]["dq"],
          "bound_ms": bound["dq"]["ms"], "bound_by": bound["dq"]["by"],
          "library_ms": k7["bwd_library_ms"],
          "library": "backward of scaled_dot_product_attention through autograd (dq, dk, dv)",
@@ -2403,4 +2673,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:      # phase train_dp's gloo ranks
+        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     sys.exit(main())

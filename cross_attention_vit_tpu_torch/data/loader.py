@@ -11,6 +11,13 @@ recorded after the copy, so the copy of the next batch overlaps this step's
 compute.  A bounded queue carries the batches; an iteration the consumer
 abandons stops the producer instead of blocking it forever.  On a CPU
 device the batches are plain tensors.
+
+With ``sharding`` (``parallel.batch_sharding``) the loader feeds one rank of
+a data-parallel mesh: the caller gives it this rank's indices (its
+``host_shard``), the batches go to this rank's device, and a short batch is
+padded by wrap-around to a multiple of the data shards the process feeds —
+1 with one device a process, so the padding never fires here; it keeps the
+JAX loader's rule.
 """
 
 from __future__ import annotations
@@ -36,15 +43,11 @@ class PrefetchLoader:
                  sharding=None, drop_last: bool = False,
                  transfer_dtype: str | torch.dtype | None = None,
                  device: str | torch.device = "cuda"):
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharded batches are not ported yet: data parallelism over a device mesh "
-                "is a later slice of the PyTorch port (ROADMAP Queue 1, item 11)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
-        self.sharding = None
+        self.sharding = sharding
         self.drop_last = drop_last
         # a bf16 transfer halves the host→device bytes; the model's first
         # GEMM rounds its input to bf16 anyway when it computes in bf16, and
@@ -59,6 +62,10 @@ class PrefetchLoader:
         rem = idx[n_full * self.batch_size:]
         if len(rem) and not self.drop_last:
             batches.append(rem)
+        div = self.sharding.batch_divisor() if self.sharding is not None else 1
+        if div > 1:
+            batches = [np.resize(b, -(-len(b) // div) * div) if len(b) % div else b
+                       for b in batches]
         return batches
 
     def _host_batch(self, pool: ThreadPoolExecutor, b: np.ndarray):

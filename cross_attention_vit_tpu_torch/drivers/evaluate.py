@@ -6,11 +6,17 @@ The architecture config comes from the ``config*.json`` sidecar the
 ``config_overrides`` apply on top, and are the fallback without a sidecar.
 Full-state (``params/…``, ``opt/…``, ``epoch``) and params-only npz files both
 load, the JAX package's included.  Metrics and ``auc_roc`` come from the
-port's ``train/metrics.py``.  Runs on one device (default CUDA).
+port's ``train/metrics.py``.  Runs on one device (default CUDA), or sharded
+over a data-parallel mesh (``mesh=``; ``--mesh data=N`` under torchrun, one
+process per card): the cohort is padded to a multiple of batch × processes,
+each rank evaluates its share, and the outputs are gathered and trimmed, so
+the metrics are the single-process ones.
 
     python -m cross_attention_vit_tpu_torch.drivers.evaluate \\
         --checkpoint runs/checkpoints/cross/epoch=..npz --model cross \\
         --labels labels.csv --data ucsf-data --img-types DWI SWI ASL --only-available
+    torchrun --nproc-per-node 4 -m cross_attention_vit_tpu_torch.drivers.evaluate \\
+        --checkpoint ... --mesh data=4
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from ..data.loader import PrefetchLoader, transfer_dtype_for
 from ..models.convert import params_from_flat
 from ..models.model_cross import ModelCross
 from ..models.model_vit import ModelVIT
+from ..parallel.mesh import make_mesh, multihost_init, rank
 from ..train.checkpoint import load_config_for, restore_flat
 from ..train.metrics import binary_auroc, compute_metrics
 from ..train.trainer import Trainer
@@ -40,10 +47,9 @@ _FAMILIES = {"cross": (ModelCross, get_mgmt_cross_config),
 def evaluate(checkpoint: str | Path, model: str, data_df, *, folder, img_types,
              config_overrides=None, batch_size: int = 8, mesh=None,
              device: str | torch.device = "cuda") -> dict:
-    """The full metric dict over ``data_df`` (a ``labels.Table``), with ``n``."""
-    if mesh is not None:
-        raise NotImplementedError("sharded evaluation is not ported yet: a device mesh is a "
-                                  "later slice of the PyTorch port (ROADMAP Queue 1, item 11)")
+    """The full metric dict over ``data_df`` (a ``labels.Table``), with ``n``.
+    With a mesh every rank calls it and gets the same dict; ``batch_size`` is
+    per process."""
     device = resolve_device(device)
     model_cls, factory = _FAMILIES[model]
     cfg = load_config_for(checkpoint)
@@ -56,12 +62,21 @@ def evaluate(checkpoint: str | Path, model: str, data_df, *, folder, img_types,
         modify_config(cfg, config_overrides)
     modify_config(cfg, {"img_aug": False})
 
-    trainer = Trainer(model_cls, cfg, max_epochs=0, device=device)
+    trainer = Trainer(model_cls, cfg, max_epochs=0, mesh=mesh, device=device)
     trainer.init_state(params_from_flat(restore_flat(checkpoint)))
+    n = len(data_df)
+    if mesh is not None:
+        # every rank's share a whole number of full batches; the padded rows
+        # are trimmed from the outputs
+        pad = (-n) % (batch_size * mesh.size())
+        if pad:
+            data_df = data_df.take(np.resize(np.arange(n), n + pad))
     ds = BrainDataset(data_df, cfg, types=img_types, is_train=False, folder=folder)
     loader = PrefetchLoader(ds, batch_size=batch_size, num_workers=4,
+                            sharding=trainer.data_sharding,
                             transfer_dtype=transfer_dtype_for(cfg), device=device)
     logits, targets = trainer.test(loader)
+    logits, targets = logits[:n], targets[:n]
     preds = logits.argmax(axis=1)
     metrics = {k: float(v) for k, v in compute_metrics(torch.from_numpy(preds),
                                                        torch.from_numpy(targets)).items()}
@@ -92,12 +107,22 @@ def main(argv=None, device: str = "cuda") -> dict:
     p.add_argument("--attn-order", default="")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--only-available", action="store_true")
-    p.add_argument("--mesh", default="", help="not ported (ROADMAP Queue 1, item 11)")
+    p.add_argument("--mesh", default="",
+                   help="e.g. 'data=4' for sharded eval, one process per device under "
+                        "torchrun (a model axis is ROADMAP item 13)")
     args = p.parse_args(argv)
     resolve_device(device)
+    mesh = None
     if args.mesh:
-        raise SystemExit("--mesh: sharded evaluation is not ported yet (ROADMAP Queue 1, "
-                         "item 11)")
+        spec = {k: int(v) for k, v in (kv.split("=") for kv in args.mesh.split(","))}
+        if spec.get("model", 1) != 1:
+            raise SystemExit(f"--mesh {args.mesh}: a model axis (tensor parallelism) is not "
+                             "ported yet (ROADMAP Queue 1, item 13)")
+        try:
+            multihost_init(device=device)     # torchrun's environment; no-op under a group
+            mesh = make_mesh(spec.get("data", -1))
+        except (RuntimeError, ValueError) as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}") from e
 
     df = clean_data(load_labels(args.labels), "MGMT status")
     if args.only_available:
@@ -109,8 +134,9 @@ def main(argv=None, device: str = "cuda") -> dict:
         overrides["attn_order"] = _parse_attn_order(args.attn_order)
     metrics = evaluate(args.checkpoint, args.model, df, folder=args.data,
                        img_types=tuple(args.img_types), config_overrides=overrides,
-                       batch_size=args.batch_size, device=device)
-    print(json.dumps(metrics, indent=1))
+                       batch_size=args.batch_size, mesh=mesh, device=device)
+    if rank() == 0:
+        print(json.dumps(metrics, indent=1))
     return metrics
 
 

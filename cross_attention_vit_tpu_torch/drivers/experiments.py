@@ -13,22 +13,30 @@
 Labels are read without pandas (``data/labels.py``) and split without
 sklearn: the row order, and with it the sampler's weights and the loader's
 batches, equals the JAX driver's.  Training runs on one device (default
-CUDA; ``device="cpu"`` for the tests).  The mesh flags of the JAX CLI
-(``--dp`` other than its default or 0, ``--tp/--pp/--sp/--ep/--fsdp``, the
-multi-host flags) exit with a message naming the ROADMAP item that ports
-them.
+CUDA; ``device="cpu"`` for the tests), or data-parallel with one process per
+device, the reference's ``Trainer(devices=4, num_nodes=2)``
+(main_mist.py:216-217): launched under torchrun, or with ``--coordinator
+host:port --num-processes N --process-id i`` in each process, the CLI joins
+the process group and trains over a mesh of every process (``--dp``, -1 by
+default; 0 trains each process alone), under DDP or with ``--fsdp`` FSDP.
+``--batch-size`` is per process: the global batch is batch size × processes.
+``--tp/--pp/--sp/--ep`` other than 1 exit naming ROADMAP item 13.
 
     python -m cross_attention_vit_tpu_torch.drivers.experiments \\
         --model cross --grid-index 0 --seeds 2004 --batch-size 8 --only-available \\
         --labels labels.csv --data ucsf-data --out runs
+    torchrun --nproc-per-node 4 -m cross_attention_vit_tpu_torch.drivers.experiments \\
+        --model cross --grid-index 0 --seeds 2004 --batch-size 8 --fsdp ...
 """
 
 from __future__ import annotations
 
 import ast
+import os
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..configs import Params, get_mgmt_config, get_mgmt_cross_config, modify_config
 from ..data.dataset import BrainDataset, WeightedRandomSampler, create_sampler_weights
@@ -36,6 +44,7 @@ from ..data.labels import Table, clean_data, load_labels, stratified_kfold, trai
 from ..data.loader import PrefetchLoader, transfer_dtype_for
 from ..models.model_cross import ModelCross
 from ..models.model_vit import ModelVIT
+from ..parallel.mesh import DEFAULT_TIMEOUT_S, make_mesh, multihost_init, rank, world_size
 from ..train.checkpoint import CheckpointManager, LatestCheckpointer
 from ..train.loggers import CSVLogger, MultiLogger, TensorBoardLogger
 from ..train.trainer import EarlyStopping, Trainer
@@ -76,11 +85,12 @@ def filter_available(data: Table, folder) -> Table:
 def _run_one(model_cls, cur_config, params, train_df, val_df, *, folder, out_dir, run_name,
              max_epochs, batch_size, seed, verbose, latest_every=5, grad_accum=1,
              accum_impl="scan", early_stop_patience=0, early_stop_min_delta=0.0,
-             device="cuda"):
+             mesh=None, fsdp=False, device="cuda"):
     out = Path(out_dir)
+    # the config sidecar is rank 0's to write, as every checkpoint
     checkpoint = CheckpointManager(out / "checkpoints" / "cross", monitor="val_loss",
                                    save_top_k=10, mode="min", tag=run_name, async_write=True,
-                                   config=cur_config)
+                                   config=cur_config if rank() == 0 else None)
     latest = LatestCheckpointer(out / "latest" / run_name, async_write=True)
     # resume intent == a rolling checkpoint exists for this run name; only
     # then does the CSV logger inherit earlier rows
@@ -107,7 +117,7 @@ def _run_one(model_cls, cur_config, params, train_df, val_df, *, folder, out_dir
     trainer = Trainer(model_cls, cur_config, max_epochs=max_epochs, logger=logger,
                       checkpoint=checkpoint, latest=latest, seed=seed,
                       latest_every=latest_every, grad_accum=grad_accum, accum_impl=accum_impl,
-                      early_stopping=early, device=device)
+                      early_stopping=early, mesh=mesh, fsdp=fsdp, device=device)
     history = trainer.fit(train_loader, val_loader, sampler=sampler, verbose=verbose)
     return trainer, history
 
@@ -116,9 +126,11 @@ def train_full(params_big=None, *, labels_csv="labels.csv", folder="ucsf-data", 
                run=200, test_seeds=(2004, 4444, 9780, 7564), max_epochs=250, batch_size=8,
                verbose=True, overrides=None, only_available=False, latest_every=5,
                grad_accum=1, accum_impl="scan", early_stop_patience=0,
-               early_stop_min_delta=0.0, device="cuda"):
+               early_stop_min_delta=0.0, mesh=None, fsdp=False, device="cuda"):
     """The live driver (reference main_mist.py:156-219); returns
-    {run_name: history}."""
+    {run_name: history}.  mesh: a ``parallel.make_mesh`` mesh (every process
+    calls this with the same arguments; batch_size is per process); fsdp:
+    shard params and Adam moments over it."""
     params_big = params_big or [params_list1, params_list2]
     big_data = clean_data(load_labels(labels_csv), "MGMT status")
     if only_available:
@@ -142,7 +154,8 @@ def train_full(params_big=None, *, labels_csv="labels.csv", folder="ucsf-data", 
                     batch_size=batch_size, seed=seed, verbose=verbose,
                     latest_every=latest_every, grad_accum=grad_accum, accum_impl=accum_impl,
                     early_stop_patience=early_stop_patience,
-                    early_stop_min_delta=early_stop_min_delta, device=device)
+                    early_stop_min_delta=early_stop_min_delta, mesh=mesh, fsdp=fsdp,
+                    device=device)
                 results[run_name] = history
     return results
 
@@ -150,7 +163,7 @@ def train_full(params_big=None, *, labels_csv="labels.csv", folder="ucsf-data", 
 def train_cv(params_big=None, *, labels_csv="labels.csv", folder="ucsf-data", out_dir="runs",
              run=145, test_seed=6969, cv_seeds=(6253, 9253), k: int = 5, max_epochs=250,
              batch_size=8, verbose=True, overrides=None, only_available=False, grad_accum=1,
-             accum_impl="scan", device="cuda"):
+             accum_impl="scan", mesh=None, fsdp=False, device="cuda"):
     """Stratified k-fold variant (reference main_mist.py:84-149, repaired)."""
     params_big = params_big or [params_list1, params_list2]
     big_data = clean_data(load_labels(labels_csv), "MGMT status")
@@ -174,13 +187,17 @@ def train_cv(params_big=None, *, labels_csv="labels.csv", folder="ucsf-data", ou
                         data.take(val_idx), folder=folder, out_dir=out_dir,
                         run_name=run_name, max_epochs=max_epochs, batch_size=batch_size,
                         seed=cv_seed, verbose=verbose, grad_accum=grad_accum,
-                        accum_impl=accum_impl, device=device)
+                        accum_impl=accum_impl, mesh=mesh, fsdp=fsdp, device=device)
                     results[run_name] = history
     return results
 
 
-_UNPORTED_MESH = ("a device mesh is not ported yet: data parallelism and FSDP are ROADMAP "
-                  "Queue 1 item 11, TP/PP/SP/EP item 13 of the PyTorch port")
+_UNPORTED_AXES = ("tensor, pipeline, sequence and expert parallelism are not ported yet "
+                  "(ROADMAP Queue 1, item 13)")
+
+
+def _torchrun_env() -> bool:
+    return "WORLD_SIZE" in os.environ and "RANK" in os.environ
 
 
 def main(argv=None, device: str = "cuda"):
@@ -203,18 +220,25 @@ def main(argv=None, device: str = "cuda"):
     p.add_argument("--only-available", action="store_true",
                    help="drop labels rows whose volumes are not on disk")
     p.add_argument("--dp", type=int, default=-1,
-                   help="data-parallel mesh axis: -1 (default) and 0 train on one device")
+                   help="data-parallel mesh axis: -1 (default) = every process of the "
+                        "process group (one device without one), 0 = no mesh")
     for flag in ("--tp", "--pp", "--sp", "--ep"):
         p.add_argument(flag, type=int, default=1, help="not ported (ROADMAP item 13)")
-    p.add_argument("--fsdp", action="store_true", help="not ported (ROADMAP item 11)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard params + Adam moments over the 'data' axis "
+                        "(FSDP; see parallel/sharding.py)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="microbatches accumulated per optimizer step "
                         "(batch-size must be divisible by it)")
     p.add_argument("--accum-impl", choices=["scan", "unroll"], default="scan",
                    help="the JAX microbatch loop form; accepted, changes nothing here")
-    p.add_argument("--coordinator", default=None, help="not ported (ROADMAP item 11)")
+    p.add_argument("--coordinator", default=None,
+                   help="process-group rendezvous host:port (torchrun's MASTER_ADDR:"
+                        "MASTER_PORT when launched by it)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-timeout", type=float, default=DEFAULT_TIMEOUT_S,
+                   help="seconds the rendezvous and each collective wait for a peer")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for the JAX CLI's sake: nothing is compiled ahead")
     p.add_argument("--set", dest="sets", action="append", default=[], metavar="KEY=VALUE",
@@ -228,12 +252,26 @@ def main(argv=None, device: str = "cuda"):
     p.add_argument("--early-stop-min-delta", type=float, default=0.0)
     args = p.parse_args(argv)
     resolve_device(device)    # fail before any work on a host without the device
-
-    if args.dp not in (-1, 0) or args.fsdp or args.coordinator or args.num_processes:
-        raise SystemExit(f"--dp {args.dp}/--fsdp/--coordinator: {_UNPORTED_MESH}")
     for flag in ("tp", "pp", "sp", "ep"):
         if getattr(args, flag) != 1:
-            raise SystemExit(f"--{flag}: {_UNPORTED_MESH}")
+            raise SystemExit(f"--{flag} {getattr(args, flag)}: {_UNPORTED_AXES}")
+
+    if args.coordinator or args.num_processes or args.process_id is not None \
+            or _torchrun_env():
+        multihost_init(args.coordinator, args.num_processes, args.process_id, device=device,
+                       timeout_s=args.dist_timeout)
+    mesh = None
+    if args.dp != 0 and torch.distributed.is_initialized():
+        try:
+            mesh = make_mesh(args.dp)
+        except ValueError as e:
+            raise SystemExit(f"--dp {args.dp}: {e}") from e
+    elif args.dp > 0:
+        raise SystemExit(f"--dp {args.dp} needs a process group of world size {args.dp}; "
+                         f"none is running (world size {world_size()}): launch under torchrun "
+                         "or pass --coordinator/--num-processes/--process-id")
+    if args.fsdp and mesh is None:
+        raise SystemExit("--fsdp requires a mesh (don't pass --dp 0)")
 
     overrides = {}
     for kv in args.sets:
@@ -255,7 +293,8 @@ def main(argv=None, device: str = "cuda"):
     kwargs = dict(labels_csv=args.labels, folder=args.data, out_dir=args.out,
                   max_epochs=args.epochs, batch_size=args.batch_size,
                   only_available=args.only_available, overrides=overrides or None,
-                  grad_accum=args.grad_accum, accum_impl=args.accum_impl, device=device)
+                  grad_accum=args.grad_accum, accum_impl=args.accum_impl, mesh=mesh,
+                  fsdp=args.fsdp, device=device)
     if args.mode == "full":
         kwargs["latest_every"] = args.latest_every
         kwargs["early_stop_patience"] = args.early_stop_patience

@@ -106,7 +106,7 @@ class InferenceServer:
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving (mesh) is a later slice of the PyTorch port "
-                "(ROADMAP Queue 1, items 11 and 13)")
+                "(ROADMAP Queue 1, item 13)")
         self.device = resolve_device(device)
         cfg = load_config_for(checkpoint)
         if cfg is None:

@@ -37,8 +37,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..configs import Config
+from ..parallel.sharding import full_tensor, unwrap
 from ..train.checkpoint import unflatten
 
 
@@ -257,14 +259,36 @@ def load_jax_params(model: torch.nn.Module, params: dict) -> None:
     """Load a JAX param tree into the port's ModelCross or ModelVIT (strict:
     every key and shape must match).  Values are cast to each parameter's
     dtype on copy — the compute-dtype cast the JAX package makes on every
-    call."""
-    sd = state_dict_from_jax(params, model.config)
-    model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
-                          strict=True)
+    call.  A data-parallel model (``parallel.shard_params``) loads too: each
+    rank copies the whole tree, of which an FSDP-sharded parameter keeps
+    this rank's shard."""
+    model = unwrap(model)
+    sd = {k: torch.from_numpy(np.array(v))
+          for k, v in state_dict_from_jax(params, model.config).items()}
+    sharded = {n: p for n, p in model.named_parameters() if isinstance(p, DTensor)}
+    if not sharded:
+        model.load_state_dict(sd, strict=True)
+        return
+    # load_state_dict cannot copy a whole tensor into a shard: place the
+    # sharded ones here, the rest through it
+    with torch.no_grad():
+        for name, p in sharded.items():
+            whole = sd.pop(name).to(p.device, p.dtype)
+            if tuple(whole.shape) != tuple(p.shape):
+                raise RuntimeError(f"size mismatch for {name}: copying a param with shape "
+                                   f"{tuple(whole.shape)}, the model's is {tuple(p.shape)}")
+            p.copy_(distribute_tensor(whole, p.device_mesh, p.placements, src_data_rank=None))
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if k not in sharded]
+    if missing or unexpected:
+        raise RuntimeError(f"state dict mismatch: missing {missing}, unexpected {unexpected}")
 
 
 def jax_params_from_model(model: torch.nn.Module) -> dict:
     """The port's ModelCross or ModelVIT → JAX param tree of float32 numpy
-    arrays."""
-    sd = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    arrays.  A data-parallel model gives its whole parameters (under FSDP a
+    collective: every rank calls it)."""
+    model = unwrap(model)
+    sd = {k: full_tensor(v).detach().float().cpu().numpy()
+          for k, v in model.state_dict().items()}
     return jax_params_from_state_dict(sd, model.config)

@@ -268,6 +268,11 @@ class ModelCross(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def blocks(self) -> list[nn.Module]:
+        """The self- and cross-attention blocks, each called as a module: the
+        units FSDP gathers one at a time (``parallel.shard_params``)."""
+        return [m for m in self.modules() if isinstance(m, (_SelfBlock, _CrossBlock))]
+
     def forward(self, img: torch.Tensor, labels: torch.Tensor | None = None,
                 train: bool = False, generator: torch.Generator | None = None):
         cfg, o = self.config, self.opts

@@ -1,0 +1,104 @@
+"""Process-group bootstrap and the data-parallel device mesh — port of
+``cross_attention_vit_tpu/parallel/mesh.py``.
+
+The reference trains with Lightning DDP, ``Trainer(devices=4, num_nodes=2)``
+(main_mist.py:216-217).  The JAX package replaces it with a ('data',
+'model') ``Mesh`` over the devices of every process; the port goes back to
+the torch idiom: one process per GPU, joined by a ``torch.distributed``
+process group (NCCL between cards, gloo on the CPU), and a one-dimensional
+``DeviceMesh`` named "data" over that group.  A JAX process owning several
+chips has no counterpart: one torch process drives one device, so the
+mesh's data size is the world size.  The model, pipeline, sequence and
+expert axes are ROADMAP Queue 1 item 13.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from ..utils.device import resolve_device
+
+# Seconds a collective (and the rendezvous) may wait for a peer.  torch's
+# default is 30 minutes, long enough for a dead peer to eat a test suite's
+# time limit; this one still covers the first step's kernel builds.
+DEFAULT_TIMEOUT_S = 600.0
+
+
+def rank() -> int:
+    """This process's rank (``jax.process_index()``); 0 without a group."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def world_size() -> int:
+    """The number of processes (``jax.process_count()``); 1 without a group."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def multihost_init(coordinator_address: str | None = None, num_processes: int | None = None,
+                   process_id: int | None = None, *, backend: str | None = None,
+                   device: str | torch.device = "cuda",
+                   timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+    """Join the process group: one process per device.
+
+    Arguments left None come from torchrun's environment: ``MASTER_ADDR`` and
+    ``MASTER_PORT`` (the coordinator ``host:port``), ``WORLD_SIZE`` and
+    ``RANK``.  The backend is NCCL for a CUDA ``device`` and gloo for the CPU;
+    an explicit ``backend`` (gloo on CUDA, say) is taken as given.  On CUDA
+    the process's card is ``LOCAL_RANK`` (else the process id modulo the
+    cards on the host) unless ``device`` names one.  Does nothing when a
+    group is already up, as the JAX function is safe to call twice."""
+    if dist.is_initialized():
+        return
+    env = os.environ
+    if coordinator_address is None and "MASTER_ADDR" in env:
+        coordinator_address = f"{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '29500')}"
+    if num_processes is None and "WORLD_SIZE" in env:
+        num_processes = int(env["WORLD_SIZE"])
+    if process_id is None and "RANK" in env:
+        process_id = int(env["RANK"])
+    missing = [name for name, value in (("coordinator_address", coordinator_address),
+                                        ("num_processes", num_processes),
+                                        ("process_id", process_id)) if value is None]
+    if missing:
+        raise ValueError(f"multihost_init needs {', '.join(missing)}: pass them, or launch "
+                         "under torchrun (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        local = dev.index if dev.index is not None else int(
+            env.get("LOCAL_RANK", process_id % torch.cuda.device_count()))
+        torch.cuda.set_device(local)
+    dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
+                            init_method=f"tcp://{coordinator_address}",
+                            world_size=num_processes, rank=process_id,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def make_mesh(data: int = -1, model: int = 1, pipe: int = 1, seq: int = 1, expert: int = 1,
+              devices: str | None = None) -> DeviceMesh:
+    """A one-dimensional ``DeviceMesh`` named "data" over the process group.
+
+    ``data`` = -1 means every process; any other value must be the world
+    size.  ``devices`` is the mesh's device type: 'cuda' under NCCL and
+    'cpu' otherwise by default.  FSDP places its shards on that type, so a
+    gloo group on CUDA runs DDP only."""
+    for name, size in (("model", model), ("pipe", pipe), ("seq", seq), ("expert", expert)):
+        if size != 1:
+            raise NotImplementedError(
+                f"{name}={size}: tensor, pipeline, sequence and expert parallelism are not "
+                "ported yet (ROADMAP Queue 1, item 13)")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a torch.distributed process group: call "
+                           "parallel.multihost_init first, or launch under torchrun")
+    n = dist.get_world_size()
+    if data == -1:
+        data = n
+    if data != n:
+        raise ValueError(f"mesh data={data} needs {data} processes (one device each), "
+                         f"have world size {n}")
+    device_type = devices or ("cuda" if dist.get_backend() == "nccl" else "cpu")
+    return init_device_mesh(device_type, (n,), mesh_dim_names=("data",))

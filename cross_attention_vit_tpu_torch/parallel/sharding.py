@@ -1,0 +1,211 @@
+"""Data parallelism and FSDP over the "data" mesh — port of
+``cross_attention_vit_tpu/parallel/sharding.py``'s data-parallel half.
+
+Batches.  Each process loads its own rows of the global batch (its
+``host_shard`` of the epoch's indices), so ``batch_sharding`` is a
+descriptor the loader and the ``Trainer`` read, not a placement:
+``Sharding(mesh, ("data", None, ...))``, with ``replicated(mesh)`` its
+unsplit twin.
+
+Parameters.  ``shard_params(model, mesh)`` wraps the model in
+``DistributedDataParallel``: every rank holds every parameter and the
+gradients are averaged by all-reduce, the DDP step JAX's GSPMD derives from
+a batch-sharded input.  ``shard_params(model, mesh, fsdp=True)`` is FSDP2's
+``fully_shard`` on every block and at the root under JAX's rule
+(``_with_fsdp``): a parameter of at least ``FSDP_MIN_SIZE`` elements with an
+axis of its JAX layout that the rule may take and that the data size divides
+is ``Shard(d)`` on the largest dim of the port's layout that the data size
+divides; every other parameter stays replicated (FSDP2's ``ignored_params``,
+its gradient averaged by one explicit all-reduce,
+``sync_replicated_grads``).  Params, gradients and Adam moments of the
+sharded set then live 1/W on each rank, gathered a block at a time for the
+forward and backward and reduce-scattered after it.
+
+Which axes of the JAX layout the rule may take depends on JAX's TP table
+(``_spec_for``): the axes it gives the 'model' mesh axis are not free even
+when that axis has size 1.  ``_free_axes`` keeps that much of the table, on
+the port's parameter names; the TP rules themselves (the head-aligned
+Megatron split) are ROADMAP Queue 1 item 13 and not ported.  At a world of
+one JAX shards nothing (its rule returns early for ``data_size <= 1``); the
+port applies the rule all the same, so a world of one runs FSDP2's gathers
+and the sharded Adam on shards that are whole tensors.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.fsdp import FSDPModule, fully_shard
+from torch.distributed.tensor import DTensor, Shard
+from torch.nn.parallel import DistributedDataParallel
+
+# Parameters smaller than this stay replicated under FSDP: gathering a few KB
+# per layer costs more in latency than the memory it saves.
+FSDP_MIN_SIZE = 2 ** 15
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """Which axes of an array are split over which mesh axis: ``spec[i]`` is
+    "data" or None (the JAX ``NamedSharding(mesh, P(*spec))``)."""
+    mesh: DeviceMesh
+    spec: tuple = ()
+
+    def batch_divisor(self) -> int:
+        """The number of data shards this process feeds, which its batches
+        must divide: the data size over the world size, 1 with one device a
+        process (JAX ``PrefetchLoader._batch_divisor``)."""
+        if not self.spec or self.spec[0] != "data":
+            return 1
+        return max(1, self.mesh.size() // dist.get_world_size())
+
+
+def batch_sharding(mesh: DeviceMesh, ndim: int) -> Sharding:
+    """The leading (batch) axis split over "data", the rest whole."""
+    return Sharding(mesh, ("data",) + (None,) * (ndim - 1))
+
+
+def replicated(mesh: DeviceMesh) -> Sharding:
+    return Sharding(mesh)
+
+
+def shard_batch(batch, mesh: DeviceMesh):
+    """This rank's contiguous rows of each array of a global batch (a tuple
+    of arrays or tensors whose leading size the data size divides)."""
+    n, r = mesh.size(), dist.get_rank(mesh.get_group())
+
+    def rows(x):
+        if len(x) % n:
+            raise ValueError(f"batch of {len(x)} does not divide over {n} processes")
+        share = len(x) // n
+        return x[r * share:(r + 1) * share]
+
+    return tuple(rows(x) for x in batch)
+
+
+# -- the FSDP rule ----------------------------------------------------------------
+
+def _fc_role(parts: list[str]) -> str | None:
+    """'fc1' or 'fc2' for the two Linears of a feed-forward or head (the JAX
+    tree's names), None otherwise."""
+    if len(parts) >= 3 and parts[-3] == "net":                       # *.ffn.fn.net.{0,3}
+        return {"0": "fc1", "3": "fc2"}.get(parts[-2])
+    if parts[0] == "mlp_head" and len(parts) == 4:                   # ModelCross heads
+        return {"0": "fc1", "3": "fc2"}.get(parts[2])
+    if parts[0] == "mlp_head" and len(parts) == 3:                   # ModelVIT head
+        return {"1": "fc1", "4": "fc2"}.get(parts[1])
+    return None
+
+
+def _free_axes(name: str, shape: tuple[int, ...], heads: int) -> list[int]:
+    """The sizes of the axes of the parameter's JAX layout that JAX's FSDP
+    rule may shard: all of them, less those ``_spec_for`` gives 'model'."""
+    parts = name.split(".")
+    if len(parts) < 3:                        # pos_embedding, cls_token, patch_to_embedding
+        return list(shape)
+    leaf, mod = parts[-1], parts[-2]
+    if mod == "to_qkv":                       # (3H, H) ↔ (H, 3, K, D), K reserved
+        return [shape[1], 3, shape[1] // heads]
+    if mod in ("wq", "wk", "wv"):             # (H, H) ↔ (H, K, D); bias (H,) ↔ (K, D)
+        d = shape[0] // heads
+        return [shape[1], d] if leaf == "weight" else [d]
+    if leaf == "weight" and (mod == "proj" or parts[-3] == "to_out"):
+        return [shape[1] // heads, shape[0]]  # (H, H) ↔ (K, D, H), K reserved
+    role = _fc_role(parts)
+    if role == "fc1":                         # (mlp, H) ↔ (H, mlp), mlp reserved
+        return [shape[1]] if leaf == "weight" else []
+    if role == "fc2":                         # (out, mlp) ↔ (mlp, out), mlp reserved
+        return [shape[0]] if leaf == "weight" else list(shape)
+    return list(shape)
+
+
+def fsdp_dim(name: str, shape: tuple[int, ...], heads: int, data_size: int) -> int | None:
+    """The dim of the port's parameter ``name`` that FSDP shards over a data
+    axis of ``data_size``, or None to keep it replicated."""
+    if math.prod(shape) < FSDP_MIN_SIZE:
+        return None
+    if not any(d > 1 and d % data_size == 0 for d in _free_axes(name, shape, heads)):
+        return None
+    dims = [i for i, d in enumerate(shape) if d > 1 and d % data_size == 0]
+    return max(dims, key=lambda i: shape[i], default=None)
+
+
+# -- placing the model --------------------------------------------------------------
+
+def shard_params(model: nn.Module, mesh: DeviceMesh, fsdp: bool = False) -> nn.Module:
+    """The model, data-parallel over ``mesh``: a ``DistributedDataParallel``
+    around it, or (``fsdp``) the model itself with its blocks and root under
+    ``fully_shard`` by the rule above.  Build the optimizer afterwards: FSDP
+    replaces the sharded parameters with DTensor ones."""
+    if not fsdp:
+        return DistributedDataParallel(model, process_group=mesh.get_group())
+    device_type = next(model.parameters()).device.type
+    if device_type != mesh.device_type:
+        raise ValueError(f"FSDP over a {mesh.device_type!r} mesh cannot shard a model on "
+                         f"{device_type!r}: build the mesh with devices={device_type!r}")
+    n = mesh.size()
+    dims = {p: fsdp_dim(name, tuple(p.shape), model.config.num_heads, n)
+            for name, p in model.named_parameters()}
+    ignored = {p for p, d in dims.items() if d is None}
+    kw = dict(mesh=mesh, shard_placement_fn=lambda p: Shard(dims[p]), ignored_params=ignored)
+    # modules FSDP gathers one at a time: each is called as a module
+    for block in (model.blocks() if hasattr(model, "blocks") else ()):
+        fully_shard(block, **kw)
+    fully_shard(model, **kw)
+    return model
+
+
+def unwrap(model: nn.Module) -> nn.Module:
+    """The model inside a ``DistributedDataParallel`` (its parameter names
+    are the model's); any other model as it is."""
+    return model.module if isinstance(model, DistributedDataParallel) else model
+
+
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The whole of a sharded tensor (a collective: every rank calls it in
+    the same order), or the tensor itself."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def no_sync(model: nn.Module, skip: bool):
+    """A context in which backward accumulates gradients without reducing
+    them across ranks (``skip``; the microbatches before the last)."""
+    if skip and isinstance(model, DistributedDataParallel):
+        return model.no_sync()
+    if isinstance(model, FSDPModule):
+        model.set_requires_gradient_sync(not skip)
+    return contextlib.nullcontext()
+
+
+@torch.no_grad()
+def sync_replicated_grads(model: nn.Module, mesh: DeviceMesh) -> None:
+    """Average, across ranks, the gradients of an FSDP model's replicated
+    parameters (FSDP reduces only those it shards), in one all-reduce."""
+    if not isinstance(model, FSDPModule):
+        return
+    grads = [p.grad for p in model.parameters()
+             if not isinstance(p, DTensor) and p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    flat.div_(mesh.size())
+    dist.all_reduce(flat, group=mesh.get_group())
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def gather_rows(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """Every rank's ``t`` (one shape on all ranks) stacked along dim 0 in
+    rank order, on every rank: an all-reduce of a zero buffer in which each
+    rank fills its own slice (gloo has no all-gather of CUDA tensors)."""
+    n, r, rows = mesh.size(), dist.get_rank(mesh.get_group()), t.shape[0]
+    out = t.new_zeros((n * rows, *t.shape[1:]))
+    out[r * rows:(r + 1) * rows] = t
+    dist.all_reduce(out, group=mesh.get_group())
+    return out

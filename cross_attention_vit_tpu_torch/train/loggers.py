@@ -7,6 +7,9 @@ host has neither tensorboardX nor tensorboard, so this module writes the
 scalar event files itself: TFRecord framing (length, masked CRC-32C, payload,
 masked CRC-32C) around hand-encoded ``Event`` protobufs, the format
 TensorBoard reads.
+
+Under a process group only rank 0 writes: on every other rank both loggers
+are made inert and create no file or directory.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from ..parallel.mesh import rank
+
 
 class CSVLogger:
     """One metrics.csv per run: columns grow as new metric names appear.
@@ -26,14 +31,17 @@ class CSVLogger:
     resume=True loads a pre-existing metrics.csv so a resumed run keeps its
     earlier rows (a replayed epoch replaces its row); the default starts
     fresh.  Every rewrite goes through a temp file and an atomic rename, so a
-    kill mid-write never tears the file."""
+    kill mid-write never tears the file.  Inert on ranks other than 0."""
 
     def __init__(self, save_dir: str | Path, name: str, resume: bool = False):
         self.dir = Path(save_dir) / name
-        self.dir.mkdir(parents=True, exist_ok=True)
         self.path = self.dir / "metrics.csv"
         self._rows: list[dict] = []
         self._fields: list[str] = ["epoch"]
+        self.active = rank() == 0
+        if not self.active:
+            return
+        self.dir.mkdir(parents=True, exist_ok=True)
         if resume and self.path.exists():
             with open(self.path, newline="") as f:
                 for row in csv.DictReader(f):
@@ -45,6 +53,8 @@ class CSVLogger:
                             self._fields.append(k)
 
     def log_metrics(self, metrics: dict, epoch: int) -> None:
+        if not self.active:
+            return
         row = {"epoch": epoch, **{k: float(v) for k, v in metrics.items()}}
         for k in row:
             if k not in self._fields:
@@ -127,10 +137,14 @@ def _record(payload: bytes) -> bytes:
 
 
 class TensorBoardLogger:
-    """Scalars per epoch into ``<save_dir>/<name>/events.out.tfevents.*``."""
+    """Scalars per epoch into ``<save_dir>/<name>/events.out.tfevents.*``;
+    inert on ranks other than 0."""
 
     def __init__(self, save_dir: str | Path, name: str):
         self.dir = Path(save_dir) / name
+        self._f = None
+        if rank() != 0:
+            return
         self.dir.mkdir(parents=True, exist_ok=True)
         now = time.time()
         self.path = self.dir / f"events.out.tfevents.{int(now)}.{socket.gethostname()}"
@@ -139,13 +153,16 @@ class TensorBoardLogger:
         self._f.flush()
 
     def log_metrics(self, metrics: dict, epoch: int) -> None:
+        if self._f is None:
+            return
         now = time.time()
         for k, v in metrics.items():
             self._f.write(_record(_event(epoch, now, scalar=(k, float(v)))))
         self._f.flush()
 
     def finalize(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class MultiLogger:

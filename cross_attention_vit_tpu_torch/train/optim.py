@@ -11,11 +11,20 @@ epoch-stepped cosine schedule, ``schedule.py``).  The JAX update was plain
 XLA, so the port runs torch's own fused Adam: one pass over parameters,
 gradients and moments, updated in place (torch divides √v by √(1 − b2^t)
 where JAX takes √(v / (1 − b2^t)): the same update up to rounding).
+
+Under FSDP (``parallel.shard_params(..., fsdp=True)``) the sharded
+parameters are DTensors and their moments are sharded the same way: the
+fused update runs on each rank's shards, in a parameter group of its own
+(one fused call takes DTensors or plain tensors, not both).  ``moments``
+then gathers whole tensors and ``load_state`` keeps each rank's shard.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from ..parallel.sharding import full_tensor
 
 
 class Adam:
@@ -29,8 +38,11 @@ class Adam:
             if p.dtype != torch.float32:
                 raise TypeError(f"Adam keeps float32 master parameters, got {p.dtype}: build "
                                 "the model with master_weights=True")
-        self._opt = torch.optim.Adam(self.params, lr=0.0, betas=(b1, b2), eps=eps,
-                                     weight_decay=weight_decay, fused=True)
+        groups = [[p for p in self.params if isinstance(p, DTensor)],
+                  [p for p in self.params if not isinstance(p, DTensor)]]
+        self._opt = torch.optim.Adam([{"params": g} for g in groups if g], lr=0.0,
+                                     betas=(b1, b2), eps=eps, weight_decay=weight_decay,
+                                     fused=True)
 
     @torch.no_grad()
     def step(self, lr: float) -> None:
@@ -44,18 +56,25 @@ class Adam:
         return int(self._opt.state[self.params[0]]["step"]) if self._opt.state else 0
 
     def moments(self) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
-        """(first moments, second moments), one per parameter, in order."""
+        """(first moments, second moments), one whole tensor per parameter,
+        in order (under FSDP a collective: every rank calls it)."""
         st = self._opt.state
-        return ([st[p]["exp_avg"] for p in self.params],
-                [st[p]["exp_avg_sq"] for p in self.params])
+        return ([full_tensor(st[p]["exp_avg"]) for p in self.params],
+                [full_tensor(st[p]["exp_avg_sq"]) for p in self.params])
 
     @torch.no_grad()
     def load_state(self, step: int, exp_avgs, exp_avg_sqs) -> None:
         """Set the update count and both moments, one of each per parameter
-        in order (a resumed run; tensors or arrays of the parameters' shapes)."""
+        in order (a resumed run; whole tensors or arrays of the parameters'
+        shapes, of which a sharded parameter keeps this rank's shard)."""
+        def like(p, t):
+            t = torch.as_tensor(t, dtype=torch.float32).to(p.device).clone()
+            if isinstance(p, DTensor):
+                return distribute_tensor(t, p.device_mesh, p.placements, src_data_rank=None)
+            return t
+
         for p, m, v in zip(self.params, exp_avgs, exp_avg_sqs, strict=True):
             self._opt.state[p] = {
                 # the fused update keeps its step as an f32 tensor on the device
                 "step": torch.tensor(float(step), dtype=torch.float32, device=p.device),
-                "exp_avg": torch.as_tensor(m, dtype=torch.float32).to(p.device).clone(),
-                "exp_avg_sq": torch.as_tensor(v, dtype=torch.float32).to(p.device).clone()}
+                "exp_avg": like(p, m), "exp_avg_sq": like(p, v)}

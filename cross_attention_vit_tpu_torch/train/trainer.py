@@ -9,7 +9,11 @@ called as ``model(img, labels, train=..., generator=...)`` and return
 mode (dropout), over ``grad_accum`` equal microbatches whose f32 gradients
 are summed and divided by their number; Adam at a step-time learning rate.
 It returns the aux dict of the JAX step: loss, confusion counts, probs[:, 1]
-and labels.
+and labels.  Over a mesh (``mesh=``, the model from
+``parallel.shard_params``) each rank steps on its own rows of the global
+batch and the aux dict comes back global and the same on every rank, as
+JAX's ``_replicate_aux`` makes it: the loss is the global mean, the counts
+are summed and probs and labels are gathered in rank order.
 
 The model, the optimizer state and the generators are objects that the step
 updates in place, where the JAX step is a pure function of (params,
@@ -23,8 +27,12 @@ plateau learning rate per epoch, epoch metrics logged to CSV and
 TensorBoard, top-k and rolling checkpoints in the JAX npz layout
 (``params/...``, ``opt/step``, ``opt/mu/...``, ``opt/nu/...``, ``epoch``, and
 the plateau and early-stopping state), resume from the rolling checkpoint,
-early stopping, ``test`` and ``predict``.  It runs on one device; a mesh,
-FSDP and the stateful (BatchNorm) families are later slices.
+early stopping, ``test`` and ``predict``.  With a mesh
+(``parallel.make_mesh``, one process per device) it trains data-parallel
+under DDP or, with ``fsdp=True``, FSDP: each rank reads its ``host_shard`` of
+each epoch's indices (or its own sampler draw), every rank computes the
+same history row, and only rank 0 logs, prints and writes checkpoints.  The
+stateful (BatchNorm) families are a later slice.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ from ..data.augment import AugmentConfig, augment_batch
 from ..models.convert import (jax_params_from_model, jax_params_from_state_dict,
                               load_jax_params, params_from_flat, state_dict_from_jax)
 from ..ops.layers import promote_input
+from ..parallel.sharding import (batch_sharding, gather_rows, no_sync, shard_params,
+                                 sync_replicated_grads, unwrap)
 from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager, LatestCheckpointer, flatten, unflatten, wait_for_writes
 from .loggers import MultiLogger
@@ -47,11 +57,31 @@ from .optim import Adam
 from .schedule import ReduceLROnPlateau, cosine_annealing_lr
 
 
-def _aux(logits: torch.Tensor, loss: torch.Tensor, labels: torch.Tensor) -> dict:
-    return {"loss": loss.detach(),
-            "counts": confusion_counts(torch.argmax(logits, dim=1), labels),
-            "probs": torch.softmax(logits.detach(), dim=1)[:, 1],
-            "labels": labels}
+def _aux(logits: torch.Tensor, loss: torch.Tensor, labels: torch.Tensor, mesh=None) -> dict:
+    aux = {"loss": loss.detach(),
+           "counts": confusion_counts(torch.argmax(logits, dim=1), labels),
+           "probs": torch.softmax(logits.detach(), dim=1)[:, 1],
+           "labels": labels}
+    return aux if mesh is None else _replicate_aux(aux, mesh)
+
+
+def _replicate_aux(aux: dict, mesh) -> dict:
+    """The global aux dict on every rank, from one all-reduce: the mean of
+    the ranks' losses (their batches are of one size), the summed counts and
+    the probs and labels of every rank in rank order (the JAX
+    ``_replicate_aux``, the reference's ``sync_dist=True``)."""
+    keys = list(aux["counts"])
+    b = aux["probs"].shape[0]
+    row = torch.cat([aux["loss"].float().reshape(1),
+                     torch.stack([aux["counts"][k] for k in keys]).float(),
+                     aux["probs"].float(), aux["labels"].float()])
+    rows = gather_rows(row[None], mesh)
+    k = len(keys)
+    counts = rows[:, 1:1 + k].sum(0).to(aux["counts"][keys[0]].dtype)
+    return {"loss": rows[:, 0].sum() / rows.shape[0],
+            "counts": dict(zip(keys, counts)),
+            "probs": rows[:, 1 + k:1 + k + b].reshape(-1).to(aux["probs"].dtype),
+            "labels": rows[:, 1 + k + b:].reshape(-1).to(aux["labels"].dtype)}
 
 
 def _dropout_generator(generator: torch.Generator, device: torch.device) -> torch.Generator:
@@ -62,7 +92,7 @@ def _dropout_generator(generator: torch.Generator, device: torch.device) -> torc
 
 def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
                     grad_accum: int = 1, augment_cfg: AugmentConfig = AugmentConfig(),
-                    accum_impl: str = "scan"):
+                    accum_impl: str = "scan", mesh=None):
     """Returns ``step(img, labels, lr, generator) -> aux``.
 
     ``generator`` is a CPU ``torch.Generator``: each step draws from it the
@@ -75,12 +105,17 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
     ``accum_impl`` names the JAX loop form ('scan' or 'unroll') and changes
     nothing here: the microbatches run one after another either way.
     ``augmented`` (a dict attribute of the step) holds, after each step, the
-    number of volumes that drew each transform."""
+    number of volumes that drew each transform.
+
+    ``mesh``: the model is ``parallel.shard_params``' (DDP or FSDP) over it;
+    ``img`` and ``labels`` are this rank's rows, the gradients are averaged
+    across ranks (the microbatches before the last do not reduce), and the
+    aux dict is replicated (``_replicate_aux``)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if accum_impl not in ("scan", "unroll"):
         raise ValueError(f"accum_impl must be 'scan' or 'unroll', got {accum_impl!r}")
-    if not getattr(model, "master_weights", False):
+    if not getattr(unwrap(model), "master_weights", False):
         raise ValueError("training needs float32 master weights: build the model with "
                          "master_weights=True")
     img_aug = bool(config.get("img_aug", False))
@@ -102,32 +137,37 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
         for p in params:
             p.grad = None
         logit_parts, loss_sum = [], 0.0
-        for im, lb in zip(img.chunk(grad_accum), labels.chunk(grad_accum)):
+        for i, (im, lb) in enumerate(zip(img.chunk(grad_accum), labels.chunk(grad_accum))):
             dropout_gen = _dropout_generator(generator, device)
-            logits, loss = model(im, lb, train=True, generator=dropout_gen)
-            loss.backward()
+            with no_sync(model, skip=i < grad_accum - 1):
+                logits, loss = model(im, lb, train=True, generator=dropout_gen)
+                loss.backward()
             logit_parts.append(logits.detach())
             loss_sum = loss_sum + loss.detach()
+        if mesh is not None:
+            sync_replicated_grads(model, mesh)
         if grad_accum > 1:
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(grad_accum)
         optimizer.step(lr)
-        return _aux(torch.cat(logit_parts), loss_sum / grad_accum, labels)
+        return _aux(torch.cat(logit_parts), loss_sum / grad_accum, labels, mesh)
 
     step.augmented = {}
     return step
 
 
-def make_eval_step(model: torch.nn.Module, config: Config):
-    """Returns ``step(img, labels) -> aux`` (with the logits), eval mode."""
+def make_eval_step(model: torch.nn.Module, config: Config, mesh=None):
+    """Returns ``step(img, labels) -> aux`` (with the logits), eval mode.
+    Over a mesh the aux dict is replicated as the train step's; the logits
+    stay this rank's rows."""
     device = next(model.parameters()).device
 
     @torch.no_grad()
     def step(img: torch.Tensor, labels: torch.Tensor) -> dict:
         labels = labels.to(device)
         logits, loss = model(img.to(device), labels, train=False)
-        return {**_aux(logits, loss, labels), "logits": logits}
+        return {**_aux(logits, loss, labels, mesh), "logits": logits}
 
     return step
 
@@ -167,22 +207,29 @@ class EarlyStopping:
         return False
 
 
-def _step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
+def _step_generator(seed: int, epoch: int, step: int, rank: int = 0) -> torch.Generator:
     """The host generator of one train step, fixed by (seed, epoch, step) —
-    the JAX ``fold_in(fold_in(key(seed), epoch), step)``."""
-    state = np.random.SeedSequence((seed, epoch, step)).generate_state(1, np.uint64)[0]
+    the JAX ``fold_in(fold_in(key(seed), epoch), step)`` — and, on rank r >
+    0 of a mesh, r folded in too, so ranks draw their own augmentation and
+    dropout (rank 0 draws what a single device does)."""
+    entropy = (seed, epoch, step) + ((rank,) if rank else ())
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(state) & (2 ** 63 - 1))
 
 
 class Trainer:
-    """The epoch loop on one device.
+    """The epoch loop.
 
     ``model_cls`` is ``ModelCross`` or ``ModelVIT``: ``init_state`` builds it
     with f32 master weights on ``device`` (default CUDA; raises without it),
     from the seed or from a JAX param tree.  schedule: 'cosine'
     (CosineAnnealingLR per epoch, the live contract) or 'plateau'
     (ReduceLROnPlateau on val_loss).  latest_every: rolling-checkpoint
-    cadence in epochs."""
+    cadence in epochs.  mesh: a ``parallel.make_mesh`` mesh, one process per
+    device — the Trainer-level replacement for Lightning's
+    ``devices/num_nodes``; ``batch_size`` of the loaders is per process.
+    fsdp: shard params and Adam moments over the mesh (needs one);
+    data_sharding defaults to ``batch_sharding(mesh, 6)``."""
 
     def __init__(self, model_cls, config: Config, max_epochs: int, logger=None,
                  checkpoint: CheckpointManager | None = None,
@@ -193,10 +240,8 @@ class Trainer:
                  grad_accum: int = 1, accum_impl: str = "scan",
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        if mesh is not None or data_sharding is not None or fsdp:
-            raise NotImplementedError(
-                "mesh, data_sharding and fsdp are not ported yet: data parallelism and FSDP "
-                "are a later slice of the PyTorch port (ROADMAP Queue 1, item 11)")
+        if fsdp and mesh is None:
+            raise ValueError("fsdp=True requires a mesh")
         if stateful:
             raise NotImplementedError(
                 "stateful (BatchNorm) model families are not ported yet: the legacy families "
@@ -214,6 +259,13 @@ class Trainer:
         self.early_stopping = early_stopping
         self.grad_accum = grad_accum
         self.accum_impl = accum_impl
+        self.mesh = mesh
+        self.fsdp = bool(fsdp)
+        if mesh is not None and data_sharding is None:
+            data_sharding = batch_sharding(mesh, 6)     # (B, M, C, D, H, W)
+        self.data_sharding = data_sharding
+        self.rank = 0 if mesh is None else torch.distributed.get_rank(mesh.get_group())
+        self.world = 1 if mesh is None else mesh.size()
         if schedule == "cosine":
             op = config.optim_params
             self.lr_fn = cosine_annealing_lr(config.lr, op["T_max"], op["eta_min"])
@@ -232,37 +284,42 @@ class Trainer:
     # -- lifecycle -------------------------------------------------------------
     def init_state(self, params: dict | None = None) -> "Trainer":
         """Build the model (from the seed, or from ``params``, a JAX param
-        tree of arrays) and a fresh Adam."""
+        tree of arrays), place it on the mesh (``parallel.shard_params``; DDP
+        starts every rank from rank 0's parameters) and make a fresh Adam.
+        ``self.model`` is then what runs: the DDP wrapper, or the model."""
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.model = self.model_cls(self.config, device=self.device, generator=gen,
                                     master_weights=True)
         if params is not None:
             load_jax_params(self.model, params)
+        if self.mesh is not None:
+            self.model = shard_params(self.model, self.mesh, fsdp=self.fsdp)
         self.optimizer = Adam(self.model.parameters(), weight_decay=self.config.weight_decay)
         self.train_step = make_train_step(self.model, self.optimizer, self.config,
                                           grad_accum=self.grad_accum,
-                                          accum_impl=self.accum_impl)
-        self.eval_step = make_eval_step(self.model, self.config)
+                                          accum_impl=self.accum_impl, mesh=self.mesh)
+        self.eval_step = make_eval_step(self.model, self.config, mesh=self.mesh)
         return self
 
     @property
     def params(self) -> dict:
-        """The model's parameters as a JAX param tree of f32 numpy arrays."""
+        """The model's parameters as a JAX param tree of f32 numpy arrays
+        (under FSDP a collective)."""
         return jax_params_from_model(self.model)
 
     def _moment_trees(self) -> tuple[dict, dict]:
-        names = [n for n, _ in self.model.named_parameters()]
+        names = [n for n, _ in unwrap(self.model).named_parameters()]
         if self.optimizer.step_count:
             mu, nu = self.optimizer.moments()
         else:   # JAX initialises the moments to zeros
-            mu = nu = [torch.zeros_like(p) for p in self.optimizer.params]
+            mu = nu = [torch.zeros(p.shape) for p in self.optimizer.params]
         return tuple(jax_params_from_state_dict(
             {n: t.detach().float().cpu().numpy() for n, t in zip(names, ms)}, self.config)
             for ms in (mu, nu))
 
     def _ckpt_state(self, epoch: int) -> dict:
         """The host snapshot of the training state as a flat dict in the JAX
-        npz key layout."""
+        npz key layout (under FSDP a collective: every rank calls it)."""
         mu, nu = self._moment_trees()
         state = {"params": self.params,
                  "opt": {"step": np.asarray(self.optimizer.step_count, np.int32),
@@ -277,9 +334,18 @@ class Trainer:
                                    "num_bad": np.asarray(self.early_stopping.num_bad, np.int32)}
         return flatten(state)
 
+    def _host_snapshot(self, epoch: int) -> dict | None:
+        """``_ckpt_state`` on rank 0, None elsewhere; under FSDP every rank
+        takes part in gathering the shards."""
+        if self.fsdp or self.rank == 0:
+            state = self._ckpt_state(epoch)
+            return state if self.rank == 0 else None
+        return None
+
     def maybe_resume(self) -> int:
         """Resume params, Adam state, plateau and early-stopping state from the
-        rolling checkpoint; returns the epoch to start at (0 without one)."""
+        rolling checkpoint; returns the epoch to start at (0 without one).
+        Over a mesh every rank reads the file and keeps its own share."""
         if self.latest is None or self.model is None:
             return 0
         step, flat = self.latest.restore_latest()
@@ -291,7 +357,7 @@ class Trainer:
 
     def _load_flat(self, flat: dict) -> None:
         load_jax_params(self.model, params_from_flat(flat))
-        names = [n for n, _ in self.model.named_parameters()]
+        names = [n for n, _ in unwrap(self.model).named_parameters()]
         moments = []
         for which in ("mu", "nu"):
             prefix = f"opt/{which}/"
@@ -313,7 +379,7 @@ class Trainer:
         acc = MetricAccumulator()
         for imgs, labels in loader(indices):
             aux = self.train_step(imgs, labels, lr,
-                                  _step_generator(self.seed, epoch, self.global_step))
+                                  _step_generator(self.seed, epoch, self.global_step, self.rank))
             self.global_step += 1
             acc.update(aux["loss"], aux["counts"], aux["probs"], aux["labels"])
         return acc.result()
@@ -328,29 +394,40 @@ class Trainer:
     def fit(self, train_loader, val_loader, sampler=None, start_epoch: int | None = None,
             verbose: bool = True) -> list[dict]:
         """train_loader/val_loader: PrefetchLoader instances; sampler: an
-        optional WeightedRandomSampler (the train index order per epoch)."""
+        optional WeightedRandomSampler (the train index order per epoch).
+        Over a mesh every rank calls it; each runs its own share of the
+        indices (the same number of batches on every rank) and returns the
+        same history, and rank 0 alone writes."""
         if self.model is None:
             self.init_state()
         if start_epoch is None:
             start_epoch = self.maybe_resume()
+        if self.data_sharding is not None:
+            for ld in (train_loader, val_loader):
+                if getattr(ld, "sharding", None) is None:
+                    ld.sharding = self.data_sharding
         n_train = len(train_loader.dataset)
         n_val = len(val_loader.dataset)
+        is_main = self.rank == 0
         history = []
         for epoch in range(start_epoch, self.max_epochs):
             t0 = time.time()
             lr = self.lr_fn(epoch)
             if sampler is not None:
-                train_idx = sampler.epoch_indices(epoch)
+                train_idx = sampler.epoch_indices(epoch, host_id=self.rank,
+                                                  num_hosts=self.world)
             else:
-                train_idx = np.random.default_rng((self.seed, epoch)).permutation(n_train)
+                train_idx = host_shard(np.random.default_rng((self.seed, epoch))
+                                       .permutation(n_train), self.rank, self.world)
+            val_idx = host_shard(np.arange(n_val), self.rank, self.world)
             train_m = self._run_epoch_train(train_loader, train_idx, lr, epoch)
-            val_m = self._run_epoch_eval(val_loader, np.arange(n_val))
+            val_m = self._run_epoch_eval(val_loader, val_idx)
 
             row = {f"train_{_short(k)}": v for k, v in train_m.items()}
             row.update({f"val_{_short(k)}": v for k, v in val_m.items()})
             row["lr"] = lr
             row["epoch_time_s"] = time.time() - t0
-            if epoch % self.log_every == 0 or epoch == self.max_epochs - 1:
+            if is_main and (epoch % self.log_every == 0 or epoch == self.max_epochs - 1):
                 self.logger.log_metrics(row, epoch)
             history.append(row)
 
@@ -364,12 +441,12 @@ class Trainer:
                 epoch % self.latest_every == self.latest_every - 1
                 or epoch == self.max_epochs - 1 or stop)
             if self.checkpoint is not None or want_latest:
-                state = self._ckpt_state(epoch)   # one host snapshot for both writers
-                if self.checkpoint is not None:
+                state = self._host_snapshot(epoch)   # one snapshot for both writers
+                if is_main and self.checkpoint is not None:
                     self.checkpoint.save(epoch, row[self.checkpoint_monitor], state)
-                if want_latest:
+                if is_main and want_latest:
                     self.latest.save(self.global_step, state)
-            if verbose:
+            if verbose and is_main:
                 print(f"epoch {epoch:3d}  lr {lr:.2e}  train_loss {row['train_loss']:.4f}  "
                       f"val_loss {row['val_loss']:.4f}  val_acc {row['val_acc']:.3f}  "
                       f"({row['epoch_time_s']:.1f}s)")
@@ -377,19 +454,26 @@ class Trainer:
                 break
         self.logger.finalize()
         wait_for_writes()
+        if self.mesh is not None:   # no rank goes on before rank 0's files are whole
+            torch.distributed.barrier(group=self.mesh.get_group())
         return history
 
     def test(self, test_loader) -> tuple[np.ndarray, np.ndarray]:
         """Logits and targets over a loader (reference test hooks,
-        model_cross.py:294-308)."""
+        model_cross.py:294-308), in dataset order.  Over a mesh each rank
+        runs its ``host_shard``; the rows are gathered in rank order and the
+        wrap-around padding trimmed, on every rank."""
         if self.model is None:
             self.init_state()
+        n = len(test_loader.dataset)
         logits, targets = [], []
-        for imgs, labels in test_loader(np.arange(len(test_loader.dataset))):
-            aux = self.eval_step(imgs, labels)
-            logits.append(aux["logits"].float().cpu().numpy())
-            targets.append(aux["labels"].cpu().numpy())
-        return np.concatenate(logits), np.concatenate(targets)
+        for imgs, labels in test_loader(host_shard(np.arange(n), self.rank, self.world)):
+            logits.append(self.eval_step(imgs, labels)["logits"].float())
+            targets.append(labels.to(self.device))
+        logits, targets = torch.cat(logits), torch.cat(targets)
+        if self.mesh is not None:
+            logits, targets = (gather_rows(t, self.mesh)[:n] for t in (logits, targets))
+        return logits.cpu().numpy(), targets.cpu().numpy()
 
     def predict(self, loader, probabilities: bool = True) -> np.ndarray:
         """Softmax positive-class probabilities (or raw logits) over a loader."""

@@ -1,0 +1,256 @@
+#!/usr/bin/env python3
+"""Data-parallel training of the live ModelCross across the cards of one
+host over NCCL, through the port's ``Trainer`` (one process per card).
+
+    python3 dp_cards.py [--cards N]        # default: every card of the host
+
+``chip_smoke.py`` checks DDP and FSDP at world size 1 (NCCL refuses two
+ranks on one card); this script runs them where the world has several
+cards.  It builds the kernels (``chip_smoke.phase_build``), then on card 0
+takes the one-process references: ``TRAIN_STEPS`` steps at batch 8 (its
+step ms) and one step of the whole global batch (8 a card) at dropout 0
+without augmentation (its gradients).  Then one process per card (this
+script with ``--worker``) joins an NCCL group and, under DDP and then FSDP
+(``Trainer(mesh=make_mesh(), fsdp=...)``), from the same seeded masters:
+
+- ``TRAIN_STEPS`` steps of 8 volumes a card with augmentation and dropout
+  0.25: finite losses, 12 K1 + 12 K2 launches a step, K3 over the run, step
+  ms by CUDA events, peak memory; under DDP also steps with and without the
+  gradient all-reduce, in turns (its share of the step); under FSDP each
+  sharded parameter and its Adam moments hold 1/N of the whole on a rank;
+- one step at dropout 0 without augmentation: every gradient within
+  ``SERVE_TOL`` of the one-process step's, normalised by its own maximum
+  (the cross-attention key biases, zero in exact arithmetic, are reported
+  and not gated), and the parameters after it bit for bit equal on every
+  rank.
+
+Prints one JSON line per mode, the cards' names and power limits as
+nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``; any
+failure exits non-zero before those lines.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import gc
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
+from cross_attention_vit_tpu_torch.parallel import (full_tensor, make_mesh, multihost_init,
+                                                    shard_batch, unwrap)
+from cross_attention_vit_tpu_torch.train.schedule import cosine_annealing_lr
+from cross_attention_vit_tpu_torch.train.trainer import Trainer
+from torch.distributed.tensor import DTensor
+
+ROOT = Path(__file__).resolve().parent
+PER_CARD = 8
+WORKER_TIMEOUT_S = 900
+
+
+def global_batch(cards: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """8 volumes a card of phase train's distribution, from a seed, on the
+    host."""
+    rng = np.random.default_rng(1)
+    img = (rng.normal(size=(PER_CARD * cards, len(cs.MODALITIES), 1, *cs.VOLUME)) * 100)
+    return (torch.from_numpy(img.astype(np.float32)),
+            torch.tensor([0, 1] * (PER_CARD * cards // 2)))
+
+
+def lr_schedule(cfg):
+    op = cfg.optim_params
+    return cosine_annealing_lr(cfg.lr, op["T_max"], op["eta_min"])
+
+
+def references(cards: int, tmp: Path) -> dict:
+    """On card 0, without a mesh: the step ms at batch 8, and the gradients
+    of one step of the global batch, written for the workers."""
+    cfg = cs.live_config(use_flash=True)
+    img, labels = (x.cuda() for x in global_batch(cards))
+    t = Trainer(ModelCross, cfg, max_epochs=1, device="cuda").init_state()
+    _, step_ms, _, _ = cs._run_steps(t.train_step, img[:PER_CARD], labels[:PER_CARD],
+                                     lr_schedule(cfg),
+                                     torch.Generator().manual_seed(cs.TRAIN_SEED))
+    del t
+    t = Trainer(ModelCross, cs._dp_cmp_cfg(), max_epochs=1, device="cuda").init_state()
+    aux, _ = cs._timed_step(t.train_step, img, labels, cfg.lr, torch.Generator().manual_seed(0))
+    cs.check(bool(torch.isfinite(aux["loss"])), "non-finite loss in the one-process step")
+    torch.save({n: g.cpu() for n, g in cs._full_grads(t).items()}, tmp / "grads.pt")
+    del t, img, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": PER_CARD * cards, "step_ms_batch8": step_ms,
+            "step_ms_batch8_steady": statistics.median(step_ms[1:])}
+
+
+def _param_digest(model) -> str:
+    digest = hashlib.sha256()
+    for p in unwrap(model).parameters():
+        digest.update(full_tensor(p).detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def run_mode(fsdp: bool, mesh, img, labels, rank: int, tmp: Path) -> dict:
+    """One rank's DDP or FSDP run (see the module docstring)."""
+    cfg = cs.live_config(use_flash=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = Trainer(ModelCross, cfg, max_epochs=1, mesh=mesh, fsdp=fsdp, device="cuda").init_state()
+    losses, step_ms, per_step, affine = cs._run_steps(
+        t.train_step, img, labels, lr_schedule(cfg), torch.Generator().manual_seed(cs.TRAIN_SEED))
+    launches = cs._counts()
+    out = {"losses": losses, "step_ms": step_ms, "step_ms_steady": statistics.median(step_ms[1:]),
+           "launches": launches, "launches_per_step": per_step,
+           "affine_volumes_per_step": affine}
+    if fsdp:
+        shards = [(p.numel(), p.to_local().numel(),
+                   t.optimizer._opt.state[p]["exp_avg"].to_local().numel(),
+                   t.optimizer._opt.state[p]["exp_avg_sq"].to_local().numel())
+                  for p in t.model.parameters() if isinstance(p, DTensor)]
+        out["sharded_params"] = len(shards)
+        out["sharded_elements"] = sum(s[0] for s in shards)
+        out["local_fraction"] = sorted({s[1] / s[0] for s in shards} | {s[2] / s[0] for s in shards}
+                                       | {s[3] / s[0] for s in shards})
+    else:        # the step with and without the gradient all-reduce, in turns
+        synced, unsynced = [], []
+        for sync in (True, False) * 3:
+            with contextlib.nullcontext() if sync else t.model.no_sync():
+                _, ms = cs._timed_step(t.train_step, img, labels, cfg.lr,
+                                       torch.Generator().manual_seed(0))
+            (synced if sync else unsynced).append(ms)
+        out["step_ms_synced"] = statistics.median(synced)
+        out["step_ms_without_grad_allreduce"] = statistics.median(unsynced)
+        out["grad_allreduce_share"] = 1.0 - out["step_ms_without_grad_allreduce"] / out[
+            "step_ms_synced"]
+    out["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the comparison step from the seeded masters
+    t = Trainer(ModelCross, cs._dp_cmp_cfg(), max_epochs=1, mesh=mesh, fsdp=fsdp,
+                device="cuda").init_state()
+    cs._zero_counts()
+    aux, out["comparison_step_ms"] = cs._timed_step(t.train_step, img, labels, cfg.lr,
+                                                     torch.Generator().manual_seed(0))
+    out["comparison_launches"] = cs._counts()
+    out["comparison_loss"] = float(aux["loss"])
+    grads = cs._full_grads(t)       # a collective under FSDP: every rank
+    if rank == 0:
+        errs = cs._leaf_errs(grads, torch.load(tmp / "grads.pt", map_location="cuda"))
+        gated = {n: e for n, e in errs.items() if not n.endswith(cs.ZERO_GRAD_LEAF)}
+        worst = max(gated, key=gated.get)
+        out["grad_vs_one_process_worst_leaf"] = max(errs.values())
+        out["grad_vs_one_process_worst_gated"] = [worst, gated[worst]]
+    del grads
+    out["param_sha256"] = _param_digest(t.model)
+    del t
+    return out
+
+
+def worker(rank: int, cards: int, port: int, tmp: Path) -> int:
+    multihost_init(f"127.0.0.1:{port}", cards, rank, device="cuda",
+                   timeout_s=WORKER_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = make_mesh()
+        img, labels = (x.cuda() for x in shard_batch(global_batch(cards), mesh))
+        result = {"rank": rank, "device": str(torch.device("cuda", torch.cuda.current_device())),
+                  "backend": torch.distributed.get_backend()}
+        for mode in ("ddp", "fsdp"):
+            result[mode] = run_mode(mode == "fsdp", mesh, img, labels, rank, tmp)
+        (tmp / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn(cards: int, tmp: Path) -> list[dict]:
+    port = cs._free_port()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "dp_cards.py"), "--worker", str(r),
+                               str(cards), str(port), str(tmp)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(cards)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        cs.check(p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err[-4000:]}")
+    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(cards)]
+
+
+def check_mode(mode: str, ranks: list[dict], cards: int) -> None:
+    runs = [r[mode] for r in ranks]
+    for r, run in zip(ranks, runs):
+        cs.check(all(np.isfinite(run["losses"])), f"{mode} rank {r['rank']}: losses {run['losses']}")
+        for i, c in enumerate(run["launches_per_step"]):
+            cs.check(c["K1"] == 12 and c["K2"] == 12,
+                     f"{mode} rank {r['rank']} step {i}: K1 {c['K1']}, K2 {c['K2']} launches")
+        cs.check(run["launches"]["K3"] > 0, f"{mode} rank {r['rank']}: K3 never ran")
+        c = run["comparison_launches"]
+        cs.check(c["K1"] == 12 and c["K2"] == 12, f"{mode} comparison step launches {c}")
+    cs.check(len({run["param_sha256"] for run in runs}) == 1,
+             f"{mode}: the ranks' parameters differ after the comparison step")
+    cs.check(len({tuple(run["losses"]) for run in runs}) == 1,
+             f"{mode}: the ranks' replicated losses differ")
+    name, err = runs[0]["grad_vs_one_process_worst_gated"]
+    cs.check(err <= cs.SERVE_TOL, f"{mode}: gradient of {name} vs the one-process step "
+                                  f"{err:.3e} > {cs.SERVE_TOL}")
+    if mode == "fsdp":
+        cs.check(runs[0]["sharded_params"] > 0 and runs[0]["local_fraction"] == [1 / cards],
+                 f"fsdp: local shares {runs[0]['local_fraction']}, expected 1/{cards}")
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--cards", type=int, default=None, help="default: every card of the host")
+    args = p.parse_args()
+    try:
+        device = cs.phase_device()
+        cards = args.cards or torch.cuda.device_count()
+        cs.check(1 <= cards <= torch.cuda.device_count(),
+                 f"--cards {cards}: the host has {torch.cuda.device_count()} cards")
+        cs.phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = references(cards, Path(tmp))
+            cs.emit({"phase": "one_process", **ref})
+            ranks = spawn(cards, Path(tmp))
+        for mode in ("ddp", "fsdp"):
+            check_mode(mode, ranks, cards)
+            cs.emit({"phase": f"{mode}_{cards}_cards", "per_card_batch": PER_CARD,
+                     "ranks": [{"rank": r["rank"], "device": r["device"],
+                                "backend": r["backend"],
+                                **{k: v for k, v in r[mode].items() if k != "launches_per_step"}}
+                               for r in ranks]})
+    except cs.SmokeFailure as e:
+        print(f"dp_cards: FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    cs.emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"],
+                                    "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                        Path(sys.argv[5])))
+    sys.exit(main())

@@ -4,10 +4,12 @@ against pandas and sklearn row for row (train_test_split and the k-fold of
 ``train_cv``), ``BrainDataset`` items, batches and the disk cache bit for
 bit, the weighted sampler's draws, the native decoder against the Python
 reader, and the prefetch loader (same batches as the JAX loader, bf16
-transfer, an abandoned iteration that does not hang).  Everything compares
+transfer, a batch sharding, an abandoned iteration that does not hang).  Everything compares
 exactly: the two packages run the same numpy arithmetic."""
 
+import socket
 import threading
+import types
 
 import numpy as np
 import pandas as pd
@@ -207,9 +209,37 @@ def test_loader_survives_an_abandoned_iteration(cohort):
 
 
 def test_loader_rejects_sharding_and_defaults_to_cuda(cohort):
-    port, _ = _datasets(cohort, use_native=False)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tloader.PrefetchLoader(port, batch_size=2, sharding=object(), device="cpu")
+    """A loader with a batch sharding iterates: over a one-process gloo mesh
+    its batches are the JAX loader's over a one-device mesh, and a process
+    that fed two data shards would pad each odd batch by wrap-around to an
+    even size, as the JAX loader does on a two-device mesh."""
+    from jax.sharding import Mesh
+
+    import jax
+    from cross_attention_vit_tpu.parallel import batch_sharding as jax_batch_sharding
+    from cross_attention_vit_tpu_torch.parallel import batch_sharding, make_mesh, multihost_init
+
+    port, ref = _datasets(cohort, use_native=False)
+    order = [4, 0, 9, 3, 12, 1, 7]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    multihost_init(addr, 1, 0, device="cpu", timeout_s=30)
+    try:
+        cases = [(batch_sharding(make_mesh(), 6), 1),
+                 (types.SimpleNamespace(batch_divisor=lambda: 2), 2)]
+        for sharding, data in cases:
+            got = list(tloader.PrefetchLoader(port, batch_size=3, sharding=sharding,
+                                              device="cpu")(order))
+            mesh = Mesh(np.array(jax.devices()[:data]), ("data",))
+            want = list(jloader.PrefetchLoader(ref, batch_size=3,
+                                               sharding=jax_batch_sharding(mesh, 6))(order))
+            assert [len(lb) for _, lb in got] == [-(-n // data) * data for n in (3, 3, 1)]
+            for (a, la), (b, lb) in zip(got, want):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+                np.testing.assert_array_equal(la.numpy(), np.asarray(lb))
+    finally:
+        torch.distributed.destroy_process_group()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tloader.PrefetchLoader(port, batch_size=2)

@@ -3,10 +3,14 @@ synthetic NIfTI cohort in a temporary directory, at tiny width on the CPU:
 ``train_full`` and ``train_cv`` give the JAX driver's run names and splits
 (row for row), one real ``train_full`` run writes the JAX driver's artifacts,
 ``evaluate`` reads a JAX-written checkpoint and reproduces the JAX
-``evaluate``'s metrics, and the unported mesh flags exit with a message."""
+``evaluate``'s metrics, and the mesh flags the port cannot serve here exit
+with a message (tests/test_torch_parallel.py runs them over two processes)."""
+
+import time
 
 import numpy as np
 import pytest
+import torch
 
 from cross_attention_vit_tpu.drivers import evaluate as jeval
 from cross_attention_vit_tpu.drivers import experiments as jexp
@@ -123,13 +127,31 @@ def test_evaluate_reads_a_jax_checkpoint(cohort, trained):
     assert teval.main([*args[:1], str(own), *args[2:]], device="cpu")["n"] == 20
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--sp", "2"], ["--fsdp"],
-                                   ["--coordinator", "localhost:1234"]])
+# the flags of each case, what each must raise and with which words
+_MESH_FLAG_CASES = {
+    # data parallelism needs a process group of that size
+    "--dp": (["--dp", "2"], SystemExit, "world size"),
+    "--tp": (["--tp", "2"], SystemExit, "item 13"),
+    "--sp": (["--sp", "2"], SystemExit, "item 13"),
+    "--fsdp": (["--fsdp", "--dp", "0"], SystemExit, "requires a mesh"),
+    # nothing listens on port 1: the rendezvous gives up within its timeout
+    "--coordinator": (["--coordinator", "127.0.0.1:1", "--num-processes", "2",
+                       "--process-id", "1", "--dist-timeout", "2"], RuntimeError, "127.0.0.1"),
+}
+
+
+@pytest.mark.parametrize("flags", [["--dp"], ["--tp"], ["--sp"], ["--fsdp"], ["--coordinator"]])
 def test_unported_mesh_flags_exit(flags):
-    with pytest.raises(SystemExit, match="not ported"):
-        texp.main(["--epochs", "1", *flags], device="cpu")
+    """The mesh flags that still exit, and the two that now start work but
+    cannot finish it here."""
+    argv, error, words = _MESH_FLAG_CASES[flags[0]]
+    t0 = time.perf_counter()
+    with pytest.raises(error, match=words):
+        texp.main(["--epochs", "1", *argv], device="cpu")
+    assert time.perf_counter() - t0 < 30
+    assert not torch.distributed.is_initialized()
 
 
 def test_evaluate_mesh_flag_exits():
-    with pytest.raises(SystemExit, match="item 11"):
-        teval.main(["--checkpoint", "x.npz", "--mesh", "data=2"], device="cpu")
+    with pytest.raises(SystemExit, match="item 13"):
+        teval.main(["--checkpoint", "x.npz", "--mesh", "data=1,model=2"], device="cpu")

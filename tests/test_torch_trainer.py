@@ -13,6 +13,7 @@
 """
 
 import csv
+import socket
 
 import jax
 import numpy as np
@@ -31,6 +32,7 @@ from cross_attention_vit_tpu_torch.data import dataset as tds
 from cross_attention_vit_tpu_torch.data.loader import PrefetchLoader
 from cross_attention_vit_tpu_torch.models.convert import jax_params_from_model
 from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
+from cross_attention_vit_tpu_torch.parallel import make_mesh, multihost_init
 from cross_attention_vit_tpu_torch.train import checkpoint as tckpt
 from cross_attention_vit_tpu_torch.train import loggers as tloggers
 from cross_attention_vit_tpu_torch.train import trainer as ttrainer
@@ -204,11 +206,28 @@ def test_trainer_early_stopping_halts():
 
 
 def test_trainer_rejects_unported_options():
+    """A mesh and FSDP build (over a one-process gloo group here); FSDP
+    without a mesh is refused as in JAX, and the stateful families still
+    name their ROADMAP item."""
     cfg, _ = _cfgs()
-    for kw, item in ((dict(mesh=object()), "item 11"), (dict(fsdp=True), "item 11"),
-                     (dict(stateful=True), "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", **kw)
+    with pytest.raises(ValueError, match="requires a mesh"):
+        ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", fsdp=True)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", stateful=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost_init(f"127.0.0.1:{port}", 1, 0, device="cpu", timeout_s=30)
+    try:
+        for fsdp in (False, True):
+            t = ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", mesh=make_mesh(),
+                                 fsdp=fsdp).init_state()
+            assert t.data_sharding.spec[0] == "data" and t.world == 1
+            aux = t.train_step(torch.zeros(2, 2, 1, 16, 16, 8), torch.tensor([0, 1]), 1e-3,
+                               torch.Generator())
+            assert aux["probs"].shape == (2,) and torch.isfinite(aux["loss"])
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_checkpoint_manager_topk_and_replay(tmp_path):
