@@ -151,6 +151,33 @@ Phases, each printed as one JSON line with a ``phase`` key:
              ``SERVE_TOL`` of the one-process batch-8 step's, the step ms and
              the share of it in the gradient all-reduce (steps with and
              without it, in turns).  NCCL between two ranks needs two cards.
+15. train_moe — the live ModelCross with ``moe_experts = 4`` (the other MoE
+             keys at JAX's defaults: top-2, capacity factor 1.25, balance
+             weight 0.01; 12 MoE sites, 544,168,966 parameters), f32
+             masters, no mesh: ``TRAIN_STEPS`` steps at batch 8 with
+             augmentation and dropout 0.25 — finite losses, 12 K1 + 12 K2
+             launches a step and K3 over the run; one train-mode forward
+             whose loss less its cross-entropy is 0.01 × the sites' mean
+             balance loss; the sites' dispatch fractions; every gradient,
+             kernel path against plain path at f32, within
+             ``KERNEL_TOL[float32]`` (the bf16 kernel path reported beside
+             the f32 plain path: top-2 routing flips near-tie tokens on
+             last-bit differences); step ms, the MoE's f32 GEMMs' share of
+             the profiled step's device time, peak memory; a bucket-8
+             forward through InferenceServer equal to a direct forward (12
+             K1 launches); then two gloo ranks sharing the card over (data
+             1, expert 2), 2 experts of every site each (``chip_smoke.py
+             --moe-worker``): one step's gradients equal to the one-process
+             step's bit for bit, 12 K1 + 12 K2, equal losses.
+16. ring    — the ring attention (``parallel.ring``) forced at one rank
+             against the dense plain attention (``_sdpa``) at B=8 K=16 D=64
+             N = 513 and 1537, bf16 and f32, forward and gradients
+             (``KERNEL_TOL``, normalised); then the live ModelCross with
+             ``seq_parallel = 2`` and no seq mesh trained ``TRAIN_STEPS``
+             steps beside the same model with ``use_flash_attention=False``
+             from the same masters and generator: losses and parameters bit
+             for bit equal (JAX's fallback to the dense attention), no K1 or
+             K2 launch, K3 over the run.
 
 Then a line ``{"phase": "profiler", ...}``: the profiles taken, how many of
 them recorded no kernel, and the calls timed by CUDA events after
@@ -204,7 +231,11 @@ from cross_attention_vit_tpu_torch.ops.attention import _sdpa
 from cross_attention_vit_tpu_torch.ops.layers import linear
 from cross_attention_vit_tpu_torch.ops.quant import (QuantLinear, dynamic_quantize, qlinear,
                                                      quantize_weight)
-from cross_attention_vit_tpu_torch.models.convert import params_from_flat
+from cross_attention_vit_tpu_torch.models.convert import jax_params_from_state_dict, params_from_flat
+from cross_attention_vit_tpu_torch.ops.losses import cross_entropy
+from cross_attention_vit_tpu_torch.parallel.moe import (expert_capacity, gather_experts,
+                                                        local_experts, moe_sites)
+from cross_attention_vit_tpu_torch.parallel.ring import ring_attention
 from cross_attention_vit_tpu_torch.train import checkpoint as ckpt
 from cross_attention_vit_tpu_torch.train.checkpoint import save_config, save_pytree
 from cross_attention_vit_tpu_torch.train.metrics import binary_auroc, compute_metrics
@@ -1491,9 +1522,11 @@ def _profile(model, x: torch.Tensor) -> dict:
         return _profiled(lambda: model(x))
 
 
-def _profiled(fn) -> dict:
+def _profiled(fn, marks: dict[str, tuple[str, ...]] | None = None) -> dict:
     """One call of fn under torch.profiler: device time by kernel, the
-    device's busy time against the call's wall time (its idle share)."""
+    device's busy time against the call's wall time (its idle share), and
+    for each label of ``marks`` the device time of the kernels whose names
+    hold one of its marks."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1515,6 +1548,9 @@ def _profiled(fn) -> dict:
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "kernel_launches": sum(r[2] for r in rows),
             "device_ms_by_layer": dict(sorted(by_layer.items(), key=lambda kv: -kv[1])),
+            "device_ms_marked": {label: sum(ms for key, ms, _ in rows
+                                            if any(m in key for m in ms_marks))
+                                 for label, ms_marks in (marks or {}).items()},
             "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:8]]}
 
 
@@ -1862,8 +1898,11 @@ def _train_batch(cfg) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _full_grads(trainer) -> dict[str, torch.Tensor]:
-    return {n: full_tensor(p.grad).float()
-            for n, p in unwrap(trainer.model).named_parameters()}
+    """Every parameter's gradient, whole (FSDP shards and experts split over
+    'expert' gathered: a collective)."""
+    model = unwrap(trainer.model)
+    return {n: g.float() for n, g in gather_experts(
+        model, {n: full_tensor(p.grad) for n, p in model.named_parameters()}).items()}
 
 
 def _timed_step(step, img, labels, lr: float, gen) -> tuple[dict, float]:
@@ -2497,6 +2536,314 @@ def phase_train_cli(tmp: Path) -> dict:
     return result
 
 
+MOE_PARAMS = 544_168_966
+MOE_SITES = 12          # 3 streams x 2 multi-blocks x 2 self-blocks
+BALANCE_TOL = 2e-6      # |(loss - CE) - 0.01 x mean balance|, f32 rounding of the sum
+RING_NS = (513, 1537)
+# The only f32 GEMMs of the bf16 MoE step: the MoE's router and experts
+# (cuBLAS/CUTLASS f32 kernels: "sgemm", "gemm_f32f32")
+MOE_GEMM_MARKS = ("sgemm", "f32f32")
+
+
+def moe_config(use_flash: bool):
+    """The live configuration with ``moe_experts = 4``."""
+    cfg = live_config(use_flash)
+    modify_config(cfg, {"moe_experts": 4})
+    return cfg
+
+
+def phase_train_moe(tmp: Path) -> dict:
+    cfg = moe_config(use_flash=True)
+    torch.cuda.reset_peak_memory_stats()
+    model = ModelCross(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0),
+                       master_weights=True)
+    n_params = model.num_params()
+    check(n_params == MOE_PARAMS, f"{n_params} params, expected {MOE_PARAMS}")
+    check(len(moe_sites(model)) == MOE_SITES, f"{len(moe_sites(model))} MoE sites")
+    optimizer = Adam(model.parameters(), weight_decay=cfg.weight_decay)
+    step = make_train_step(model, optimizer, cfg)
+    op = cfg.optim_params
+    lr_at = cosine_annealing_lr(cfg.lr, op["T_max"], op["eta_min"])
+    img, labels = _train_batch(cfg)
+    state0 = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    host_gen = torch.Generator().manual_seed(TRAIN_SEED)
+
+    losses, step_ms, per_step, affine_drawn = _run_steps(step, img, labels, lr_at, host_gen)
+    launches = _counts()
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    for i, (c, drawn) in enumerate(zip(per_step, affine_drawn)):
+        check(c["K1"] == 12 and c["K2"] == 12,
+              f"step {i}: K1 launched {c['K1']}, K2 {c['K2']} times (12 each expected)")
+        check(c["K3"] == (4 if drawn else 0), f"step {i}: K3 launched {c['K3']} times")
+    check(launches["K3"] > 0, "no step drew the affine: K3 never ran on the MoE path")
+    dispatch = model.moe_aux["dispatch_fraction"].tolist()
+
+    # the balance term: loss - CE of one train-mode forward
+    with torch.no_grad():
+        logits, loss = model(img, labels, train=True,
+                             generator=torch.Generator(device="cuda").manual_seed(0))
+        ce = cross_entropy(logits, labels, cfg.label_smoothing)
+    balance = model.moe_aux["balance_loss"]
+    gap, want_gap = float(loss - ce), 0.01 * float(balance.mean())
+    check(abs(gap - want_gap) <= BALANCE_TOL,
+          f"loss - CE = {gap:.9f}, 0.01 x mean balance = {want_gap:.9f}")
+    profile = _profiled(lambda: step(img, labels, lr_at(0), host_gen),
+                        marks={"moe_f32_gemms": MOE_GEMM_MARKS})
+    moe_gemm_ms = profile["device_ms_marked"]["moe_f32_gemms"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    steady = statistics.median(step_ms[1:])
+
+    # kernel path against plain path: one step at dropout 0 without
+    # augmentation from the seeded masters.  Top-2 routing is discontinuous:
+    # bf16 attention outputs that differ in their last bits send near-tie
+    # tokens to other experts, so the bf16 kernel path is reported beside
+    # the f32 plain path, and the gate holds the two paths at f32 (the f32
+    # kernels), where no routing flips, at the f32 kernels' tolerance.
+    def cmp_cfg(use_flash: bool, dtype: str = "bfloat16"):
+        c = moe_config(use_flash)
+        modify_config(c, {"dropout": 0.0, "img_aug": False, "compute_dtype": dtype,
+                          "activation_dtype": dtype})
+        return c
+    grads, cmp_launches = {}, {}
+    for name, use_flash, dtype in (("flash", True, "bfloat16"), ("flash32", True, "float32"),
+                                   ("plain32", False, "float32")):
+        _zero_counts()
+        grads[name] = _grads_after_step(cmp_cfg(use_flash, dtype), state0, img, labels)
+        cmp_launches[name] = _counts()
+    errs = _leaf_errs(grads["flash32"], grads["plain32"])
+    bf16 = _leaf_errs(grads["flash"], grads["plain32"])
+    torch.save({n: g.cpu() for n, g in grads["flash"].items()}, tmp / "moe_grads_one_process.pt")
+    del grads
+    torch.cuda.empty_cache()
+    ep_gloo = _two_gloo_ep_ranks(tmp)
+    gated = [n for n in errs if not n.endswith(ZERO_GRAD_LEAF)]
+    worst = max(gated, key=errs.get)
+    bf16_worst = max(bf16[n] for n in gated)
+    for name in ("flash", "flash32"):
+        c = cmp_launches[name]
+        check(c["K1"] == 12 and c["K2"] == 12, f"comparison step {name} launches {c}")
+
+    # a MoE checkpoint served on the card
+    ckpt = tmp / "epoch=00-val_loss=0.0000.npz"
+    save_pytree(ckpt, {"params": jax_params_from_state_dict(
+        {k: v.numpy() for k, v in state0.items()}, cfg)})
+    save_config(tmp, cfg)
+    del state0
+    server = InferenceServer(ckpt, img_types=MODALITIES, buckets=(8,), device="cuda")
+    server.warmup()
+    server.start()
+    vols = (np.random.default_rng(5).normal(size=(8, len(MODALITIES), 1, *cfg.img_size))
+            * 100).astype(np.float32)
+    try:
+        fa.flash_attention_qkv.launches = 0
+        served = server.predict(vols)
+        serve_launches = fa.flash_attention_qkv.launches
+    finally:
+        server.stop()
+    served_vs_direct = _served_vs_direct(server, [vols], [served])
+    serve_site = server.model.transformer[0].blocks[0][0].ffn.fn
+    moe_f32 = serve_site.router.weight.dtype == serve_site.experts["fc1"].weight.dtype \
+        == torch.float32
+    del server, serve_site
+    torch.cuda.empty_cache()
+    check(bool(np.isfinite(served).all()) and served.shape == (8, cfg.num_classes),
+          f"served MoE logits {served.shape}")
+    check(serve_launches == 12, f"served MoE forward launched K1 {serve_launches} times")
+    check(served_vs_direct == 0.0, f"served MoE logits differ from a direct forward by "
+                                   f"{served_vs_direct}")
+    check(moe_f32, "the serving model's router or experts are not float32")
+
+    result = {"phase": "train_moe", "model": "ModelCross", "params": n_params,
+              "moe_experts": 4, "moe_sites": MOE_SITES, "moe_num_selected": 2,
+              "moe_capacity_factor": 1.25, "tokens_per_site": 8 * 513,
+              "capacity": expert_capacity(8 * 513, 4, 2, 1.25), "batch": 8, "dtype": "bfloat16",
+              "moe_dtype": "float32", "dropout": cfg.dropout, "steps": TRAIN_STEPS,
+              "losses": losses, "launches": launches, "launches_per_step": per_step,
+              "affine_volumes_per_step": affine_drawn,
+              "dispatch_fraction_by_site": dispatch,
+              "balance_by_site": balance.tolist(), "loss_minus_ce": gap,
+              "balance_term": want_gap, "balance_tol": BALANCE_TOL,
+              "step_ms": step_ms, "step_ms_steady": steady,
+              "moe_f32_gemm_device_ms": moe_gemm_ms,
+              "moe_f32_gemm_share_of_device_ms": (moe_gemm_ms / profile["device_ms_total"]
+                                                  if profile["device_ms_total"] else None),
+              "profile": profile, "peak_device_gb": peak_gb,
+              "grad_leaves": len(errs),
+              "grad_f32_flash_vs_plain_worst_leaf": [worst, errs[worst]],
+              "tol": KERNEL_TOL[torch.float32],
+              "grad_bf16_flash_vs_f32_plain_worst_gated": bf16_worst,
+              # [f32 kernel vs plain, bf16 kernel vs f32 plain]
+              "grad_by_kind": _by_kind(errs, bf16),
+              "serve_bucket8": {"launches": serve_launches,
+                                "served_vs_direct_max_abs": served_vs_direct,
+                                "moe_float32": moe_f32},
+              "ep_gloo_two_ranks": ep_gloo}
+    emit(result)
+    check(errs[worst] <= KERNEL_TOL[torch.float32],
+          f"MoE gradient of {worst}: f32 kernel path vs plain path {errs[worst]:.3e} > "
+          f"{KERNEL_TOL[torch.float32]}")
+    return result
+
+
+def _two_gloo_ep_ranks(tmp: Path) -> dict:
+    """Phase train_moe's expert parallelism on this card: ``moe_worker`` in
+    two processes over gloo (NCCL refuses two ranks on one card), each
+    holding 2 of the 4 experts of every site."""
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--moe-worker",
+                               str(rank), str(port), str(tmp)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=DP_TIMEOUT_S)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"gloo EP rank {rank} exited {p.returncode}:\n{err[-4000:]}")
+    ranks = [json.loads((tmp / f"moe_rank{r}.json").read_text()) for r in range(2)]
+    check(ranks[0]["loss"] == ranks[1]["loss"], "the two EP ranks' losses differ")
+    for r, got in enumerate(ranks):
+        check(got["experts_here"] == 2, f"gloo EP rank {r} holds {got['experts_here']} experts")
+        check(got["launches"]["K1"] == 12 and got["launches"]["K2"] == 12,
+              f"gloo EP rank {r}: launches {got['launches']}")
+        # each expert's own GEMMs: a split of the experts computes what one
+        # process computes, bit for bit
+        check(got["grad_vs_one_process_max_abs"] == 0.0,
+              f"gloo EP rank {r}: gradient vs the one-process step differs by "
+              f"{got['grad_vs_one_process_max_abs']} (worst leaf "
+              f"{got['grad_vs_one_process_worst_gated']})")
+    return {"ranks": ranks}
+
+
+def moe_worker(rank: int, port: int, tmp: Path) -> int:
+    """One of phase train_moe's two gloo ranks on cuda:0, mesh (data 1,
+    expert 2): one step of the MoE ModelCross at dropout 0 without
+    augmentation from the seeded masters, its gradients (this rank's
+    experts, the rest whole) against the one-process step's, and a second
+    step's time."""
+    multihost_init(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda",
+                   timeout_s=DP_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = moe_config(use_flash=True)
+        modify_config(cfg, {"dropout": 0.0, "img_aug": False})
+        t = Trainer(ModelCross, cfg, max_epochs=1, mesh=make_mesh(1, expert=2),
+                    device="cuda").init_state()
+        model = unwrap(t.model)
+        want = local_experts(model, torch.load(tmp / "moe_grads_one_process.pt",
+                                               map_location="cuda"))
+        img, labels = _train_batch(cfg)
+        _zero_counts()
+        aux, ms = _timed_step(t.train_step, img, labels, cfg.lr,
+                              torch.Generator().manual_seed(0))
+        launches = _counts()
+        got = {n: p.grad.float() for n, p in model.named_parameters()}
+        errs = _leaf_errs(got, want)
+        gated = {n: e for n, e in errs.items() if not n.endswith(ZERO_GRAD_LEAF)}
+        worst = max(gated, key=gated.get)
+        max_abs = max((got[n] - want[n]).abs().max().item() for n in want)
+        _, ms2 = _timed_step(t.train_step, img, labels, cfg.lr, torch.Generator().manual_seed(0))
+        (tmp / f"moe_rank{rank}.json").write_text(json.dumps({
+            "rank": rank, "backend": "gloo", "mesh": {"data": 1, "expert": 2},
+            "experts_here": model.transformer[0].blocks[0][0].ffn.fn.experts["fc1"].weight
+                                 .shape[0],
+            "loss": float(aux["loss"]), "launches": launches, "step_ms": [ms, ms2],
+            "grad_vs_one_process_worst_gated": [worst, gated[worst]],
+            "grad_vs_one_process_max_abs": max_abs}))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _ring_case(N: int, dtype: torch.dtype) -> dict:
+    """The ring forced at one rank against ``_sdpa``: out, dq, dk, dv
+    normalised errors, and both timed forward and backward."""
+    g = torch.Generator(device="cuda").manual_seed(N)
+    q, k, v = (torch.randn(8, 16, N, 64, device="cuda", generator=g).to(dtype)
+               .requires_grad_() for _ in range(3))
+    dout = torch.randn(8, 16, N, 64, device="cuda", generator=g).to(dtype)
+    scale = 64 ** -0.5
+
+    def run(fn):
+        for t in (q, k, v):
+            t.grad = None
+        out = fn(q, k, v)
+        out.backward(dout)
+        return [out.detach().float()] + [t.grad.float() for t in (q, k, v)]
+
+    ring = lambda q, k, v: ring_attention(q, k, v, scale=scale, force_ring=True)  # noqa: E731
+    dense = lambda q, k, v: _sdpa(q, k, v, scale)  # noqa: E731
+    got, want = run(ring), run(dense)
+    errs = {name: _norm_err(a, b)[1] for name, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+    times = {"ring_ms": cuda_ms(lambda: run(ring), runs=3, calls=2, warmup=1),
+             "dense_ms": cuda_ms(lambda: run(dense), runs=3, calls=2, warmup=1)}
+    del q, k, v, dout, got, want
+    torch.cuda.empty_cache()
+    return {"N": N, "dtype": str(dtype).split(".")[-1], "norm_err": errs,
+            "tol": KERNEL_TOL[dtype], "fwd_bwd": times}
+
+
+def phase_ring() -> dict:
+    cases = [_ring_case(N, dt) for N in RING_NS for dt in (torch.bfloat16, torch.float32)]
+    for c in cases:
+        worst = max(c["norm_err"].values())
+        check(worst <= c["tol"], f"ring at N={c['N']} {c['dtype']}: normalised error {worst:.3e} "
+                                 f"> {c['tol']}")
+
+    # seq_parallel = 2 with no seq mesh is the dense attention, bit for bit
+    def sp_cfg(sp: bool):
+        c = live_config(use_flash=not sp)
+        if sp:
+            modify_config(c, {"seq_parallel": 2})
+        else:
+            modify_config(c, {"use_flash_attention": False})
+        return c
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy((rng.normal(size=(8, len(MODALITIES), 1, 128, 128, 64)) * 100)
+                           .astype(np.float32)).cuda()
+    labels = torch.tensor([0, 1] * 4, device="cuda")
+    runs = {}
+    for sp in (True, False):      # the same seeded masters, batch and host generator
+        cfg = sp_cfg(sp)
+        model = ModelCross(cfg, device="cuda", master_weights=True,
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+        check(model.opts.impl == ("ring" if sp else "xla"), f"attention impl {model.opts.impl}")
+        step = make_train_step(model, Adam(model.parameters(), cfg.weight_decay), cfg)
+        op = cfg.optim_params
+        lr_at = cosine_annealing_lr(cfg.lr, op["T_max"], op["eta_min"])
+        losses, step_ms, per_step, drawn = _run_steps(step, img, labels, lr_at,
+                                                      torch.Generator().manual_seed(TRAIN_SEED))
+        runs[sp] = {"losses": losses, "launches": _counts(), "step_ms": step_ms,
+                    "params": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+        del model, step
+        torch.cuda.empty_cache()
+    sp_run, dense_run = runs[True], runs[False]
+    param_diff = max((v - dense_run["params"][k]).abs().max().item()
+                     for k, v in sp_run["params"].items())
+    launches = sp_run["launches"]
+    result = {"phase": "ring", "shape": "B=8 K=16 D=64", "cases": cases,
+              "sp_step": {"model": "ModelCross", "seq_parallel": 2, "seq_mesh": None,
+                          "steps": TRAIN_STEPS, "losses": sp_run["losses"],
+                          "dense_losses": dense_run["losses"],
+                          "max_param_diff_vs_dense": param_diff, "launches": launches,
+                          "step_ms": sp_run["step_ms"], "dense_step_ms": dense_run["step_ms"]}}
+    emit(result)
+    check(sp_run["losses"] == dense_run["losses"] and param_diff == 0.0,
+          f"seq_parallel without a seq mesh is not the dense path bit for bit: losses "
+          f"{sp_run['losses']} vs {dense_run['losses']}, params {param_diff}")
+    check(launches["K1"] == launches["K2"] == 0, f"the SP step launched attention kernels: "
+                                                 f"{launches}")
+    check(launches["K3"] > 0, "no SP step drew the affine: K3 never ran on the SP path")
+    return result
+
+
 def _launch_rows(paths: dict[str, dict]) -> dict[str, dict]:
     """Each kernel's launches summed over the main paths' runs, and by path."""
     rows = {}
@@ -2527,6 +2874,9 @@ def main() -> int:
             trained_dp = phase_train_dp(Path(tmp))
         trained_vit = phase_train_vit()
         with tempfile.TemporaryDirectory() as tmp:
+            trained_moe = phase_train_moe(Path(tmp))
+        ring = phase_ring()
+        with tempfile.TemporaryDirectory() as tmp:
             trained_cli = phase_train_cli(Path(tmp))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
@@ -2546,6 +2896,9 @@ def main() -> int:
         paths[f"serve_int8+attn_{name}"] = result["launches"]
     for r in trained_cli["runs"]:
         paths[f"train_cli_{r['epochs']}_epochs"] = r["launches"]
+    paths["train_moe"] = trained_moe["launches"]
+    paths["train_moe_serve_bucket8"] = {"K1": trained_moe["serve_bucket8"]["launches"]}
+    paths["train_sp_no_mesh"] = ring["sp_step"]["launches"]
     launches = _launch_rows(paths)
     k5s, k5v = k5[513], k5[1025]
     k5_shape = "B=8 K=16 D=64 N=513 bfloat16 (ModelCross int8+attn serving shape)"
@@ -2673,6 +3026,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--moe-worker"]:     # phase train_moe's gloo EP ranks
+        sys.exit(moe_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--dp-worker"]:      # phase train_dp's gloo ranks
         sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     sys.exit(main())

@@ -5,7 +5,9 @@ The architecture config comes from the ``config*.json`` sidecar the
 ``CheckpointManager`` writes beside the weights (the run-tagged one first);
 ``config_overrides`` apply on top, and are the fallback without a sidecar.
 Full-state (``params/…``, ``opt/…``, ``epoch``) and params-only npz files both
-load, the JAX package's included.  Metrics and ``auc_roc`` come from the
+load, the JAX package's included, a MoE model's too (its sidecar carries
+``moe_experts``).  A ``seq_parallel`` config without a seq mesh runs the
+dense attention, as in JAX.  Metrics and ``auc_roc`` come from the
 port's ``train/metrics.py``.  Runs on one device (default CUDA), or sharded
 over a data-parallel mesh (``mesh=``; ``--mesh data=N`` under torchrun, one
 process per card): the cohort is padded to a multiple of batch × processes,
@@ -34,7 +36,7 @@ from ..data.loader import PrefetchLoader, transfer_dtype_for
 from ..models.convert import params_from_flat
 from ..models.model_cross import ModelCross
 from ..models.model_vit import ModelVIT
-from ..parallel.mesh import make_mesh, multihost_init, rank
+from ..parallel.mesh import axis_size, make_mesh, multihost_init, rank
 from ..train.checkpoint import load_config_for, restore_flat
 from ..train.metrics import binary_auroc, compute_metrics
 from ..train.trainer import Trainer
@@ -68,7 +70,7 @@ def evaluate(checkpoint: str | Path, model: str, data_df, *, folder, img_types,
     if mesh is not None:
         # every rank's share a whole number of full batches; the padded rows
         # are trimmed from the outputs
-        pad = (-n) % (batch_size * mesh.size())
+        pad = (-n) % (batch_size * axis_size(mesh, "data"))
         if pad:
             data_df = data_df.take(np.resize(np.arange(n), n + pad))
     ds = BrainDataset(data_df, cfg, types=img_types, is_train=False, folder=folder)

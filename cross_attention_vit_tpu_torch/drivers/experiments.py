@@ -19,8 +19,12 @@ device, the reference's ``Trainer(devices=4, num_nodes=2)``
 host:port --num-processes N --process-id i`` in each process, the CLI joins
 the process group and trains over a mesh of every process (``--dp``, -1 by
 default; 0 trains each process alone), under DDP or with ``--fsdp`` FSDP.
-``--batch-size`` is per process: the global batch is batch size × processes.
-``--tp/--pp/--sp/--ep`` other than 1 exit naming ROADMAP item 13.
+``--ep E`` splits the MoE experts (``--set moe_experts=...``, a multiple of
+E) over an 'expert' axis and ``--sp P`` the attention's sequence over a
+'seq' axis (it sets ``seq_parallel`` = P unless ``--set`` gives it); the
+data axis is then the world size over E·P.  ``--batch-size`` is per data
+coordinate: the global batch is batch size × data size.  ``--tp/--pp``
+other than 1 exit naming ROADMAP item 13.
 
     python -m cross_attention_vit_tpu_torch.drivers.experiments \\
         --model cross --grid-index 0 --seeds 2004 --batch-size 8 --only-available \\
@@ -192,8 +196,7 @@ def train_cv(params_big=None, *, labels_csv="labels.csv", folder="ucsf-data", ou
     return results
 
 
-_UNPORTED_AXES = ("tensor, pipeline, sequence and expert parallelism are not ported yet "
-                  "(ROADMAP Queue 1, item 13)")
+_UNPORTED_AXES = "tensor and pipeline parallelism are not ported yet (ROADMAP Queue 1, item 13)"
 
 
 def _torchrun_env() -> bool:
@@ -220,10 +223,16 @@ def main(argv=None, device: str = "cuda"):
     p.add_argument("--only-available", action="store_true",
                    help="drop labels rows whose volumes are not on disk")
     p.add_argument("--dp", type=int, default=-1,
-                   help="data-parallel mesh axis: -1 (default) = every process of the "
-                        "process group (one device without one), 0 = no mesh")
-    for flag in ("--tp", "--pp", "--sp", "--ep"):
+                   help="data-parallel mesh axis: -1 (default) = the process group's world "
+                        "size over --ep × --sp (one device without a group), 0 = no mesh")
+    for flag in ("--tp", "--pp"):
         p.add_argument(flag, type=int, default=1, help="not ported (ROADMAP item 13)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel mesh axis: exact ring attention over 'seq' (sets "
+                        "config seq_parallel to match; parallel/ring.py)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel mesh axis (pair with --set moe_experts=E, a multiple "
+                        "of it: the trunk FFNs become GShard MoEs; parallel/moe.py)")
     p.add_argument("--fsdp", action="store_true",
                    help="shard params + Adam moments over the 'data' axis "
                         "(FSDP; see parallel/sharding.py)")
@@ -252,24 +261,28 @@ def main(argv=None, device: str = "cuda"):
     p.add_argument("--early-stop-min-delta", type=float, default=0.0)
     args = p.parse_args(argv)
     resolve_device(device)    # fail before any work on a host without the device
-    for flag in ("tp", "pp", "sp", "ep"):
+    for flag in ("tp", "pp"):
         if getattr(args, flag) != 1:
             raise SystemExit(f"--{flag} {getattr(args, flag)}: {_UNPORTED_AXES}")
+    if args.dp == 0 and (args.sp > 1 or args.ep > 1):
+        raise SystemExit("--sp/--ep require a mesh (don't pass --dp 0)")
 
     if args.coordinator or args.num_processes or args.process_id is not None \
             or _torchrun_env():
         multihost_init(args.coordinator, args.num_processes, args.process_id, device=device,
                        timeout_s=args.dist_timeout)
     mesh = None
+    axes = f"--dp {args.dp} --ep {args.ep} --sp {args.sp}"
     if args.dp != 0 and torch.distributed.is_initialized():
         try:
-            mesh = make_mesh(args.dp)
+            mesh = make_mesh(args.dp, seq=args.sp, expert=args.ep)
         except ValueError as e:
-            raise SystemExit(f"--dp {args.dp}: {e}") from e
-    elif args.dp > 0:
-        raise SystemExit(f"--dp {args.dp} needs a process group of world size {args.dp}; "
-                         f"none is running (world size {world_size()}): launch under torchrun "
-                         "or pass --coordinator/--num-processes/--process-id")
+            raise SystemExit(f"{axes}: {e}") from e
+    elif args.dp > 0 or args.sp > 1 or args.ep > 1:
+        need = max(args.dp, 1) * args.sp * args.ep
+        raise SystemExit(f"{axes} needs a process group of world size {need}; none is "
+                         f"running (world size {world_size()}): launch under torchrun or "
+                         "pass --coordinator/--num-processes/--process-id")
     if args.fsdp and mesh is None:
         raise SystemExit("--fsdp requires a mesh (don't pass --dp 0)")
 
@@ -282,6 +295,10 @@ def main(argv=None, device: str = "cuda"):
             overrides[key] = ast.literal_eval(value)
         except (ValueError, SyntaxError):
             overrides[key] = value  # bare strings allowed
+    if args.sp > 1:
+        # the mesh axis is the source of truth; the config knob routes the
+        # models' attention through the ring (ops/attention.attention_impl)
+        overrides.setdefault("seq_parallel", args.sp)
 
     grids = [list(params_list1), list(params_list2)]
     if args.grid_index is not None:

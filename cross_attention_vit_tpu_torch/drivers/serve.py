@@ -21,8 +21,11 @@ rebuild the model exactly.  Both live families are served, ModelCross
 (``model="cross"``) and ModelVIT (``model="vit"``), in float or quantized:
 ``quantize="int8"`` runs the FFN and head GEMMs w8a8, ``"int8+attn"`` also
 the self-attention projections, with the attention itself on the public
-``flash_attention`` (``models/quantize.py``).  Sharded serving (``mesh``) is
-a later slice of the port.
+``flash_attention`` (``models/quantize.py``).  A MoE checkpoint (its config
+carries ``moe_experts``) is served whole on one card, the router and experts
+in f32 (they are not quantized, as in JAX); a ``seq_parallel`` config runs
+the dense attention, having no seq mesh.  Sharded serving (``mesh``) is a
+later slice of the port.
 
 Endpoints:
   GET  /healthz           — model family, param count, buckets, config dims

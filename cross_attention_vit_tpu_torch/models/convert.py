@@ -15,6 +15,10 @@ keeps its own copy on numpy arrays:
       .fn.to_qkv.weight (3H, H)               .attn.qkv.kernel (H,3,K,D)
       .fn.to_out.0.{weight,bias}              .attn.out (K,D,H)
   transformer.{b}.blocks.{m}.{j}.ffn.*        .ffn_norm / .ffn.fc1/.fc2
+  a MoE site's ffn.fn.* (the port's names; the reference has no MoE):
+      .router.weight (E, H)                   .ffn.router.kernel (H, E)
+      .experts.fc1.{weight (E, mlp, H), bias}  .ffn.experts.fc1 (E, H, mlp)
+      .experts.fc2.{weight (E, H, mlp), bias}  .ffn.experts.fc2 (E, mlp, H)
   transformer.{b}.fusion.{c}.attn.fn.wq/wk/wv/proj
                                             multi_blocks[b].cross_blocks[c].attn
   norm.{m}.* / mlp_head.{m}.{0,3}.*         norm[m] / mlp_head[m].fc1/.fc2
@@ -40,6 +44,7 @@ import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..configs import Config
+from ..parallel.moe import gather_experts, local_experts
 from ..parallel.sharding import full_tensor, unwrap
 from ..train.checkpoint import unflatten
 
@@ -70,8 +75,21 @@ def _exp_self_block(blk: dict, p: str, out: dict) -> None:
         out[f"{p}.attn.fn.to_out.0.weight"] = _t(o.reshape(-1, o.shape[-1]))
         out[f"{p}.attn.fn.to_out.0.bias"] = np.asarray(blk["attn"]["out"]["bias"])
     _exp_norm(blk["ffn_norm"], f"{p}.ffn.norm", out)
-    _exp_linear(blk["ffn"]["fc1"], f"{p}.ffn.fn.net.0", out)
-    _exp_linear(blk["ffn"]["fc2"], f"{p}.ffn.fn.net.3", out)
+    ffn = blk["ffn"]
+    if "experts" not in ffn:
+        _exp_linear(ffn["fc1"], f"{p}.ffn.fn.net.0", out)
+        _exp_linear(ffn["fc2"], f"{p}.ffn.fn.net.3", out)
+        return
+    out[f"{p}.ffn.fn.router.weight"] = _t(ffn["router"]["kernel"])
+    for fc in ("fc1", "fc2"):
+        e = ffn["experts"][fc]
+        out[f"{p}.ffn.fn.experts.{fc}.weight"] = _swap(e["kernel"])
+        out[f"{p}.ffn.fn.experts.{fc}.bias"] = np.asarray(e["bias"])
+
+
+def _swap(w) -> np.ndarray:
+    """(E, in, out) ⇄ (E, out, in): the stacked expert kernels."""
+    return np.ascontiguousarray(np.swapaxes(np.asarray(w), 1, 2))
 
 
 def _is_vit_tree(params: dict) -> bool:
@@ -170,12 +188,19 @@ def _self_block_from(sd, p: str, heads: int) -> dict:
     if f"{p}.attn.fn.to_out.0.weight" in sd:
         attn["out"] = {"kernel": _head_out(sd[f"{p}.attn.fn.to_out.0.weight"], heads),
                        "bias": np.asarray(sd[f"{p}.attn.fn.to_out.0.bias"])}
+    f = f"{p}.ffn.fn"
+    if f"{f}.router.weight" in sd:
+        ffn = {"router": {"kernel": _t(sd[f"{f}.router.weight"])},
+               "experts": {fc: {"kernel": _swap(sd[f"{f}.experts.{fc}.weight"]),
+                                "bias": np.asarray(sd[f"{f}.experts.{fc}.bias"])}
+                           for fc in ("fc1", "fc2")}}
+    else:
+        ffn = {"fc1": _linear(sd, f"{f}.net.0"), "fc2": _linear(sd, f"{f}.net.3")}
     return {
         "attn_norm": _norm(sd, f"{p}.attn.norm"),
         "attn": attn,
         "ffn_norm": _norm(sd, f"{p}.ffn.norm"),
-        "ffn": {"fc1": _linear(sd, f"{p}.ffn.fn.net.0"),
-                "fc2": _linear(sd, f"{p}.ffn.fn.net.3")},
+        "ffn": ffn,
     }
 
 
@@ -261,10 +286,11 @@ def load_jax_params(model: torch.nn.Module, params: dict) -> None:
     dtype on copy — the compute-dtype cast the JAX package makes on every
     call.  A data-parallel model (``parallel.shard_params``) loads too: each
     rank copies the whole tree, of which an FSDP-sharded parameter keeps
-    this rank's shard."""
+    this rank's shard, and experts split over an 'expert' axis
+    (``parallel.moe.shard_experts``) this rank's experts."""
     model = unwrap(model)
     sd = {k: torch.from_numpy(np.array(v))
-          for k, v in state_dict_from_jax(params, model.config).items()}
+          for k, v in local_experts(model, state_dict_from_jax(params, model.config)).items()}
     sharded = {n: p for n, p in model.named_parameters() if isinstance(p, DTensor)}
     if not sharded:
         model.load_state_dict(sd, strict=True)
@@ -286,9 +312,10 @@ def load_jax_params(model: torch.nn.Module, params: dict) -> None:
 
 def jax_params_from_model(model: torch.nn.Module) -> dict:
     """The port's ModelCross or ModelVIT → JAX param tree of float32 numpy
-    arrays.  A data-parallel model gives its whole parameters (under FSDP a
-    collective: every rank calls it)."""
+    arrays.  A data-parallel model gives its whole parameters (under FSDP or
+    with experts split over an 'expert' axis a collective: every rank calls
+    it)."""
     model = unwrap(model)
-    sd = {k: full_tensor(v).detach().float().cpu().numpy()
-          for k, v in model.state_dict().items()}
+    sd = gather_experts(model, {k: full_tensor(v).detach() for k, v in model.state_dict().items()})
+    sd = {k: v.float().cpu().numpy() for k, v in sd.items()}
     return jax_params_from_state_dict(sd, model.config)

@@ -30,11 +30,20 @@ sites (rate ``config.dropout``): after the positional embedding, on the
 self-attention output projection, on the cross-attention probabilities and
 projection, after GELU and after fc2 in every feed-forward, and in the
 per-stream heads.  ``g`` is a ``torch.Generator`` on the model's device.
+
+Mixture of experts (``config.moe_experts`` = E > 1, JAX :71-92, :187-208,
+:322-330): every ``moe_every``-th self-block FFN of each stream (site index
+mb·num_self_blocks + layer) is a GShard MoE (``parallel.moe.MoEFFN``: its
+own router and E experts per stream, f32, erf GELU), followed by the block's
+dropout; the cross-block FFNs stay dense.  In train mode the loss gains
+``moe_balance_weight`` × the mean of the sites' balance losses, and each
+forward leaves the sites' balance losses and dispatch fractions in
+``moe_aux``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 from torch import nn
@@ -45,6 +54,7 @@ from ..ops.attention import attention_impl, cross_attention_cls, self_attention
 from ..ops.layers import dropout, feed_forward, layernorm, linear, mlp_head, promote_input
 from ..ops.losses import cross_entropy
 from ..ops.patchify import num_patches, patchify_3d
+from ..parallel.moe import MoEFFN
 from ..utils.device import resolve_device
 
 
@@ -74,20 +84,59 @@ def _attn_pairs(config: Config) -> list[tuple[int, int]]:
     return pairs
 
 
+def _moe_fields(config: Config) -> tuple[int, int]:
+    """(num_experts, every): the MoE is on when num_experts > 1, on every
+    ``every``-th trunk layer (JAX ``model_vit._moe_fields``)."""
+    return (int(config.get("moe_experts", 0)), max(1, int(config.get("moe_every", 1))))
+
+
 @dataclass(frozen=True)
 class _Opts:
     num_heads: int
     compute_dtype: torch.dtype | None    # None: operands in the activation dtype
-    impl: str                            # 'flash' or 'xla'
+    impl: str                            # 'flash', 'xla' or 'ring'
     gelu_approx: bool
     dropout: float
+    moe_selected: int = 2
+    moe_capacity: float = 1.25
+
+
+def _opts(config: Config) -> _Opts:
+    cdt = getattr(torch, config.compute_dtype)
+    return _Opts(num_heads=config.num_heads,
+                 compute_dtype=None if cdt == torch.float32 else cdt,
+                 impl=attention_impl(config),
+                 gelu_approx=bool(config.get("gelu_approx", False)),
+                 dropout=float(config.get("dropout", 0.0)),
+                 moe_selected=int(config.get("moe_num_selected", 2)),
+                 moe_capacity=float(config.get("moe_capacity_factor", 1.25)))
 
 
 @dataclass(frozen=True)
 class _Run:
-    """Per-call training state threaded through the blocks."""
+    """Per-call training state threaded through the blocks; the MoE sites
+    append their aux dicts to ``moe``."""
     train: bool = False
     generator: torch.Generator | None = None
+    moe: list = field(default_factory=list)
+
+
+def _keep_moe_aux(model: nn.Module, run: _Run) -> None:
+    """The forward's MoE sites' balance losses and dispatch fractions, one
+    value a site in site order, as ``model.moe_aux``."""
+    if run.moe:
+        model.moe_aux = {k: torch.stack([a[k] for a in run.moe]).detach()
+                         for k in ("balance_loss", "dispatch_fraction")}
+
+
+def _with_balance(config: Config, loss: torch.Tensor, run: _Run) -> torch.Tensor:
+    """In train mode, the loss plus ``moe_balance_weight`` × the mean of the
+    MoE sites' balance losses; eval losses stay pure cross-entropy, as in
+    JAX."""
+    if not (run.train and run.moe):
+        return loss
+    balance = sum(a["balance_loss"] for a in run.moe)
+    return loss + float(config.get("moe_balance_weight", 0.01)) * balance / len(run.moe)
 
 
 def _net(first: nn.Linear, second: nn.Linear) -> nn.ModuleDict:
@@ -128,11 +177,13 @@ class _FeedForward(nn.Module):
 class _SelfBlock(nn.Module):
     """Pre-norm self-attention block (reference model_cross.py:64-72)."""
 
-    def __init__(self, dim: int, mlp: int, opts: _Opts):
+    def __init__(self, dim: int, mlp: int, opts: _Opts, moe_experts: int = 0):
         super().__init__()
         self.opts = opts
         self.attn = _PreNorm(dim, _Attention(dim, opts.num_heads))
-        self.ffn = _PreNorm(dim, _FeedForward(dim, mlp))
+        ffn = (MoEFFN(dim, mlp, moe_experts, opts.moe_selected, opts.moe_capacity)
+               if moe_experts > 1 else _FeedForward(dim, mlp))
+        self.ffn = _PreNorm(dim, ffn)
 
     def forward(self, x: torch.Tensor, run: _Run) -> torch.Tensor:
         o, a, f = self.opts, self.attn, self.ffn
@@ -141,6 +192,10 @@ class _SelfBlock(nn.Module):
         x = self_attention(h, a.fn.to_qkv, to_out, o.num_heads, o.compute_dtype, o.impl,
                            o.dropout, run.generator, run.train) + x
         h = layernorm(x, f.norm.weight, f.norm.bias)
+        if isinstance(f.fn, MoEFFN):
+            y, aux = f.fn(h)
+            run.moe.append(aux)
+            return dropout(y, o.dropout, run.generator, run.train) + x
         net = f.fn.net
         return feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx,
                             o.dropout, run.generator, run.train) + x
@@ -172,11 +227,19 @@ class _MultiScaleBlock(nn.Module):
     """Per-stream self-attention stacks, then attn_order-routed CLS fusion
     (reference model_cross.py:128-148)."""
 
-    def __init__(self, config: Config, opts: _Opts):
+    def __init__(self, config: Config, opts: _Opts, index: int = 0):
         super().__init__()
         H, mlp = config.hidden_dim, config.mlp_dim
+        experts, every = _moe_fields(config)
+
+        def site_experts(layer: int) -> int:
+            # the per-stream depth index mb·num_self_blocks + layer
+            depth = index * config.num_self_blocks + layer
+            return experts if experts > 1 and depth % every == every - 1 else 0
+
         self.blocks = nn.ModuleList(
-            nn.ModuleList(_SelfBlock(H, mlp, opts) for _ in range(config.num_self_blocks))
+            nn.ModuleList(_SelfBlock(H, mlp, opts, site_experts(j))
+                          for j in range(config.num_self_blocks))
             for _ in range(config.num_modalities))
         pairs = _attn_pairs(config)
         self.fusion = nn.ModuleList(_CrossBlock(H, mlp, opts) for _ in pairs)
@@ -219,19 +282,9 @@ class ModelCross(nn.Module):
         if any(i % p for i, p in zip(img, patch)):
             raise ValueError(f"image dimensions {img} must be divisible by the patch size {patch}")
         _reject_removed_stacked_streams(config)
-        if int(config.get("moe_experts", 0)) > 1:
-            raise NotImplementedError(
-                "moe_experts > 1 is not ported yet: the MoE FFN is a later slice of "
-                "the PyTorch port (ROADMAP Queue 1, item 13)")
         self.config = config
         H, M = config.hidden_dim, config.num_modalities
-        cdt = getattr(torch, config.compute_dtype)
-        opts = _Opts(num_heads=config.num_heads,
-                     compute_dtype=None if cdt == torch.float32 else cdt,
-                     impl=attention_impl(config),
-                     gelu_approx=bool(config.get("gelu_approx", False)),
-                     dropout=float(config.get("dropout", 0.0)))
-        self.opts = opts
+        self.opts = opts = _opts(config)
         self.activation_dtype = getattr(torch, config.get("activation_dtype", "float32"))
         n = num_patches(img, patch)
         patch_dim = patch[0] * patch[1] * patch[2] * config.in_channels
@@ -240,13 +293,14 @@ class ModelCross(nn.Module):
             self.pos_embedding = nn.Parameter(torch.empty(1, n + 1, H))
             self.cls_token = nn.Parameter(torch.empty(1, 1, H))
             self.patch_to_embedding = nn.Linear(patch_dim, H)
-            self.transformer = nn.ModuleList(_MultiScaleBlock(config, opts)
-                                             for _ in range(config.num_multi_blocks))
+            self.transformer = nn.ModuleList(_MultiScaleBlock(config, opts, b)
+                                             for b in range(config.num_multi_blocks))
             self.norm = nn.ModuleList(nn.LayerNorm(H) for _ in range(M))
             self.mlp_head = nn.ModuleList(_net(nn.Linear(H, config.mlp_dim),
                                                nn.Linear(config.mlp_dim, config.num_classes))
                                           for _ in range(M))
         self.reset_parameters(generator)
+        self.moe_aux = None
         self.master_weights = master_weights
         if opts.compute_dtype is not None and not master_weights:
             for mod in self.modules():
@@ -255,13 +309,16 @@ class ModelCross(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        """Xavier-uniform Linears with zero bias, ones/zeros LayerNorm,
-        N(0, 0.02) pos-embedding and CLS (reference model_cross.py:214-241)."""
+        """Xavier-uniform Linears (and MoE experts and routers) with zero
+        bias, ones/zeros LayerNorm, N(0, 0.02) pos-embedding and CLS
+        (reference model_cross.py:214-241)."""
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 init_ops.init_linear_(mod, generator)
             elif isinstance(mod, nn.LayerNorm):
                 init_ops.init_layernorm_(mod)
+            elif isinstance(mod, MoEFFN):
+                mod.reset_parameters(generator)
         init_ops.normal_02_(self.pos_embedding, generator)
         init_ops.normal_02_(self.cls_token, generator)
 
@@ -302,6 +359,8 @@ class ModelCross(nn.Module):
                                     o.dropout, generator, train))
         # jnp.mean of the activation dtype: f32 accumulation, rounded back
         logits = torch.stack(per_mod).float().mean(0).to(per_mod[0].dtype).float()
+        _keep_moe_aux(self, run)
         if labels is None:
             return logits
-        return logits, cross_entropy(logits, labels, cfg.get("label_smoothing", 0.0))
+        loss = cross_entropy(logits, labels, cfg.get("label_smoothing", 0.0))
+        return logits, _with_balance(cfg, loss, run)

@@ -22,8 +22,14 @@ Weights and dtypes work as in ``ModelCross``: f32 masters cast per call when
 ``master_weights=True`` (the model to train), else GEMM weights cast once to
 the compute dtype.  Train mode drops out after the positional embedding, on
 the attention output projection, after GELU and after fc2 in every
-feed-forward, and twice in the head.  The MoE trunk (``moe_experts > 1``)
-and the pipeline layout (``pipeline_stages > 1``) are later slices.
+feed-forward, and twice in the head.  With ``moe_experts`` = E > 1 every
+``moe_every``-th trunk FFN is a GShard MoE (``parallel.moe.MoEFFN``, f32,
+erf GELU; JAX :27-35, :66-83, :133-149, :197-205), followed by dropout and
+the row stochastic depth as the dense FFN; in train mode the loss gains
+``moe_balance_weight`` × the mean of the sites' balance losses, and each
+forward leaves the sites' aux values in ``moe_aux``.  The pipeline layout
+(``pipeline_stages > 1``) is a later slice; with the MoE it is rejected as
+JAX rejects it.
 """
 
 from __future__ import annotations
@@ -33,25 +39,34 @@ from torch import nn
 
 from ..configs import Config
 from ..ops import initializers as init_ops
-from ..ops.attention import attention_impl, self_attention
+from ..ops.attention import self_attention
 from ..ops.layers import (dropout, feed_forward, gelu, layernorm, linear, linear_layer,
                           promote_input, stochastic_depth_row)
 from ..ops.losses import cross_entropy
 from ..ops.patchify import num_patches, patchify_3d
 from ..utils.device import resolve_device
-from .model_cross import _Attention, _FeedForward, _Opts, _PreNorm
+from ..parallel.moe import MoEFFN
+from .model_cross import (_Attention, _FeedForward, _keep_moe_aux, _moe_fields, _Opts, _opts,
+                          _PreNorm, _Run, _with_balance)
 
 
 class _Layers(nn.Module):
     """The reference's ``Transformer``: ``layers.{i}.{0, 2}``."""
 
-    def __init__(self, config: Config):
+    def __init__(self, config: Config, opts: _Opts):
         super().__init__()
-        H = config.hidden_dim
+        H, mlp = config.hidden_dim, config.mlp_dim
+        experts, every = _moe_fields(config)
+
+        def ffn(i: int) -> nn.Module:
+            if experts > 1 and i % every == every - 1:
+                return MoEFFN(H, mlp, experts, opts.moe_selected, opts.moe_capacity)
+            return _FeedForward(H, mlp)
+
         self.layers = nn.ModuleList(
             nn.ModuleDict({"0": _PreNorm(H, _Attention(H, config.num_heads)),
-                           "2": _PreNorm(H, _FeedForward(H, config.mlp_dim))})
-            for _ in range(config.num_layers))
+                           "2": _PreNorm(H, ffn(i))})
+            for i in range(config.num_layers))
 
 
 class ModelVIT(nn.Module):
@@ -69,22 +84,16 @@ class ModelVIT(nn.Module):
         img, patch = tuple(config.img_size), tuple(config.patch_size)
         if any(i % p for i, p in zip(img, patch)):
             raise ValueError(f"image dimensions {img} must be divisible by the patch size {patch}")
-        if int(config.get("moe_experts", 0)) > 1:
-            raise NotImplementedError(
-                "moe_experts > 1 is not ported yet: the MoE FFN is a later slice of "
-                "the PyTorch port (ROADMAP Queue 1, item 13)")
+        if int(config.get("pipeline_stages", 0)) > 1 and _moe_fields(config)[0] > 1:
+            raise ValueError("pipeline_stages does not compose with moe_experts (the GPipe "
+                             "schedule does not thread the MoE balance loss)")
         if int(config.get("pipeline_stages", 0)) > 1:
             raise NotImplementedError(
                 "pipeline_stages > 1 is not ported yet: pipeline parallelism is a later "
                 "slice of the PyTorch port (ROADMAP Queue 1, items 11-13)")
         self.config = config
         H = config.hidden_dim
-        cdt = getattr(torch, config.compute_dtype)
-        self.opts = _Opts(num_heads=config.num_heads,
-                          compute_dtype=None if cdt == torch.float32 else cdt,
-                          impl=attention_impl(config),
-                          gelu_approx=bool(config.get("gelu_approx", False)),
-                          dropout=float(config.get("dropout", 0.0)))
+        self.opts = _opts(config)
         self.drop_path = float(config.get("drop_path_rate", 0.0))
         self.activation_dtype = getattr(torch, config.get("activation_dtype", "float32"))
         self.num_modalities = config.num_modalities
@@ -95,11 +104,12 @@ class ModelVIT(nn.Module):
             self.pos_embedding = nn.Parameter(torch.empty(1, n + 1, H))
             self.cls_token = nn.Parameter(torch.empty(1, 1, H))
             self.patch_to_embedding = nn.Linear(patch_dim, H)
-            self.transformer = _Layers(config)
+            self.transformer = _Layers(config, self.opts)
             self.mlp_head = nn.ModuleDict({"0": nn.LayerNorm(H),
                                            "1": nn.Linear(H, config.mlp_dim),
                                            "4": nn.Linear(config.mlp_dim, config.num_classes)})
         self.reset_parameters(generator)
+        self.moe_aux = None
         self.master_weights = master_weights
         if self.opts.compute_dtype is not None and not master_weights:
             for mod in self.modules():
@@ -108,13 +118,15 @@ class ModelVIT(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        """Xavier-uniform Linears with zero bias, ones/zeros LayerNorm,
-        N(0, 0.02) pos-embedding and CLS."""
+        """Xavier-uniform Linears (and MoE experts and routers) with zero
+        bias, ones/zeros LayerNorm, N(0, 0.02) pos-embedding and CLS."""
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
                 init_ops.init_linear_(mod, generator)
             elif isinstance(mod, nn.LayerNorm):
                 init_ops.init_layernorm_(mod)
+            elif isinstance(mod, MoEFFN):
+                mod.reset_parameters(generator)
         init_ops.normal_02_(self.pos_embedding, generator)
         init_ops.normal_02_(self.cls_token, generator)
 
@@ -137,15 +149,22 @@ class ModelVIT(nn.Module):
         x = torch.cat(tokens, dim=1)
         x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, x.shape[-1]), x], dim=1)
         x = dropout(x + self.pos_embedding.to(x.dtype), o.dropout, generator, train)
+        run = _Run(train, generator)
         for layer in self.transformer.layers:
             a, f = layer["0"], layer["2"]
             to_out = a.fn.to_out["0"] if a.fn.to_out is not None else None
             y = self_attention(layernorm(x, a.norm.weight, a.norm.bias), a.fn.to_qkv, to_out,
                                o.num_heads, o.compute_dtype, o.impl, o.dropout, generator, train)
             x = stochastic_depth_row(y, self.drop_path, generator, train) + x
-            net = f.fn.net
-            y = feed_forward(layernorm(x, f.norm.weight, f.norm.bias), net["0"], net["3"],
-                             o.compute_dtype, o.gelu_approx, o.dropout, generator, train)
+            h = layernorm(x, f.norm.weight, f.norm.bias)
+            if isinstance(f.fn, MoEFFN):
+                y, aux = f.fn(h)
+                run.moe.append(aux)
+                y = dropout(y, o.dropout, generator, train)
+            else:
+                net = f.fn.net
+                y = feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx,
+                                 o.dropout, generator, train)
             x = stochastic_depth_row(y, self.drop_path, generator, train) + x
         head = self.mlp_head
         h = layernorm(x[:, 0], head["0"].weight, head["0"].bias)
@@ -153,6 +172,7 @@ class ModelVIT(nn.Module):
         h = dropout(gelu(h, approximate=False), o.dropout, generator, train)
         h = linear_layer(head["4"], h, o.compute_dtype)
         logits = dropout(h, o.dropout, generator, train).float()
+        _keep_moe_aux(self, run)
         if labels is None:
             return logits
-        return logits, cross_entropy(logits, labels)
+        return logits, _with_balance(cfg, cross_entropy(logits, labels), run)

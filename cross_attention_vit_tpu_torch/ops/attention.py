@@ -13,9 +13,12 @@ Port of ``cross_attention_vit_tpu/ops/attention.py``.  Reference semantics
 ``impl="flash"`` runs the hand-written kernels (K1 forward, K2 backward)
 through ``kernels.flash_attention.fused_qkv_attention``; ``impl="xla"`` (the
 JAX name for the plain path) runs ``_sdpa`` in plain PyTorch and
-differentiates through autograd.  With the projections in int8 form
-(serving ``int8+attn``), ``impl="flash"`` runs the public
-``flash_attention`` (K5, or K7 above N = 1040) between the int8 GEMMs.
+differentiates through autograd.  ``impl="ring"`` (``config.seq_parallel``
+> 1) runs the plain projection and ``parallel.ring.sharded_ring_sdpa``, the
+sequence split over the ambient 'seq' mesh axis (``_sdpa`` itself without
+one); it overrides ``use_flash_attention``, as in the JAX package.  With the
+projections in int8 form (serving ``int8+attn``), ``impl="flash"`` runs the
+public ``flash_attention`` (K5, or K7 above N = 1040) between the int8 GEMMs.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from torch import nn
 
 from ..kernels.flash_attention import flash_attention, fused_qkv_attention
+from ..parallel.ring import sharded_ring_sdpa
 from .layers import dropout, linear
 from .quant import QuantLinear, attn_out_projection, qkv_projection
 
@@ -45,12 +49,12 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
 
 def attention_impl(config) -> str:
-    """SDPA implementation a config selects: 'flash' (the CUDA kernels) or
-    'xla' (plain PyTorch).  Sequence parallelism ('ring') is not ported."""
+    """SDPA implementation a config selects: 'ring' (sequence parallelism,
+    ``config.seq_parallel`` > 1, whatever ``use_flash_attention`` says: the
+    kernels attend on one device), else 'flash' (the CUDA kernels) or 'xla'
+    (plain PyTorch)."""
     if config.get("seq_parallel", 0) > 1:
-        raise NotImplementedError(
-            "seq_parallel > 1 (ring attention) is not ported yet: sequence "
-            "parallelism is a later slice of the PyTorch port (ROADMAP Queue 1, item 13)")
+        return "ring"
     return "flash" if config.use_flash_attention else "xla"
 
 
@@ -85,10 +89,11 @@ def self_attention(x: torch.Tensor, to_qkv: nn.Linear, to_out: nn.Linear | None,
         out = fused_qkv_attention(x, w.t().reshape(H, 3, K, D))    # (B, K, D, N)
         # back to the kernel's own (B, N, K, D) memory order: a view, no copy
         out = out.permute(0, 3, 1, 2)
-    elif impl == "xla":
+    elif impl in ("xla", "ring"):
         qkv = torch.matmul(x, w.t()).view(B, N, 3, K, D)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, K, N, D)
-        out = _sdpa(q, k, v, D ** -0.5).transpose(1, 2)              # (B, N, K, D)
+        sdpa = sharded_ring_sdpa if impl == "ring" else _sdpa
+        out = sdpa(q, k, v, D ** -0.5).transpose(1, 2)               # (B, N, K, D)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
     out = out.reshape(B, N, K * D)
@@ -110,7 +115,7 @@ def _self_attention_int8(x: torch.Tensor, to_qkv: QuantLinear, to_out: nn.Module
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     if impl == "flash":
         out = flash_attention(q, k, v, D ** -0.5)
-    elif impl == "xla":
+    elif impl in ("xla", "ring"):     # the JAX int8 branch runs _sdpa for 'ring' too
         out = _sdpa(q, k, v, D ** -0.5)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")

@@ -1,15 +1,18 @@
-"""Process-group bootstrap and the data-parallel device mesh — port of
+"""Process-group bootstrap and the device mesh — port of
 ``cross_attention_vit_tpu/parallel/mesh.py``.
 
 The reference trains with Lightning DDP, ``Trainer(devices=4, num_nodes=2)``
-(main_mist.py:216-217).  The JAX package replaces it with a ('data',
-'model') ``Mesh`` over the devices of every process; the port goes back to
-the torch idiom: one process per GPU, joined by a ``torch.distributed``
-process group (NCCL between cards, gloo on the CPU), and a one-dimensional
-``DeviceMesh`` named "data" over that group.  A JAX process owning several
-chips has no counterpart: one torch process drives one device, so the
-mesh's data size is the world size.  The model, pipeline, sequence and
-expert axes are ROADMAP Queue 1 item 13.
+(main_mist.py:216-217).  The JAX package replaces it with a ``Mesh`` over
+the devices of every process, its axes in the order ('pipe', 'data',
+'expert', 'seq', 'model'); the port goes back to the torch idiom: one
+process per GPU, joined by a ``torch.distributed`` process group (NCCL
+between cards, gloo on the CPU), and a ``DeviceMesh`` over that group with
+the JAX axes it ports: 'data', then 'expert' (``parallel/moe.py``) and
+'seq' (``parallel/ring.py``) where they are larger than 1.  A JAX process
+owning several chips has no counterpart: one torch process drives one
+device, so the mesh holds the world.  Ranks that share a data coordinate
+hold the same batch rows; the 'expert' and 'seq' axes split the work of one
+layer among them.  The model and pipeline axes are ROADMAP Queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -80,25 +83,63 @@ def multihost_init(coordinator_address: str | None = None, num_processes: int | 
 
 def make_mesh(data: int = -1, model: int = 1, pipe: int = 1, seq: int = 1, expert: int = 1,
               devices: str | None = None) -> DeviceMesh:
-    """A one-dimensional ``DeviceMesh`` named "data" over the process group.
+    """A ``DeviceMesh`` over the process group with the axes ('data',
+    'expert', 'seq') in JAX's order, 'expert' and 'seq' left out where they
+    are 1 ('data' always kept).
 
-    ``data`` = -1 means every process; any other value must be the world
-    size.  ``devices`` is the mesh's device type: 'cuda' under NCCL and
-    'cpu' otherwise by default.  FSDP places its shards on that type, so a
-    gloo group on CUDA runs DDP only."""
-    for name, size in (("model", model), ("pipe", pipe), ("seq", seq), ("expert", expert)):
+    ``data`` = -1 means the world size over expert × seq; the axes' product
+    must be the world size.  Ranks are laid out row-major, so the ranks of
+    one data coordinate are adjacent.  ``devices`` is the mesh's device
+    type: 'cuda' under NCCL and 'cpu' otherwise by default.  FSDP places its
+    shards on that type, so a gloo group on CUDA runs DDP only."""
+    for name, size in (("model", model), ("pipe", pipe)):
         if size != 1:
             raise NotImplementedError(
-                f"{name}={size}: tensor, pipeline, sequence and expert parallelism are not "
-                "ported yet (ROADMAP Queue 1, item 13)")
+                f"{name}={size}: tensor and pipeline parallelism are not ported yet "
+                "(ROADMAP Queue 1, item 13)")
+    if seq < 1 or expert < 1:
+        raise ValueError(f"mesh axes must be positive, got seq={seq} expert={expert}")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a torch.distributed process group: call "
                            "parallel.multihost_init first, or launch under torchrun")
     n = dist.get_world_size()
+    inner = expert * seq
     if data == -1:
-        data = n
-    if data != n:
-        raise ValueError(f"mesh data={data} needs {data} processes (one device each), "
-                         f"have world size {n}")
+        if n % inner:
+            raise ValueError(f"world size {n} is not divisible by expert={expert} * seq={seq}")
+        data = n // inner
+    if data * inner != n:
+        raise ValueError(f"mesh data={data} x expert={expert} x seq={seq} needs {data * inner} "
+                         f"processes (one device each), have world size {n}")
+    sizes = {"data": data, "expert": expert, "seq": seq}
+    names = tuple(a for a in sizes if a == "data" or sizes[a] > 1)
     device_type = devices or ("cuda" if dist.get_backend() == "nccl" else "cpu")
-    return init_device_mesh(device_type, (n,), mesh_dim_names=("data",))
+    return init_device_mesh(device_type, tuple(sizes[a] for a in names), mesh_dim_names=names)
+
+
+def axis_size(mesh: DeviceMesh | None, name: str) -> int:
+    """The size of the mesh's axis ``name``; 1 without a mesh or the axis."""
+    if mesh is None or name not in (mesh.mesh_dim_names or ()):
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(name))
+
+
+def axis_index(mesh: DeviceMesh | None, name: str) -> int:
+    """This rank's coordinate on the axis ``name`` (``lax.axis_index``); 0
+    without a mesh or the axis."""
+    if mesh is None or name not in (mesh.mesh_dim_names or ()):
+        return 0
+    return mesh.get_local_rank(name)
+
+
+def axis_group(mesh: DeviceMesh | None, name: str):
+    """The process group of this rank's line along the axis ``name``, None
+    without a mesh or the axis."""
+    if mesh is None or name not in (mesh.mesh_dim_names or ()):
+        return None
+    return mesh.get_group(name)
+
+
+def axis_mesh(mesh: DeviceMesh, name: str) -> DeviceMesh:
+    """The one-dimensional mesh of this rank's line along the axis ``name``."""
+    return mesh if mesh.mesh_dim_names == (name,) else mesh[name]

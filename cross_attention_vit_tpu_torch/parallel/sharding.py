@@ -1,21 +1,31 @@
-"""Data parallelism and FSDP over the "data" mesh — port of
-``cross_attention_vit_tpu/parallel/sharding.py``'s data-parallel half.
+"""Data parallelism, FSDP and the placement of experts over the mesh — port
+of ``cross_attention_vit_tpu/parallel/sharding.py``'s data-parallel and
+expert rules.
 
-Batches.  Each process loads its own rows of the global batch (its
-``host_shard`` of the epoch's indices), so ``batch_sharding`` is a
+Batches.  Each data coordinate loads its own rows of the global batch (its
+``host_shard`` of the epoch's indices); the ranks of one data coordinate
+(its 'expert' and 'seq' line) load the same rows.  ``batch_sharding`` is a
 descriptor the loader and the ``Trainer`` read, not a placement:
 ``Sharding(mesh, ("data", None, ...))``, with ``replicated(mesh)`` its
 unsplit twin.
 
-Parameters.  ``shard_params(model, mesh)`` wraps the model in
-``DistributedDataParallel``: every rank holds every parameter and the
-gradients are averaged by all-reduce, the DDP step JAX's GSPMD derives from
-a batch-sharded input.  ``shard_params(model, mesh, fsdp=True)`` is FSDP2's
-``fully_shard`` on every block and at the root under JAX's rule
+Parameters.  ``shard_params(model, mesh)`` first splits the MoE experts
+over the 'expert' axis (``parallel.moe.shard_experts``: JAX's ``experts/*``
+rule, the router replicated), then wraps the model in
+``DistributedDataParallel`` over the data axis's group: every rank holds
+every other parameter and the gradients are averaged across data
+coordinates by all-reduce, the DDP step JAX's GSPMD derives from a
+batch-sharded input.  Gradients of what the 'expert' and 'seq' lines share
+are whole on each rank of a line already (the layers that split the work
+sum them), so DDP never reduces over those axes.
+
+``shard_params(model, mesh, fsdp=True)`` is FSDP2's ``fully_shard`` over
+the data axis on every block and at the root under JAX's rule
 (``_with_fsdp``): a parameter of at least ``FSDP_MIN_SIZE`` elements with an
 axis of its JAX layout that the rule may take and that the data size divides
 is ``Shard(d)`` on the largest dim of the port's layout that the data size
-divides; every other parameter stays replicated (FSDP2's ``ignored_params``,
+divides (never an expert stack's E axis, which JAX leaves to 'expert');
+every other parameter stays replicated (FSDP2's ``ignored_params``,
 its gradient averaged by one explicit all-reduce,
 ``sync_replicated_grads``).  Params, gradients and Adam moments of the
 sharded set then live 1/W on each rank, gathered a block at a time for the
@@ -45,6 +55,9 @@ from torch.distributed.fsdp import FSDPModule, fully_shard
 from torch.distributed.tensor import DTensor, Shard
 from torch.nn.parallel import DistributedDataParallel
 
+from .mesh import axis_group, axis_index, axis_mesh, axis_size
+from .moe import moe_sites, shard_experts
+
 # Parameters smaller than this stay replicated under FSDP: gathering a few KB
 # per layer costs more in latency than the memory it saves.
 FSDP_MIN_SIZE = 2 ** 15
@@ -63,7 +76,7 @@ class Sharding:
         process (JAX ``PrefetchLoader._batch_divisor``)."""
         if not self.spec or self.spec[0] != "data":
             return 1
-        return max(1, self.mesh.size() // dist.get_world_size())
+        return max(1, axis_size(self.mesh, "data") // dist.get_world_size())
 
 
 def batch_sharding(mesh: DeviceMesh, ndim: int) -> Sharding:
@@ -76,13 +89,14 @@ def replicated(mesh: DeviceMesh) -> Sharding:
 
 
 def shard_batch(batch, mesh: DeviceMesh):
-    """This rank's contiguous rows of each array of a global batch (a tuple
-    of arrays or tensors whose leading size the data size divides)."""
-    n, r = mesh.size(), dist.get_rank(mesh.get_group())
+    """This rank's data coordinate's contiguous rows of each array of a
+    global batch (a tuple of arrays or tensors whose leading size the data
+    size divides)."""
+    n, r = axis_size(mesh, "data"), axis_index(mesh, "data")
 
     def rows(x):
         if len(x) % n:
-            raise ValueError(f"batch of {len(x)} does not divide over {n} processes")
+            raise ValueError(f"batch of {len(x)} does not divide over {n} data shards")
         share = len(x) // n
         return x[r * share:(r + 1) * share]
 
@@ -103,13 +117,22 @@ def _fc_role(parts: list[str]) -> str | None:
     return None
 
 
+def _is_expert_stack(name: str) -> bool:
+    """A MoE site's stacked expert weight or bias (leading E axis)."""
+    parts = name.split(".")
+    return len(parts) >= 3 and parts[-3] == "experts" and parts[-2] in ("fc1", "fc2")
+
+
 def _free_axes(name: str, shape: tuple[int, ...], heads: int) -> list[int]:
     """The sizes of the axes of the parameter's JAX layout that JAX's FSDP
-    rule may shard: all of them, less those ``_spec_for`` gives 'model'."""
+    rule may shard: all of them, less those ``_spec_for`` gives 'model' or
+    'expert'."""
     parts = name.split(".")
     if len(parts) < 3:                        # pos_embedding, cls_token, patch_to_embedding
         return list(shape)
     leaf, mod = parts[-1], parts[-2]
+    if _is_expert_stack(name):                # (E, ...) ↔ (E, ...), E on 'expert'
+        return list(shape[1:])
     if mod == "to_qkv":                       # (3H, H) ↔ (H, 3, K, D), K reserved
         return [shape[1], 3, shape[1] // heads]
     if mod in ("wq", "wk", "wv"):             # (H, H) ↔ (H, K, D); bias (H,) ↔ (K, D)
@@ -132,28 +155,36 @@ def fsdp_dim(name: str, shape: tuple[int, ...], heads: int, data_size: int) -> i
         return None
     if not any(d > 1 and d % data_size == 0 for d in _free_axes(name, shape, heads)):
         return None
-    dims = [i for i, d in enumerate(shape) if d > 1 and d % data_size == 0]
+    first = 1 if _is_expert_stack(name) else 0
+    dims = [i for i, d in enumerate(shape) if i >= first and d > 1 and d % data_size == 0]
     return max(dims, key=lambda i: shape[i], default=None)
 
 
 # -- placing the model --------------------------------------------------------------
 
 def shard_params(model: nn.Module, mesh: DeviceMesh, fsdp: bool = False) -> nn.Module:
-    """The model, data-parallel over ``mesh``: a ``DistributedDataParallel``
-    around it, or (``fsdp``) the model itself with its blocks and root under
-    ``fully_shard`` by the rule above.  Build the optimizer afterwards: FSDP
-    replaces the sharded parameters with DTensor ones."""
+    """The model over ``mesh``: its experts split over the 'expert' axis,
+    then a ``DistributedDataParallel`` around it over the data axis, or
+    (``fsdp``) the model itself with its blocks and root under
+    ``fully_shard`` over the data axis by the rule above.  Build the
+    optimizer afterwards: both replace parameters."""
+    if fsdp and axis_size(mesh, "expert") > 1 and moe_sites(model):
+        raise NotImplementedError(
+            "FSDP together with expert parallelism is not ported yet: run the experts over "
+            "'expert' under DDP, or FSDP without an 'expert' axis (ROADMAP Queue 1, item 13)")
+    shard_experts(model, mesh)
+    data = axis_mesh(mesh, "data")
     if not fsdp:
-        return DistributedDataParallel(model, process_group=mesh.get_group())
+        return DistributedDataParallel(model, process_group=data.get_group())
     device_type = next(model.parameters()).device.type
     if device_type != mesh.device_type:
         raise ValueError(f"FSDP over a {mesh.device_type!r} mesh cannot shard a model on "
                          f"{device_type!r}: build the mesh with devices={device_type!r}")
-    n = mesh.size()
+    n = data.size()
     dims = {p: fsdp_dim(name, tuple(p.shape), model.config.num_heads, n)
             for name, p in model.named_parameters()}
     ignored = {p for p, d in dims.items() if d is None}
-    kw = dict(mesh=mesh, shard_placement_fn=lambda p: Shard(dims[p]), ignored_params=ignored)
+    kw = dict(mesh=data, shard_placement_fn=lambda p: Shard(dims[p]), ignored_params=ignored)
     # modules FSDP gathers one at a time: each is called as a module
     for block in (model.blocks() if hasattr(model, "blocks") else ()):
         fully_shard(block, **kw)
@@ -185,8 +216,9 @@ def no_sync(model: nn.Module, skip: bool):
 
 @torch.no_grad()
 def sync_replicated_grads(model: nn.Module, mesh: DeviceMesh) -> None:
-    """Average, across ranks, the gradients of an FSDP model's replicated
-    parameters (FSDP reduces only those it shards), in one all-reduce."""
+    """Average, across data coordinates, the gradients of an FSDP model's
+    replicated parameters (FSDP reduces only those it shards), in one
+    all-reduce."""
     if not isinstance(model, FSDPModule):
         return
     grads = [p.grad for p in model.parameters()
@@ -194,18 +226,19 @@ def sync_replicated_grads(model: nn.Module, mesh: DeviceMesh) -> None:
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    flat.div_(mesh.size())
-    dist.all_reduce(flat, group=mesh.get_group())
+    flat.div_(axis_size(mesh, "data"))
+    dist.all_reduce(flat, group=axis_group(mesh, "data"))
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 
 
 def gather_rows(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
-    """Every rank's ``t`` (one shape on all ranks) stacked along dim 0 in
-    rank order, on every rank: an all-reduce of a zero buffer in which each
-    rank fills its own slice (gloo has no all-gather of CUDA tensors)."""
-    n, r, rows = mesh.size(), dist.get_rank(mesh.get_group()), t.shape[0]
+    """Every data coordinate's ``t`` (one shape on all ranks) stacked along
+    dim 0 in data order, on every rank: an all-reduce over the data axis of
+    a zero buffer in which each rank fills its own slice (gloo has no
+    all-gather of CUDA tensors)."""
+    n, r, rows = axis_size(mesh, "data"), axis_index(mesh, "data"), t.shape[0]
     out = t.new_zeros((n * rows, *t.shape[1:]))
     out[r * rows:(r + 1) * rows] = t
-    dist.all_reduce(out, group=mesh.get_group())
+    dist.all_reduce(out, group=axis_group(mesh, "data"))
     return out

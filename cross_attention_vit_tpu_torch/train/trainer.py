@@ -10,10 +10,18 @@ mode (dropout), over ``grad_accum`` equal microbatches whose f32 gradients
 are summed and divided by their number; Adam at a step-time learning rate.
 It returns the aux dict of the JAX step: loss, confusion counts, probs[:, 1]
 and labels.  Over a mesh (``mesh=``, the model from
-``parallel.shard_params``) each rank steps on its own rows of the global
-batch and the aux dict comes back global and the same on every rank, as
-JAX's ``_replicate_aux`` makes it: the loss is the global mean, the counts
-are summed and probs and labels are gathered in rank order.
+``parallel.shard_params``) each data coordinate steps on its own rows of
+the global batch and the aux dict comes back global and the same on every
+rank, as JAX's ``_replicate_aux`` makes it: the loss is the global mean, the
+counts are summed and probs and labels are gathered in data order.  The
+ranks of one data coordinate (its 'expert' and 'seq' line) step on the same
+rows with the same generator, so their augmentation and dropout agree and
+the work the MoE FFN (``moe_experts``) and the ring attention
+(``seq_parallel``) split among them sees one batch.  The models find the
+mesh of that split where JAX's do, in the ambient expert and seq meshes
+(``parallel.moe``, ``parallel.ring``); a step over a mesh sets them while
+it runs and puts back what was there before, so nothing of one Trainer's
+mesh is left for a later model in the process.
 
 The model, the optimizer state and the generators are objects that the step
 updates in place, where the JAX step is a pure function of (params,
@@ -29,14 +37,19 @@ TensorBoard, top-k and rolling checkpoints in the JAX npz layout
 the plateau and early-stopping state), resume from the rolling checkpoint,
 early stopping, ``test`` and ``predict``.  With a mesh
 (``parallel.make_mesh``, one process per device) it trains data-parallel
-under DDP or, with ``fsdp=True``, FSDP: each rank reads its ``host_shard`` of
-each epoch's indices (or its own sampler draw), every rank computes the
-same history row, and only rank 0 logs, prints and writes checkpoints.  The
-stateful (BatchNorm) families are a later slice.
+under DDP or, with ``fsdp=True``, FSDP, over the mesh's data axis: each data
+coordinate reads its ``host_shard`` of each epoch's indices (or its own
+sampler draw), every rank computes the same history row, and only rank 0
+logs, prints and writes checkpoints.  A mesh with an 'expert' axis splits
+the MoE experts over it and one with a 'seq' axis the attention's sequence
+(JAX ``train/trainer.py:347-370``; the steps set the ambient expert and seq
+meshes the models read, see ``_ambient_meshes``).  The stateful (BatchNorm)
+families are a later slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -47,6 +60,9 @@ from ..data.augment import AugmentConfig, augment_batch
 from ..models.convert import (jax_params_from_model, jax_params_from_state_dict,
                               load_jax_params, params_from_flat, state_dict_from_jax)
 from ..ops.layers import promote_input
+from ..parallel.mesh import axis_index, axis_size
+from ..parallel.moe import active_expert_mesh, gather_experts, local_experts, set_expert_mesh
+from ..parallel.ring import active_seq_mesh, set_seq_mesh
 from ..parallel.sharding import (batch_sharding, gather_rows, no_sync, shard_params,
                                  sync_replicated_grads, unwrap)
 from ..utils.device import resolve_device
@@ -66,10 +82,11 @@ def _aux(logits: torch.Tensor, loss: torch.Tensor, labels: torch.Tensor, mesh=No
 
 
 def _replicate_aux(aux: dict, mesh) -> dict:
-    """The global aux dict on every rank, from one all-reduce: the mean of
-    the ranks' losses (their batches are of one size), the summed counts and
-    the probs and labels of every rank in rank order (the JAX
-    ``_replicate_aux``, the reference's ``sync_dist=True``)."""
+    """The global aux dict on every rank, from one all-reduce over the data
+    axis: the mean of the data coordinates' losses (their batches are of one
+    size), the summed counts and the probs and labels of every coordinate in
+    data order (the JAX ``_replicate_aux``, the reference's
+    ``sync_dist=True``)."""
     keys = list(aux["counts"])
     b = aux["probs"].shape[0]
     row = torch.cat([aux["loss"].float().reshape(1),
@@ -82,6 +99,29 @@ def _replicate_aux(aux: dict, mesh) -> dict:
             "counts": dict(zip(keys, counts)),
             "probs": rows[:, 1 + k:1 + k + b].reshape(-1).to(aux["probs"].dtype),
             "labels": rows[:, 1 + k + b:].reshape(-1).to(aux["labels"].dtype)}
+
+
+@contextlib.contextmanager
+def _ambient_meshes(config: Config, mesh):
+    """While one step runs over ``mesh``: the ambient seq mesh when
+    ``config.seq_parallel`` > 1 and the expert mesh when
+    ``config.moe_experts`` > 1 (the MoE routes the global batch over 'data'
+    and splits its experts over 'expert'), the ones before restored after.
+    The backward needs neither: the ring and the MoE keep their groups in
+    the autograd graph."""
+    if mesh is None:
+        yield
+        return
+    before = active_seq_mesh(), active_expert_mesh()
+    if int(config.get("seq_parallel", 0)) > 1:
+        set_seq_mesh(mesh)
+    if int(config.get("moe_experts", 0)) > 1:
+        set_expert_mesh(mesh)
+    try:
+        yield
+    finally:
+        set_seq_mesh(before[0])
+        set_expert_mesh(before[1])
 
 
 def _dropout_generator(generator: torch.Generator, device: torch.device) -> torch.Generator:
@@ -108,9 +148,9 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
     number of volumes that drew each transform.
 
     ``mesh``: the model is ``parallel.shard_params``' (DDP or FSDP) over it;
-    ``img`` and ``labels`` are this rank's rows, the gradients are averaged
-    across ranks (the microbatches before the last do not reduce), and the
-    aux dict is replicated (``_replicate_aux``)."""
+    ``img`` and ``labels`` are this data coordinate's rows, the gradients
+    are averaged across data coordinates (the microbatches before the last
+    do not reduce), and the aux dict is replicated (``_replicate_aux``)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if accum_impl not in ("scan", "unroll"):
@@ -139,7 +179,7 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
         logit_parts, loss_sum = [], 0.0
         for i, (im, lb) in enumerate(zip(img.chunk(grad_accum), labels.chunk(grad_accum))):
             dropout_gen = _dropout_generator(generator, device)
-            with no_sync(model, skip=i < grad_accum - 1):
+            with no_sync(model, skip=i < grad_accum - 1), _ambient_meshes(config, mesh):
                 logits, loss = model(im, lb, train=True, generator=dropout_gen)
                 loss.backward()
             logit_parts.append(logits.detach())
@@ -166,7 +206,8 @@ def make_eval_step(model: torch.nn.Module, config: Config, mesh=None):
     @torch.no_grad()
     def step(img: torch.Tensor, labels: torch.Tensor) -> dict:
         labels = labels.to(device)
-        logits, loss = model(img.to(device), labels, train=False)
+        with _ambient_meshes(config, mesh):
+            logits, loss = model(img.to(device), labels, train=False)
         return {**_aux(logits, loss, labels, mesh), "logits": logits}
 
     return step
@@ -207,12 +248,13 @@ class EarlyStopping:
         return False
 
 
-def _step_generator(seed: int, epoch: int, step: int, rank: int = 0) -> torch.Generator:
+def _step_generator(seed: int, epoch: int, step: int, shard: int = 0) -> torch.Generator:
     """The host generator of one train step, fixed by (seed, epoch, step) —
-    the JAX ``fold_in(fold_in(key(seed), epoch), step)`` — and, on rank r >
-    0 of a mesh, r folded in too, so ranks draw their own augmentation and
-    dropout (rank 0 draws what a single device does)."""
-    entropy = (seed, epoch, step) + ((rank,) if rank else ())
+    the JAX ``fold_in(fold_in(key(seed), epoch), step)`` — and, at data
+    coordinate d > 0 of a mesh, d folded in too, so data shards draw their
+    own augmentation and dropout (coordinate 0 draws what a single device
+    does) and the ranks of one coordinate draw alike."""
+    entropy = (seed, epoch, step) + ((shard,) if shard else ())
     state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(state) & (2 ** 63 - 1))
 
@@ -227,8 +269,10 @@ class Trainer:
     (ReduceLROnPlateau on val_loss).  latest_every: rolling-checkpoint
     cadence in epochs.  mesh: a ``parallel.make_mesh`` mesh, one process per
     device — the Trainer-level replacement for Lightning's
-    ``devices/num_nodes``; ``batch_size`` of the loaders is per process.
-    fsdp: shard params and Adam moments over the mesh (needs one);
+    ``devices/num_nodes``; ``batch_size`` of the loaders is per data
+    coordinate.  Its 'seq' axis must be ``config.seq_parallel`` when that is
+    above 1, and its 'expert' axis must divide ``config.moe_experts``.
+    fsdp: shard params and Adam moments over the data axis (needs a mesh);
     data_sharding defaults to ``batch_sharding(mesh, 6)``."""
 
     def __init__(self, model_cls, config: Config, max_epochs: int, logger=None,
@@ -264,8 +308,23 @@ class Trainer:
         if mesh is not None and data_sharding is None:
             data_sharding = batch_sharding(mesh, 6)     # (B, M, C, D, H, W)
         self.data_sharding = data_sharding
-        self.rank = 0 if mesh is None else torch.distributed.get_rank(mesh.get_group())
+        self.rank = 0 if mesh is None else torch.distributed.get_rank()
         self.world = 1 if mesh is None else mesh.size()
+        # this process's data coordinate and the number of data coordinates
+        self.shard, self.shards = axis_index(mesh, "data"), axis_size(mesh, "data")
+        seq = int(config.get("seq_parallel", 0))
+        if seq > 1 and mesh is not None:
+            if axis_size(mesh, "seq") != seq:
+                raise ValueError(f"config.seq_parallel={seq} but the mesh's 'seq' axis is "
+                                 f"{axis_size(mesh, 'seq')}: build the mesh with "
+                                 f"make_mesh(..., seq={seq})")
+        experts = int(config.get("moe_experts", 0))
+        if experts > 1 and mesh is not None:
+            if experts % axis_size(mesh, "expert"):
+                raise ValueError(f"moe_experts={experts} is not divisible by the mesh's "
+                                 f"'expert' axis {axis_size(mesh, 'expert')}")
+        # FSDP shards and experts split over 'expert' are gathered by every rank
+        self.collective_snapshot = self.fsdp or axis_size(mesh, "expert") > 1
         if schedule == "cosine":
             op = config.optim_params
             self.lr_fn = cosine_annealing_lr(config.lr, op["T_max"], op["eta_min"])
@@ -308,13 +367,15 @@ class Trainer:
         return jax_params_from_model(self.model)
 
     def _moment_trees(self) -> tuple[dict, dict]:
-        names = [n for n, _ in unwrap(self.model).named_parameters()]
+        model = unwrap(self.model)
+        names = [n for n, _ in model.named_parameters()]
         if self.optimizer.step_count:
             mu, nu = self.optimizer.moments()
         else:   # JAX initialises the moments to zeros
-            mu = nu = [torch.zeros(p.shape) for p in self.optimizer.params]
+            mu = nu = [torch.zeros(p.shape, device=p.device) for p in self.optimizer.params]
         return tuple(jax_params_from_state_dict(
-            {n: t.detach().float().cpu().numpy() for n, t in zip(names, ms)}, self.config)
+            {n: t.detach().float().cpu().numpy()
+             for n, t in gather_experts(model, dict(zip(names, ms))).items()}, self.config)
             for ms in (mu, nu))
 
     def _ckpt_state(self, epoch: int) -> dict:
@@ -335,9 +396,9 @@ class Trainer:
         return flatten(state)
 
     def _host_snapshot(self, epoch: int) -> dict | None:
-        """``_ckpt_state`` on rank 0, None elsewhere; under FSDP every rank
-        takes part in gathering the shards."""
-        if self.fsdp or self.rank == 0:
+        """``_ckpt_state`` on rank 0, None elsewhere; under FSDP, or with the
+        experts split, every rank takes part in gathering the shards."""
+        if self.collective_snapshot or self.rank == 0:
             state = self._ckpt_state(epoch)
             return state if self.rank == 0 else None
         return None
@@ -357,13 +418,14 @@ class Trainer:
 
     def _load_flat(self, flat: dict) -> None:
         load_jax_params(self.model, params_from_flat(flat))
-        names = [n for n, _ in unwrap(self.model).named_parameters()]
+        model = unwrap(self.model)
+        names = [n for n, _ in model.named_parameters()]
         moments = []
         for which in ("mu", "nu"):
             prefix = f"opt/{which}/"
             tree = unflatten({k[len(prefix):]: v for k, v in flat.items()
                               if k.startswith(prefix)})
-            sd = state_dict_from_jax(tree, self.config)
+            sd = local_experts(model, state_dict_from_jax(tree, self.config))
             moments.append([sd[n] for n in names])
         self.optimizer.load_state(int(flat["opt/step"]), *moments)
         if self.plateau is not None and "plateau/lr" in flat:
@@ -379,7 +441,7 @@ class Trainer:
         acc = MetricAccumulator()
         for imgs, labels in loader(indices):
             aux = self.train_step(imgs, labels, lr,
-                                  _step_generator(self.seed, epoch, self.global_step, self.rank))
+                                  _step_generator(self.seed, epoch, self.global_step, self.shard))
             self.global_step += 1
             acc.update(aux["loss"], aux["counts"], aux["probs"], aux["labels"])
         return acc.result()
@@ -395,9 +457,9 @@ class Trainer:
             verbose: bool = True) -> list[dict]:
         """train_loader/val_loader: PrefetchLoader instances; sampler: an
         optional WeightedRandomSampler (the train index order per epoch).
-        Over a mesh every rank calls it; each runs its own share of the
-        indices (the same number of batches on every rank) and returns the
-        same history, and rank 0 alone writes."""
+        Over a mesh every rank calls it; each data coordinate runs its own
+        share of the indices (the same number of batches on every rank) and
+        every rank returns the same history; rank 0 alone writes."""
         if self.model is None:
             self.init_state()
         if start_epoch is None:
@@ -414,12 +476,12 @@ class Trainer:
             t0 = time.time()
             lr = self.lr_fn(epoch)
             if sampler is not None:
-                train_idx = sampler.epoch_indices(epoch, host_id=self.rank,
-                                                  num_hosts=self.world)
+                train_idx = sampler.epoch_indices(epoch, host_id=self.shard,
+                                                  num_hosts=self.shards)
             else:
                 train_idx = host_shard(np.random.default_rng((self.seed, epoch))
-                                       .permutation(n_train), self.rank, self.world)
-            val_idx = host_shard(np.arange(n_val), self.rank, self.world)
+                                       .permutation(n_train), self.shard, self.shards)
+            val_idx = host_shard(np.arange(n_val), self.shard, self.shards)
             train_m = self._run_epoch_train(train_loader, train_idx, lr, epoch)
             val_m = self._run_epoch_eval(val_loader, val_idx)
 
@@ -455,19 +517,19 @@ class Trainer:
         self.logger.finalize()
         wait_for_writes()
         if self.mesh is not None:   # no rank goes on before rank 0's files are whole
-            torch.distributed.barrier(group=self.mesh.get_group())
+            torch.distributed.barrier()
         return history
 
     def test(self, test_loader) -> tuple[np.ndarray, np.ndarray]:
         """Logits and targets over a loader (reference test hooks,
-        model_cross.py:294-308), in dataset order.  Over a mesh each rank
-        runs its ``host_shard``; the rows are gathered in rank order and the
-        wrap-around padding trimmed, on every rank."""
+        model_cross.py:294-308), in dataset order.  Over a mesh each data
+        coordinate runs its ``host_shard``; the rows are gathered in data
+        order and the wrap-around padding trimmed, on every rank."""
         if self.model is None:
             self.init_state()
         n = len(test_loader.dataset)
         logits, targets = [], []
-        for imgs, labels in test_loader(host_shard(np.arange(n), self.rank, self.world)):
+        for imgs, labels in test_loader(host_shard(np.arange(n), self.shard, self.shards)):
             logits.append(self.eval_step(imgs, labels)["logits"].float())
             targets.append(labels.to(self.device))
         logits, targets = torch.cat(logits), torch.cat(targets)

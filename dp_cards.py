@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Data-parallel training of the live ModelCross across the cards of one
-host over NCCL, through the port's ``Trainer`` (one process per card).
+"""Data-, expert- and sequence-parallel training of the live ModelCross
+across the cards of one host over NCCL, through the port's ``Trainer`` (one
+process per card).
 
-    python3 dp_cards.py [--cards N]        # default: every card of the host
+    python3 dp_cards.py [--cards N] [--modes ddp,fsdp,ep,sp]
+        # default: every card of the host, every mode
 
 ``chip_smoke.py`` checks DDP and FSDP at world size 1 (NCCL refuses two
 ranks on one card); this script runs them where the world has several
@@ -23,6 +25,19 @@ script with ``--worker``) joins an NCCL group and, under DDP and then FSDP
   (the cross-attention key biases, zero in exact arithmetic, are reported
   and not gated), and the parameters after it bit for bit equal on every
   rank.
+
+Then the same for two more meshes (``ep`` and ``sp``):
+
+- ``ep``: the MoE ModelCross (``moe_experts = 4``, chip_smoke's phase
+  train_moe) over (data 1, expert N): each card holds 4/N of every site's
+  experts and all cards step on the same 8 volumes; 12 K1 + 12 K2 launches
+  a step; the comparison step against the one-process MoE step at batch 8
+  (the split experts gathered);
+- ``sp``: the ModelCross with ``seq_parallel = 2`` over (data N/2, seq 2):
+  the self-attention runs as the ring across the two cards of a seq line
+  (no K1 or K2 launch), 8 volumes a data coordinate; the comparison step
+  against the one-process step of the same global batch on the dense plain
+  attention (``use_flash_attention=False``), which the ring computes.
 
 Prints one JSON line per mode, the cards' names and power limits as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``; any
@@ -47,8 +62,8 @@ import torch
 
 import chip_smoke as cs
 from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
-from cross_attention_vit_tpu_torch.parallel import (full_tensor, make_mesh, multihost_init,
-                                                    shard_batch, unwrap)
+from cross_attention_vit_tpu_torch.parallel import make_mesh, multihost_init, shard_batch, unwrap
+from cross_attention_vit_tpu_torch.train.checkpoint import flatten
 from cross_attention_vit_tpu_torch.train.schedule import cosine_annealing_lr
 from cross_attention_vit_tpu_torch.train.trainer import Trainer
 from torch.distributed.tensor import DTensor
@@ -58,13 +73,46 @@ PER_CARD = 8
 WORKER_TIMEOUT_S = 900
 
 
-def global_batch(cards: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """8 volumes a card of phase train's distribution, from a seed, on the
+MODES = ("ddp", "fsdp", "ep", "sp")
+
+
+def global_batch(size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``size`` volumes of phase train's distribution, from a seed, on the
     host."""
     rng = np.random.default_rng(1)
-    img = (rng.normal(size=(PER_CARD * cards, len(cs.MODALITIES), 1, *cs.VOLUME)) * 100)
-    return (torch.from_numpy(img.astype(np.float32)),
-            torch.tensor([0, 1] * (PER_CARD * cards // 2)))
+    img = (rng.normal(size=(size, len(cs.MODALITIES), 1, *cs.VOLUME)) * 100)
+    return torch.from_numpy(img.astype(np.float32)), torch.tensor([0, 1] * (size // 2))
+
+
+def _no_drop(cfg):
+    cs.modify_config(cfg, {"dropout": 0.0, "img_aug": False})
+    return cfg
+
+
+def mode_spec(mode: str, cards: int) -> dict:
+    """A mode's training config, its comparison step's config, the one-
+    process reference's config, its mesh axes, its global batch and the
+    K1/K2 launches a step."""
+    if mode in ("ddp", "fsdp"):
+        return {"cfg": cs.live_config(use_flash=True), "cmp": cs._dp_cmp_cfg(),
+                "ref": cs._dp_cmp_cfg(), "axes": {"data": cards}, "batch": PER_CARD * cards,
+                "attention_launches": 12}
+    if mode == "ep":
+        return {"cfg": cs.moe_config(use_flash=True), "cmp": _no_drop(cs.moe_config(True)),
+                "ref": _no_drop(cs.moe_config(True)), "axes": {"data": 1, "expert": cards},
+                "batch": PER_CARD, "attention_launches": 12}
+    sp = {"seq_parallel": 2}
+    cfg, cmp = cs.live_config(use_flash=True), cs._dp_cmp_cfg()
+    for c in (cfg, cmp):
+        cs.modify_config(c, sp)
+    return {"cfg": cfg, "cmp": cmp, "ref": _no_drop(cs.live_config(use_flash=False)),
+            "axes": {"data": cards // 2, "seq": 2}, "batch": PER_CARD * (cards // 2),
+            "attention_launches": 0}
+
+
+def mode_mesh(axes: dict):
+    return make_mesh(axes.get("data", -1), seq=axes.get("seq", 1),
+                     expert=axes.get("expert", 1))
 
 
 def lr_schedule(cfg):
@@ -72,37 +120,48 @@ def lr_schedule(cfg):
     return cosine_annealing_lr(cfg.lr, op["T_max"], op["eta_min"])
 
 
-def references(cards: int, tmp: Path) -> dict:
-    """On card 0, without a mesh: the step ms at batch 8, and the gradients
-    of one step of the global batch, written for the workers."""
+def references(cards: int, modes: list[str], tmp: Path) -> dict:
+    """On card 0, without a mesh: the step ms at batch 8, and for each mode
+    the gradients of one step of its global batch, written for the
+    workers."""
     cfg = cs.live_config(use_flash=True)
-    img, labels = (x.cuda() for x in global_batch(cards))
+    img, labels = (x.cuda() for x in global_batch(PER_CARD))
     t = Trainer(ModelCross, cfg, max_epochs=1, device="cuda").init_state()
-    _, step_ms, _, _ = cs._run_steps(t.train_step, img[:PER_CARD], labels[:PER_CARD],
-                                     lr_schedule(cfg),
+    _, step_ms, _, _ = cs._run_steps(t.train_step, img, labels, lr_schedule(cfg),
                                      torch.Generator().manual_seed(cs.TRAIN_SEED))
     del t
-    t = Trainer(ModelCross, cs._dp_cmp_cfg(), max_epochs=1, device="cuda").init_state()
-    aux, _ = cs._timed_step(t.train_step, img, labels, cfg.lr, torch.Generator().manual_seed(0))
-    cs.check(bool(torch.isfinite(aux["loss"])), "non-finite loss in the one-process step")
-    torch.save({n: g.cpu() for n, g in cs._full_grads(t).items()}, tmp / "grads.pt")
-    del t, img, labels
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"batch": PER_CARD * cards, "step_ms_batch8": step_ms,
-            "step_ms_batch8_steady": statistics.median(step_ms[1:])}
+    out = {"step_ms_batch8": step_ms, "step_ms_batch8_steady": statistics.median(step_ms[1:])}
+    for mode in modes:
+        spec = mode_spec(mode, cards)
+        img, labels = (x.cuda() for x in global_batch(spec["batch"]))
+        t = Trainer(ModelCross, spec["ref"], max_epochs=1, device="cuda").init_state()
+        aux, ms = cs._timed_step(t.train_step, img, labels, cfg.lr,
+                                 torch.Generator().manual_seed(0))
+        cs.check(bool(torch.isfinite(aux["loss"])), f"{mode}: non-finite one-process loss")
+        torch.save({n: g.cpu() for n, g in cs._full_grads(t).items()}, tmp / f"grads_{mode}.pt")
+        out[f"{mode}_reference"] = {"batch": spec["batch"], "step_ms": ms,
+                                    "loss": float(aux["loss"])}
+        del t, img, labels
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
-def _param_digest(model) -> str:
+def _param_digest(trainer) -> str:
+    """The digest of the whole parameters (FSDP shards and split experts
+    gathered: a collective)."""
     digest = hashlib.sha256()
-    for p in unwrap(model).parameters():
-        digest.update(full_tensor(p).detach().cpu().numpy().tobytes())
+    for _, v in sorted(flatten(trainer.params).items()):
+        digest.update(v.tobytes())
     return digest.hexdigest()
 
 
-def run_mode(fsdp: bool, mesh, img, labels, rank: int, tmp: Path) -> dict:
-    """One rank's DDP or FSDP run (see the module docstring)."""
-    cfg = cs.live_config(use_flash=True)
+def run_mode(mode: str, cards: int, rank: int, tmp: Path) -> dict:
+    """One rank's run of a mode (see the module docstring)."""
+    spec = mode_spec(mode, cards)
+    cfg, fsdp = spec["cfg"], mode == "fsdp"
+    mesh = mode_mesh(spec["axes"])
+    img, labels = (x.cuda() for x in shard_batch(global_batch(spec["batch"]), mesh))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -110,9 +169,12 @@ def run_mode(fsdp: bool, mesh, img, labels, rank: int, tmp: Path) -> dict:
     losses, step_ms, per_step, affine = cs._run_steps(
         t.train_step, img, labels, lr_schedule(cfg), torch.Generator().manual_seed(cs.TRAIN_SEED))
     launches = cs._counts()
-    out = {"losses": losses, "step_ms": step_ms, "step_ms_steady": statistics.median(step_ms[1:]),
+    out = {"mesh": spec["axes"], "rows_per_rank": int(img.shape[0]), "losses": losses,
+           "step_ms": step_ms, "step_ms_steady": statistics.median(step_ms[1:]),
            "launches": launches, "launches_per_step": per_step,
            "affine_volumes_per_step": affine}
+    if mode == "ep":
+        out["dispatch_fraction_by_site"] = unwrap(t.model).moe_aux["dispatch_fraction"].tolist()
     if fsdp:
         shards = [(p.numel(), p.to_local().numel(),
                    t.optimizer._opt.state[p]["exp_avg"].to_local().numel(),
@@ -122,7 +184,7 @@ def run_mode(fsdp: bool, mesh, img, labels, rank: int, tmp: Path) -> dict:
         out["sharded_elements"] = sum(s[0] for s in shards)
         out["local_fraction"] = sorted({s[1] / s[0] for s in shards} | {s[2] / s[0] for s in shards}
                                        | {s[3] / s[0] for s in shards})
-    else:        # the step with and without the gradient all-reduce, in turns
+    elif mode == "ddp":     # the step with and without the gradient all-reduce, in turns
         synced, unsynced = [], []
         for sync in (True, False) * 3:
             with contextlib.nullcontext() if sync else t.model.no_sync():
@@ -138,7 +200,7 @@ def run_mode(fsdp: bool, mesh, img, labels, rank: int, tmp: Path) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     # the comparison step from the seeded masters
-    t = Trainer(ModelCross, cs._dp_cmp_cfg(), max_epochs=1, mesh=mesh, fsdp=fsdp,
+    t = Trainer(ModelCross, spec["cmp"], max_epochs=1, mesh=mesh, fsdp=fsdp,
                 device="cuda").init_state()
     cs._zero_counts()
     aux, out["comparison_step_ms"] = cs._timed_step(t.train_step, img, labels, cfg.lr,
@@ -147,39 +209,38 @@ def run_mode(fsdp: bool, mesh, img, labels, rank: int, tmp: Path) -> dict:
     out["comparison_loss"] = float(aux["loss"])
     grads = cs._full_grads(t)       # a collective under FSDP: every rank
     if rank == 0:
-        errs = cs._leaf_errs(grads, torch.load(tmp / "grads.pt", map_location="cuda"))
+        errs = cs._leaf_errs(grads, torch.load(tmp / f"grads_{mode}.pt", map_location="cuda"))
         gated = {n: e for n, e in errs.items() if not n.endswith(cs.ZERO_GRAD_LEAF)}
         worst = max(gated, key=gated.get)
         out["grad_vs_one_process_worst_leaf"] = max(errs.values())
         out["grad_vs_one_process_worst_gated"] = [worst, gated[worst]]
     del grads
-    out["param_sha256"] = _param_digest(t.model)
+    out["param_sha256"] = _param_digest(t)
     del t
     return out
 
 
-def worker(rank: int, cards: int, port: int, tmp: Path) -> int:
+def worker(rank: int, cards: int, port: int, tmp: Path, modes: list[str]) -> int:
     multihost_init(f"127.0.0.1:{port}", cards, rank, device="cuda",
                    timeout_s=WORKER_TIMEOUT_S)
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        mesh = make_mesh()
-        img, labels = (x.cuda() for x in shard_batch(global_batch(cards), mesh))
         result = {"rank": rank, "device": str(torch.device("cuda", torch.cuda.current_device())),
                   "backend": torch.distributed.get_backend()}
-        for mode in ("ddp", "fsdp"):
-            result[mode] = run_mode(mode == "fsdp", mesh, img, labels, rank, tmp)
+        for mode in modes:
+            result[mode] = run_mode(mode, cards, rank, tmp)
         (tmp / f"rank{rank}.json").write_text(json.dumps(result))
     finally:
         torch.distributed.destroy_process_group()
     return 0
 
 
-def spawn(cards: int, tmp: Path) -> list[dict]:
+def spawn(cards: int, tmp: Path, modes: list[str]) -> list[dict]:
     port = cs._free_port()
     procs = [subprocess.Popen([sys.executable, str(ROOT / "dp_cards.py"), "--worker", str(r),
-                               str(cards), str(port), str(tmp)], stdout=subprocess.PIPE,
+                               str(cards), str(port), str(tmp), ",".join(modes)],
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(cards)]
     errs = []
     try:
@@ -197,14 +258,16 @@ def spawn(cards: int, tmp: Path) -> list[dict]:
 
 def check_mode(mode: str, ranks: list[dict], cards: int) -> None:
     runs = [r[mode] for r in ranks]
+    n = mode_spec(mode, cards)["attention_launches"]
     for r, run in zip(ranks, runs):
         cs.check(all(np.isfinite(run["losses"])), f"{mode} rank {r['rank']}: losses {run['losses']}")
         for i, c in enumerate(run["launches_per_step"]):
-            cs.check(c["K1"] == 12 and c["K2"] == 12,
-                     f"{mode} rank {r['rank']} step {i}: K1 {c['K1']}, K2 {c['K2']} launches")
+            cs.check(c["K1"] == n and c["K2"] == n,
+                     f"{mode} rank {r['rank']} step {i}: K1 {c['K1']}, K2 {c['K2']} launches "
+                     f"({n} each expected)")
         cs.check(run["launches"]["K3"] > 0, f"{mode} rank {r['rank']}: K3 never ran")
         c = run["comparison_launches"]
-        cs.check(c["K1"] == 12 and c["K2"] == 12, f"{mode} comparison step launches {c}")
+        cs.check(c["K1"] == n and c["K2"] == n, f"{mode} comparison step launches {c}")
     cs.check(len({run["param_sha256"] for run in runs}) == 1,
              f"{mode}: the ranks' parameters differ after the comparison step")
     cs.check(len({tuple(run["losses"]) for run in runs}) == 1,
@@ -220,20 +283,32 @@ def check_mode(mode: str, ranks: list[dict], cards: int) -> None:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--cards", type=int, default=None, help="default: every card of the host")
+    p.add_argument("--modes", default=",".join(MODES),
+                   help="comma-separated subset of " + ",".join(MODES))
     args = p.parse_args()
+    modes = [m for m in args.modes.split(",") if m]
     try:
         device = cs.phase_device()
         cards = args.cards or torch.cuda.device_count()
         cs.check(1 <= cards <= torch.cuda.device_count(),
                  f"--cards {cards}: the host has {torch.cuda.device_count()} cards")
+        cs.check(set(modes) <= set(MODES), f"--modes {args.modes}: not a subset of {MODES}")
+        if "sp" in modes and cards % 2:
+            cs.emit({"phase": "sp", "skipped": f"a seq axis of 2 needs an even card count, "
+                                               f"not {cards}"})
+            modes.remove("sp")
+        cs.check("ep" not in modes or 4 % cards == 0, f"ep: 4 experts over {cards} cards")
         cs.phase_build()
         with tempfile.TemporaryDirectory() as tmp:
-            ref = references(cards, Path(tmp))
+            ref = references(cards, modes, Path(tmp))
             cs.emit({"phase": "one_process", **ref})
-            ranks = spawn(cards, Path(tmp))
-        for mode in ("ddp", "fsdp"):
+            ranks = spawn(cards, Path(tmp), modes)
+        for mode in modes:
             check_mode(mode, ranks, cards)
+            one = ref[f"{mode}_reference"]["loss"]
             cs.emit({"phase": f"{mode}_{cards}_cards", "per_card_batch": PER_CARD,
+                     "comparison_loss_equals_one_process":
+                         all(r[mode]["comparison_loss"] == one for r in ranks),
                      "ranks": [{"rank": r["rank"], "device": r["device"],
                                 "backend": r["backend"],
                                 **{k: v for k, v in r[mode].items() if k != "launches_per_step"}}
@@ -252,5 +327,5 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         sys.exit(worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
-                        Path(sys.argv[5])))
+                        Path(sys.argv[5]), sys.argv[6].split(",")))
     sys.exit(main())

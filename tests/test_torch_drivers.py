@@ -127,12 +127,40 @@ def test_evaluate_reads_a_jax_checkpoint(cohort, trained):
     assert teval.main([*args[:1], str(own), *args[2:]], device="cpu")["n"] == 20
 
 
+@pytest.fixture(scope="module")
+def trained_vit(cohort):
+    """One JAX run of the ModelVIT grid (point 1: SWI and DWI, augmentation
+    on), one epoch, tiny width."""
+    args = ["--model", "vit", "--grid-index", "1", "--seeds", "2004", "--batch-size", "4",
+            "--epochs", "1", "--only-available", "--labels", str(cohort / "labels.csv"),
+            "--data", str(cohort / "data"), *SETS]
+    return jexp.main([*args, "--out", str(cohort / "jax_vit"), "--dp", "0",
+                      "--no-compile-cache"])
+
+
+def test_evaluate_reads_a_jax_vit_checkpoint(cohort, trained_vit):
+    """``evaluate --model vit`` on a JAX-written ModelVIT checkpoint: the JAX
+    ``evaluate``'s metrics within 1e-6."""
+    ckpt = next((cohort / "jax_vit" / "checkpoints" / "cross").glob("epoch=*.npz"))
+    args = ["--checkpoint", str(ckpt), "--model", "vit", "--labels",
+            str(cohort / "labels.csv"), "--data", str(cohort / "data"), "--only-available",
+            "--batch-size", "4", "--img-types", "SWI", "DWI"]
+    want = jeval.main(args)
+    got = teval.main(args, device="cpu")
+    assert set(got) == set(want) and got["n"] == want["n"] == 20
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
+
+
 # the flags of each case, what each must raise and with which words
 _MESH_FLAG_CASES = {
     # data parallelism needs a process group of that size
     "--dp": (["--dp", "2"], SystemExit, "world size"),
     "--tp": (["--tp", "2"], SystemExit, "item 13"),
-    "--sp": (["--sp", "2"], SystemExit, "item 13"),
+    # sequence and expert parallelism need a process group of data × expert × seq
+    "--sp": (["--sp", "2"], SystemExit, "world size 2"),
+    "--ep": (["--ep", "2", "--set", "moe_experts=4"], SystemExit, "world size 2"),
+    "--sp --dp 0": (["--sp", "2", "--dp", "0"], SystemExit, "require a mesh"),
     "--fsdp": (["--fsdp", "--dp", "0"], SystemExit, "requires a mesh"),
     # nothing listens on port 1: the rendezvous gives up within its timeout
     "--coordinator": (["--coordinator", "127.0.0.1:1", "--num-processes", "2",
@@ -140,7 +168,8 @@ _MESH_FLAG_CASES = {
 }
 
 
-@pytest.mark.parametrize("flags", [["--dp"], ["--tp"], ["--sp"], ["--fsdp"], ["--coordinator"]])
+@pytest.mark.parametrize("flags", [["--dp"], ["--tp"], ["--sp"], ["--fsdp"], ["--coordinator"],
+                                   ["--ep"], ["--sp --dp 0"]])
 def test_unported_mesh_flags_exit(flags):
     """The mesh flags that still exit, and the two that now start work but
     cannot finish it here."""

@@ -34,8 +34,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         banned = ("jax", "jaxlib", "cross_attention_vit_tpu", "pandas", "sklearn",
                   "ml_dtypes", "tensorboardX")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 39 else 0)
+        new = {pkg.__name__ + ".parallel.moe", pkg.__name__ + ".parallel.ring"}
+        print(len(names), bad, sorted(new - set(names)))
+        sys.exit(1 if bad or len(names) < 41 or not new <= set(names) else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
@@ -181,3 +182,26 @@ def test_evaluate_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         evaluate.main(args)
     assert evaluate.main(args, device="cpu")["n"] == 1
+
+
+def test_expert_and_sequence_parallel_entry_points_default_to_cuda(tmp_path):
+    """The MoE and SP models, their Trainer and the CLI's --ep/--sp default
+    to CUDA and raise without it; nothing carries on on the CPU."""
+    _no_cuda()
+    from cross_attention_vit_tpu_torch.drivers import experiments
+    from cross_attention_vit_tpu_torch.train.trainer import Trainer
+
+    for fields in ({"moe_experts": 4}, {"seq_parallel": 2}):
+        cfg = _trainable(modify_config(_tiny(), fields))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ModelCross(cfg, master_weights=True)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ModelVIT(modify_config(_tiny_vit(), fields))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Trainer(ModelCross, cfg, max_epochs=1)
+    labels, data = _cli_cohort(tmp_path)
+    for flags in (["--ep", "2", "--set", "moe_experts=4"], ["--sp", "2"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            experiments.main(["--labels", str(labels), "--data", str(data), "--out",
+                              str(tmp_path / "runs"), *flags])
+    assert not (tmp_path / "runs").exists()

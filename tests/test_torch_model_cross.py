@@ -195,15 +195,23 @@ def test_non_divisible_patch_raises():
 
 @pytest.mark.parametrize("fields", [{"moe_experts": 4}, {"seq_parallel": 2}])
 def test_unported_options_raise(fields):
-    tc = get_mgmt_cross_config()
-    modify_config(tc, _fields(**fields))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ModelCross(tc, device="cpu")
+    """The two options this test once held unported, the MoE FFN and
+    sequence parallelism, now build and give JAX's logits and loss (no
+    mesh: every expert here, the dense attention)."""
+    jc, tc, params = _pair(**fields)
+    model = _port(tc, params)
+    img = _img(tc)
+    labels = np.array([0, 1], np.int32)
+    with torch.no_grad():
+        logits, loss = model(torch.from_numpy(img), torch.from_numpy(labels).long())
+    want, want_loss = jmc.apply(params, jc, jnp.asarray(img), jnp.asarray(labels))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert abs(float(loss) - float(want_loss)) <= ATOL
 
 
 def test_train_mode_raises():
     """Train mode with dropout needs a generator (JAX raises for a missing
-    key the same way); MoE still raises at construction (above)."""
+    key the same way)."""
     _, tc, params = _pair(num_multi_blocks=1, dropout=0.25)
     with pytest.raises(ValueError, match="Generator"):
         _port(tc, params)(torch.from_numpy(_img(tc)), train=True)

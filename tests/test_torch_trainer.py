@@ -104,6 +104,40 @@ def test_fit_history_matches_jax():
     assert t.global_step == jt.global_step == 6
 
 
+@pytest.mark.parametrize("moe", [0, 4], ids=["dense", "moe"])
+def test_vit_fit_history_matches_jax(moe):
+    """A tiny f32 ModelVIT (and its MoE trunk) through ``Trainer.fit``: the
+    JAX Trainer's history within 1e-4 over 2 epochs from the same
+    parameters, batches and sampler draws."""
+    from cross_attention_vit_tpu.configs import get_mgmt_config as jax_vit_config
+    from cross_attention_vit_tpu.models import model_vit
+    from cross_attention_vit_tpu_torch.configs import get_mgmt_config
+    from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
+
+    fields = {**TINY, "num_layers": 2, "moe_experts": moe}
+    cfg, jcfg = get_mgmt_config(), jax_vit_config()
+    modify_config(cfg, fields)
+    jax_modify(jcfg, fields)
+    ds = _data()
+    w = (ds.labels == 0) * 1.0 + 2.0
+    jt = jtrainer.Trainer(model_vit, jcfg, max_epochs=2, seed=3)
+    jt.init_state()
+    params = _np_tree(jt.params)
+    jhist = jt.fit(JaxLoader(ds, batch_size=4), JaxLoader(ds, batch_size=4),
+                   sampler=jds.WeightedRandomSampler(w, len(ds), seed=3), verbose=False)
+    t = ttrainer.Trainer(ModelVIT, cfg, max_epochs=2, seed=3, device="cpu").init_state(params)
+    hist = t.fit(PrefetchLoader(ds, batch_size=4, device="cpu"),
+                 PrefetchLoader(ds, batch_size=4, device="cpu"),
+                 sampler=tds.WeightedRandomSampler(w, len(ds), seed=3), verbose=False)
+    assert len(hist) == len(jhist) == 2
+    for row, jrow in zip(hist, jhist):
+        assert set(row) == set(jrow)
+        for k in row:
+            if k != "epoch_time_s":
+                assert abs(row[k] - jrow[k]) <= 1e-4, (k, row[k], jrow[k])
+    assert (t.model.moe_aux is None) == (not moe)
+
+
 def test_grad_accum_equals_full_batch_step():
     cfg, _ = _cfgs()
     ds = _data(n=4, seed=1)
