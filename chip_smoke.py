@@ -21,7 +21,9 @@ Phases, each printed as one JSON line with a ``phase`` key:
              (m, r) are held against the plain ones; K2 runs on K1's own
              statistics against its plain version given the same ones, and
              two identical K2 calls must agree bit for bit; both at the
-             ragged lengths N = 1 ... 1040 (B=2 K=4) in bf16 and f32.  K1 and
+             ragged lengths N = 1 ... 1040 (B=2 K=4) in bf16 and f32, and at
+             the split paths' bf16 shapes: a TP rank's 8 heads (B=8 and 4,
+             N=513) and a PP microbatch of 2 rows (K=16, N=1025).  K1 and
              K2 are timed at B=8 K=16 N=513 and 1025 bf16, the median of five
              profiled windows with their spread, beside
              scaled_dot_product_attention and its autograd backward.  At the
@@ -178,6 +180,28 @@ Phases, each printed as one JSON line with a ``phase`` key:
              from the same masters and generator: losses and parameters bit
              for bit equal (JAX's fallback to the dense attention), no K1 or
              K2 launch, K3 over the run.
+17. train_tp, serve_tp, train_pp — tensor and pipeline parallelism over two
+             gloo ranks sharing the card (``chip_smoke.py --split-worker``;
+             NCCL refuses two ranks on one card), against one-process
+             references taken first.  train_tp: the live ModelCross over
+             (model 2), 8 of the 16 heads a rank: one f32 step with dropout
+             and augmentation — loss within ``LOSS_REL_TOL`` (1e-5, JAX's
+             rel) relative, gradients gathered to the whole layout within
+             ``KERNEL_TOL[float32]`` — then ``TP_STEPS`` bf16 steps: 12 K1 +
+             12 K2 a step per rank, all at B=8 K=8, the first loss within
+             ``TP_BF16_LOSS_REL_TOL`` (5e-3) relative of one process's; step ms and peak memory a rank
+             (gloo's host round trips, not a speed figure).  serve_tp: the
+             same weights through ``InferenceServer(mesh=)``, rank 0 asked 3
+             and 8 volumes, the other rank in ``run_worker``: served logits
+             within ``SERVE_TOL`` of a direct one-process forward, 12 K1 a
+             forward per rank at K=8.  train_pp: the 2-stream ModelVIT with
+             ``pipeline_stages`` 2 and ``PIPE_MB`` microbatches of 2 rows: the
+             serial schedule against the plain trunk (f32, dropout 0: loss
+             within 1e-5 relative, gradients within ``KERNEL_TOL[float32]``,
+             16 K1 + 16 K2 at B=2), then over (pipe 2) against the serial
+             schedule (f32 with dropout and augmentation, the same gates)
+             and ``PP_STEPS`` bf16 steps: 8 K1 + 8 K2 a step per rank at B=2
+             (2 layers × 4 microbatches); the bubble fraction.
 
 Then a line ``{"phase": "profiler", ...}``: the profiles taken, how many of
 them recorded no kernel, and the calls timed by CUDA events after
@@ -233,16 +257,16 @@ from cross_attention_vit_tpu_torch.ops.quant import (QuantLinear, dynamic_quanti
                                                      quantize_weight)
 from cross_attention_vit_tpu_torch.models.convert import jax_params_from_state_dict, params_from_flat
 from cross_attention_vit_tpu_torch.ops.losses import cross_entropy
-from cross_attention_vit_tpu_torch.parallel.moe import (expert_capacity, gather_experts,
-                                                        local_experts, moe_sites)
+from cross_attention_vit_tpu_torch.parallel.moe import expert_capacity, local_experts, moe_sites
 from cross_attention_vit_tpu_torch.parallel.ring import ring_attention
 from cross_attention_vit_tpu_torch.train import checkpoint as ckpt
 from cross_attention_vit_tpu_torch.train.checkpoint import save_config, save_pytree
 from cross_attention_vit_tpu_torch.train.metrics import binary_auroc, compute_metrics
 from cross_attention_vit_tpu_torch.train.optim import Adam
 from cross_attention_vit_tpu_torch.train.schedule import cosine_annealing_lr
-from cross_attention_vit_tpu_torch.parallel import (full_tensor, make_mesh, multihost_init,
-                                                    shard_batch, unwrap)
+from cross_attention_vit_tpu_torch.parallel import (bubble_fraction, full_tensor, make_mesh,
+                                                    multihost_init, shard_batch, unwrap,
+                                                    whole_tensors)
 from cross_attention_vit_tpu_torch.train.trainer import Trainer, make_train_step
 from torch.distributed.tensor import DTensor
 
@@ -627,12 +651,15 @@ def phase_kernels() -> dict:
     # (B, K, N, dtype, strided): the serving buckets 1/2/4/8 at N = 513 in
     # bf16; strided reads qkv through a (B, 3, K, N, D) buffer permuted to
     # (B, N, 3, K, D) — the f32 path takes any strides; N = 1041 routes to
-    # K7; then the ragged lengths at B=2 K=4 in both dtypes
+    # K7; the split paths' shapes: a TP rank's 8 heads (train_tp and
+    # serve_tp's buckets 8 and 4) and a PP microbatch of 2 rows at N = 1025
+    # (train_pp); then the ragged lengths at B=2 K=4 in both dtypes
     cases = [(1, 16, 513, torch.bfloat16, False), (2, 16, 513, torch.bfloat16, False),
              (4, 16, 513, torch.bfloat16, False), (8, 16, 513, torch.bfloat16, False),
              (1, 16, 513, torch.float32, False), (8, 16, 513, torch.float32, False),
              (1, 16, 513, torch.float32, True), (8, 16, 1025, torch.bfloat16, False),
-             (8, 16, 1041, torch.bfloat16, False)]
+             (8, 16, 1041, torch.bfloat16, False), (8, 8, 513, torch.bfloat16, False),
+             (4, 8, 513, torch.bfloat16, False), (2, 16, 1025, torch.bfloat16, False)]
     cases += [(2, 4, N, dt, False) for dt in (torch.bfloat16, torch.float32) for N in RAGGED_NS]
     checks, failures, timed = [], [], {}
     for i, (B, K, N, dtype, strided) in enumerate(cases):
@@ -662,7 +689,7 @@ def phase_kernels() -> dict:
             entry["out_equal_with_stats"] = bool(torch.equal(out_s.float(), out))
             ok = ok and entry["out_equal_with_stats"] \
                 and max(entry["stats_err"].values()) <= STATS_TOL
-        if B == 8 and dtype == torch.bfloat16 and N <= fa._SINGLE_BLOCK_MAX:
+        if (B, K) == (8, 16) and dtype == torch.bfloat16 and N <= fa._SINGLE_BLOCK_MAX:
             q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
             timings(entry, lambda: fa.flash_attention_qkv(qkv, scale),
                     lambda: fa.flash_attention_qkv_reference(qkv, scale),
@@ -726,10 +753,13 @@ def phase_kernels_k2() -> dict:
     # (B, K, N, dtype, strided): the training batch and two smaller ones at
     # N = 513 in bf16; f32 at B = 1 (strided: every operand read through a
     # head-major buffer) and B = 8; bf16 at the longer N of the ViT geometry;
-    # then the ragged lengths at B=2 K=4 in both dtypes
+    # the split paths' shapes: a TP rank's 8 heads (train_tp) and a PP
+    # microbatch of 2 rows at N = 1025 (train_pp); then the ragged lengths
+    # at B=2 K=4 in both dtypes
     cases = [(1, 16, 513, torch.bfloat16, False), (2, 16, 513, torch.bfloat16, False),
              (8, 16, 513, torch.bfloat16, False), (1, 16, 513, torch.float32, True),
-             (8, 16, 513, torch.float32, False), (8, 16, 1025, torch.bfloat16, False)]
+             (8, 16, 513, torch.float32, False), (8, 16, 1025, torch.bfloat16, False),
+             (8, 8, 513, torch.bfloat16, False), (2, 16, 1025, torch.bfloat16, False)]
     cases += [(2, 4, N, dt, False) for dt in (torch.bfloat16, torch.float32) for N in RAGGED_NS]
     checks, failures, timed = [], [], {}
     for i, (B, K, N, dtype, strided) in enumerate(cases):
@@ -766,10 +796,10 @@ def phase_kernels_k2() -> dict:
         entry["max_abs_err"] = max(e[0] for e in errs.values())
         entry["norm_err"] = {name: e[1] for name, e in errs.items()}
         del plain, again
-        if (B, N, dtype) == (8, 513, torch.bfloat16):
+        if (B, K, N, dtype) == (8, 16, 513, torch.bfloat16):
             entry["vs_f32"] = _attention_vs_f32(*fa._stream_views(qkv), dout.transpose(1, 2),
                                                 scale, lambda: _k1k2_path(qkv, dout, scale))
-        if B == 8 and dtype == torch.bfloat16:
+        if (B, K) == (8, 16) and dtype == torch.bfloat16:
             # the yardstick: backward of scaled_dot_product_attention through autograd
             q, k, v = (qkv[:, :, j].transpose(1, 2).contiguous().requires_grad_()
                        for j in range(3))
@@ -1898,10 +1928,11 @@ def _train_batch(cfg) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _full_grads(trainer) -> dict[str, torch.Tensor]:
-    """Every parameter's gradient, whole (FSDP shards and experts split over
-    'expert' gathered: a collective)."""
+    """Every parameter's gradient, whole (FSDP shards, experts split over
+    'expert', TP slices and the other stages' layers gathered: a
+    collective)."""
     model = unwrap(trainer.model)
-    return {n: g.float() for n, g in gather_experts(
+    return {n: g.float() for n, g in whole_tensors(
         model, {n: full_tensor(p.grad) for n, p in model.named_parameters()}).items()}
 
 
@@ -2844,6 +2875,372 @@ def phase_ring() -> dict:
     return result
 
 
+# -- tensor and pipeline parallelism: phases train_tp, serve_tp, train_pp -------------
+
+TP_STEPS = 3            # bf16 steps of the TP ranks (gloo moves every partial sum by host)
+PP_STEPS = 3
+PIPE_MB = 4             # pipeline_microbatches: B = 2 rows a microbatch
+SPLIT_TIMEOUT_S = 900
+SPLIT_SERVE = ((3, 11), (8, 12))     # (volumes, seed) of the sharded server's requests
+LOSS_REL_TOL = 1e-5     # JAX's own rel for a split step's loss (tests/test_parallel.py)
+# the bf16 TP first step against one process's: another summation order of
+# the row-split products flips roundings; ~12x the 4.1e-4 it reads on an H100
+TP_BF16_LOSS_REL_TOL = 5e-3
+
+
+def _f32(cfg):
+    """``cfg`` computing and storing activations in f32 (the comparison
+    steps: at bf16 another summation order flips roundings, which no 1e-5
+    gate can hold)."""
+    modify_config(cfg, {"compute_dtype": "float32", "activation_dtype": "float32"})
+    return cfg
+
+
+def _pp_config(dtype: str = "bfloat16"):
+    """The 2-stream ModelVIT (params_list2[1], N = 1025, 4 layers) in
+    ``pipeline_stages`` = 2 with PIPE_MB microbatches."""
+    cfg = vit_config(("SWI", "DWI"), use_flash=True)
+    modify_config(cfg, {"pipeline_stages": 2, "pipeline_microbatches": PIPE_MB})
+    return _f32(cfg) if dtype == "float32" else cfg
+
+
+def _vit_batch(cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    rng = np.random.default_rng(22)
+    img = torch.from_numpy((rng.normal(size=(8, cfg.num_modalities, 1, *cfg.img_size)) * 100)
+                           .astype(np.float32)).cuda()
+    return img, torch.tensor([0, 1] * 4, device="cuda")
+
+
+@contextlib.contextmanager
+def _attention_shapes(seen: set):
+    """Record the (kernel, B, K) of every K1/K2/K7 launch while it is open:
+    which batch and heads each kernel ran at (launches only, the counts are
+    the kernels' own)."""
+    names = ("flash_attention_qkv_fwd", "flash_attention_qkv_bwd", "flash_attention_stream_fwd")
+    saved = {n: getattr(fa, n) for n in names}
+
+    def spy(name, fn):
+        def call(q, *args, **kwargs):
+            out = fn(q, *args, **kwargs)
+            k = q.shape[3] if q.dim() == 5 else q.shape[1]
+            seen.add((name, int(q.shape[0]), int(k)))
+            return out
+        call.__dict__ = fn.__dict__     # the wrappers count on their own attributes
+        return call
+    for n in names:
+        setattr(fa, n, spy(n, saved[n]))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(fa, n, saved[n])
+
+
+def _gated_worst(errs: dict) -> tuple[str, float]:
+    gated = {n: e for n, e in errs.items() if not n.endswith(ZERO_GRAD_LEAF)}
+    worst = max(gated, key=gated.get)
+    return worst, gated[worst]
+
+
+def _vit_head_bias_by_summand(errs: dict, got: dict, want: dict, aux: dict) -> None:
+    """ModelVIT's classifier bias normalised by its largest summand, as
+    phase train_vit does (``HEAD_BIAS``), from a step's (global) aux."""
+    labels = aux["labels"]
+    summand = (aux["probs"] - labels.float()).abs().max().item() / len(labels)
+    errs[HEAD_BIAS] = (got[HEAD_BIAS] - want[HEAD_BIAS]).abs().max().item() / summand
+
+
+def phase_split(tmp: Path) -> tuple[dict, dict, dict]:
+    """Phases train_tp, serve_tp and train_pp: the one-process references
+    here, then two gloo ranks sharing the card (``chip_smoke.py
+    --split-worker``) run TP over (model 2) and PP over (pipe 2)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- references: the live ModelCross from the Trainer's seed
+    cfg = live_config(use_flash=True)
+    model = ModelCross(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0),
+                       master_weights=True)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    img, labels = _train_batch(cfg)
+    refs = {}
+    aux = {}
+    grads = _grads_after_step(_f32(live_config(True)), state, img, labels, aux_out=aux)
+    torch.save({n: g.cpu() for n, g in grads.items()}, tmp / "tp_grads.pt")
+    refs["tp_f32_loss"] = float(aux["loss"])
+    del grads
+    aux = {}
+    _grads_after_step(live_config(True), state, img, labels, aux_out=aux)
+    refs["tp_bf16_loss"] = float(aux["loss"])
+    # the checkpoint the sharded server serves, and a direct forward of it
+    (tmp / "tp_serve").mkdir()
+    ckpt_path = tmp / "tp_serve" / "epoch=00-val_loss=0.0000.npz"
+    save_pytree(ckpt_path, {"params": jax_params_from_state_dict(
+        {k: v.numpy() for k, v in state.items()}, cfg)})
+    save_config(tmp / "tp_serve", cfg)
+    del state
+    server = InferenceServer(ckpt_path, img_types=MODALITIES, buckets=(1, 2, 4, 8),
+                             device="cuda")
+    direct = {}
+    for n, seed in SPLIT_SERVE:
+        vols = (np.random.default_rng(seed).normal(size=(n, 3, 1, *cfg.img_size)) * 100
+                ).astype(np.float32)
+        bucket = next(b for b in server.buckets if b >= n)
+        padded = np.concatenate([vols, np.zeros((bucket - n, *vols.shape[1:]), np.float32)])
+        direct[n] = _forward(server.model, padded)[:n].cpu().numpy().tolist()
+    refs["serve_direct"] = direct
+    del server
+    # -- references: the 2-stream ModelVIT, the serial schedule and the plain trunk
+    pcfg = _pp_config("float32")
+    vit = ModelVIT(pcfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0),
+                   master_weights=True)
+    vstate = {k: v.detach().cpu() for k, v in vit.state_dict().items()}
+    del vit
+    vimg, vlabels = _vit_batch(pcfg)
+    plain_cfg = _f32(vit_config(("SWI", "DWI"), True))
+    modify_config(plain_cfg, {"dropout": 0.0, "img_aug": False})
+    serial_cfg = _pp_config("float32")
+    modify_config(serial_cfg, {"dropout": 0.0, "img_aug": False})
+    aux_plain, aux_serial = {}, {}
+    g_plain = _grads_after_step(plain_cfg, vstate, vimg, vlabels, ModelVIT, aux_plain)
+    _zero_counts()
+    seen: set = set()
+    with _attention_shapes(seen):
+        g_serial = _grads_after_step(serial_cfg, vstate, vimg, vlabels, ModelVIT, aux_serial)
+    serial_launches = _counts()
+    serial_vs_plain = _leaf_errs(g_serial, g_plain)
+    _vit_head_bias_by_summand(serial_vs_plain, g_serial, g_plain, aux_plain)
+    serial_loss_rel = abs(float(aux_serial["loss"]) / float(aux_plain["loss"]) - 1)
+    del g_plain, g_serial
+    aux = {}
+    # the pipe ranks' comparison: dropout 0.1 and augmentation on, the same masks
+    grads = _grads_after_step(_pp_config("float32"), vstate, vimg, vlabels, ModelVIT, aux)
+    torch.save({n: g.cpu() for n, g in grads.items()}, tmp / "pp_grads.pt")
+    refs["pp_f32_loss"] = float(aux["loss"])
+    refs["pp_probs"] = aux["probs"].tolist()
+    del grads, vstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    (tmp / "split_refs.json").write_text(json.dumps(refs))
+
+    ranks = _two_split_ranks(tmp)
+
+    # -- train_tp
+    tp = [r["train_tp"] for r in ranks]
+    for r, got in enumerate(tp):
+        check(got["f32_loss_rel"] <= LOSS_REL_TOL,
+              f"TP rank {r}: f32 step loss {got['f32_loss']} vs one process "
+              f"{refs['tp_f32_loss']} (rel {got['f32_loss_rel']:.2e} > {LOSS_REL_TOL})")
+        check(got["f32_grad_worst_gated"][1] <= KERNEL_TOL[torch.float32],
+              f"TP rank {r}: f32 gradient of {got['f32_grad_worst_gated'][0]} "
+              f"{got['f32_grad_worst_gated'][1]:.3e} > {KERNEL_TOL[torch.float32]}")
+        check(got["bf16_first_loss_rel"] <= TP_BF16_LOSS_REL_TOL,
+              f"TP rank {r}: bf16 first-step loss rel {got['bf16_first_loss_rel']:.3e} > "
+              f"{TP_BF16_LOSS_REL_TOL}")
+        check(all(np.isfinite(got["losses"])), f"TP rank {r}: non-finite losses")
+        for i, c in enumerate(got["launches_per_step"]):
+            check(c["K1"] == 12 and c["K2"] == 12,
+                  f"TP rank {r} step {i}: K1 {c['K1']}, K2 {c['K2']} (12 each expected)")
+        check(got["attention_shapes"] == [["flash_attention_qkv_bwd", 8, 8],
+                                          ["flash_attention_qkv_fwd", 8, 8]],
+              f"TP rank {r}: attention kernels ran at (kernel, B, K) {got['attention_shapes']}")
+    train_tp = {"phase": "train_tp", "model": "ModelCross", "mesh": {"data": 1, "model": 2},
+                "backend": "gloo, two ranks sharing one card (not a speed figure)",
+                "heads_per_rank": 8, "batch": 8, "dtype": "bfloat16", "steps": TP_STEPS,
+                "one_process_f32_loss": refs["tp_f32_loss"],
+                "one_process_bf16_loss": refs["tp_bf16_loss"],
+                "loss_rel_tol": LOSS_REL_TOL, "bf16_loss_rel_tol": TP_BF16_LOSS_REL_TOL,
+                "grad_tol": KERNEL_TOL[torch.float32], "ranks": tp}
+    emit(train_tp)
+    # -- serve_tp
+    sv = [r["serve_tp"] for r in ranks]
+    check(sv[0]["served_vs_direct_max_abs"] <= SERVE_TOL,
+          f"sharded server vs direct forward {sv[0]['served_vs_direct_max_abs']:.3e} > "
+          f"{SERVE_TOL}")
+    for r, got in enumerate(sv):
+        check(got["launches"]["K1"] == 12 * len(SPLIT_SERVE),
+              f"serve_tp rank {r}: K1 launched {got['launches']['K1']} times for "
+              f"{len(SPLIT_SERVE)} forwards")
+        check(all(k == 8 for _, _, k in got["attention_shapes"]),
+              f"serve_tp rank {r}: attention at {got['attention_shapes']}")
+    serve_tp = {"phase": "serve_tp", "model": "ModelCross", "mesh": {"data": 1, "model": 2},
+                "buckets": [1, 2, 4, 8], "requests": [n for n, _ in SPLIT_SERVE],
+                "tol": SERVE_TOL, "ranks": sv}
+    emit(serve_tp)
+    # -- train_pp
+    pp = [r["train_pp"] for r in ranks]
+    check(serial_loss_rel <= LOSS_REL_TOL,
+          f"serial schedule vs plain trunk: loss rel {serial_loss_rel:.2e}")
+    worst = _gated_worst(serial_vs_plain)
+    check(worst[1] <= KERNEL_TOL[torch.float32],
+          f"serial schedule vs plain trunk: gradient of {worst[0]} {worst[1]:.3e}")
+    check(serial_launches["K1"] == 16 and serial_launches["K2"] == 16,
+          f"serial schedule launches {serial_launches} (16 K1, 16 K2 expected)")
+    check(sorted(seen) == [("flash_attention_qkv_bwd", 2, 16), ("flash_attention_qkv_fwd", 2, 16)],
+          f"serial schedule: attention at {sorted(seen)}")
+    for r, got in enumerate(pp):
+        check(got["f32_loss_rel"] <= LOSS_REL_TOL,
+              f"PP rank {r}: f32 loss rel {got['f32_loss_rel']:.2e} vs the serial schedule")
+        check(got["f32_grad_worst_gated"][1] <= KERNEL_TOL[torch.float32],
+              f"PP rank {r}: f32 gradient of {got['f32_grad_worst_gated'][0]} "
+              f"{got['f32_grad_worst_gated'][1]:.3e}")
+        check(all(np.isfinite(got["losses"])), f"PP rank {r}: non-finite losses")
+        for i, c in enumerate(got["launches_per_step"]):
+            check(c["K1"] == 8 and c["K2"] == 8,
+                  f"PP rank {r} step {i}: K1 {c['K1']}, K2 {c['K2']} (2 layers x 4 "
+                  "microbatches = 8 each expected)")
+        check(got["attention_shapes"] == [["flash_attention_qkv_bwd", 2, 16],
+                                          ["flash_attention_qkv_fwd", 2, 16]],
+              f"PP rank {r}: attention at {got['attention_shapes']}")
+    train_pp = {"phase": "train_pp", "model": "ModelVIT", "streams": ["SWI", "DWI"],
+                "tokens": 1025, "layers": 4, "mesh": {"pipe": 2, "data": 1},
+                "pipeline_microbatches": PIPE_MB, "rows_per_microbatch": 8 // PIPE_MB,
+                "bubble_fraction": bubble_fraction(2, PIPE_MB),
+                "backend": "gloo, two ranks sharing one card (not a speed figure)",
+                "serial_vs_plain": {"loss_rel": serial_loss_rel, "grad_worst_gated": worst,
+                                    "launches": serial_launches},
+                "one_process_serial_f32_loss": refs["pp_f32_loss"],
+                "loss_rel_tol": LOSS_REL_TOL, "grad_tol": KERNEL_TOL[torch.float32],
+                "ranks": pp}
+    emit(train_pp)
+    return train_tp, serve_tp, train_pp
+
+
+def _two_split_ranks(tmp: Path) -> list[dict]:
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--split-worker",
+                               str(rank), str(port), str(tmp)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=SPLIT_TIMEOUT_S)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"split rank {rank} exited {p.returncode}:\n{err[-4000:]}")
+    return [json.loads((tmp / f"split_rank{r}.json").read_text()) for r in range(2)]
+
+
+def _split_steps(t, cfg, img, labels, steps: int) -> dict:
+    """``steps`` bf16 train steps of a Trainer over its mesh: losses, ms,
+    launches per step and the attention kernels' (kernel, B, K), peak memory."""
+    op = cfg.optim_params
+    lr_at = cosine_annealing_lr(cfg.lr, op["T_max"], op["eta_min"])
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step, seen = [], [], [], set()
+    _zero_counts()
+    with _attention_shapes(seen):
+        for s in range(steps):
+            counts0 = _counts()
+            aux, ms = _timed_step(t.train_step, img, labels, lr_at(s),
+                                  torch.Generator().manual_seed(s))
+            losses.append(float(aux["loss"]))
+            step_ms.append(ms)
+            per_step.append({k: v - counts0[k] for k, v in _counts().items()})
+    return {"losses": losses, "step_ms": step_ms, "launches": _counts(),
+            "launches_per_step": per_step, "attention_shapes": sorted(map(list, seen)),
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _split_cmp(t, img, labels, want_path: Path, want_loss: float, vit: bool) -> dict:
+    """One f32 step of a Trainer over its mesh against the one-process
+    step's loss and gradients (gathered to the whole layout)."""
+    aux, ms = _timed_step(t.train_step, img, labels, t.config.lr, torch.Generator().manual_seed(0))
+    got = _full_grads(t)
+    want = torch.load(want_path, map_location="cuda")
+    errs = _leaf_errs(got, want)
+    if vit:
+        _vit_head_bias_by_summand(errs, got, want, aux)
+    loss = float(aux["loss"])
+    del got, want
+    return {"f32_loss": loss, "f32_loss_rel": abs(loss / want_loss - 1), "f32_step_ms": ms,
+            "f32_grad_worst_gated": list(_gated_worst(errs)), "f32_grad_leaves": len(errs)}
+
+
+def split_worker(rank: int, port: int, tmp: Path) -> int:
+    """One of the two gloo ranks of phases train_tp, serve_tp and train_pp on
+    cuda:0: the live ModelCross over (model 2) — an f32 comparison step with
+    dropout and augmentation against the one-process step, TP_STEPS bf16
+    steps, then InferenceServer(mesh=) — and the 2-stream ModelVIT over
+    (pipe 2): an f32 comparison step against the serial schedule, PP_STEPS
+    bf16 steps."""
+    multihost_init(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda",
+                   timeout_s=SPLIT_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        refs = json.loads((tmp / "split_refs.json").read_text())
+        out = {"rank": rank}
+        # -- train_tp
+        mesh = make_mesh(1, model=2)
+        cfg = live_config(use_flash=True)
+        img, labels = _train_batch(cfg)
+        t = Trainer(ModelCross, _f32(live_config(True)), max_epochs=1, mesh=mesh,
+                    device="cuda").init_state()
+        tp = _split_cmp(t, img, labels, tmp / "tp_grads.pt", refs["tp_f32_loss"], vit=False)
+        del t
+        torch.cuda.empty_cache()
+        t = Trainer(ModelCross, cfg, max_epochs=1, mesh=mesh, device="cuda").init_state()
+        tp.update(_split_steps(t, cfg, img, labels, TP_STEPS))
+        tp["bf16_first_loss_rel"] = abs(tp["losses"][0] / refs["tp_bf16_loss"] - 1)
+        tp["local_to_qkv"] = list(unwrap(t.model).transformer[0].blocks[0][0].attn.fn
+                                  .to_qkv.weight.shape)
+        del t
+        torch.cuda.empty_cache()
+        out["train_tp"] = tp
+        # -- serve_tp: rank 0 answers, rank 1 runs its part of each batch
+        server = InferenceServer(next((tmp / "tp_serve").glob("epoch=*.npz")),
+                                 img_types=MODALITIES, buckets=(1, 2, 4, 8), mesh=mesh,
+                                 device="cuda")
+        sv, seen = {}, set()
+        _zero_counts()
+        with _attention_shapes(seen):
+            if rank == 0:
+                server.start()
+                try:
+                    diff = 0.0
+                    for n, seed in SPLIT_SERVE:
+                        vols = (np.random.default_rng(seed).normal(
+                            size=(n, 3, 1, *cfg.img_size)) * 100).astype(np.float32)
+                        got = server.predict(vols)
+                        check(bool(np.isfinite(got).all()) and got.shape == (n, 2),
+                              f"served logits {got.shape}")
+                        diff = max(diff, float(np.abs(got - np.asarray(
+                            refs["serve_direct"][str(n)])).max()))
+                    sv["served_vs_direct_max_abs"] = diff
+                    sv["device_ms"] = server.stats_view()["device_ms"]
+                finally:
+                    server.stop()
+            else:
+                server.run_worker()
+        sv["launches"] = _counts()
+        sv["attention_shapes"] = sorted(map(list, seen))
+        del server
+        torch.cuda.empty_cache()
+        out["serve_tp"] = sv
+        # -- train_pp
+        pmesh = make_mesh(1, pipe=2)
+        pcfg = _pp_config()
+        vimg, vlabels = _vit_batch(pcfg)
+        t = Trainer(ModelVIT, _pp_config("float32"), max_epochs=1, mesh=pmesh,
+                    device="cuda").init_state()
+        pp = _split_cmp(t, vimg, vlabels, tmp / "pp_grads.pt", refs["pp_f32_loss"], vit=True)
+        del t
+        torch.cuda.empty_cache()
+        t = Trainer(ModelVIT, pcfg, max_epochs=1, mesh=pmesh, device="cuda").init_state()
+        pp.update(_split_steps(t, pcfg, vimg, vlabels, PP_STEPS))
+        pp["stage_layers"] = list(unwrap(t.model).stage.local())
+        out["train_pp"] = pp
+        (tmp / f"split_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
 def _launch_rows(paths: dict[str, dict]) -> dict[str, dict]:
     """Each kernel's launches summed over the main paths' runs, and by path."""
     rows = {}
@@ -2877,6 +3274,8 @@ def main() -> int:
             trained_moe = phase_train_moe(Path(tmp))
         ring = phase_ring()
         with tempfile.TemporaryDirectory() as tmp:
+            trained_tp, served_tp, trained_pp = phase_split(Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
             trained_cli = phase_train_cli(Path(tmp))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
@@ -2899,6 +3298,11 @@ def main() -> int:
     paths["train_moe"] = trained_moe["launches"]
     paths["train_moe_serve_bucket8"] = {"K1": trained_moe["serve_bucket8"]["launches"]}
     paths["train_sp_no_mesh"] = ring["sp_step"]["launches"]
+    for name, result in (("train_tp", trained_tp), ("serve_tp", served_tp),
+                         ("train_pp", trained_pp)):
+        for r, rank in enumerate(result["ranks"]):
+            paths[f"{name}_rank{r}"] = rank["launches"]
+    paths["train_pp_serial_f32"] = trained_pp["serial_vs_plain"]["launches"]
     launches = _launch_rows(paths)
     k5s, k5v = k5[513], k5[1025]
     k5_shape = "B=8 K=16 D=64 N=513 bfloat16 (ModelCross int8+attn serving shape)"
@@ -3028,6 +3432,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--moe-worker"]:     # phase train_moe's gloo EP ranks
         sys.exit(moe_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
+    if sys.argv[1:2] == ["--split-worker"]:   # phases train_tp, serve_tp, train_pp
+        sys.exit(split_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     if sys.argv[1:2] == ["--dp-worker"]:      # phase train_dp's gloo ranks
         sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
     sys.exit(main())

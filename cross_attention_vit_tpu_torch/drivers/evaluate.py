@@ -9,10 +9,11 @@ load, the JAX package's included, a MoE model's too (its sidecar carries
 ``moe_experts``).  A ``seq_parallel`` config without a seq mesh runs the
 dense attention, as in JAX.  Metrics and ``auc_roc`` come from the
 port's ``train/metrics.py``.  Runs on one device (default CUDA), or sharded
-over a data-parallel mesh (``mesh=``; ``--mesh data=N`` under torchrun, one
-process per card): the cohort is padded to a multiple of batch × processes,
-each rank evaluates its share, and the outputs are gathered and trimmed, so
-the metrics are the single-process ones.
+over a mesh (``mesh=``; ``--mesh data=D,model=T`` under torchrun, one
+process per card; the 'model' axis splits the heads and MLP columns): the
+cohort is padded to a multiple of batch × data coordinates, each data
+coordinate evaluates its share, and the outputs are gathered and trimmed,
+so the metrics are the single-process ones.
 
     python -m cross_attention_vit_tpu_torch.drivers.evaluate \\
         --checkpoint runs/checkpoints/cross/epoch=..npz --model cross \\
@@ -110,19 +111,16 @@ def main(argv=None, device: str = "cuda") -> dict:
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--only-available", action="store_true")
     p.add_argument("--mesh", default="",
-                   help="e.g. 'data=4' for sharded eval, one process per device under "
-                        "torchrun (a model axis is ROADMAP item 13)")
+                   help="e.g. 'data=4' or 'data=2,model=2' for sharded eval, one process per "
+                        "device under torchrun")
     args = p.parse_args(argv)
     resolve_device(device)
     mesh = None
     if args.mesh:
         spec = {k: int(v) for k, v in (kv.split("=") for kv in args.mesh.split(","))}
-        if spec.get("model", 1) != 1:
-            raise SystemExit(f"--mesh {args.mesh}: a model axis (tensor parallelism) is not "
-                             "ported yet (ROADMAP Queue 1, item 13)")
         try:
             multihost_init(device=device)     # torchrun's environment; no-op under a group
-            mesh = make_mesh(spec.get("data", -1))
+            mesh = make_mesh(spec.get("data", -1), spec.get("model", 1))
         except (RuntimeError, ValueError) as e:
             raise SystemExit(f"--mesh {args.mesh}: {e}") from e
 

@@ -20,11 +20,13 @@ host:port --num-processes N --process-id i`` in each process, the CLI joins
 the process group and trains over a mesh of every process (``--dp``, -1 by
 default; 0 trains each process alone), under DDP or with ``--fsdp`` FSDP.
 ``--ep E`` splits the MoE experts (``--set moe_experts=...``, a multiple of
-E) over an 'expert' axis and ``--sp P`` the attention's sequence over a
-'seq' axis (it sets ``seq_parallel`` = P unless ``--set`` gives it); the
-data axis is then the world size over E·P.  ``--batch-size`` is per data
-coordinate: the global batch is batch size × data size.  ``--tp/--pp``
-other than 1 exit naming ROADMAP item 13.
+E) over an 'expert' axis, ``--sp P`` the attention's sequence over a 'seq'
+axis (it sets ``seq_parallel`` = P unless ``--set`` gives it), ``--tp T``
+the heads and MLP columns over a 'model' axis and ``--pp S`` ModelVIT's
+trunk into S GPipe stages over a 'pipe' axis (it sets ``pipeline_stages`` =
+S unless ``--set`` gives it; ``--model vit``); the data axis is then the
+world size over E·P·T·S.  ``--batch-size`` is per data coordinate: the
+global batch is batch size × data size.
 
     python -m cross_attention_vit_tpu_torch.drivers.experiments \\
         --model cross --grid-index 0 --seeds 2004 --batch-size 8 --only-available \\
@@ -196,9 +198,6 @@ def train_cv(params_big=None, *, labels_csv="labels.csv", folder="ucsf-data", ou
     return results
 
 
-_UNPORTED_AXES = "tensor and pipeline parallelism are not ported yet (ROADMAP Queue 1, item 13)"
-
-
 def _torchrun_env() -> bool:
     return "WORLD_SIZE" in os.environ and "RANK" in os.environ
 
@@ -225,8 +224,12 @@ def main(argv=None, device: str = "cuda"):
     p.add_argument("--dp", type=int, default=-1,
                    help="data-parallel mesh axis: -1 (default) = the process group's world "
                         "size over --ep × --sp (one device without a group), 0 = no mesh")
-    for flag in ("--tp", "--pp"):
-        p.add_argument(flag, type=int, default=1, help="not ported (ROADMAP item 13)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel mesh axis (must divide num_heads and mlp_dim; "
+                        "parallel/tensor.py)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline mesh axis: ModelVIT's trunk in GPipe stages (sets config "
+                        "pipeline_stages to match; needs --model vit; parallel/pipeline.py)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel mesh axis: exact ring attention over 'seq' (sets "
                         "config seq_parallel to match; parallel/ring.py)")
@@ -261,25 +264,26 @@ def main(argv=None, device: str = "cuda"):
     p.add_argument("--early-stop-min-delta", type=float, default=0.0)
     args = p.parse_args(argv)
     resolve_device(device)    # fail before any work on a host without the device
-    for flag in ("tp", "pp"):
-        if getattr(args, flag) != 1:
-            raise SystemExit(f"--{flag} {getattr(args, flag)}: {_UNPORTED_AXES}")
-    if args.dp == 0 and (args.sp > 1 or args.ep > 1):
-        raise SystemExit("--sp/--ep require a mesh (don't pass --dp 0)")
+    split = {"ep": args.ep, "sp": args.sp, "tp": args.tp, "pp": args.pp}
+    if args.dp == 0 and any(v > 1 for v in split.values()):
+        raise SystemExit("--sp/--ep/--tp/--pp require a mesh (don't pass --dp 0)")
+    if args.pp > 1 and args.model != "vit":
+        raise SystemExit(f"--pp {args.pp} pipelines ModelVIT's trunk: pass --model vit")
 
     if args.coordinator or args.num_processes or args.process_id is not None \
             or _torchrun_env():
         multihost_init(args.coordinator, args.num_processes, args.process_id, device=device,
                        timeout_s=args.dist_timeout)
     mesh = None
-    axes = f"--dp {args.dp} --ep {args.ep} --sp {args.sp}"
+    axes = " ".join(f"--{k} {v}" for k, v in {"dp": args.dp, **split}.items())
     if args.dp != 0 and torch.distributed.is_initialized():
         try:
-            mesh = make_mesh(args.dp, seq=args.sp, expert=args.ep)
+            mesh = make_mesh(args.dp, model=args.tp, pipe=args.pp, seq=args.sp,
+                             expert=args.ep)
         except ValueError as e:
             raise SystemExit(f"{axes}: {e}") from e
-    elif args.dp > 0 or args.sp > 1 or args.ep > 1:
-        need = max(args.dp, 1) * args.sp * args.ep
+    elif args.dp > 0 or any(v > 1 for v in split.values()):
+        need = max(args.dp, 1) * args.sp * args.ep * args.tp * args.pp
         raise SystemExit(f"{axes} needs a process group of world size {need}; none is "
                          f"running (world size {world_size()}): launch under torchrun or "
                          "pass --coordinator/--num-processes/--process-id")
@@ -299,6 +303,9 @@ def main(argv=None, device: str = "cuda"):
         # the mesh axis is the source of truth; the config knob routes the
         # models' attention through the ring (ops/attention.attention_impl)
         overrides.setdefault("seq_parallel", args.sp)
+    if args.pp > 1:
+        # the knob routes ModelVIT's trunk through the pipeline
+        overrides.setdefault("pipeline_stages", args.pp)
 
     grids = [list(params_list1), list(params_list2)]
     if args.grid_index is not None:

@@ -24,8 +24,19 @@ the self-attention projections, with the attention itself on the public
 ``flash_attention`` (``models/quantize.py``).  A MoE checkpoint (its config
 carries ``moe_experts``) is served whole on one card, the router and experts
 in f32 (they are not quantized, as in JAX); a ``seq_parallel`` config runs
-the dense attention, having no seq mesh.  Sharded serving (``mesh``) is a
-later slice of the port.
+the dense attention, having no seq mesh.
+
+Sharded serving (``mesh``, a ``parallel.make_mesh`` mesh with 'data' and
+'model' axes; JAX :121-134).  The JAX server is one process over many
+chips; the port's is one process per card, every rank building the same
+server.  Rank 0 runs HTTP and the dispatcher, and sends each padded bucket
+batch to every rank (a broadcast over the world); each rank runs its part,
+its data coordinate's rows on its 'model' slices of the heads and MLP
+columns (``parallel.shard_params``' TP split; int8 layers stay whole, as
+JAX's rules leave int8 leaves whole), and the logits come back to rank 0
+(``parallel.gather_rows``).  The other ranks run ``run_worker``, which
+returns when rank 0 stops.  Buckets that the data axis does not divide
+raise ValueError up front.
 
 Endpoints:
   GET  /healthz           — model family, param count, buckets, config dims
@@ -41,6 +52,8 @@ CLI:
         --checkpoint runs/checkpoints/cross/epoch=..npz --port 8000 \\
         --data /path/to/ucsf-data --img-types DWI SWI ASL [--model vit] \\
         [--quantize {int8,int8+attn}]
+    torchrun --nproc-per-node 4 -m cross_attention_vit_tpu_torch.drivers.serve \\
+        --checkpoint ... --mesh data=2,model=2
 """
 
 from __future__ import annotations
@@ -55,18 +68,24 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..configs import get_mgmt_config, get_mgmt_cross_config, modify_config
 from ..models.convert import load_jax_params, params_from_flat
 from ..models.model_cross import ModelCross
 from ..models.model_vit import ModelVIT
 from ..models.quantize import count_quantized, quantize_for_inference
+from ..parallel.mesh import axis_size, make_mesh, multihost_init
+from ..parallel.sharding import gather_rows, shard_batch
+from ..parallel.tensor import shard_tensor_parallel
 from ..train.checkpoint import load_config_for, restore_flat
 from ..utils.device import resolve_device
 
 _FAMILIES = {"cross": (ModelCross, get_mgmt_cross_config),
              "vit": (ModelVIT, get_mgmt_config)}
 _QUANTIZE_MODES = ("int8", "int8+attn")
+_STOP, _BATCH = 0, 1        # the header rank 0 broadcasts before each batch
 
 
 class Overloaded(RuntimeError):
@@ -107,9 +126,21 @@ class InferenceServer:
             raise ValueError(f"unknown quantize mode {quantize!r}: expected one of "
                              f"{_QUANTIZE_MODES}")
         if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh) is a later slice of the PyTorch port "
-                "(ROADMAP Queue 1, item 13)")
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a parallel.make_mesh DeviceMesh, got "
+                                f"{type(mesh).__name__}")
+            others = [a for a in mesh.mesh_dim_names if a not in ("data", "model")]
+            if others:
+                raise NotImplementedError(
+                    f"sharded serving splits the batch over 'data' and the heads over 'model'; "
+                    f"a mesh with {others} (ROADMAP Queue 1, item 13: parallel combinations "
+                    "not composed yet)")
+            data = axis_size(mesh, "data")
+            bad = [b for b in buckets if b % data]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by the mesh data axis ({data})")
+        self.mesh = mesh
+        self.rank = dist.get_rank() if mesh is not None else 0
         self.device = resolve_device(device)
         cfg = load_config_for(checkpoint)
         if cfg is None:
@@ -141,8 +172,13 @@ class InferenceServer:
         del params
         self.model.eval()
         # every leaf, the int8 weights and their scales included (JAX counts
-        # the leaves of its rewritten tree)
+        # the leaves of its rewritten tree), before any split
         self.n_params = sum(t.numel() for t in self.model.state_dict().values())
+        if mesh is not None:
+            shard_tensor_parallel(self.model, mesh)
+            # the batches travel where the group's backend can move them
+            self._wire = torch.device("cpu") if dist.get_backend() == "gloo" else self.device
+            self._workers_stopped = False
         self._staging: dict[tuple, torch.Tensor] = {}   # pinned H2D buffers
 
         self.max_queue_volumes = int(max_queue_volumes)
@@ -173,11 +209,30 @@ class InferenceServer:
     def stop(self) -> None:
         self._stop.set()
         if self._dispatcher.is_alive():
-            self._dispatcher.join(timeout=5)
+            # over a mesh the dispatcher issues every collective of rank 0,
+            # the STOP header included: wait for it to leave its loop
+            self._dispatcher.join(timeout=None if self.mesh is not None else 5)
+        elif self.mesh is not None and self.rank == 0:
+            self._stop_workers()      # never started: no other thread sends
+
+    def run_worker(self) -> None:
+        """A sharded server's loop on every rank but 0: run its part of each
+        batch rank 0 sends; return when rank 0 stops."""
+        if self.mesh is None or self.rank == 0:
+            raise RuntimeError("run_worker is the loop of the ranks other than 0 of a "
+                               "sharded server")
+        while True:
+            code, b = self._broadcast_header()
+            if code == _STOP:
+                return
+            self._sharded_forward(self._broadcast_batch(None, b))
 
     # -- request path ------------------------------------------------------
     def predict(self, vols: np.ndarray, timeout: float = 120.0) -> np.ndarray:
         """vols: (b, M, 1, D, H, W) float32 → (b, num_classes) logits."""
+        if self.rank != 0:
+            raise RuntimeError(f"rank {self.rank} of a sharded server takes no requests: "
+                               "rank 0 serves them, the others run run_worker")
         want = (self.cfg.num_modalities, 1, *self.cfg.img_size)
         if vols.ndim == len(want) + 1:
             if tuple(vols.shape[1:]) != want:
@@ -221,25 +276,42 @@ class InferenceServer:
     # -- dispatcher --------------------------------------------------------
     def _dispatch_loop(self) -> None:
         max_b = self.buckets[-1]
-        while not self._stop.is_set():
-            try:
-                first = self._queue.get(timeout=0.1)
-            except queue.Empty:
-                continue
-            batch = [first]
-            n = first.vols.shape[0]
-            deadline = time.monotonic() + self.max_wait_s
-            while n < max_b:
-                remain = deadline - time.monotonic()
-                if remain <= 0:
-                    break
+        try:
+            while not self._stop.is_set():
                 try:
-                    nxt = self._queue.get(timeout=remain)
+                    first = self._queue.get(timeout=0.1)
                 except queue.Empty:
-                    break
-                batch.append(nxt)
-                n += nxt.vols.shape[0]
-            self._run_batch(batch, n)
+                    continue
+                batch = [first]
+                n = first.vols.shape[0]
+                deadline = time.monotonic() + self.max_wait_s
+                while n < max_b:
+                    remain = deadline - time.monotonic()
+                    if remain <= 0:
+                        break
+                    try:
+                        nxt = self._queue.get(timeout=remain)
+                    except queue.Empty:
+                        break
+                    batch.append(nxt)
+                    n += nxt.vols.shape[0]
+                self._run_batch(batch, n)
+        finally:
+            self._fail_queued("server stopped")
+            if self.mesh is not None:
+                self._stop_workers()
+
+    def _fail_queued(self, error: str) -> None:
+        """Answer every request still queued with ``error``."""
+        while True:
+            try:
+                r = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            with self._pending_lock:
+                self._pending_volumes -= r.vols.shape[0]
+            r.error = error
+            r.event.set()
 
     def _run_batch(self, batch: list[_Request], n: int) -> None:
         bucket = next((b for b in self.buckets if b >= n), None)
@@ -269,6 +341,11 @@ class InferenceServer:
             for r in batch:
                 r.error = f"{type(e).__name__}: {e}"
                 r.event.set()
+            if self.mesh is not None:
+                # the ranks' collectives are out of step: serve no more and
+                # send nothing more (the group's timeout ends the others' wait)
+                self._workers_stopped = True
+                self._stop.set()
         finally:
             with self._pending_lock:
                 self._pending_volumes -= n
@@ -296,11 +373,17 @@ class InferenceServer:
             pad = np.zeros((bucket - n, *vols.shape[1:]), vols.dtype)
             vols = np.concatenate([vols, pad])
         t0 = time.monotonic()
-        dev = self._to_device(vols)
-        t1 = time.monotonic()
-        with torch.inference_mode():
-            logits = self.model(dev)
-        out = logits.cpu().numpy()[:n]     # the D2H copy waits for the forward
+        if self.mesh is not None:
+            self._broadcast_header(_BATCH, vols.shape[0])
+            batch = self._broadcast_batch(vols, vols.shape[0])
+            t1 = time.monotonic()
+            out = self._sharded_forward(batch)[:n]
+        else:
+            dev = self._to_device(vols)
+            t1 = time.monotonic()
+            with torch.inference_mode():
+                logits = self.model(dev)
+            out = logits.cpu().numpy()[:n]     # the D2H copy waits for the forward
         t2 = time.monotonic()
         with self._stats_lock:
             self.stats["transfer_ms"].append((t1 - t0) * 1e3)
@@ -309,12 +392,46 @@ class InferenceServer:
             del self.stats["device_ms"][:-1000]
         return out
 
+    # -- sharded serving -----------------------------------------------------
+    def _stop_workers(self) -> None:
+        """Send the STOP header once, from the one thread issuing rank 0's
+        collectives."""
+        if not self._workers_stopped:
+            self._workers_stopped = True
+            self._broadcast_header(_STOP, 0)
+
+    def _broadcast_header(self, code: int = _STOP, b: int = 0) -> tuple[int, int]:
+        """Rank 0's (code, batch size), on every rank."""
+        header = torch.tensor([code, b], dtype=torch.int64, device=self._wire)
+        dist.broadcast(header, src=0)
+        return int(header[0]), int(header[1])
+
+    def _broadcast_batch(self, vols: np.ndarray | None, b: int) -> torch.Tensor:
+        """Rank 0's padded bucket batch (b, M, 1, D, H, W), on every rank."""
+        shape = (b, self.cfg.num_modalities, 1, *self.cfg.img_size)
+        if vols is None:
+            batch = torch.empty(shape, dtype=torch.float32, device=self._wire)
+        else:
+            batch = torch.from_numpy(np.ascontiguousarray(vols, np.float32)).to(self._wire)
+        dist.broadcast(batch, src=0)
+        return batch
+
+    def _sharded_forward(self, batch: torch.Tensor) -> np.ndarray:
+        """This rank's data coordinate's rows of the batch through its part
+        of the model; every coordinate's logits, in data order."""
+        rows, = shard_batch((batch,), self.mesh)
+        with torch.inference_mode():
+            logits = self.model(rows.to(self.device))
+            return gather_rows(logits.float(), self.mesh).cpu().numpy()
+
     # -- introspection -----------------------------------------------------
     def health(self) -> dict:
         return {"status": "ok", "model": self.model_name,
                 "params": self.n_params, "buckets": list(self.buckets),
                 "quantize": self.quantize, "quantized_kernels": self.quantized_kernels,
                 "device": str(self.device),
+                "mesh": (None if self.mesh is None else
+                         dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape))),
                 "num_modalities": int(self.cfg.num_modalities),
                 "img_size": list(self.cfg.img_size),
                 "img_types": list(self.img_types)}
@@ -425,15 +542,27 @@ def main(argv=None):
                    help="int8 w8a8 FFN and head GEMMs (inference only; ops/quant.py); "
                         "int8+attn also quantizes the self-attention qkv/out projections "
                         "(the attention stays float, on its kernels)")
+    p.add_argument("--mesh", default="",
+                   help="e.g. 'data=2,model=2' for sharded serving, one process per device "
+                        "under torchrun (buckets must divide the data axis); rank 0 serves "
+                        "HTTP")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     args = p.parse_args(argv)
 
+    mesh = None
+    if args.mesh:
+        spec = {k: int(v) for k, v in (kv.split("=") for kv in args.mesh.split(","))}
+        multihost_init(device=args.device)     # torchrun's environment
+        mesh = make_mesh(spec.get("data", -1), spec.get("model", 1))
     server = InferenceServer(args.checkpoint, args.model, img_types=tuple(args.img_types),
                              data_folder=args.data, buckets=args.buckets,
                              max_wait_ms=args.max_wait_ms, quantize=args.quantize,
-                             max_queue_volumes=args.max_queue_volumes,
+                             mesh=mesh, max_queue_volumes=args.max_queue_volumes,
                              device=args.device)
+    if server.rank != 0:
+        server.run_worker()
+        return
     httpd = serve(server, args.host, args.port)
     print(f"serving {args.model} ({server.n_params / 1e6:.1f}M params) on "
           f"{server.device} at http://{args.host}:{args.port}  buckets={args.buckets}")

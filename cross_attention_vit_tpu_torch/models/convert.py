@@ -30,7 +30,11 @@ keeps its own copy on numpy arrays:
   mlp_head.0 / mlp_head.1 / mlp_head.4      head.norm / head.fc1 / head.fc2
 
 Both directions dispatch on the family: a JAX tree with ``layers`` and a
-state dict with ``transformer.layers.*`` keys are ModelVIT's.  A heads==1
+state dict with ``transformer.layers.*`` keys are ModelVIT's.  A ModelVIT
+with ``pipeline_stages > 1`` has JAX's stacked trunk: ``layers`` is one tree
+whose leaves carry a leading depth axis (JAX ``model_vit.py:85-88``).  The
+port reads stacked and per-layer trees alike and writes a stacked one for
+such a config, so JAX restores it against ``init(cfg)``.  A heads==1
 model has no ``to_out`` / ``out`` projection (the reference's Identity); the
 port skips it both ways, where the JAX ``export_model_cross`` /
 ``export_model_vit`` raise KeyError.  The heads-axis layouts are reshapes of
@@ -44,8 +48,8 @@ import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..configs import Config
-from ..parallel.moe import gather_experts, local_experts
-from ..parallel.sharding import full_tensor, unwrap
+from ..parallel.pipeline import stack_layers, unstack_layers
+from ..parallel.sharding import full_tensor, local_tensors, unwrap, whole_tensors
 from ..train.checkpoint import unflatten
 
 
@@ -104,7 +108,8 @@ def _exp_vit(params: dict) -> dict[str, np.ndarray]:
     out = {"pos_embedding": np.asarray(params["pos_embedding"]),
            "cls_token": np.asarray(params["cls_token"])}
     _exp_linear(params["patch_to_embedding"], "patch_to_embedding", out)
-    for i, blk in enumerate(params["layers"]):
+    layers = params["layers"]
+    for i, blk in enumerate(unstack_layers(layers) if isinstance(layers, dict) else layers):
         p = f"transformer.layers.{i}"
         # the attention block is index 0, the feed-forward block index 2:
         # _exp_self_block writes them as .attn.* and .ffn.*
@@ -229,7 +234,10 @@ def jax_params_from_state_dict(sd: dict, config: Config) -> dict:
     param tree."""
     heads = config.num_heads
     if _is_vit_state_dict(sd):
-        return _vit_from(sd, heads)
+        params = _vit_from(sd, heads)
+        if int(config.get("pipeline_stages", 0)) > 1:
+            params["layers"] = stack_layers(params["layers"])
+        return params
     M = config.num_modalities
     params = {
         "pos_embedding": np.asarray(sd["pos_embedding"]),
@@ -284,13 +292,13 @@ def load_jax_params(model: torch.nn.Module, params: dict) -> None:
     """Load a JAX param tree into the port's ModelCross or ModelVIT (strict:
     every key and shape must match).  Values are cast to each parameter's
     dtype on copy — the compute-dtype cast the JAX package makes on every
-    call.  A data-parallel model (``parallel.shard_params``) loads too: each
-    rank copies the whole tree, of which an FSDP-sharded parameter keeps
-    this rank's shard, and experts split over an 'expert' axis
-    (``parallel.moe.shard_experts``) this rank's experts."""
+    call.  A model placed over a mesh (``parallel.shard_params``) loads too:
+    each rank reads the whole tree and keeps its part of it — its FSDP shard,
+    its experts on an 'expert' axis, its stage's layers on 'pipe', its
+    slices on 'model' (``parallel.local_tensors``)."""
     model = unwrap(model)
-    sd = {k: torch.from_numpy(np.array(v))
-          for k, v in local_experts(model, state_dict_from_jax(params, model.config)).items()}
+    sd = {k: torch.as_tensor(np.array(v))
+          for k, v in local_tensors(model, state_dict_from_jax(params, model.config)).items()}
     sharded = {n: p for n, p in model.named_parameters() if isinstance(p, DTensor)}
     if not sharded:
         model.load_state_dict(sd, strict=True)
@@ -312,10 +320,12 @@ def load_jax_params(model: torch.nn.Module, params: dict) -> None:
 
 def jax_params_from_model(model: torch.nn.Module) -> dict:
     """The port's ModelCross or ModelVIT → JAX param tree of float32 numpy
-    arrays.  A data-parallel model gives its whole parameters (under FSDP or
-    with experts split over an 'expert' axis a collective: every rank calls
-    it)."""
+    arrays.  A model placed over a mesh gives its whole parameters (a
+    collective when they are split: every rank calls it)."""
     model = unwrap(model)
-    sd = gather_experts(model, {k: full_tensor(v).detach() for k, v in model.state_dict().items()})
-    sd = {k: v.float().cpu().numpy() for k, v in sd.items()}
+    sd = whole_tensors(model, {k: full_tensor(v).detach()
+                               for k, v in model.state_dict().items()})
+    # copies: on the CPU a view would follow the live parameter (and an
+    # asynchronous checkpoint write would see the next steps' values)
+    sd = {k: v.to("cpu", torch.float32, copy=True).numpy() for k, v in sd.items()}
     return jax_params_from_state_dict(sd, model.config)

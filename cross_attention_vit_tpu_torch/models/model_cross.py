@@ -31,6 +31,11 @@ self-attention output projection, on the cross-attention probabilities and
 projection, after GELU and after fc2 in every feed-forward, and in the
 per-stream heads.  ``g`` is a ``torch.Generator`` on the model's device.
 
+Tensor parallelism (``parallel.shard_params`` over a 'model' axis, JAX's
+head-aligned Megatron split): each attention, cross-attention, dense
+feed-forward and head holds its rank's heads or MLP columns and its ``tp``
+(``parallel/tensor.py``); the ops run f and g around it.
+
 Mixture of experts (``config.moe_experts`` = E > 1, JAX :71-92, :187-208,
 :322-330): every ``moe_every``-th self-block FFN of each stream (site index
 mb·num_self_blocks + layer) is a GShard MoE (``parallel.moe.MoEFFN``: its
@@ -139,6 +144,17 @@ def _with_balance(config: Config, loss: torch.Tensor, run: _Run) -> torch.Tensor
     return loss + float(config.get("moe_balance_weight", 0.01)) * balance / len(run.moe)
 
 
+def tp_regions(model: nn.Module) -> list[tuple[str, nn.Module]]:
+    """A model's attentions, cross-attentions, dense feed-forwards and heads
+    (``mlp_head``, or each ``mlp_head.{m}``), by name."""
+    regions = [(name, m) for name, m in model.named_modules()
+               if isinstance(m, (_Attention, _CrossAttention, _FeedForward))]
+    head = model.mlp_head
+    if isinstance(head, nn.ModuleList):
+        return regions + [(f"mlp_head.{m}", h) for m, h in enumerate(head)]
+    return regions + [("mlp_head", head)]
+
+
 def _net(first: nn.Linear, second: nn.Linear) -> nn.ModuleDict:
     """The reference's Sequential(Linear, GELU, Dropout, Linear, Dropout):
     only indices 0 and 3 hold parameters."""
@@ -159,6 +175,7 @@ class _Attention(nn.Module):
         # heads==1 quirk: the reference's to_out is nn.Identity()
         # (model_cross.py:37,45-48), so no parameters and no projection
         self.to_out = nn.ModuleDict({"0": nn.Linear(dim, dim)}) if heads != 1 else None
+        self.tp = None      # the 'model' split of its heads (parallel/tensor.py)
 
 
 class _CrossAttention(nn.Module):
@@ -166,12 +183,14 @@ class _CrossAttention(nn.Module):
         super().__init__()
         self.wq, self.wk, self.wv = nn.Linear(dim, dim), nn.Linear(dim, dim), nn.Linear(dim, dim)
         self.proj = nn.Linear(dim, dim)
+        self.tp = None
 
 
 class _FeedForward(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.net = _net(nn.Linear(dim, hidden), nn.Linear(hidden, dim))
+        self.tp = None
 
 
 class _SelfBlock(nn.Module):
@@ -190,7 +209,7 @@ class _SelfBlock(nn.Module):
         h = layernorm(x, a.norm.weight, a.norm.bias)
         to_out = a.fn.to_out["0"] if a.fn.to_out is not None else None
         x = self_attention(h, a.fn.to_qkv, to_out, o.num_heads, o.compute_dtype, o.impl,
-                           o.dropout, run.generator, run.train) + x
+                           o.dropout, run.generator, run.train, a.fn.tp) + x
         h = layernorm(x, f.norm.weight, f.norm.bias)
         if isinstance(f.fn, MoEFFN):
             y, aux = f.fn(h)
@@ -198,7 +217,7 @@ class _SelfBlock(nn.Module):
             return dropout(y, o.dropout, run.generator, run.train) + x
         net = f.fn.net
         return feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx,
-                            o.dropout, run.generator, run.train) + x
+                            o.dropout, run.generator, run.train, f.fn.tp) + x
 
 
 class _CrossBlock(nn.Module):
@@ -216,11 +235,11 @@ class _CrossBlock(nn.Module):
         h = layernorm(x, a.norm.weight, a.norm.bias)
         fused = cross_attention_cls(h, a.fn.wq, a.fn.wk, a.fn.wv, a.fn.proj, o.num_heads,
                                     o.compute_dtype, o.dropout, run.generator,
-                                    run.train) + x[:, 0:1]
+                                    run.train, a.fn.tp) + x[:, 0:1]
         h = layernorm(fused, f.norm.weight, f.norm.bias)
         net = f.fn.net
         return feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx,
-                            o.dropout, run.generator, run.train) + fused
+                            o.dropout, run.generator, run.train, f.fn.tp) + fused
 
 
 class _MultiScaleBlock(nn.Module):
@@ -330,6 +349,12 @@ class ModelCross(nn.Module):
         units FSDP gathers one at a time (``parallel.shard_params``)."""
         return [m for m in self.modules() if isinstance(m, (_SelfBlock, _CrossBlock))]
 
+    def tp_regions(self) -> list[tuple[str, nn.Module]]:
+        """The modules tensor parallelism splits, by name
+        (``parallel/tensor.py``): every attention, cross-attention and dense
+        feed-forward, and the heads."""
+        return tp_regions(self)
+
     def forward(self, img: torch.Tensor, labels: torch.Tensor | None = None,
                 train: bool = False, generator: torch.Generator | None = None):
         cfg, o = self.config, self.opts
@@ -356,7 +381,7 @@ class ModelCross(nn.Module):
         for x, norm, head in zip(streams, self.norm, self.mlp_head):
             cls = layernorm(x[:, 0], norm.weight, norm.bias)
             per_mod.append(mlp_head(cls, head["0"], head["3"], o.compute_dtype, o.gelu_approx,
-                                    o.dropout, generator, train))
+                                    o.dropout, generator, train, getattr(head, "tp", None)))
         # jnp.mean of the activation dtype: f32 accumulation, rounded back
         logits = torch.stack(per_mod).float().mean(0).to(per_mod[0].dtype).float()
         _keep_moe_aux(self, run)

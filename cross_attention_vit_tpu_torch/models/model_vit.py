@@ -27,9 +27,19 @@ feed-forward, and twice in the head.  With ``moe_experts`` = E > 1 every
 erf GELU; JAX :27-35, :66-83, :133-149, :197-205), followed by dropout and
 the row stochastic depth as the dense FFN; in train mode the loss gains
 ``moe_balance_weight`` × the mean of the sites' balance losses, and each
-forward leaves the sites' aux values in ``moe_aux``.  The pipeline layout
-(``pipeline_stages > 1``) is a later slice; with the MoE it is rejected as
-JAX rejects it.
+forward leaves the sites' aux values in ``moe_aux``.
+
+Pipeline layout (``pipeline_stages > 1``, JAX :79-88, :168-179): the trunk
+runs through ``parallel.pipeline.pipeline_layers`` with
+``pipeline_microbatches`` (default ``pipeline_stages``) strided
+microbatches and per-(layer, microbatch) dropout generators — serially
+without a pipeline mesh, as GPipe stages over the ambient mesh's 'pipe'
+axis after ``parallel.shard_params``.  The port keeps its
+``transformer.layers.{i}`` modules; JAX's stacked checkpoint leaves are
+converted at the checkpoint (``models/convert.py``).  With the MoE it is
+rejected as JAX rejects it.  Tensor parallelism splits the attentions,
+feed-forwards and head as in ``ModelCross``, and composes with the
+pipeline.
 """
 
 from __future__ import annotations
@@ -44,10 +54,12 @@ from ..ops.layers import (dropout, feed_forward, gelu, layernorm, linear, linear
                           promote_input, stochastic_depth_row)
 from ..ops.losses import cross_entropy
 from ..ops.patchify import num_patches, patchify_3d
-from ..utils.device import resolve_device
 from ..parallel.moe import MoEFFN
+from ..parallel.pipeline import pipeline_layers
+from ..parallel.tensor import copy_to
+from ..utils.device import resolve_device
 from .model_cross import (_Attention, _FeedForward, _keep_moe_aux, _moe_fields, _Opts, _opts,
-                          _PreNorm, _Run, _with_balance)
+                          _PreNorm, _Run, _with_balance, tp_regions)
 
 
 class _Layers(nn.Module):
@@ -77,6 +89,9 @@ class ModelVIT(nn.Module):
     Parameters are made on ``device`` (default CUDA; raises on a host without
     it) from ``generator`` with the reference's init distributions."""
 
+    # the trunk the pipeline splits over 'pipe' (parallel.pipeline.shard_stages)
+    PIPELINE_TRUNK = "transformer.layers"
+
     def __init__(self, config: Config, device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None, master_weights: bool = False):
         super().__init__()
@@ -87,10 +102,6 @@ class ModelVIT(nn.Module):
         if int(config.get("pipeline_stages", 0)) > 1 and _moe_fields(config)[0] > 1:
             raise ValueError("pipeline_stages does not compose with moe_experts (the GPipe "
                              "schedule does not thread the MoE balance loss)")
-        if int(config.get("pipeline_stages", 0)) > 1:
-            raise NotImplementedError(
-                "pipeline_stages > 1 is not ported yet: pipeline parallelism is a later "
-                "slice of the PyTorch port (ROADMAP Queue 1, items 11-13)")
         self.config = config
         H = config.hidden_dim
         self.opts = _opts(config)
@@ -133,6 +144,31 @@ class ModelVIT(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def tp_regions(self) -> list[tuple[str, nn.Module]]:
+        """The modules tensor parallelism splits (see ``ModelCross``)."""
+        return tp_regions(self)
+
+    def _layer(self, layer: nn.Module, x: torch.Tensor, generator: torch.Generator | None,
+               train: bool, run: _Run) -> torch.Tensor:
+        """One pre-norm trunk layer (JAX ``layer_fn_bal``)."""
+        o = self.opts
+        a, f = layer["0"], layer["2"]
+        to_out = a.fn.to_out["0"] if a.fn.to_out is not None else None
+        y = self_attention(layernorm(x, a.norm.weight, a.norm.bias), a.fn.to_qkv, to_out,
+                           o.num_heads, o.compute_dtype, o.impl, o.dropout, generator, train,
+                           a.fn.tp)
+        x = stochastic_depth_row(y, self.drop_path, generator, train) + x
+        h = layernorm(x, f.norm.weight, f.norm.bias)
+        if isinstance(f.fn, MoEFFN):
+            y, aux = f.fn(h)
+            run.moe.append(aux)
+            y = dropout(y, o.dropout, generator, train)
+        else:
+            net = f.fn.net
+            y = feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx,
+                             o.dropout, generator, train, f.fn.tp)
+        return stochastic_depth_row(y, self.drop_path, generator, train) + x
+
     def forward(self, img: torch.Tensor, labels: torch.Tensor | None = None,
                 train: bool = False, generator: torch.Generator | None = None):
         cfg, o = self.config, self.opts
@@ -150,27 +186,25 @@ class ModelVIT(nn.Module):
         x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, x.shape[-1]), x], dim=1)
         x = dropout(x + self.pos_embedding.to(x.dtype), o.dropout, generator, train)
         run = _Run(train, generator)
-        for layer in self.transformer.layers:
-            a, f = layer["0"], layer["2"]
-            to_out = a.fn.to_out["0"] if a.fn.to_out is not None else None
-            y = self_attention(layernorm(x, a.norm.weight, a.norm.bias), a.fn.to_qkv, to_out,
-                               o.num_heads, o.compute_dtype, o.impl, o.dropout, generator, train)
-            x = stochastic_depth_row(y, self.drop_path, generator, train) + x
-            h = layernorm(x, f.norm.weight, f.norm.bias)
-            if isinstance(f.fn, MoEFFN):
-                y, aux = f.fn(h)
-                run.moe.append(aux)
-                y = dropout(y, o.dropout, generator, train)
-            else:
-                net = f.fn.net
-                y = feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx,
-                                 o.dropout, generator, train)
-            x = stochastic_depth_row(y, self.drop_path, generator, train) + x
+        stages = int(cfg.get("pipeline_stages", 0))
+        if stages > 1:
+            layers = self.transformer.layers
+            seeds = (torch.randint(0, 2 ** 62, (len(layers),), generator=generator,
+                                   device=generator.device).tolist()
+                     if train and generator is not None else None)
+            x = pipeline_layers(layers, lambda layer, h, g: self._layer(layer, h, g, train, run),
+                                x, seeds,
+                                num_microbatches=int(cfg.get("pipeline_microbatches", stages)),
+                                stage=getattr(self, "stage", None))
+        else:
+            for layer in self.transformer.layers:
+                x = self._layer(layer, x, generator, train, run)
         head = self.mlp_head
+        tp = getattr(head, "tp", None)
         h = layernorm(x[:, 0], head["0"].weight, head["0"].bias)
-        h = linear_layer(head["1"], h, o.compute_dtype)
-        h = dropout(gelu(h, approximate=False), o.dropout, generator, train)
-        h = linear_layer(head["4"], h, o.compute_dtype)
+        h = linear_layer(head["1"], copy_to(h, tp), o.compute_dtype)
+        h = dropout(gelu(h, approximate=False), o.dropout, generator, train, split=(-1, tp))
+        h = linear_layer(head["4"], h, o.compute_dtype, tp)
         logits = dropout(h, o.dropout, generator, train).float()
         _keep_moe_aux(self, run)
         if labels is None:

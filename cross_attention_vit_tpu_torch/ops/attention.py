@@ -19,6 +19,13 @@ sequence split over the ambient 'seq' mesh axis (``_sdpa`` itself without
 one); it overrides ``use_flash_attention``, as in the JAX package.  With the
 projections in int8 form (serving ``int8+attn``), ``impl="flash"`` runs the
 public ``flash_attention`` (K5, or K7 above N = 1040) between the int8 GEMMs.
+
+``tp`` (``parallel/tensor.py``): the projections hold this rank's K/T heads
+(the output projection its K/T heads' input columns); the input passes
+Megatron's f, the attention runs on the local heads, the output
+projection's f32 partial products are summed over the 'model' group (g)
+before its bias, and the cross-attention's probability dropout keeps this
+rank's heads of the whole-width mask.
 """
 
 from __future__ import annotations
@@ -28,23 +35,25 @@ from torch import nn
 
 from ..kernels.flash_attention import flash_attention, fused_qkv_attention
 from ..parallel.ring import sharded_ring_sdpa
+from ..parallel.tensor import TP, copy_to, local_heads
 from .layers import dropout, linear
 from .quant import QuantLinear, attn_out_projection, qkv_projection
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
           attn_dropout: float = 0.0, generator: torch.Generator | None = None,
-          train: bool = False) -> torch.Tensor:
+          train: bool = False, tp: TP | None = None) -> torch.Tensor:
     """Scaled-dot-product attention on (B, K, N, D) operands.
 
     Softmax in float32 from the operand dtype; both products take the
     already-rounded operands upcast to f32 (the JAX preferred_element_type=f32
     up to summation order); probabilities are normalised, dropped out in
     train mode, then cast to v's dtype — unlike the flash kernel, which
-    normalises after AV."""
+    normalises after AV.  ``tp``: the heads are this rank's K/T, and the
+    dropout mask is the whole one's slice."""
     dots = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     attn = torch.softmax(dots, dim=-1)
-    attn = dropout(attn, attn_dropout, generator, train).to(v.dtype)
+    attn = dropout(attn, attn_dropout, generator, train, split=(1, tp)).to(v.dtype)
     return torch.matmul(attn.float(), v.float()).to(v.dtype)
 
 
@@ -62,7 +71,7 @@ def self_attention(x: torch.Tensor, to_qkv: nn.Linear, to_out: nn.Linear | None,
                    num_heads: int, compute_dtype: torch.dtype | None = None,
                    impl: str = "xla", rate: float = 0.0,
                    generator: torch.Generator | None = None,
-                   train: bool = False) -> torch.Tensor:
+                   train: bool = False, tp: TP | None = None) -> torch.Tensor:
     """Fused-QKV multi-head self-attention (reference model_cross.py:33-61).
 
     to_qkv.weight is the reference (3H, H) weight; to_out is ``to_out.0``.
@@ -73,12 +82,13 @@ def self_attention(x: torch.Tensor, to_qkv: nn.Linear, to_out: nn.Linear | None,
     A ``to_qkv`` in int8 form (``models/quantize`` with attn=True) takes the
     w8a8 branch of JAX ``:82-112``: the int8 QKV projection, then the public
     ``flash_attention`` (K5 at N ≤ 1040, K7 above) or ``_sdpa``, then the
-    output projection, int8 or float."""
+    output projection, int8 or float (int8 layers are never split)."""
     in_dtype = x.dtype
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    x = copy_to(x, tp)
     B, N, H = x.shape
-    K = num_heads
+    K = local_heads(num_heads, tp)
     D = to_qkv.out_features // (3 * K)
     if isinstance(to_qkv, QuantLinear):
         return _self_attention_int8(x, to_qkv, to_out, K, D, in_dtype, impl, rate, generator,
@@ -99,7 +109,7 @@ def self_attention(x: torch.Tensor, to_qkv: nn.Linear, to_out: nn.Linear | None,
     out = out.reshape(B, N, K * D)
     if to_out is None:
         return out.to(in_dtype)
-    y = linear(out, to_out.weight, to_out.bias, out_dtype=in_dtype)
+    y = linear(out, to_out.weight, to_out.bias, out_dtype=in_dtype, tp=tp)
     return dropout(y, rate, generator, train)
 
 
@@ -139,7 +149,7 @@ def cross_attention_cls(x: torch.Tensor, wq: nn.Linear, wk: nn.Linear, wv: nn.Li
                         proj: nn.Linear, num_heads: int,
                         compute_dtype: torch.dtype | None = None, rate: float = 0.0,
                         generator: torch.Generator | None = None,
-                        train: bool = False) -> torch.Tensor:
+                        train: bool = False, tp: TP | None = None) -> torch.Tensor:
     """CLS-query cross-attention (reference model_cross.py:74-102).
 
     x is (B, N, H) = [fused-CLS ; other-stream tokens]; only x[:, 0:1] forms
@@ -148,11 +158,13 @@ def cross_attention_cls(x: torch.Tensor, wq: nn.Linear, wk: nn.Linear, wv: nn.Li
     in_dtype = x.dtype
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    x = copy_to(x, tp)
     B = x.shape[0]
-    q = _head_in(wq, x[:, 0:1], num_heads)      # (B, K, 1, D)
-    k = _head_in(wk, x, num_heads)              # (B, K, N, D)
-    v = _head_in(wv, x, num_heads)
-    out = _sdpa(q, k, v, q.shape[-1] ** -0.5, rate, generator, train)
+    heads = local_heads(num_heads, tp)
+    q = _head_in(wq, x[:, 0:1], heads)          # (B, K, 1, D)
+    k = _head_in(wk, x, heads)                  # (B, K, N, D)
+    v = _head_in(wv, x, heads)
+    out = _sdpa(q, k, v, q.shape[-1] ** -0.5, rate, generator, train, tp)
     y = linear(out.transpose(1, 2).reshape(B, 1, -1), proj.weight, proj.bias,
-               out_dtype=in_dtype)
+               out_dtype=in_dtype, tp=tp)
     return dropout(y, rate, generator, train)

@@ -7,7 +7,14 @@ port's modules hold.
 Rounding: the JAX ``linear`` takes the operands in the compute dtype,
 accumulates in f32, adds the f32 bias and casts once.  ``linear`` does the
 same: on low-precision operands the product comes out in f32
-(``matmul_f32``), so the result is rounded once, after the bias.
+(``matmul_f32``), so the result is rounded once, after the bias.  The exit
+of a tensor-parallel region (``tp``, ``parallel/tensor.py``) sums the f32
+partial products over the 'model' group before that bias and that cast.
+
+Dropout inside a tensor-parallel region (the FFN's hidden units, the
+cross-attention's probabilities on this rank's heads) draws the mask of the
+whole width and keeps this rank's slice: the mask is the one-process mask
+at the same generator state, and every rank's generator stays in step.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.tensor import TP, copy_to, reduce_from, split_slice
 from .quant import QuantLinear, qlinear
 
 
@@ -64,27 +72,30 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor, lowp_backward: bool = False) ->
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
            compute_dtype: torch.dtype | None = None,
-           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+           out_dtype: torch.dtype | None = None, tp: TP | None = None) -> torch.Tensor:
     """x @ weightᵀ + bias.  Operands go to ``compute_dtype`` when given, else
     x.dtype; the product is f32, the bias is added in f32 and the result is
-    cast once to ``out_dtype`` (default x.dtype)."""
+    cast once to ``out_dtype`` (default x.dtype).  ``tp``: a row-split
+    weight, whose f32 partial products are summed over the 'model' group
+    before the bias."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     op_dtype = compute_dtype if compute_dtype is not None else x.dtype
-    y = matmul_f32(x.to(op_dtype), weight.to(op_dtype).t(), out_dtype == op_dtype)
+    y = reduce_from(matmul_f32(x.to(op_dtype), weight.to(op_dtype).t(), out_dtype == op_dtype),
+                    tp)
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype)
 
 
 def linear_layer(lin: torch.nn.Module, x: torch.Tensor,
-                 compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+                 compute_dtype: torch.dtype | None = None, tp: TP | None = None) -> torch.Tensor:
     """``linear`` with a module's weight and bias, or, for a layer that
     ``models/quantize`` rewrote into int8 form, the w8a8 ``qlinear`` (which
     returns x's dtype and ignores ``compute_dtype``, as the JAX ``linear``
-    dispatch does)."""
+    dispatch does; int8 layers are never split, ``parallel/tensor.py``)."""
     if isinstance(lin, QuantLinear):
         return qlinear(x, lin)
-    return linear(x, lin.weight, lin.bias, compute_dtype)
+    return linear(x, lin.weight, lin.bias, compute_dtype, tp=tp)
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -126,24 +137,34 @@ def dropout_mask(shape, keep: float, generator: torch.Generator,
 
 
 def _drop(x: torch.Tensor, rate: float, generator: torch.Generator | None, train: bool,
-          mask_shape: tuple) -> torch.Tensor:
+          mask_shape: tuple, split: tuple[int, TP] | None = None) -> torch.Tensor:
     """Keep with probability 1 − rate (``dropout_mask`` on ``mask_shape``,
-    broadcast over x) and scale kept values by 1/(1 − rate)."""
+    broadcast over x) and scale kept values by 1/(1 − rate).  ``split`` =
+    (dim, tp): x is this rank's slice of dim, the mask is drawn whole and
+    sliced alike."""
     if not train or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout and stochastic depth in train mode need a torch.Generator")
     keep = 1.0 - rate
-    mask = dropout_mask(mask_shape, keep, generator, x.device)
+    if split is not None and split[1] is not None:
+        dim, tp = split
+        shape = list(mask_shape)
+        shape[dim] *= tp.size
+        mask = split_slice(dropout_mask(tuple(shape), keep, generator, x.device), dim, 1,
+                           tp.rank, tp.size)
+    else:
+        mask = dropout_mask(mask_shape, keep, generator, x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            train: bool) -> torch.Tensor:
+            train: bool, split: tuple[int, TP | None] | None = None) -> torch.Tensor:
     """Inverted dropout: keep each element with probability 1 − rate and
     scale kept elements by 1/(1 − rate); the identity in eval mode or at
-    rate 0.  ``generator`` lives on x's device."""
-    return _drop(x, rate, generator, train, x.shape)
+    rate 0.  ``generator`` lives on x's device.  ``split`` = (dim, tp): x
+    is this rank's slice of ``dim`` in a tensor-parallel region."""
+    return _drop(x, rate, generator, train, x.shape, split)
 
 
 def stochastic_depth_row(x: torch.Tensor, rate: float, generator: torch.Generator | None,
@@ -158,20 +179,21 @@ def stochastic_depth_row(x: torch.Tensor, rate: float, generator: torch.Generato
 def feed_forward(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,
                  compute_dtype: torch.dtype | None = None, gelu_approx: bool = False,
                  rate: float = 0.0, generator: torch.Generator | None = None,
-                 train: bool = False) -> torch.Tensor:
+                 train: bool = False, tp: TP | None = None) -> torch.Tensor:
     """Linear→GELU→Dropout→Linear→Dropout (reference model_cross.py:19-31);
-    either Linear may be in int8 form (``linear_layer``)."""
-    h = linear_layer(fc1, x, compute_dtype)
-    h = dropout(gelu(h, gelu_approx), rate, generator, train)
-    h = linear_layer(fc2, h, compute_dtype)
+    either Linear may be in int8 form (``linear_layer``).  ``tp``: fc1's
+    rows and fc2's columns are this rank's slice of the MLP width."""
+    h = linear_layer(fc1, copy_to(x, tp), compute_dtype)
+    h = dropout(gelu(h, gelu_approx), rate, generator, train, split=(-1, tp))
+    h = linear_layer(fc2, h, compute_dtype, tp)
     return dropout(h, rate, generator, train)
 
 
 def mlp_head(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,
              compute_dtype: torch.dtype | None = None, gelu_approx: bool = False,
              rate: float = 0.0, generator: torch.Generator | None = None,
-             train: bool = False) -> torch.Tensor:
+             train: bool = False, tp: TP | None = None) -> torch.Tensor:
     """Linear(H→mlp)→GELU→Dropout→Linear(mlp→classes)→Dropout — the
     per-stream classification head; its logits are dropped out too
     (reference model_cross.py:176-183)."""
-    return feed_forward(x, fc1, fc2, compute_dtype, gelu_approx, rate, generator, train)
+    return feed_forward(x, fc1, fc2, compute_dtype, gelu_approx, rate, generator, train, tp)

@@ -7,12 +7,14 @@ the devices of every process, its axes in the order ('pipe', 'data',
 'expert', 'seq', 'model'); the port goes back to the torch idiom: one
 process per GPU, joined by a ``torch.distributed`` process group (NCCL
 between cards, gloo on the CPU), and a ``DeviceMesh`` over that group with
-the JAX axes it ports: 'data', then 'expert' (``parallel/moe.py``) and
-'seq' (``parallel/ring.py``) where they are larger than 1.  A JAX process
+the JAX axes in JAX's order: 'pipe' (``parallel/pipeline.py``), 'data',
+'expert' (``parallel/moe.py``), 'seq' (``parallel/ring.py``) and 'model'
+(``parallel/tensor.py``), each where it is larger than 1 ('data' always).  A JAX process
 owning several chips has no counterpart: one torch process drives one
 device, so the mesh holds the world.  Ranks that share a data coordinate
-hold the same batch rows; the 'expert' and 'seq' axes split the work of one
-layer among them.  The model and pipeline axes are ROADMAP Queue 1 item 13.
+hold the same batch rows; the 'expert', 'seq' and 'model' axes split the
+work of one layer among them (``parallel/tensor.py`` for 'model') and the
+'pipe' axis the layers (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -83,35 +85,36 @@ def multihost_init(coordinator_address: str | None = None, num_processes: int | 
 
 def make_mesh(data: int = -1, model: int = 1, pipe: int = 1, seq: int = 1, expert: int = 1,
               devices: str | None = None) -> DeviceMesh:
-    """A ``DeviceMesh`` over the process group with the axes ('data',
-    'expert', 'seq') in JAX's order, 'expert' and 'seq' left out where they
-    are 1 ('data' always kept).
+    """A ``DeviceMesh`` over the process group with the axes ('pipe', 'data',
+    'expert', 'seq', 'model') in JAX's order, each left out where it is 1
+    ('data' always kept).
 
-    ``data`` = -1 means the world size over expert × seq; the axes' product
-    must be the world size.  Ranks are laid out row-major, so the ranks of
-    one data coordinate are adjacent.  ``devices`` is the mesh's device
-    type: 'cuda' under NCCL and 'cpu' otherwise by default.  FSDP places its
-    shards on that type, so a gloo group on CUDA runs DDP only."""
-    for name, size in (("model", model), ("pipe", pipe)):
-        if size != 1:
-            raise NotImplementedError(
-                f"{name}={size}: tensor and pipeline parallelism are not ported yet "
-                "(ROADMAP Queue 1, item 13)")
-    if seq < 1 or expert < 1:
-        raise ValueError(f"mesh axes must be positive, got seq={seq} expert={expert}")
+    ``data`` = -1 means the world size over model × pipe × seq × expert; the
+    axes' product must be the world size.  Ranks are laid out row-major, so
+    the 'model' ranks of one data coordinate are adjacent (JAX's "model
+    innermost") and the 'pipe' stages are the outermost blocks of ranks.
+    ``devices`` is the mesh's device type: 'cuda' under NCCL and 'cpu'
+    otherwise by default.  FSDP places its shards on that type, so a gloo
+    group on CUDA runs DDP only.  That ``model`` divides the heads and the
+    MLP width is the model's to check (``parallel.shard_params``)."""
+    sizes = {"pipe": pipe, "data": data, "expert": expert, "seq": seq, "model": model}
+    bad = {k: v for k, v in sizes.items() if k != "data" and v < 1}
+    if bad:
+        raise ValueError(f"mesh axes must be positive, got {bad}")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a torch.distributed process group: call "
                            "parallel.multihost_init first, or launch under torchrun")
     n = dist.get_world_size()
-    inner = expert * seq
+    inner = model * pipe * seq * expert
+    shape = f"pipe={pipe} x data={data} x expert={expert} x seq={seq} x model={model}"
     if data == -1:
         if n % inner:
-            raise ValueError(f"world size {n} is not divisible by expert={expert} * seq={seq}")
-        data = n // inner
-    if data * inner != n:
-        raise ValueError(f"mesh data={data} x expert={expert} x seq={seq} needs {data * inner} "
-                         f"processes (one device each), have world size {n}")
-    sizes = {"data": data, "expert": expert, "seq": seq}
+            raise ValueError(f"world size {n} is not divisible by model={model} * "
+                             f"pipe={pipe} * seq={seq} * expert={expert}")
+        sizes["data"] = data = n // inner
+    if data < 1 or data * inner != n:
+        raise ValueError(f"mesh {shape} needs {data * inner} processes (one device each), "
+                         f"have world size {n}")
     names = tuple(a for a in sizes if a == "data" or sizes[a] > 1)
     device_type = devices or ("cuda" if dist.get_backend() == "nccl" else "cpu")
     return init_device_mesh(device_type, tuple(sizes[a] for a in names), mesh_dim_names=names)
@@ -143,3 +146,14 @@ def axis_group(mesh: DeviceMesh | None, name: str):
 def axis_mesh(mesh: DeviceMesh, name: str) -> DeviceMesh:
     """The one-dimensional mesh of this rank's line along the axis ``name``."""
     return mesh if mesh.mesh_dim_names == (name,) else mesh[name]
+
+
+def axis_ranks(mesh: DeviceMesh, name: str) -> list[int]:
+    """The global ranks of this rank's line along the axis ``name``, in
+    coordinate order (this rank alone without the axis)."""
+    if mesh is None or name not in (mesh.mesh_dim_names or ()):
+        return [rank()]
+    coord = list(mesh.get_coordinate())
+    dim = mesh.mesh_dim_names.index(name)
+    index = tuple(slice(None) if i == dim else c for i, c in enumerate(coord))
+    return [int(r) for r in mesh.mesh[index].reshape(-1).tolist()]

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .mesh import axis_group, axis_index, axis_size
+from .tensor import _CopyToGroup, _ReduceFromGroup
 
 # The ambient expert-parallel mesh: models read it instead of threading a
 # mesh through every forward (``Trainer`` sets it).  None: every expert runs
@@ -146,35 +147,6 @@ def route(probs: torch.Tensor, num_selected: int, capacity: int | None = None,
     balance = num_experts * torch.sum(total[0].float() / t_all * (prob_sums / t_all))
     dispatched = claimed.clamp(max=capacity).sum() / float(t_all * num_selected)
     return Routing(experts, gates, torch.stack(slots, dim=1), capacity, balance, dispatched)
-
-
-class _CopyToGroup(torch.autograd.Function):
-    """Identity forward; the gradient summed over the group (Megatron's f)."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
-class _ReduceFromGroup(torch.autograd.Function):
-    """Sum over the group forward; identity backward (Megatron's g)."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        x = x.contiguous().clone()
-        dist.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        return grad, None
 
 
 def _expert(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,

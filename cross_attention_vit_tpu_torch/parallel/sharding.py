@@ -1,23 +1,25 @@
-"""Data parallelism, FSDP and the placement of experts over the mesh — port
-of ``cross_attention_vit_tpu/parallel/sharding.py``'s data-parallel and
-expert rules.
+"""Data parallelism, FSDP and the placement of a model over the mesh — port
+of ``cross_attention_vit_tpu/parallel/sharding.py``.
 
 Batches.  Each data coordinate loads its own rows of the global batch (its
 ``host_shard`` of the epoch's indices); the ranks of one data coordinate
-(its 'expert' and 'seq' line) load the same rows.  ``batch_sharding`` is a
+(its 'expert', 'seq', 'model' and 'pipe' lines) load the same rows.  ``batch_sharding`` is a
 descriptor the loader and the ``Trainer`` read, not a placement:
 ``Sharding(mesh, ("data", None, ...))``, with ``replicated(mesh)`` its
 unsplit twin.
 
 Parameters.  ``shard_params(model, mesh)`` first splits the MoE experts
 over the 'expert' axis (``parallel.moe.shard_experts``: JAX's ``experts/*``
-rule, the router replicated), then wraps the model in
+rule, the router replicated), the trunk's layers over 'pipe'
+(``parallel.pipeline``) and the head-aligned Megatron regions over 'model'
+(``parallel.tensor``, by ``tp_dim``: JAX's ``_spec_for`` on the port's
+names and layout), then wraps the model in
 ``DistributedDataParallel`` over the data axis's group: every rank holds
 every other parameter and the gradients are averaged across data
 coordinates by all-reduce, the DDP step JAX's GSPMD derives from a
-batch-sharded input.  Gradients of what the 'expert' and 'seq' lines share
-are whole on each rank of a line already (the layers that split the work
-sum them), so DDP never reduces over those axes.
+batch-sharded input.  Gradients of what the 'expert', 'seq' and 'model'
+lines share are whole on each rank of a line already (the layers that split
+the work sum them), so DDP never reduces over those axes.
 
 ``shard_params(model, mesh, fsdp=True)`` is FSDP2's ``fully_shard`` over
 the data axis on every block and at the root under JAX's rule
@@ -33,9 +35,8 @@ forward and backward and reduce-scattered after it.
 
 Which axes of the JAX layout the rule may take depends on JAX's TP table
 (``_spec_for``): the axes it gives the 'model' mesh axis are not free even
-when that axis has size 1.  ``_free_axes`` keeps that much of the table, on
-the port's parameter names; the TP rules themselves (the head-aligned
-Megatron split) are ROADMAP Queue 1 item 13 and not ported.  At a world of
+when that axis has size 1.  ``_role`` names each parameter's part in that
+table; ``_free_axes`` (FSDP) and ``tp_dim`` (TP) read it.  At a world of
 one JAX shards nothing (its rule returns early for ``data_size <= 1``); the
 port applies the rule all the same, so a world of one runs FSDP2's gathers
 and the sharded Adam on shards that are whole tensors.
@@ -56,7 +57,9 @@ from torch.distributed.tensor import DTensor, Shard
 from torch.nn.parallel import DistributedDataParallel
 
 from .mesh import axis_group, axis_index, axis_mesh, axis_size
-from .moe import moe_sites, shard_experts
+from .moe import gather_experts, local_experts, moe_sites, shard_experts
+from .pipeline import gather_stages, local_stages, shard_stages
+from .tensor import gather_tp, local_tp, shard_tensor_parallel
 
 # Parameters smaller than this stay replicated under FSDP: gathering a few KB
 # per layer costs more in latency than the memory it saves.
@@ -123,29 +126,62 @@ def _is_expert_stack(name: str) -> bool:
     return len(parts) >= 3 and parts[-3] == "experts" and parts[-2] in ("fc1", "fc2")
 
 
+def _role(name: str) -> str | None:
+    """The part a parameter plays in JAX's TP table (``_spec_for``), by its
+    port name: 'experts' (a stacked expert weight or bias), 'qkv' (the fused
+    projection), 'heads_in' (wq/wk/wv weight or bias), 'heads_out' (the
+    to_out / proj weight), 'fc1' or 'fc2' (weight or bias); None for the
+    rest, which JAX leaves replicated."""
+    parts = name.split(".")
+    if len(parts) < 3:                        # pos_embedding, cls_token, patch_to_embedding
+        return None
+    leaf, mod = parts[-1], parts[-2]
+    if _is_expert_stack(name):
+        return "experts"
+    if mod == "to_qkv":
+        return "qkv"
+    if mod in ("wq", "wk", "wv"):
+        return "heads_in"
+    if leaf == "weight" and (mod == "proj" or parts[-3] == "to_out"):
+        return "heads_out"
+    return _fc_role(parts)
+
+
 def _free_axes(name: str, shape: tuple[int, ...], heads: int) -> list[int]:
     """The sizes of the axes of the parameter's JAX layout that JAX's FSDP
     rule may shard: all of them, less those ``_spec_for`` gives 'model' or
     'expert'."""
-    parts = name.split(".")
-    if len(parts) < 3:                        # pos_embedding, cls_token, patch_to_embedding
-        return list(shape)
-    leaf, mod = parts[-1], parts[-2]
-    if _is_expert_stack(name):                # (E, ...) ↔ (E, ...), E on 'expert'
+    role, weight = _role(name), name.endswith(".weight")
+    if role == "experts":                     # (E, ...) ↔ (E, ...), E on 'expert'
         return list(shape[1:])
-    if mod == "to_qkv":                       # (3H, H) ↔ (H, 3, K, D), K reserved
+    if role == "qkv":                         # (3H, H) ↔ (H, 3, K, D), K reserved
         return [shape[1], 3, shape[1] // heads]
-    if mod in ("wq", "wk", "wv"):             # (H, H) ↔ (H, K, D); bias (H,) ↔ (K, D)
+    if role == "heads_in":                    # (H, H) ↔ (H, K, D); bias (H,) ↔ (K, D)
         d = shape[0] // heads
-        return [shape[1], d] if leaf == "weight" else [d]
-    if leaf == "weight" and (mod == "proj" or parts[-3] == "to_out"):
-        return [shape[1] // heads, shape[0]]  # (H, H) ↔ (K, D, H), K reserved
-    role = _fc_role(parts)
+        return [shape[1], d] if weight else [d]
+    if role == "heads_out":                   # (H, H) ↔ (K, D, H), K reserved
+        return [shape[1] // heads, shape[0]]
     if role == "fc1":                         # (mlp, H) ↔ (H, mlp), mlp reserved
-        return [shape[1]] if leaf == "weight" else []
+        return [shape[1]] if weight else []
     if role == "fc2":                         # (out, mlp) ↔ (mlp, out), mlp reserved
-        return [shape[0]] if leaf == "weight" else list(shape)
+        return [shape[0]] if weight else list(shape)
     return list(shape)
+
+
+def tp_dim(name: str, shape: tuple[int, ...]) -> tuple[int, int] | None:
+    """How tensor parallelism splits the port's parameter ``name``: (dim,
+    groups), the dim of its (out, in) layout split over 'model' and the
+    number of equal blocks of that dim each split alike (3 for the fused
+    qkv's (3, K, D) rows, 1 for a contiguous split); None to keep it whole.
+    The split axis is the one JAX's ``_spec_for`` gives 'model'."""
+    role, weight = _role(name), name.endswith(".weight")
+    if role == "qkv":
+        return (0, 3)
+    if role in ("heads_in", "fc1"):           # the output rows (with their bias)
+        return (0, 1)
+    if role == "heads_out" or (role == "fc2" and weight):
+        return (1, 1)                         # the contracted input columns
+    return None
 
 
 def fsdp_dim(name: str, shape: tuple[int, ...], heads: int, data_size: int) -> int | None:
@@ -162,18 +198,43 @@ def fsdp_dim(name: str, shape: tuple[int, ...], heads: int, data_size: int) -> i
 
 # -- placing the model --------------------------------------------------------------
 
-def shard_params(model: nn.Module, mesh: DeviceMesh, fsdp: bool = False) -> nn.Module:
-    """The model over ``mesh``: its experts split over the 'expert' axis,
-    then a ``DistributedDataParallel`` around it over the data axis, or
-    (``fsdp``) the model itself with its blocks and root under
-    ``fully_shard`` over the data axis by the rule above.  Build the
-    optimizer afterwards: both replace parameters."""
-    if fsdp and axis_size(mesh, "expert") > 1 and moe_sites(model):
+_COMBINED = "(ROADMAP Queue 1, item 13: parallel combinations not composed yet)"
+
+
+def _refuse_combinations(model: nn.Module, mesh: DeviceMesh, fsdp: bool) -> None:
+    """Raise for the mesh and FSDP combinations the port does not compose."""
+    size = {a: axis_size(mesh, a) for a in ("model", "pipe", "seq", "expert")}
+    if fsdp and size["expert"] > 1 and moe_sites(model):
         raise NotImplementedError(
             "FSDP together with expert parallelism is not ported yet: run the experts over "
             "'expert' under DDP, or FSDP without an 'expert' axis (ROADMAP Queue 1, item 13)")
+    for axis, name in (("model", "tensor parallelism"), ("pipe", "pipeline parallelism")):
+        if size[axis] <= 1:
+            continue
+        others = [what for on, what in ((fsdp, "FSDP"), (size["seq"] > 1, "a 'seq' axis"),
+                                        (size["expert"] > 1, "an 'expert' axis")) if on]
+        if others:
+            raise NotImplementedError(f"{name} (a {axis!r} axis of {size[axis]}) together "
+                                      f"with {' and '.join(others)} {_COMBINED}")
+
+
+def shard_params(model: nn.Module, mesh: DeviceMesh, fsdp: bool = False) -> nn.Module:
+    """The model over ``mesh``: its experts split over the 'expert' axis,
+    its trunk's layers over 'pipe' (``parallel.pipeline.shard_stages``), its
+    regions over 'model' (``parallel.tensor.shard_tensor_parallel``), then a
+    ``DistributedDataParallel`` around it over the data axis, or (``fsdp``)
+    the model itself with its blocks and root under ``fully_shard`` over the
+    data axis by the rule above.  A model over a 'pipe' axis stays bare: its
+    gradients are averaged over 'data' by ``sync_replicated_grads``.  Build
+    the optimizer afterwards: all of them replace parameters.  TP and PP
+    together with FSDP, SP or EP raise (``_refuse_combinations``)."""
+    _refuse_combinations(model, mesh, fsdp)
     shard_experts(model, mesh)
+    shard_stages(model, mesh)
+    shard_tensor_parallel(model, mesh)
     data = axis_mesh(mesh, "data")
+    if axis_size(mesh, "pipe") > 1:
+        return model
     if not fsdp:
         return DistributedDataParallel(model, process_group=data.get_group())
     device_type = next(model.parameters()).device.type
@@ -190,6 +251,22 @@ def shard_params(model: nn.Module, mesh: DeviceMesh, fsdp: bool = False) -> nn.M
         fully_shard(block, **kw)
     fully_shard(model, **kw)
     return model
+
+
+def whole_tensors(model: nn.Module, tensors: dict) -> dict:
+    """``tensors`` (by parameter name, this rank's parts) made whole: split
+    experts, TP slices and the other stages' layers gathered (a collective:
+    every rank calls it, in the same order).  FSDP shards are DTensors,
+    whole through ``full_tensor``."""
+    model = unwrap(model)
+    return gather_stages(model, gather_tp(model, gather_experts(model, tensors)))
+
+
+def local_tensors(model: nn.Module, tensors: dict) -> dict:
+    """The inverse of ``whole_tensors``: whole tensors cut to this rank's
+    parts."""
+    model = unwrap(model)
+    return local_experts(model, local_tp(model, local_stages(model, tensors)))
 
 
 def unwrap(model: nn.Module) -> nn.Module:
@@ -216,14 +293,18 @@ def no_sync(model: nn.Module, skip: bool):
 
 @torch.no_grad()
 def sync_replicated_grads(model: nn.Module, mesh: DeviceMesh) -> None:
-    """Average, across data coordinates, the gradients of an FSDP model's
-    replicated parameters (FSDP reduces only those it shards), in one
-    all-reduce."""
-    if not isinstance(model, FSDPModule):
+    """Average across data coordinates, in one all-reduce, the gradients no
+    wrapper reduces: an FSDP model's replicated parameters' (FSDP reduces
+    only those it shards) and every gradient of a model over a 'pipe' axis
+    (not wrapped in DDP, ``shard_params``)."""
+    if isinstance(model, FSDPModule):
+        grads = [p.grad for p in model.parameters()
+                 if not isinstance(p, DTensor) and p.grad is not None]
+    elif isinstance(model, DistributedDataParallel) or axis_size(mesh, "pipe") <= 1:
         return
-    grads = [p.grad for p in model.parameters()
-             if not isinstance(p, DTensor) and p.grad is not None]
-    if not grads:
+    else:
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads or axis_size(mesh, "data") <= 1:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
     flat.div_(axis_size(mesh, "data"))

@@ -14,10 +14,11 @@ and labels.  Over a mesh (``mesh=``, the model from
 the global batch and the aux dict comes back global and the same on every
 rank, as JAX's ``_replicate_aux`` makes it: the loss is the global mean, the
 counts are summed and probs and labels are gathered in data order.  The
-ranks of one data coordinate (its 'expert' and 'seq' line) step on the same
-rows with the same generator, so their augmentation and dropout agree and
-the work the MoE FFN (``moe_experts``) and the ring attention
-(``seq_parallel``) split among them sees one batch.  The models find the
+ranks of one data coordinate (its 'expert', 'seq', 'model' and 'pipe'
+lines) step on the same rows with the same generator, so their
+augmentation and dropout agree and the work the MoE FFN (``moe_experts``),
+the ring attention (``seq_parallel``), the Megatron split and the pipeline
+split among them sees one batch.  The models find the
 mesh of that split where JAX's do, in the ambient expert and seq meshes
 (``parallel.moe``, ``parallel.ring``); a step over a mesh sets them while
 it runs and puts back what was there before, so nothing of one Trainer's
@@ -41,9 +42,13 @@ under DDP or, with ``fsdp=True``, FSDP, over the mesh's data axis: each data
 coordinate reads its ``host_shard`` of each epoch's indices (or its own
 sampler draw), every rank computes the same history row, and only rank 0
 logs, prints and writes checkpoints.  A mesh with an 'expert' axis splits
-the MoE experts over it and one with a 'seq' axis the attention's sequence
-(JAX ``train/trainer.py:347-370``; the steps set the ambient expert and seq
-meshes the models read, see ``_ambient_meshes``).  The stateful (BatchNorm)
+the MoE experts over it, one with a 'seq' axis the attention's sequence,
+one with a 'model' axis the heads and MLP columns, and one with a 'pipe'
+axis ModelVIT's trunk into GPipe stages (``config.pipeline_stages`` > 1;
+JAX ``train/trainer.py:338-370``; the steps set the ambient expert, seq and
+pipeline meshes the models read, see ``_ambient_meshes``).  Checkpoints
+are written whole, in the JAX layout, and split again on load, so they
+cross mesh shapes.  The stateful (BatchNorm)
 families are a later slice.
 """
 
@@ -61,10 +66,11 @@ from ..models.convert import (jax_params_from_model, jax_params_from_state_dict,
                               load_jax_params, params_from_flat, state_dict_from_jax)
 from ..ops.layers import promote_input
 from ..parallel.mesh import axis_index, axis_size
-from ..parallel.moe import active_expert_mesh, gather_experts, local_experts, set_expert_mesh
+from ..parallel.moe import active_expert_mesh, set_expert_mesh
+from ..parallel.pipeline import active_pipeline_mesh, set_pipeline_mesh
 from ..parallel.ring import active_seq_mesh, set_seq_mesh
-from ..parallel.sharding import (batch_sharding, gather_rows, no_sync, shard_params,
-                                 sync_replicated_grads, unwrap)
+from ..parallel.sharding import (batch_sharding, gather_rows, local_tensors, no_sync,
+                                 shard_params, sync_replicated_grads, unwrap, whole_tensors)
 from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager, LatestCheckpointer, flatten, unflatten, wait_for_writes
 from .loggers import MultiLogger
@@ -104,24 +110,28 @@ def _replicate_aux(aux: dict, mesh) -> dict:
 @contextlib.contextmanager
 def _ambient_meshes(config: Config, mesh):
     """While one step runs over ``mesh``: the ambient seq mesh when
-    ``config.seq_parallel`` > 1 and the expert mesh when
-    ``config.moe_experts`` > 1 (the MoE routes the global batch over 'data'
-    and splits its experts over 'expert'), the ones before restored after.
-    The backward needs neither: the ring and the MoE keep their groups in
-    the autograd graph."""
+    ``config.seq_parallel`` > 1, the expert mesh when ``config.moe_experts``
+    > 1 (the MoE routes the global batch over 'data' and splits its experts
+    over 'expert') and the pipeline mesh when ``config.pipeline_stages`` > 1,
+    the ones before restored after.  The backward needs none of them: the
+    ring, the MoE and the pipeline keep their groups in the autograd graph.
+    Tensor parallelism needs none: its regions hold their group."""
     if mesh is None:
         yield
         return
-    before = active_seq_mesh(), active_expert_mesh()
+    before = active_seq_mesh(), active_expert_mesh(), active_pipeline_mesh()
     if int(config.get("seq_parallel", 0)) > 1:
         set_seq_mesh(mesh)
     if int(config.get("moe_experts", 0)) > 1:
         set_expert_mesh(mesh)
+    if int(config.get("pipeline_stages", 0)) > 1:
+        set_pipeline_mesh(mesh)
     try:
         yield
     finally:
         set_seq_mesh(before[0])
         set_expert_mesh(before[1])
+        set_pipeline_mesh(before[2])
 
 
 def _dropout_generator(generator: torch.Generator, device: torch.device) -> torch.Generator:
@@ -323,8 +333,14 @@ class Trainer:
             if experts % axis_size(mesh, "expert"):
                 raise ValueError(f"moe_experts={experts} is not divisible by the mesh's "
                                  f"'expert' axis {axis_size(mesh, 'expert')}")
-        # FSDP shards and experts split over 'expert' are gathered by every rank
-        self.collective_snapshot = self.fsdp or axis_size(mesh, "expert") > 1
+        stages = int(config.get("pipeline_stages", 0))
+        if mesh is not None and axis_size(mesh, "pipe") > 1 and stages <= 1:
+            raise ValueError(f"the mesh's 'pipe' axis is {axis_size(mesh, 'pipe')} but "
+                             f"config.pipeline_stages={stages}: set pipeline_stages > 1")
+        # FSDP shards and the parts split over 'expert', 'model' or 'pipe'
+        # are gathered by every rank
+        self.collective_snapshot = self.fsdp or any(
+            axis_size(mesh, a) > 1 for a in ("expert", "model", "pipe"))
         if schedule == "cosine":
             op = config.optim_params
             self.lr_fn = cosine_annealing_lr(config.lr, op["T_max"], op["eta_min"])
@@ -374,8 +390,8 @@ class Trainer:
         else:   # JAX initialises the moments to zeros
             mu = nu = [torch.zeros(p.shape, device=p.device) for p in self.optimizer.params]
         return tuple(jax_params_from_state_dict(
-            {n: t.detach().float().cpu().numpy()
-             for n, t in gather_experts(model, dict(zip(names, ms))).items()}, self.config)
+            {n: t.detach().to("cpu", torch.float32, copy=True).numpy()
+             for n, t in whole_tensors(model, dict(zip(names, ms))).items()}, self.config)
             for ms in (mu, nu))
 
     def _ckpt_state(self, epoch: int) -> dict:
@@ -425,7 +441,7 @@ class Trainer:
             prefix = f"opt/{which}/"
             tree = unflatten({k[len(prefix):]: v for k, v in flat.items()
                               if k.startswith(prefix)})
-            sd = local_experts(model, state_dict_from_jax(tree, self.config))
+            sd = local_tensors(model, state_dict_from_jax(tree, self.config))
             moments.append([sd[n] for n in names])
         self.optimizer.load_state(int(flat["opt/step"]), *moments)
         if self.plateau is not None and "plateau/lr" in flat:

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Data-, expert- and sequence-parallel training of the live ModelCross
-across the cards of one host over NCCL, through the port's ``Trainer`` (one
-process per card).
+"""Data-, expert-, sequence-, tensor- and pipeline-parallel training of the
+live ModelCross (and of the 2-stream ModelVIT for the pipeline) across the
+cards of one host over NCCL, through the port's ``Trainer`` (one process per
+card).
 
-    python3 dp_cards.py [--cards N] [--modes ddp,fsdp,ep,sp]
+    python3 dp_cards.py [--cards N] [--modes ddp,fsdp,ep,sp,tp,pp]
         # default: every card of the host, every mode
 
 ``chip_smoke.py`` checks DDP and FSDP at world size 1 (NCCL refuses two
@@ -37,7 +38,17 @@ Then the same for two more meshes (``ep`` and ``sp``):
   the self-attention runs as the ring across the two cards of a seq line
   (no K1 or K2 launch), 8 volumes a data coordinate; the comparison step
   against the one-process step of the same global batch on the dense plain
-  attention (``use_flash_attention=False``), which the ring computes.
+  attention (``use_flash_attention=False``), which the ring computes;
+- ``tp``: the ModelCross over (data N/2, model 2): each card holds 8 of the
+  16 heads and half the MLP columns of every region (12 K1 + 12 K2 a step at
+  K = 8), 8 volumes a data coordinate; the comparison step against the
+  one-process step of the same global batch (the slices gathered);
+- ``pp``: the 2-stream ModelVIT (N = 1025, 4 layers; chip_smoke's phase
+  train_pp) with ``pipeline_stages`` = 2 and 4 microbatches over (pipe 2,
+  data N/2): each card holds 2 of the 4 layers (8 K1 + 8 K2 a step: 2
+  layers × 4 microbatches of 2 rows), 8 volumes a data coordinate; the
+  comparison step against the one-process step of the plain trunk on the
+  same global batch.
 
 Prints one JSON line per mode, the cards' names and power limits as
 nvidia-smi prints them, and last ``{"ok": true, "device": {...}}``; any
@@ -62,6 +73,7 @@ import torch
 
 import chip_smoke as cs
 from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
+from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
 from cross_attention_vit_tpu_torch.parallel import make_mesh, multihost_init, shard_batch, unwrap
 from cross_attention_vit_tpu_torch.train.checkpoint import flatten
 from cross_attention_vit_tpu_torch.train.schedule import cosine_annealing_lr
@@ -73,14 +85,15 @@ PER_CARD = 8
 WORKER_TIMEOUT_S = 900
 
 
-MODES = ("ddp", "fsdp", "ep", "sp")
+MODES = ("ddp", "fsdp", "ep", "sp", "tp", "pp")
 
 
-def global_batch(size: int) -> tuple[torch.Tensor, torch.Tensor]:
+def global_batch(size: int, streams: int = len(cs.MODALITIES)) -> tuple[torch.Tensor,
+                                                                         torch.Tensor]:
     """``size`` volumes of phase train's distribution, from a seed, on the
     host."""
     rng = np.random.default_rng(1)
-    img = (rng.normal(size=(size, len(cs.MODALITIES), 1, *cs.VOLUME)) * 100)
+    img = (rng.normal(size=(size, streams, 1, *cs.VOLUME)) * 100)
     return torch.from_numpy(img.astype(np.float32)), torch.tensor([0, 1] * (size // 2))
 
 
@@ -90,29 +103,41 @@ def _no_drop(cfg):
 
 
 def mode_spec(mode: str, cards: int) -> dict:
-    """A mode's training config, its comparison step's config, the one-
-    process reference's config, its mesh axes, its global batch and the
-    K1/K2 launches a step."""
+    """A mode's model, its training config, its comparison step's config,
+    the one-process reference's config, its mesh axes, its global batch and
+    the K1/K2 launches a step."""
+    cross = {"model": ModelCross, "streams": len(cs.MODALITIES)}
     if mode in ("ddp", "fsdp"):
-        return {"cfg": cs.live_config(use_flash=True), "cmp": cs._dp_cmp_cfg(),
+        return {**cross, "cfg": cs.live_config(use_flash=True), "cmp": cs._dp_cmp_cfg(),
                 "ref": cs._dp_cmp_cfg(), "axes": {"data": cards}, "batch": PER_CARD * cards,
                 "attention_launches": 12}
     if mode == "ep":
-        return {"cfg": cs.moe_config(use_flash=True), "cmp": _no_drop(cs.moe_config(True)),
-                "ref": _no_drop(cs.moe_config(True)), "axes": {"data": 1, "expert": cards},
-                "batch": PER_CARD, "attention_launches": 12}
+        return {**cross, "cfg": cs.moe_config(use_flash=True),
+                "cmp": _no_drop(cs.moe_config(True)), "ref": _no_drop(cs.moe_config(True)),
+                "axes": {"data": 1, "expert": cards}, "batch": PER_CARD,
+                "attention_launches": 12}
+    if mode == "tp":
+        return {**cross, "cfg": cs.live_config(use_flash=True), "cmp": cs._dp_cmp_cfg(),
+                "ref": cs._dp_cmp_cfg(), "axes": {"data": cards // 2, "model": 2},
+                "batch": PER_CARD * (cards // 2), "attention_launches": 12}
+    if mode == "pp":
+        return {"model": ModelVIT, "streams": 2, "cfg": cs._pp_config(),
+                "cmp": _no_drop(cs._pp_config()),
+                "ref": _no_drop(cs.vit_config(("SWI", "DWI"), use_flash=True)),
+                "axes": {"pipe": 2, "data": cards // 2}, "batch": PER_CARD * (cards // 2),
+                "attention_launches": 2 * cs.PIPE_MB}
     sp = {"seq_parallel": 2}
     cfg, cmp = cs.live_config(use_flash=True), cs._dp_cmp_cfg()
     for c in (cfg, cmp):
         cs.modify_config(c, sp)
-    return {"cfg": cfg, "cmp": cmp, "ref": _no_drop(cs.live_config(use_flash=False)),
+    return {**cross, "cfg": cfg, "cmp": cmp, "ref": _no_drop(cs.live_config(use_flash=False)),
             "axes": {"data": cards // 2, "seq": 2}, "batch": PER_CARD * (cards // 2),
             "attention_launches": 0}
 
 
 def mode_mesh(axes: dict):
-    return make_mesh(axes.get("data", -1), seq=axes.get("seq", 1),
-                     expert=axes.get("expert", 1))
+    return make_mesh(axes.get("data", -1), model=axes.get("model", 1), pipe=axes.get("pipe", 1),
+                     seq=axes.get("seq", 1), expert=axes.get("expert", 1))
 
 
 def lr_schedule(cfg):
@@ -133,8 +158,8 @@ def references(cards: int, modes: list[str], tmp: Path) -> dict:
     out = {"step_ms_batch8": step_ms, "step_ms_batch8_steady": statistics.median(step_ms[1:])}
     for mode in modes:
         spec = mode_spec(mode, cards)
-        img, labels = (x.cuda() for x in global_batch(spec["batch"]))
-        t = Trainer(ModelCross, spec["ref"], max_epochs=1, device="cuda").init_state()
+        img, labels = (x.cuda() for x in global_batch(spec["batch"], spec["streams"]))
+        t = Trainer(spec["model"], spec["ref"], max_epochs=1, device="cuda").init_state()
         aux, ms = cs._timed_step(t.train_step, img, labels, cfg.lr,
                                  torch.Generator().manual_seed(0))
         cs.check(bool(torch.isfinite(aux["loss"])), f"{mode}: non-finite one-process loss")
@@ -161,11 +186,13 @@ def run_mode(mode: str, cards: int, rank: int, tmp: Path) -> dict:
     spec = mode_spec(mode, cards)
     cfg, fsdp = spec["cfg"], mode == "fsdp"
     mesh = mode_mesh(spec["axes"])
-    img, labels = (x.cuda() for x in shard_batch(global_batch(spec["batch"]), mesh))
+    img, labels = (x.cuda() for x in shard_batch(global_batch(spec["batch"], spec["streams"]),
+                                                   mesh))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t = Trainer(ModelCross, cfg, max_epochs=1, mesh=mesh, fsdp=fsdp, device="cuda").init_state()
+    t = Trainer(spec["model"], cfg, max_epochs=1, mesh=mesh, fsdp=fsdp,
+                device="cuda").init_state()
     losses, step_ms, per_step, affine = cs._run_steps(
         t.train_step, img, labels, lr_schedule(cfg), torch.Generator().manual_seed(cs.TRAIN_SEED))
     launches = cs._counts()
@@ -200,16 +227,19 @@ def run_mode(mode: str, cards: int, rank: int, tmp: Path) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     # the comparison step from the seeded masters
-    t = Trainer(ModelCross, spec["cmp"], max_epochs=1, mesh=mesh, fsdp=fsdp,
+    t = Trainer(spec["model"], spec["cmp"], max_epochs=1, mesh=mesh, fsdp=fsdp,
                 device="cuda").init_state()
     cs._zero_counts()
     aux, out["comparison_step_ms"] = cs._timed_step(t.train_step, img, labels, cfg.lr,
                                                      torch.Generator().manual_seed(0))
     out["comparison_launches"] = cs._counts()
     out["comparison_loss"] = float(aux["loss"])
-    grads = cs._full_grads(t)       # a collective under FSDP: every rank
+    grads = cs._full_grads(t)       # a collective when split: every rank
     if rank == 0:
-        errs = cs._leaf_errs(grads, torch.load(tmp / f"grads_{mode}.pt", map_location="cuda"))
+        want = torch.load(tmp / f"grads_{mode}.pt", map_location="cuda")
+        errs = cs._leaf_errs(grads, want)
+        if spec["model"] is ModelVIT:
+            cs._vit_head_bias_by_summand(errs, grads, want, aux)
         gated = {n: e for n, e in errs.items() if not n.endswith(cs.ZERO_GRAD_LEAF)}
         worst = max(gated, key=gated.get)
         out["grad_vs_one_process_worst_leaf"] = max(errs.values())
@@ -293,10 +323,11 @@ def main() -> int:
         cs.check(1 <= cards <= torch.cuda.device_count(),
                  f"--cards {cards}: the host has {torch.cuda.device_count()} cards")
         cs.check(set(modes) <= set(MODES), f"--modes {args.modes}: not a subset of {MODES}")
-        if "sp" in modes and cards % 2:
-            cs.emit({"phase": "sp", "skipped": f"a seq axis of 2 needs an even card count, "
-                                               f"not {cards}"})
-            modes.remove("sp")
+        for mode in ("sp", "tp", "pp"):
+            if mode in modes and cards % 2:
+                cs.emit({"phase": mode, "skipped": f"an axis of 2 needs an even card count, "
+                                                   f"not {cards}"})
+                modes.remove(mode)
         cs.check("ep" not in modes or 4 % cards == 0, f"ep: 4 experts over {cards} cards")
         cs.phase_build()
         with tempfile.TemporaryDirectory() as tmp:

@@ -156,7 +156,8 @@ def test_evaluate_reads_a_jax_vit_checkpoint(cohort, trained_vit):
 _MESH_FLAG_CASES = {
     # data parallelism needs a process group of that size
     "--dp": (["--dp", "2"], SystemExit, "world size"),
-    "--tp": (["--tp", "2"], SystemExit, "item 13"),
+    # tensor parallelism needs a process group of data × model
+    "--tp": (["--tp", "2"], SystemExit, "world size 2"),
     # sequence and expert parallelism need a process group of data × expert × seq
     "--sp": (["--sp", "2"], SystemExit, "world size 2"),
     "--ep": (["--ep", "2", "--set", "moe_experts=4"], SystemExit, "world size 2"),
@@ -182,5 +183,7 @@ def test_unported_mesh_flags_exit(flags):
 
 
 def test_evaluate_mesh_flag_exits():
-    with pytest.raises(SystemExit, match="item 13"):
+    """A model axis is ported (tests/test_torch_sharded_serving.py); without a
+    process group the mesh flag exits naming multihost_init."""
+    with pytest.raises(SystemExit, match="multihost_init"):
         teval.main(["--checkpoint", "x.npz", "--mesh", "data=1,model=2"], device="cpu")

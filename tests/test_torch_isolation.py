@@ -34,9 +34,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         banned = ("jax", "jaxlib", "cross_attention_vit_tpu", "pandas", "sklearn",
                   "ml_dtypes", "tensorboardX")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
-        new = {pkg.__name__ + ".parallel.moe", pkg.__name__ + ".parallel.ring"}
+        new = {pkg.__name__ + ".parallel." + m for m in ("moe", "ring", "tensor", "pipeline")}
         print(len(names), bad, sorted(new - set(names)))
-        sys.exit(1 if bad or len(names) < 41 or not new <= set(names) else 0)
+        sys.exit(1 if bad or len(names) < 43 or not new <= set(names) else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)

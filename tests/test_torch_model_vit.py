@@ -233,21 +233,18 @@ def test_single_head_mapping_skips_the_absent_projection():
 @pytest.mark.parametrize("fields,match", [({"moe_experts": 4}, "item 13"),
                                           ({"pipeline_stages": 2}, "items 11-13")])
 def test_unported_options_raise(fields, match):
-    """``pipeline_stages`` still raises naming its ROADMAP items; the MoE
-    trunk, which this test once held unported (item 13), now builds and
-    gives JAX's logits and loss."""
-    if "moe_experts" not in fields:
-        _, tc, _ = _pair()
-        modify_config(tc, fields)
-        with pytest.raises(NotImplementedError, match=match):
-            ModelVIT(tc, device="cpu")
-        return
+    """The MoE trunk and the pipeline layout (``pipeline_stages``), which this
+    test once held unported (``match`` names the ROADMAP items that held
+    them), now build and give JAX's logits and loss: the MoE since item 13's
+    EP slice, the pipeline (its serial schedule, from JAX's stacked
+    checkpoint layout) since item 13's PP slice."""
     jc, tc, params = _pair(num_modalities=1, **fields)
     model = _port(tc, params)
     img, labels = _img(tc, b=2), np.array([1, 0], np.int32)
     with torch.no_grad():
         logits, loss = model(torch.from_numpy(img), torch.from_numpy(labels).long())
-    want, want_loss = jmv.apply(params, jc, jnp.asarray(img), jnp.asarray(labels))
+    want, want_loss = jmv.apply(jax.tree.map(jnp.asarray, params), jc, jnp.asarray(img),
+                                jnp.asarray(labels))
     np.testing.assert_allclose(logits.numpy(), np.asarray(want), atol=1e-4, rtol=0)
     assert abs(float(loss) - float(want_loss)) <= 1e-4
 

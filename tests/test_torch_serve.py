@@ -332,12 +332,17 @@ def test_checkpoint_layout_round_trips_with_jax(ckpt, tmp_path):
     assert saved.name == "config.json"
 
 
-@pytest.mark.parametrize("kw,exc,match", [({"mesh": object()}, NotImplementedError, "later slice"),
+# the case ids are fixed so that each case keeps its name as the list changes
+@pytest.mark.parametrize("kw,exc,match", [({"mesh": object()}, TypeError, "DeviceMesh"),
                                           ({"quantize": "int4"}, ValueError,
-                                           "unknown quantize mode")])
+                                           "unknown quantize mode")],
+                         ids=["kw0-NotImplementedError-later slice",
+                              "kw1-ValueError-unknown quantize mode"])
 def test_unported_serving_modes_raise(ckpt, kw, exc, match):
-    """Sharded serving is a later slice; an unknown quantize mode raises as
-    in the JAX server (its two modes are served: test_quantized_server_*)."""
+    """A mesh that is not a ``parallel.make_mesh`` DeviceMesh raises (sharded
+    serving itself: tests/test_torch_sharded_serving.py); an unknown
+    quantize mode raises as in the JAX server (its two modes are served:
+    test_quantized_server_*)."""
     path, _, _ = ckpt
     kw = {"img_types": TYPES, "device": "cpu", **kw}
     model = kw.pop("model", "cross")

@@ -1,6 +1,8 @@
-"""Gloo ranks for the port's expert- and sequence-parallel tests
-(``tests/test_torch_moe.py``, ``test_torch_ring.py``,
-``test_torch_sp_ep_models.py``), run as subprocesses of the test process.
+"""Gloo ranks for the port's expert-, sequence-, tensor- and pipeline-parallel
+tests (``tests/test_torch_moe.py``, ``test_torch_ring.py``,
+``test_torch_sp_ep_models.py``, ``test_torch_tensor_parallel.py``,
+``test_torch_pipeline.py``, ``test_torch_sharded_serving.py``), run as
+subprocesses of the test process.
 
 ``spawn(mode, tmp, world)`` starts ``python tests/torch_mesh_workers.py
 <mode> <port> <rank> <world> <tmp>`` once for each rank and waits for them
@@ -14,11 +16,13 @@ its one-process references from the same definitions.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -63,6 +67,25 @@ MODEL_CASES = {
                     False, 4),
 }
 SHARDED_NS = (9, 13, 16)     # sharded_ring_sdpa over seq 2: ragged and exact
+# -- tensor and pipeline parallelism: name -> (family, config fields, mesh axes, world)
+PP = {"num_layers": 4, "pipeline_stages": 2, "pipeline_microbatches": 4}
+TP_CASES = {
+    "cross_tp2": ("cross", {}, {"model": 2}, 2),
+    "vit_tp2": ("vit", {}, {"model": 2}, 2),
+    "cross_tp2_dropout": ("cross", {"dropout": 0.1}, {"model": 2}, 2),
+    "cross_dp2_tp2": ("cross", {}, {"data": 2, "model": 2}, 4),
+    "vit_dp2_tp2": ("vit", {}, {"data": 2, "model": 2}, 4),
+}
+PP_CASES = {
+    "vit_pp2": ("vit", PP, {"pipe": 2}, 2),
+    "vit_pp2_dropout": ("vit", {**PP, "dropout": 0.1, "drop_path_rate": 0.1}, {"pipe": 2}, 2),
+    "vit_pp2_dp2": ("vit", PP, {"pipe": 2, "data": 2}, 4),
+    "vit_pp2_tp2": ("vit", PP, {"pipe": 2, "model": 2}, 4),
+}
+# the server over a mesh (world -> mesh axes), and a width at which int8 quantizes
+SERVE_MESHES = {2: {"model": 2}, 4: {"data": 2, "model": 2}}
+SERVE_INT8 = {"hidden_dim": 256, "mlp_dim": 1024}
+SERVE_BUCKETS = (2, 4, 8)
 # Trainer.fit over 2 ranks: name -> (config fields, mesh axes)
 FIT_CASES = {"fit_ep2": ({"moe_experts": 4}, {"expert": 2}),
              "fit_sp2": ({"seq_parallel": 2}, {"seq": 2})}
@@ -170,24 +193,78 @@ def fit_loaders():
 
 
 def whole_grads(model) -> dict[str, np.ndarray]:
-    """Every parameter's gradient, whole: FSDP shards and split experts
-    gathered (a collective)."""
-    from cross_attention_vit_tpu_torch.parallel import full_tensor, gather_experts, unwrap
+    """Every parameter's gradient, whole: FSDP shards, split experts, TP
+    slices and the other stages' layers gathered (a collective)."""
+    from cross_attention_vit_tpu_torch.parallel import full_tensor, unwrap, whole_tensors
 
     m = unwrap(model)
     grads = {n: full_tensor(p.grad).detach() for n, p in m.named_parameters()}
-    return {n: g.numpy().copy() for n, g in gather_experts(m, grads).items()}
+    return {n: g.numpy().copy() for n, g in whole_tensors(m, grads).items()}
 
 
 def _mesh(axes: dict):
     from cross_attention_vit_tpu_torch.parallel import make_mesh
-    return make_mesh(axes.get("data", -1), seq=axes.get("seq", 1), expert=axes.get("expert", 1))
+    return make_mesh(axes.get("data", -1), model=axes.get("model", 1), pipe=axes.get("pipe", 1),
+                     seq=axes.get("seq", 1), expert=axes.get("expert", 1))
 
 
 def _clear_ambient():
-    from cross_attention_vit_tpu_torch.parallel import set_expert_mesh, set_seq_mesh
+    from cross_attention_vit_tpu_torch.parallel import (set_expert_mesh, set_pipeline_mesh,
+                                                        set_seq_mesh)
     set_expert_mesh(None)
     set_seq_mesh(None)
+    set_pipeline_mesh(None)
+
+
+def port_trainer(family: str, fields: dict, mesh=None, params=None):
+    """A Trainer of the family over ``mesh`` (one process without), from a
+    JAX param tree."""
+    from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
+    from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
+    from cross_attention_vit_tpu_torch.train.trainer import Trainer
+
+    return Trainer(ModelCross if family == "cross" else ModelVIT, port_config(family, **fields),
+                   max_epochs=1, mesh=mesh, device="cpu").init_state(params)
+
+
+def split_steps(t, family: str, mesh=None, one_ckpt: Path | None = None,
+                save_first: Path | None = None) -> dict:
+    """The results the split tests compare: the eval logits (whole) before
+    any step; STEPS train steps (loss, probs, the first step's whole
+    gradients, the parameters after each step); one eval step after them;
+    the checkpoint state after them (``ckpt/...``, whole, JAX layout); and,
+    from ``one_ckpt`` (a state after step 0), step 1 again (``resumed/...``).
+    ``save_first``: where to write the state after step 0."""
+    from cross_attention_vit_tpu_torch.parallel import gather_rows, shard_batch
+    from cross_attention_vit_tpu_torch.train import trainer as ttrainer
+    from cross_attention_vit_tpu_torch.train.checkpoint import flatten
+
+    def rows(batch):
+        return tuple(torch.from_numpy(x) for x in
+                     (batch if mesh is None else shard_batch(batch, mesh)))
+
+    batches = model_batches(family)
+    img, lab = rows(batches[0])
+    logits = t.eval_step(img, lab)["logits"]
+    out = {"logits0": (logits if mesh is None else gather_rows(logits, mesh)).numpy()}
+    shard = t.shard
+    for s, batch in enumerate(batches):
+        aux = t.train_step(*rows(batch), LR, ttrainer._step_generator(0, 0, s, shard))
+        out[f"loss/{s}"], out[f"probs/{s}"] = aux["loss"].numpy(), aux["probs"].numpy()
+        if s == 0:
+            out.update({f"grad/{n}": g for n, g in whole_grads(t.model).items()})
+            if save_first is not None:
+                np.savez(save_first, **t._ckpt_state(0))
+        out.update({f"params{s}/{k}": v for k, v in flatten(t.params).items()})
+    aux = t.eval_step(img, lab)
+    out["eval/probs"], out["eval/loss"] = aux["probs"].numpy(), aux["loss"].numpy()
+    out.update({f"ckpt/{k}": v for k, v in t._ckpt_state(0).items()})
+    if one_ckpt is not None:
+        t._load_flat(dict(np.load(one_ckpt)))
+        aux = t.train_step(*rows(batches[1]), LR, ttrainer._step_generator(0, 0, 1, shard))
+        out["resumed/loss"] = aux["loss"].numpy()
+        out.update({f"resumed/{k}": v for k, v in flatten(t.params).items()})
+    return out
 
 
 # -- workers: the MoE FFN alone --------------------------------------------------------
@@ -367,6 +444,126 @@ def _fit_worker(rank: int, world: int, tmp: Path) -> None:
             [{k: v for k, v in row.items() if k != "epoch_time_s"} for row in hist]))
 
 
+def _split_worker(rank: int, world: int, tmp: Path) -> None:
+    """Each TP_CASES and PP_CASES case of this world (those in ``tmp/cases``)
+    over its mesh from the JAX-initialised parameters (``split_steps``),
+    resuming step 1 from the one-process state after step 0, and the
+    layout this rank holds."""
+    from cross_attention_vit_tpu_torch.models.convert import params_from_flat
+    from cross_attention_vit_tpu_torch.parallel import unwrap
+    from cross_attention_vit_tpu_torch.train.checkpoint import restore_flat
+
+    wanted = set((tmp / "cases").read_text().split())
+    for name, (family, fields, axes, w) in {**TP_CASES, **PP_CASES}.items():
+        if w != world or name not in wanted:
+            continue
+        _clear_ambient()
+        mesh = _mesh(axes)
+        params = params_from_flat(restore_flat(tmp / f"init_{name}.npz"))
+        t = port_trainer(family, fields, mesh, params)
+        out = split_steps(t, family, mesh, tmp / f"one_ckpt_{name}.npz")
+        out.update({f"local/{n}": np.array(p.shape)
+                    for n, p in unwrap(t.model).named_parameters()})
+        np.savez(tmp / f"{name}_{rank}.npz", **out)
+
+
+def serve_config(**fields):
+    return port_config("cross", **fields)
+
+
+def serve_volumes(n: int, seed: int = 7) -> np.ndarray:
+    return (np.random.default_rng(seed).normal(size=(n, 2, 1, 16, 16, 8)) * 2).astype(np.float32)
+
+
+def _serve_worker(rank: int, world: int, tmp: Path) -> None:
+    """``InferenceServer(mesh=)`` over SERVE_MESHES[world] on the float and
+    the int8+attn checkpoints the test wrote: rank 0 answers requests of 3
+    and 8 volumes (one over HTTP) and stops; the others run ``run_worker``.
+    At world 2 also a stop with a batch in flight, at world 4 the bucket
+    check against the data axis."""
+    import urllib.request
+
+    from cross_attention_vit_tpu_torch.drivers.serve import InferenceServer, serve
+
+    mesh = _mesh(SERVE_MESHES[world])
+    out = {}
+    for name, quantize in (("float", None), ("int8+attn", "int8+attn")):
+        server = InferenceServer(tmp / name / "ckpt.npz", "cross", buckets=SERVE_BUCKETS,
+                                 max_wait_ms=1.0, quantize=quantize, mesh=mesh, device="cpu")
+        out[f"{name}/local_qkv"] = np.array(
+            server.model.transformer[0].blocks[0][0].attn.fn.to_qkv.weight_q.shape
+            if quantize else server.model.transformer[0].blocks[0][0].attn.fn.to_qkv.weight.shape)
+        if rank != 0:
+            server.run_worker()
+            continue
+        httpd = serve(server, "127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            out[f"{name}/3"] = server.predict(serve_volumes(3))
+            buf = io.BytesIO()
+            np.save(buf, serve_volumes(8, seed=8))
+            req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/predict",
+                                         data=buf.getvalue(), method="POST")
+            out[f"{name}/8"] = np.array(json.load(urllib.request.urlopen(req))["logits"])
+            out[f"{name}/health_mesh"] = np.array(json.dumps(server.health()["mesh"]))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.stop()
+    if world == 2:
+        out.update(_stop_in_flight(rank, mesh, tmp / "float" / "ckpt.npz"))
+    if world == 4:
+        try:
+            InferenceServer(tmp / "float" / "ckpt.npz", "cross", buckets=(1, 2), mesh=mesh,
+                            device="cpu")
+            out["bucket_error"] = np.array("")
+        except ValueError as e:
+            out["bucket_error"] = np.array(str(e))
+    np.savez(tmp / f"serve_w{world}_{rank}.npz", **out)
+
+
+def _stop_in_flight(rank: int, mesh, ckpt: Path) -> dict:
+    """``stop()`` on rank 0 while a batch of 3 volumes is in its sharded
+    forward and a request of 2 waits behind it: the batch is answered, the
+    waiting request fails with "server stopped", the dispatcher has left its
+    loop and the other ranks' ``run_worker`` returns."""
+    from cross_attention_vit_tpu_torch.drivers.serve import InferenceServer
+
+    server = InferenceServer(ckpt, "cross", buckets=SERVE_BUCKETS, max_wait_ms=1.0, mesh=mesh,
+                             device="cpu")
+    if rank != 0:
+        server.run_worker()
+        return {}
+    entered, forward, answers = threading.Event(), server._sharded_forward, {}
+
+    def held(batch):                # runs once stop() has been called
+        entered.set()
+        server._stop.wait(WORKER_TIMEOUT_S)
+        time.sleep(0.2)
+        return forward(batch)
+
+    def ask(name, n):
+        try:
+            answers[name] = server.predict(serve_volumes(n))
+        except RuntimeError as e:
+            answers[name] = np.array(str(e))
+
+    server._sharded_forward = held
+    server.start()
+    first = threading.Thread(target=ask, args=("inflight/3", 3))
+    first.start()
+    assert entered.wait(WORKER_TIMEOUT_S)
+    second = threading.Thread(target=ask, args=("inflight/queued_error", 2))
+    second.start()
+    deadline = time.monotonic() + WORKER_TIMEOUT_S
+    while server._queue.qsize() == 0 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    server.stop()
+    first.join(WORKER_TIMEOUT_S)
+    second.join(WORKER_TIMEOUT_S)
+    return {**answers, "inflight/dispatcher_alive": np.array(server._dispatcher.is_alive())}
+
+
 # -- workers: the CLI ---------------------------------------------------------------------
 
 CLI_MODS = ("DWI", "SWI", "ASL")
@@ -391,6 +588,9 @@ def write_cohort(root: Path) -> None:
     (root / "labels.csv").write_text("ID,MGMT status\n" + "\n".join(rows) + "\n")
 
 
+CLI_PP = ("--set", "num_layers=2", "--set", "pipeline_microbatches=1")
+
+
 def cli_args(root: Path, out: str, *extra: str) -> list[str]:
     return ["--model", "cross", "--grid-index", "0", "--seeds", "2004", "--batch-size", "4",
             "--epochs", "1", "--only-available", "--labels", str(root / "labels.csv"),
@@ -413,8 +613,33 @@ def _cli_worker(rank: int, world: int, tmp: Path, port: int) -> None:
              for run, h in res.items()} for k, res in hist.items()}))
 
 
+def _cli_split_worker(rank: int, world: int, tmp: Path, port: int) -> None:
+    """``experiments.main`` over two processes with ``--tp 2`` (ModelCross)
+    and ``--pp 2 --model vit``, then ``evaluate.main --mesh data=1,model=2``
+    on the --tp run's checkpoint."""
+    from cross_attention_vit_tpu_torch.drivers import evaluate as teval
+    from cross_attention_vit_tpu_torch.drivers import experiments as texp
+
+    group = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(world),
+             "--process-id", str(rank), "--dist-timeout", str(WORKER_TIMEOUT_S)]
+    # one microbatch: the epoch's last batches are ragged (1 to 4 rows)
+    vit = cli_args(tmp, "pp", "--pp", "2", *CLI_PP, *group)
+    vit[vit.index("--model") + 1] = "vit"
+    hist = {"tp": texp.main(cli_args(tmp, "tp", "--tp", "2", *group), device="cpu"),
+            "pp": texp.main(vit, device="cpu")}
+    ckpt = next((tmp / "tp" / "checkpoints" / "cross").glob("epoch=*.npz"))
+    metrics = teval.main(["--checkpoint", str(ckpt), "--model", "cross", "--labels",
+                          str(tmp / "labels.csv"), "--data", str(tmp / "data"),
+                          "--only-available", "--batch-size", "4", "--mesh", "data=1,model=2"],
+                         device="cpu")
+    (tmp / f"cli_split_{rank}.json").write_text(json.dumps(
+        {"hist": {k: {run: [{c: v for c, v in row.items() if c != "epoch_time_s"} for row in h]
+                      for run, h in res.items()} for k, res in hist.items()},
+         "evaluate": metrics}))
+
+
 WORKERS = {"moe": _moe_worker, "ring": _ring_worker, "models": _model_worker,
-           "fit": _fit_worker}
+           "fit": _fit_worker, "split": _split_worker, "serve": _serve_worker}
 
 
 if __name__ == "__main__":
@@ -423,8 +648,9 @@ if __name__ == "__main__":
 
     _mode, _port, _rank, _world, _tmp = sys.argv[1:6]
     t0 = time.perf_counter()
-    if _mode == "cli":          # the CLI joins the group itself
-        _cli_worker(int(_rank), int(_world), Path(_tmp), int(_port))
+    if _mode in ("cli", "cli_split"):          # the CLI joins the group itself
+        (_cli_worker if _mode == "cli" else _cli_split_worker)(int(_rank), int(_world),
+                                                               Path(_tmp), int(_port))
     else:
         multihost_init(f"127.0.0.1:{_port}", int(_world), int(_rank), device="cpu",
                        timeout_s=WORKER_TIMEOUT_S)
