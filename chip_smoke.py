@@ -202,6 +202,44 @@ Phases, each printed as one JSON line with a ``phase`` key:
              schedule (f32 with dropout and augmentation, the same gates)
              and ``PP_STEPS`` bf16 steps: 8 K1 + 8 K2 a step per rank at B=2
              (2 layers × 4 microbatches); the bubble fraction.
+18. legacy_vit3d — ``drivers.legacy.train_vit3d`` at its own configuration
+             (ViT3D: CNN3DEncoder 128/256/512/1024 channels, hidden 1024, 16
+             heads, 4 layers, 128×128×64, T1c, dropout 0.1, plateau; 257
+             tokens) over 16 synthetic T1c subjects at batch 8: one epoch,
+             then a fresh stateful Trainer resumes from the driver's
+             checkpoint and trains the second.  Checks the history, that it
+             restores the saved ``model_state`` and plateau exactly, that the eval step equals a
+             direct eval forward and moves no BatchNorm buffer while train
+             steps move all 8, the step ms, peak memory and one profiled
+             step; and that conv3d keeps TF32 off whatever the process-wide
+             cuDNN flag says (forward bit for bit, both gradients within
+             ``TF32_GRAD_TOL``); and at each stem shape of ``CONV_SHAPES``
+             that its three products stay within ``CONV_F64_TOL`` of f64,
+             each timed beside cuDNN's own.
+19. legacy_densenet — ViT3D with the DenseNet-121 stem truncated at
+             denseblock3.denselayer24.layers.conv1 (hidden 64, 4 heads, one
+             modality, batch 8): the stem emits (8, 64, 8, 8, 4); train steps
+             and an eval forward, finite.
+20. legacy_cnn_vit — CNNViT at its defaults on 2 modalities, batch 8:
+             forward, BCE and Adam steps; every parameter moves.
+21. legacy_rsna — ``train_rsna`` at rsna_config's full width (ModelVIT
+             hidden 512, 4 layers, 8 heads, (32, 32, 32) patches over
+             256×256×64; bf16 and flash attention) on 8 synthetic DICOM
+             series of 64-78 slices written by the port's ``write_dicom``: 1
+             epoch at batch 4 and ``predict``.  K1 and K2 run at B=4 K=8
+             N=129, and at B=2 for the short last batch and the validation
+             batch (phase kernels holds both shapes in bf16 and f32 and
+             times B=4; the phase fails if the run gives another): 4 of
+             each a step, 4 K1 a validation batch for eval and
+             for predict; finite history, predictions in [0, 1]; one step
+             under ``utils.profiling.profile_trace``, whose Chrome trace must
+             hold K1 and K2.
+22. convert_cli — a Lightning container (``{"state_dict": {"model." +
+             name: tensor}}``) of the full-width live ModelCross through
+             ``drivers.convert`` to an npz; ``evaluate.main`` on it over 4
+             synthetic subjects equals a direct forward (and the npz's logits
+             the source model's exactly); ``--export`` returns the state dict
+             bit for bit.
 
 Then a line ``{"phase": "profiler", ...}``: the profiles taken, how many of
 them recorded no kernel, and the calls timed by CUDA events after
@@ -286,6 +324,14 @@ KERNEL_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 STATS_TOL = KERNEL_TOL[torch.float32]
 # K1/K2 at B=2 K=4: the ragged tails around the 16-key steps and 64-row tiles
 RAGGED_NS = (1, 16, 17, 64, 65, 100, 513, 1025, 1040)
+# the legacy RSNA driver's attention (rsna_config, bf16 + flash): B=4 K=8,
+# N = 8·8·2 + 1 = 129 (two 64-row query tiles and one row, eight 16-key
+# steps and one key), checked in both dtypes and timed in bf16
+RSNA_ATTN = (4, 8, 129)
+# every (B, K, N) the legacy_rsna phase gives K1 and K2: 6 training cases at
+# batch 4 leave a last batch of 2, and the 2 validation cases are one batch
+# of 2 (eval and predict); each checked in both dtypes
+RSNA_ATTN_SHAPES = (RSNA_ATTN, (2, 8, 129))
 # profiled windows whose median times K1 and K2 (the spread is printed)
 TIMING_WINDOWS = 5
 # flash-path vs plain-path logits at bucket 8, normalised by max |plain|.  Both
@@ -410,7 +456,11 @@ PROFILE_LAYERS = (("K5 attention forward", ("attn_single_fwd",)),
                   ("K2/K6/K8 attention backward", ("attn_bwd_",)),
                   ("K8 dx/dW products", ("qkv_grad_d",)),
                   ("K3/K4 resample", ("resample_kernel",)),
+                  ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "convolve", "cudnn",
+                                           "conv2d", "conv3d")),
                   ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma", "imma")),
+                  ("BatchNorm", ("batch_norm", "bn_fw", "bn_bw")),
+                  ("pooling", ("pool",)),
                   ("Adam (fused)", ("multi_tensor_apply",)),
                   ("LayerNorm", ("layer_norm",)),
                   ("softmax", ("softmax",)),
@@ -646,7 +696,7 @@ def _stats_err(got: torch.Tensor, want: torch.Tensor) -> dict:
 def phase_kernels() -> dict:
     """K1 against its plain version, output and row statistics; returns the
     timed entries by N (B=8 K=16 bf16: 513, the serving bucket 8, and 1025,
-    the 2-stream ModelVIT)."""
+    the 2-stream ModelVIT; B=4 K=8 bf16: 129, the legacy RSNA driver)."""
     D = 64
     # (B, K, N, dtype, strided): the serving buckets 1/2/4/8 at N = 513 in
     # bf16; strided reads qkv through a (B, 3, K, N, D) buffer permuted to
@@ -661,6 +711,8 @@ def phase_kernels() -> dict:
              (8, 16, 1041, torch.bfloat16, False), (8, 8, 513, torch.bfloat16, False),
              (4, 8, 513, torch.bfloat16, False), (2, 16, 1025, torch.bfloat16, False)]
     cases += [(2, 4, N, dt, False) for dt in (torch.bfloat16, torch.float32) for N in RAGGED_NS]
+    cases += [(*shape, dt, False) for shape in RSNA_ATTN_SHAPES
+              for dt in (torch.bfloat16, torch.float32)]
     checks, failures, timed = [], [], {}
     for i, (B, K, N, dtype, strided) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(100 + i)
@@ -689,7 +741,8 @@ def phase_kernels() -> dict:
             entry["out_equal_with_stats"] = bool(torch.equal(out_s.float(), out))
             ok = ok and entry["out_equal_with_stats"] \
                 and max(entry["stats_err"].values()) <= STATS_TOL
-        if (B, K) == (8, 16) and dtype == torch.bfloat16 and N <= fa._SINGLE_BLOCK_MAX:
+        if ((B, K) == (8, 16) or (B, K, N) == RSNA_ATTN) and dtype == torch.bfloat16 \
+                and N <= fa._SINGLE_BLOCK_MAX:
             q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
             timings(entry, lambda: fa.flash_attention_qkv(qkv, scale),
                     lambda: fa.flash_attention_qkv_reference(qkv, scale),
@@ -748,7 +801,8 @@ def phase_kernels_k2() -> dict:
     """K2, run on K1's own row statistics, against its plain version given the
     same statistics, on dq, dk and dv separately; two identical calls
     compared bit for bit.  Returns the timed entries by N (B=8 K=16 bf16:
-    513, the training shape, and 1025)."""
+    513, the training shape, and 1025; B=4 K=8 bf16: 129, the legacy RSNA
+    driver)."""
     D = 64
     # (B, K, N, dtype, strided): the training batch and two smaller ones at
     # N = 513 in bf16; f32 at B = 1 (strided: every operand read through a
@@ -761,6 +815,8 @@ def phase_kernels_k2() -> dict:
              (8, 16, 513, torch.float32, False), (8, 16, 1025, torch.bfloat16, False),
              (8, 8, 513, torch.bfloat16, False), (2, 16, 1025, torch.bfloat16, False)]
     cases += [(2, 4, N, dt, False) for dt in (torch.bfloat16, torch.float32) for N in RAGGED_NS]
+    cases += [(*shape, dt, False) for shape in RSNA_ATTN_SHAPES
+              for dt in (torch.bfloat16, torch.float32)]
     checks, failures, timed = [], [], {}
     for i, (B, K, N, dtype, strided) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(200 + i)
@@ -799,7 +855,7 @@ def phase_kernels_k2() -> dict:
         if (B, K, N, dtype) == (8, 16, 513, torch.bfloat16):
             entry["vs_f32"] = _attention_vs_f32(*fa._stream_views(qkv), dout.transpose(1, 2),
                                                 scale, lambda: _k1k2_path(qkv, dout, scale))
-        if (B, K) == (8, 16) and dtype == torch.bfloat16:
+        if ((B, K) == (8, 16) or (B, K, N) == RSNA_ATTN) and dtype == torch.bfloat16:
             # the yardstick: backward of scaled_dot_product_attention through autograd
             q, k, v = (qkv[:, :, j].transpose(1, 2).contiguous().requires_grad_()
                        for j in range(3))
@@ -2423,31 +2479,43 @@ def phase_train_vit() -> dict:
     return results
 
 
-def _write_cohort(root: Path) -> tuple[Path, Path, list[str]]:
-    """CLI_SUBJECTS subjects of DWI, SWI and ASL volumes at the raw UCSF-PDGM
-    size (int16 with a scaling slope, gzipped NIfTI), and a labels CSV that
-    also holds one blacklisted ID and one indeterminate row, neither on disk.
-    Returns (labels CSV, data folder, the subjects' folder IDs)."""
+def _write_cohort(root: Path, modalities: tuple = MODALITIES, subjects: int = CLI_SUBJECTS,
+                  volume: tuple = RAW_VOLUME) -> tuple[Path, Path, list[str]]:
+    """``subjects`` subjects of ``modalities`` volumes (default the raw
+    UCSF-PDGM size, int16 with a scaling slope, gzipped NIfTI), and a labels
+    CSV that also holds one blacklisted ID and one indeterminate row, neither
+    on disk.  Returns (labels CSV, data folder, the subjects' folder IDs)."""
     data = root / "ucsf-data"
     data.mkdir(parents=True)
-    ids = [f"UCSF-PDGM-{n}" for n in range(1, CLI_SUBJECTS + 1)]    # unpadded, as the CSV
+    ids = [f"UCSF-PDGM-{n}" for n in range(1, subjects + 1)]    # unpadded, as the CSV
     rows = [(i, "positive" if j % 2 else "negative") for j, i in enumerate(ids)]
     rows += [("UCSF-PDGM-138", "positive"), ("UCSF-PDGM-500", "indeterminate")]
     labels = root / "labels.csv"
     labels.write_text("ID,MGMT status\n" + "".join(f"{i},{t}\n" for i, t in rows))
-    padded = [f"UCSF-PDGM-{n:04d}" for n in range(1, CLI_SUBJECTS + 1)]
+    padded = [f"UCSF-PDGM-{n:04d}" for n in range(1, subjects + 1)]
 
     def write(job):
         j, case, mod = job
         rng = np.random.default_rng(j)
         (data / f"{case}_nifti").mkdir(parents=True, exist_ok=True)
-        vol = rng.integers(0, 1200, size=RAW_VOLUME, dtype=np.int16)
+        vol = rng.integers(0, 1200, size=volume, dtype=np.int16)
         write_volume(data / f"{case}_nifti" / f"{case}_{mod}.nii.gz", vol, scl_slope=0.5)
 
-    jobs = [(j, c, m) for j, (c, m) in enumerate(itertools.product(padded, MODALITIES))]
+    jobs = [(j, c, m) for j, (c, m) in enumerate(itertools.product(padded, modalities))]
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(write, jobs))
     return labels, data, padded
+
+
+def _metrics_as_evaluate(logits: torch.Tensor, targets: torch.Tensor) -> dict:
+    """The metric dict ``evaluate.main`` reports, from (n, 2) logits on the
+    host."""
+    metrics = {k: float(v) for k, v in compute_metrics(logits.argmax(1), targets).items()}
+    probs = np.exp(logits.numpy() - logits.numpy().max(1, keepdims=True))
+    probs = (probs / probs.sum(1, keepdims=True))[:, 1]
+    metrics["auc_roc"] = float(binary_auroc(torch.from_numpy(probs), targets))
+    metrics["n"] = len(targets)
+    return metrics
 
 
 def phase_train_cli(tmp: Path) -> dict:
@@ -2523,12 +2591,7 @@ def phase_train_cli(tmp: Path) -> dict:
                 x = torch.from_numpy(imgs).to(torch.bfloat16).cuda()
                 logits.append(model(x).float().cpu())
                 targets.append(torch.from_numpy(lab))
-        logits, targets = torch.cat(logits), torch.cat(targets)
-        direct = {k: float(v) for k, v in compute_metrics(logits.argmax(1), targets).items()}
-        probs = np.exp(logits.numpy() - logits.numpy().max(1, keepdims=True))
-        probs = (probs / probs.sum(1, keepdims=True))[:, 1]     # as evaluate computes them
-        direct["auc_roc"] = float(binary_auroc(torch.from_numpy(probs), targets))
-        direct["n"] = len(targets)
+        direct = _metrics_as_evaluate(torch.cat(logits), torch.cat(targets))
         del model
         torch.cuda.empty_cache()
     finally:
@@ -3241,6 +3304,517 @@ def split_worker(rank: int, port: int, tmp: Path) -> int:
     return 0
 
 
+# -- the legacy families, the DICOM path and the convert CLI --------------------
+
+# phase legacy_rsna: synthetic DICOM cases (slices per case 64 + 2·i)
+RSNA_CASES = 8
+# ViT3D's step and the other legacy steps timed by CUDA events
+LEGACY_STEPS = 3
+
+
+def _cuda_step_ms(fn, steps: int = LEGACY_STEPS) -> list[float]:
+    """Each call's ms by CUDA events, one after another."""
+    times = []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def _fresh_peak() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+# the port's conv3d with the process-wide TF32 flag on against off: its
+# input and weight gradients (cuDNN's backward is not bitwise deterministic,
+# so not bit for bit) within f32 reordering, far below TF32's error (~3e-4
+# normalised on the forward, ``library_tf32_vs_f32_norm_err``)
+TF32_GRAD_TOL = 1e-5
+# each of conv3d's three products against an f64 conv on the same inputs,
+# normalised by the f64 maximum: the same f32 bound
+CONV_F64_TOL = TF32_GRAD_TOL
+# (name, input shape at batch 8, output channels, kernel, stride, padding):
+# the legacy stems' convolutions that carry their time
+CONV_SHAPES = (("vit3d conv1", (8, 1, 128, 128, 64), 128, 3, 1, 1),
+               ("vit3d conv2", (8, 128, 64, 64, 32), 256, 3, 1, 1),
+               ("vit3d conv3", (8, 256, 32, 32, 16), 512, 3, 2, 1),
+               ("vit3d conv4", (8, 512, 16, 16, 8), 1024, 3, 2, 1),
+               ("cnn_vit inc.conv2", (8, 16, 128, 128, 64), 16, 3, 1, 1),
+               ("densenet conv0", (8, 1, 128, 128, 64), 64, 7, 2, 3))
+
+
+def _tf32_scoping() -> dict:
+    """The port's conv3d under the process-wide cuDNN TF32 flag on and off:
+    the forward equal bit for bit and both gradients within
+    ``TF32_GRAD_TOL`` (its cuDNN calls are given allow_tf32=False; its weight
+    gradient is GEMMs); F.conv3d itself with the flag on, beside it, shows
+    what TF32 would have changed.  ViT3D's conv2 shape at batch 2."""
+    from cross_attention_vit_tpu_torch.ops.conv import conv3d
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, 128, 64, 64, 32), generator=g, device="cuda", requires_grad=True)
+    w = (torch.randn((256, 128, 3, 3, 3), generator=g, device="cuda") * 0.03).requires_grad_()
+    out, dx, dw = {}, {}, {}
+    flag = torch.backends.cudnn.allow_tf32
+    try:
+        for on in (True, False):
+            torch.backends.cudnn.allow_tf32 = on
+            y = conv3d(x, w, padding=1)
+            dx[on], dw[on] = torch.autograd.grad(y.square().sum(), (x, w))
+            out[on] = y.detach()
+        torch.backends.cudnn.allow_tf32 = True
+        with torch.no_grad():
+            tf32 = F.conv3d(x, w, padding=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    result = {"flag_on_equals_off": bool(torch.equal(out[True], out[False])),
+              "grad_flag_on_vs_off_norm_err": {
+                  "dx": _norm_err(dx[True], dx[False])[1], "dw": _norm_err(dw[True], dw[False])[1]},
+              "grad_tol": TF32_GRAD_TOL,
+              "library_tf32_vs_f32_norm_err": _norm_err(tf32, out[False])[1]}
+    check(result["flag_on_equals_off"]
+          and max(result["grad_flag_on_vs_off_norm_err"].values()) <= TF32_GRAD_TOL,
+          f"conv3d ran TF32 under the process-wide flag: {result}")
+    return result
+
+
+def _conv_products() -> list[dict]:
+    """conv3d's three products (forward, input gradient, weight gradient) at
+    each of ``CONV_SHAPES``: against an f64 conv on two samples (the port's
+    gated at ``CONV_F64_TOL``, cuDNN's own f32 products beside them) and
+    timed at batch 8 against cuDNN's (F.conv3d; ``aten.convolution_backward``
+    for one gradient at a time), the cuDNN TF32 flag off."""
+    from cross_attention_vit_tpu_torch.ops import conv as tc
+
+    def cudnn_grad(g, x, w, s, p, which):
+        mask = [which == "dx", which == "dw", False]
+        out = torch.ops.aten.convolution_backward(g, x, w, None, [s] * 3, [p] * 3, [1] * 3,
+                                                  False, [0] * 3, 1, mask)
+        return out[0] if which == "dx" else out[1]
+
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    try:
+        for name, shape, co, k, s, p in CONV_SHAPES:
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            x = torch.randn(shape, generator=gen, device="cuda")
+            w = torch.randn((co, shape[1], k, k, k), generator=gen, device="cuda") \
+                * (shape[1] * k ** 3) ** -0.5
+            out = F.conv3d(x[:1], w, None, s, p).shape[2:]
+            g = torch.randn((shape[0], co, *out), generator=gen, device="cuda")
+            kk, st, pd = (k,) * 3, (s,) * 3, (p,) * 3
+            extra = [shape[2 + i] + 2 * p - k - (out[i] - 1) * s for i in range(3)]
+            port = {"y": lambda x, g, w: tc._conv(x, w, st, pd),
+                    "dx": lambda x, g, w: tc._conv_transpose(g, w, st, pd, extra),
+                    "dw": lambda x, g, w: tc._weight_grad(x, g, kk, st, pd)}
+            cudnn = {"y": lambda x, g, w: F.conv3d(x, w, None, s, p),
+                     "dx": lambda x, g, w: cudnn_grad(g, x, w, s, p, "dx"),
+                     "dw": lambda x, g, w: cudnn_grad(g, x, w, s, p, "dw")}
+            row = {"shape": name, "x": list(shape), "out_channels": co, "kernel": k,
+                   "stride": s, "padding": p, "vs_f64_norm_err": {}, "cudnn_vs_f64_norm_err": {},
+                   "ms": {}, "cudnn_ms": {}}
+            for prod in ("y", "dx", "dw"):
+                ref = cudnn[prod](x[:2].double(), g[:2].double(), w.double())
+                row["vs_f64_norm_err"][prod] = _norm_err(port[prod](x[:2], g[:2], w), ref)[1]
+                row["cudnn_vs_f64_norm_err"][prod] = _norm_err(cudnn[prod](x[:2], g[:2], w),
+                                                               ref)[1]
+                del ref
+                row["ms"][prod] = device_ms(lambda: port[prod](x, g, w), calls=3, warmup=1)
+                row["cudnn_ms"][prod] = device_ms(lambda: cudnn[prod](x, g, w), calls=3, warmup=1)
+            rows.append(row)
+            del x, w, g
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    bad = [r for r in rows if max(r["vs_f64_norm_err"].values()) > CONV_F64_TOL]
+    check(not bad, f"conv3d's products stray from f64 beyond {CONV_F64_TOL}: {bad}")
+    return rows
+
+
+def phase_legacy_vit3d(tmp: Path) -> dict:
+    """train_vit3d at its own configuration (ViT3D, CNN3DEncoder 128/256/512/
+    1024, hidden 1024, 16 heads, 4 layers, 128×128×64, T1c, dropout 0.1,
+    plateau, 257 tokens) over a synthetic T1c cohort at batch 8: one epoch,
+    then a fresh stateful Trainer resumed from the driver's checkpoint trains
+    the second on the driver's split and sampler; the BatchNorm buffers
+    across train and eval steps; step time and peak memory."""
+    from cross_attention_vit_tpu_torch.data.dataset import (BrainDataset, WeightedRandomSampler,
+                                                            create_sampler_weights)
+    from cross_attention_vit_tpu_torch.data.labels import (clean_data, load_labels,
+                                                           train_test_split)
+    from cross_attention_vit_tpu_torch.data.loader import PrefetchLoader
+    from cross_attention_vit_tpu_torch.drivers.experiments import filter_available
+    from cross_attention_vit_tpu_torch.drivers.legacy import train_vit3d
+    from cross_attention_vit_tpu_torch.models.vit3d import ViT3D
+
+    root = tmp / "legacy_vit3d"
+    try:
+        t0 = time.perf_counter()
+        labels, data, _ = _write_cohort(root, ("T1c",))
+        cohort_s = time.perf_counter() - t0
+        out = root / "runs"
+        _fresh_peak()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):        # its epoch lines
+            trainer, hist = train_vit3d(labels_csv=labels, folder=data, out_dir=out,
+                                        max_epochs=1, batch_size=8, only_available=True,
+                                        device="cuda")
+        torch.cuda.synchronize()
+        runs = [{"epochs": 1, "wall_s": time.perf_counter() - t0,
+                 "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "history": hist}]
+        # resumed to two epochs: the driver's epoch-0 checkpoint (params, Adam,
+        # model_state, plateau) as the rolling checkpoint of a fresh stateful
+        # Trainer, which restores it and trains epoch 1 on the driver's split
+        cfg = trainer.config
+        saved = (ckpt.flatten(trainer.model_state), trainer.plateau)
+        latest = ckpt.LatestCheckpointer(out / "latest")
+        latest.save(trainer.global_step, ckpt.restore_flat(trainer.checkpoint.best_path()))
+        del trainer
+        trainer = Trainer(ViT3D, cfg, max_epochs=2, stateful=True, schedule="plateau",
+                          checkpoint_monitor="train_loss", seed=909, latest=latest,
+                          device="cuda").init_state()
+        resumed_at = trainer.maybe_resume()
+        got = ckpt.flatten(trainer.model_state)
+        state_equal = got.keys() == saved[0].keys() and all(
+            np.array_equal(got[k], v) for k, v in saved[0].items())
+        f32 = np.float32
+        plateau_equal = (f32(trainer.plateau.lr) == f32(saved[1].lr)
+                         and f32(trainer.plateau.best) == f32(saved[1].best)
+                         and trainer.plateau.num_bad == saved[1].num_bad)
+        resume = {"epoch": resumed_at, "global_step": trainer.global_step,
+                  "model_state_equal": state_equal, "plateau_equal": plateau_equal}
+        train_df, val_df = train_test_split(
+            filter_available(clean_data(load_labels(labels), cfg.target), data), 0.15, 909)
+        sampler = WeightedRandomSampler(create_sampler_weights(train_df, cfg.target),
+                                        num_samples=len(train_df), seed=909)
+        train_ld, val_ld = (PrefetchLoader(BrainDataset(df, cfg, types=("T1c",), is_train=tr,
+                                                        folder=data),
+                                           batch_size=8, num_workers=5, device="cuda")
+                            for df, tr in ((train_df, True), (val_df, False)))
+        _fresh_peak()
+        t0 = time.perf_counter()
+        hist = trainer.fit(train_ld, val_ld, sampler=sampler, start_epoch=resumed_at,
+                           verbose=False)
+        torch.cuda.synchronize()
+        runs.append({"epochs": 2, "wall_s": time.perf_counter() - t0,
+                     "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "history": hist})
+        cfg = trainer.config
+        tokens = trainer.model.pos_embed.shape[1]
+        params = trainer.model.num_params()
+        table = clean_data(load_labels(labels), cfg.target)
+        img, lab = BrainDataset(table, cfg, types=("T1c",), is_train=False,
+                                folder=data).batch(range(8))
+        img, lab = torch.from_numpy(img).cuda(), torch.from_numpy(lab).cuda()
+
+        # eval reads the running statistics and moves none; train moves them
+        state0 = ckpt.flatten(trainer.model_state)
+        aux = trainer.eval_step(img, lab)
+        with torch.no_grad():
+            direct = trainer.model(img)
+        eval_equal = bool(torch.equal(aux["logits"], direct))
+        eval_still = all(np.array_equal(v, state0[k])
+                         for k, v in ckpt.flatten(trainer.model_state).items())
+        _fresh_peak()
+        gen = torch.Generator().manual_seed(1)
+        step_ms = _cuda_step_ms(lambda: trainer.train_step(img, lab, cfg.lr, gen))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        profile = _profiled(lambda: trainer.train_step(img, lab, cfg.lr, gen))
+        moved = [k for k, v in ckpt.flatten(trainer.model_state).items()
+                 if not np.array_equal(v, state0[k])]
+        tf32 = _tf32_scoping()
+        conv_products = _conv_products()
+        del trainer, aux, direct
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    hist = [row for r in runs for row in r["history"]]
+    result = {"phase": "legacy_vit3d", "model": "ViT3D (CNN3DEncoder)", "params": params,
+              "tokens": tokens, "batch": 8, "img_size": list(cfg.img_size),
+              "hidden_dim": cfg.hidden_dim, "dropout": cfg.dropout, "cohort_write_s": cohort_s,
+              "runs": [{k: v for k, v in r.items() if k != "history"} for r in runs],
+              "history": hist, "resume": resume, "eval_step_equals_direct": eval_equal,
+              "eval_leaves_state": eval_still, "bn_buffers_moved_by_train_step": len(moved),
+              "step_ms": step_ms, "step_ms_steady": statistics.median(step_ms[1:]),
+              "peak_device_gb": peak_gb, "profile": profile, "tf32": tf32,
+              "conv_products": conv_products}
+    emit(result)
+    check(len(runs[0]["history"]) == 1 and len(runs[1]["history"]) == 1,
+          f"epochs run: {[len(r['history']) for r in runs]} (1, then 1 resumed, expected)")
+    check(all(np.isfinite(v) for row in hist for v in row.values()),
+          f"non-finite history: {hist}")
+    check(resume["epoch"] == 1 and resume["model_state_equal"] and resume["plateau_equal"],
+          f"the resumed state differs from the saved one: {resume}")
+    check(eval_equal and eval_still, "the stateful eval step moved the BatchNorm buffers or "
+                                     "differs from a direct eval forward")
+    check(len(moved) == 8, f"train steps moved {len(moved)} of the 8 BatchNorm buffers")
+    check(tokens == 257, f"ViT3D has {tokens} tokens, 257 expected")
+    return result
+
+
+def phase_legacy_densenet() -> dict:
+    """ViT3D with the DenseNet-121 stem truncated at denseblock3.denselayer24
+    .layers.conv1 (hidden 64 = bn_size 4 × growth 16, 4 heads, one modality,
+    128×128×64, batch 8): the stem's output shape, one stateful train step,
+    one eval forward."""
+    from cross_attention_vit_tpu_torch.models.vit3d import DENSENET_TRUNCATION, ViT3D
+    from cross_attention_vit_tpu_torch.train.trainer import make_stateful_train_step
+
+    cfg = get_mgmt_config()
+    modify_config(cfg, dict(hidden_dim=64, num_heads=4, num_modalities=1, pretrained_cnn=True,
+                            lr=1e-4, dropout=0.1, weight_decay=5e-4, label_smoothing=0.0,
+                            img_aug=False, optim_params={"factor": 0.5, "patience": 10}))
+    _fresh_peak()
+    model = ViT3D(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(2))
+    rng = np.random.default_rng(7)
+    img = torch.from_numpy((rng.normal(size=(8, 1, 1, *cfg.img_size)) * 100)
+                           .astype(np.float32)).cuda()
+    labels = torch.tensor([0, 1] * 4, device="cuda")
+    with torch.no_grad():
+        stem = tuple(model.encoder(img[:, 0], False, upto=DENSENET_TRUNCATION).shape)
+    step = make_stateful_train_step(model, Adam(model.parameters(), cfg.weight_decay), cfg)
+    gen = torch.Generator().manual_seed(3)
+    losses = []
+    step_ms = _cuda_step_ms(lambda: losses.append(float(step(img, labels, cfg.lr, gen)["loss"])))
+    profile = _profiled(lambda: step(img, labels, cfg.lr, gen))
+    with torch.no_grad():
+        logits = model(img)
+    result = {"phase": "legacy_densenet", "model": "ViT3D (DenseNet-121 stem)",
+              "params": model.num_params(), "truncation": DENSENET_TRUNCATION,
+              "stem_output": list(stem), "tokens": model.pos_embed.shape[1], "batch": 8,
+              "losses": losses, "step_ms": step_ms,
+              "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "profile": profile,
+              "eval_logits_finite": bool(torch.isfinite(logits).all())}
+    emit(result)
+    del model, step
+    check(stem == (8, 64, 8, 8, 4), f"the truncated stem emits {stem}, (8, 64, 8, 8, 4) expected")
+    check(all(np.isfinite(losses)) and result["eval_logits_finite"],
+          f"non-finite DenseNet-stem ViT3D: losses {losses}")
+    return result
+
+
+def phase_legacy_cnn_vit() -> dict:
+    """CNNViT at its defaults (hidden 128, grid 8³, 4 layers, 8 heads, MLP
+    512, encoder channels 16/32/64, down 2) on 2 modalities at 128×128×64,
+    batch 8: forward, BCE, Adam steps (the reference's lr 1e-3)."""
+    from cross_attention_vit_tpu_torch.models.cnn_vit import CNNViT
+
+    cfg = get_mgmt_config()
+    modify_config(cfg, {"num_modalities": 2})
+    _fresh_peak()
+    model = CNNViT(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(4))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = Adam(model.parameters())
+    rng = np.random.default_rng(8)
+    img = torch.from_numpy(rng.normal(size=(8, 2, 1, *cfg.img_size)).astype(np.float32)).cuda()
+    labels = torch.tensor([0.0, 1.0] * 4, device="cuda")
+    losses = []
+
+    def train_step():
+        for p in model.parameters():
+            p.grad = None
+        logits, loss = model(img, labels, train=True)
+        loss.backward()
+        opt.step(1e-3)
+        losses.append(loss.item())
+        return logits
+
+    step_ms = _cuda_step_ms(train_step)
+    profile = _profiled(train_step)
+    changed = sum(not torch.equal(before[n], p) for n, p in model.named_parameters())
+    result = {"phase": "legacy_cnn_vit", "model": "CNNViT", "params": model.num_params(),
+              "tokens": 1 + 2 * (model.pos_embed.shape[1] - 1), "batch": 8, "losses": losses,
+              "step_ms": step_ms, "params_changed": changed,
+              "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "profile": profile}
+    emit(result)
+    n_params = len(before)
+    del model, opt, before
+    check(all(np.isfinite(losses)), f"non-finite CNNViT loss: {losses}")
+    check(changed == n_params, f"{changed} of {n_params} CNNViT parameters changed")
+    return result
+
+
+def _write_rsna(root: Path) -> tuple[Path, Path]:
+    """RSNA_CASES DICOM series of 64 + 2·i slices at 256×256 (a disc whose
+    radius peaks at slice 20 + 3·i, over noise), written by the port's
+    write_dicom, and a labels CSV with zero-padded IDs."""
+    from cross_attention_vit_tpu_torch.data.dicom import write_dicom
+
+    folder = root / "rsna"
+    yy, xx = np.mgrid[:256, :256]
+    ids = [f"{i:05d}" for i in range(RSNA_CASES)]
+    for i, case in enumerate(ids):
+        d = folder / case / "FLAIR"
+        d.mkdir(parents=True)
+        rng = np.random.default_rng(30 + i)
+        n, peak = 64 + 2 * i, 20 + 3 * i
+        for j in range(n):
+            r = 20 + 80 * (1 - abs(j - peak) / n)
+            px = rng.integers(0, 50, size=(256, 256)).astype(np.uint16)
+            px[(yy - 128) ** 2 + (xx - 128) ** 2 < r * r] += np.uint16(600 + 5 * j)
+            write_dicom(d / f"Image-{j + 1}.dcm", px, window_center=400, window_width=900,
+                        instance_number=j + 1)
+    labels = root / "train_labels.csv"
+    labels.write_text("ID,MGMT_value\n" + "".join(f"{c},{i % 2}\n" for i, c in enumerate(ids)))
+    return labels, folder
+
+
+def phase_legacy_rsna(tmp: Path) -> dict:
+    """train_rsna end to end at rsna_config's full width (ModelVIT hidden
+    512, 8 heads, 4 layers, (32, 32, 32) patches over 256×256×64, 129 tokens)
+    with bf16 compute and flash attention: 1 epoch at batch 4 on synthetic
+    DICOM cases, then predict.  K1 and K2 at B=4 K=8 N=129: 4 launches of
+    each a train step (the last one, eval and predict at B=2: the kernel
+    phases hold both shapes); the step timed and profiled under
+    profile_trace."""
+    from cross_attention_vit_tpu_torch.data.dataset_rsna import RSNADataset
+    from cross_attention_vit_tpu_torch.data.labels import load_labels, train_test_split
+    from cross_attention_vit_tpu_torch.drivers.legacy import train_rsna
+    from cross_attention_vit_tpu_torch.utils.profiling import profile_trace
+
+    root = tmp / "legacy_rsna"
+    try:
+        t0 = time.perf_counter()
+        labels, folder = _write_rsna(root)
+        write_s = time.perf_counter() - t0
+        _fresh_peak()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            trainer, hist, preds = train_rsna(
+                labels_csv=labels, folder=folder, out_dir=root / "runs", num_imgs=64, size=256,
+                max_epochs=1, batch_size=4, seed=0,
+                overrides={"compute_dtype": "bfloat16", "use_flash_attention": True},
+                device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = _counts()
+        train_df, val_df = train_test_split(load_labels(labels), 0.2, 0)
+        steps, val_batches = -(-len(train_df) // 4), -(-len(val_df) // 4)
+        # the batch sizes the run gave K1 and K2 (the last batch is short)
+        batch_rows = {min(4, n - b0) for n in (len(train_df), len(val_df))
+                      for b0 in range(0, n, 4)}
+        cfg = trainer.config
+        img, lab = RSNADataset(train_df, folder=folder, num_imgs=64, size=256).batch(range(4))
+        img, lab = torch.from_numpy(img).cuda(), torch.from_numpy(lab).cuda()
+        gen = torch.Generator().manual_seed(2)
+        _fresh_peak()
+        _zero_counts()
+        step_ms = _cuda_step_ms(lambda: trainer.train_step(img, lab, cfg.lr, gen))
+        per_step = {k: v / LEGACY_STEPS for k, v in _counts().items() if v}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        profile = _profiled(lambda: trainer.train_step(img, lab, cfg.lr, gen))
+        trace = {}
+        for attempt in range(3):            # a profile now and then records no kernel
+            with profile_trace(root / "trace"):
+                trainer.train_step(img, lab, cfg.lr, gen)
+            text = (root / "trace" / "trace.json").read_text()
+            trace = {"attempt": attempt, "bytes": len(text),
+                     "k1_events": text.count("attn_fwd_qkv"), "k2_events": text.count("attn_bwd_")}
+            if trace["k1_events"] and trace["k2_events"]:
+                break
+        del trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result = {"phase": "legacy_rsna", "model": "ModelVIT (rsna_config)", "tokens": 129,
+              "attention_shape": "B=4 K=8 D=64 N=129", "cases": RSNA_CASES,
+              "dicom_write_s": write_s, "wall_s": wall_s, "history": hist,
+              "predictions": preds.tolist(), "steps": steps, "val_batches": val_batches,
+              "attention_batches": sorted(batch_rows),
+              "launches": launches, "launches_per_timed_step": per_step, "step_ms": step_ms,
+              "step_ms_steady": statistics.median(step_ms[1:]), "peak_device_gb": peak_gb,
+              "profile": profile, "profile_trace": trace}
+    emit(result)
+    check(all(np.isfinite(v) for row in hist for v in row.values()),
+          f"non-finite RSNA history: {hist}")
+    check(len(preds) == len(val_df) and bool(((preds >= 0) & (preds <= 1)).all()),
+          f"predictions {preds}")
+    held = {(B, K, N) for B, K, N in RSNA_ATTN_SHAPES}
+    check({(b, 8, 129) for b in batch_rows} <= held,
+          f"the RSNA run gave K1/K2 batches {sorted(batch_rows)}; the kernel phases hold "
+          f"{sorted(held)}")
+    # train: 4 layers a step; eval and predict: 4 each per validation batch
+    want = {"K1": 4 * (steps + 2 * val_batches), "K2": 4 * steps}
+    check({k: launches[k] for k in want} == want, f"RSNA run launches {launches}, want {want}")
+    check(per_step.get("K1") == 4 and per_step.get("K2") == 4,
+          f"a timed RSNA step launched {per_step}, 4 K1 and 4 K2 expected")
+    check(trace["k1_events"] > 0 and trace["k2_events"] > 0,
+          f"profile_trace's trace holds no K1/K2 kernel: {trace}")
+    return result
+
+
+def phase_convert_cli(tmp: Path) -> dict:
+    """A Lightning-style container of the live ModelCross (f32 weights from a
+    seed) through the port's convert CLI to an npz; evaluate.main on that npz
+    against a direct forward of the same weights; --export back to the
+    container's state dict bit for bit."""
+    from cross_attention_vit_tpu_torch.data.dataset import BrainDataset
+    from cross_attention_vit_tpu_torch.data.labels import clean_data, load_labels
+    from cross_attention_vit_tpu_torch.drivers import convert
+    from cross_attention_vit_tpu_torch.models.convert import load_jax_params
+
+    root = tmp / "convert_cli"
+    try:
+        cfg = live_config(use_flash=True)
+        source = ModelCross(cfg, device="cuda", master_weights=True,
+                            generator=torch.Generator(device="cuda").manual_seed(6))
+        sd = {k: v.detach().cpu() for k, v in source.state_dict().items()}
+        root.mkdir(parents=True)
+        torch.save({"state_dict": {f"model.{k}": v for k, v in sd.items()}, "epoch": 7},
+                   root / "ref.ckpt")
+        labels, data, _ = _write_cohort(root, MODALITIES, subjects=4, volume=VOLUME)
+        flags = ["--model", "cross", "--torch-ckpt", str(root / "ref.ckpt"), "--img-types",
+                 *MODALITIES, "--attn-order", "0:1,1:2,2:0", "--set", "compute_dtype='bfloat16'",
+                 "--set", "activation_dtype='bfloat16'", "--set", "use_flash_attention=True",
+                 "--set", "gelu_approx=True", "--out", str(root / "migrated.npz")]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            npz = convert.main(flags)
+        import_s = time.perf_counter() - t0
+        _zero_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            metrics = evaluate.main(["--checkpoint", str(npz), "--model", "cross", "--labels",
+                                     str(labels), "--data", str(data), "--img-types",
+                                     *MODALITIES, "--only-available"])
+        eval_launches = _counts()
+        direct_model = ModelCross(ckpt.load_config_for(npz), device="cuda", master_weights=True)
+        load_jax_params(direct_model, params_from_flat(ckpt.restore_flat(npz)))
+        table = clean_data(load_labels(labels), "MGMT status")
+        ds = BrainDataset(table, cfg, types=MODALITIES, is_train=False, folder=data)
+        imgs, targets = ds.batch(range(len(ds)))
+        x = torch.from_numpy(imgs).to(torch.bfloat16).cuda()
+        with torch.inference_mode():
+            logits = direct_model(x).float().cpu()
+            source_logits = source(x).float().cpu()
+        direct = _metrics_as_evaluate(logits, torch.from_numpy(targets))
+        with contextlib.redirect_stdout(sys.stderr):
+            pt = convert.main(["--model", "cross", "--checkpoint", str(npz), "--export",
+                               "--out", str(root / "back.pt")])
+        exported = torch.load(pt)
+        export_equal = set(exported) == set(sd) and all(torch.equal(exported[k], v)
+                                                        for k, v in sd.items())
+        del source, direct_model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    result = {"phase": "convert_cli", "model": "ModelCross (live, 241.9M)", "container":
+              "Lightning {'state_dict': {'model.' + name: tensor}}", "import_s": import_s,
+              "evaluate": metrics, "direct": direct, "evaluate_launches": eval_launches,
+              "source_vs_npz_logits_max_abs": (logits - source_logits).abs().max().item(),
+              "export_bit_equal": export_equal, "tensors": len(sd)}
+    emit(result)
+    check(metrics == direct, f"evaluate.main {metrics} != direct forward {direct}")
+    check(result["source_vs_npz_logits_max_abs"] == 0.0,
+          "the migrated npz's forward differs from the source model's")
+    check(export_equal, "--export did not return the source state dict bit for bit")
+    return result
+
+
 def _launch_rows(paths: dict[str, dict]) -> dict[str, dict]:
     """Each kernel's launches summed over the main paths' runs, and by path."""
     rows = {}
@@ -3277,6 +3851,14 @@ def main() -> int:
             trained_tp, served_tp, trained_pp = phase_split(Path(tmp))
         with tempfile.TemporaryDirectory() as tmp:
             trained_cli = phase_train_cli(Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_legacy_vit3d(Path(tmp))
+        phase_legacy_densenet()
+        phase_legacy_cnn_vit()
+        with tempfile.TemporaryDirectory() as tmp:
+            legacy_rsna = phase_legacy_rsna(Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            converted = phase_convert_cli(Path(tmp))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3303,10 +3885,13 @@ def main() -> int:
         for r, rank in enumerate(result["ranks"]):
             paths[f"{name}_rank{r}"] = rank["launches"]
     paths["train_pp_serial_f32"] = trained_pp["serial_vs_plain"]["launches"]
+    paths["legacy_rsna"] = legacy_rsna["launches"]
+    paths["convert_cli_evaluate"] = converted["evaluate_launches"]
     launches = _launch_rows(paths)
     k5s, k5v = k5[513], k5[1025]
     k5_shape = "B=8 K=16 D=64 N=513 bfloat16 (ModelCross int8+attn serving shape)"
     attn = "B=8 K=16 D=64 N=513 bfloat16"
+    rsna_shape = "B=4 K=8 D=64 N=129 bfloat16 (the legacy RSNA driver's training shape)"
     k7_shape = "B=8 K=16 D=64 N=1537 bfloat16 (3-stream ModelVIT training shape)"
     bound = k7["bound"]
     k6d, k6c = k6["dminor"], k6["contiguous"]
@@ -3324,12 +3909,16 @@ def main() -> int:
          "stats_err": k1[513]["stats_err"],
          **at(k1[513], with_stats_ms=k1[513]["kernel_with_stats_ms"]),
          "library": "scaled_dot_product_attention", "shape": attn,
-         "at_n1025": at(k1[1025], with_stats_ms=k1[1025]["kernel_with_stats_ms"])},
+         "at_n1025": at(k1[1025], with_stats_ms=k1[1025]["kernel_with_stats_ms"]),
+         "at_n129": at(k1[129], with_stats_ms=k1[129]["kernel_with_stats_ms"],
+                       shape=rsna_shape, max_abs_err=k1[129]["max_abs_err"])},
         {**K2, **launches["K2"], "max_abs_err": k2[513]["max_abs_err"],
          **at(k2[513], ms_by_kernel=k2[513]["kernel_ms_by_kernel"]),
          "run_to_run_max_abs": k2[513]["run_to_run_max_abs"],
          "library": "backward of scaled_dot_product_attention through autograd (dq, dk, dv)",
-         "shape": attn, "at_n1025": at(k2[1025], ms_by_kernel=k2[1025]["kernel_ms_by_kernel"])},
+         "shape": attn, "at_n1025": at(k2[1025], ms_by_kernel=k2[1025]["kernel_ms_by_kernel"]),
+         "at_n129": at(k2[129], ms_by_kernel=k2[129]["kernel_ms_by_kernel"], shape=rsna_shape,
+                       max_abs_err=k2[129]["max_abs_err"])},
         {**K3, **launches["K3"], **k3,
          "shape": "V=8 (128, 128, 64) bfloat16, per launch over the 4 live LU passes"},
         {**K4, **launches["K4"], **k4,

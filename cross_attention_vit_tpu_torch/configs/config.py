@@ -10,6 +10,7 @@ so the port never imports the JAX package.
 
 from __future__ import annotations
 
+import copy
 from collections import namedtuple
 from typing import Any, Mapping
 
@@ -17,8 +18,9 @@ from typing import Any, Mapping
 class Config:
     """Attribute-style mutable config (ConfigDict-lite).
 
-    Supports ``cfg.key``, ``cfg['key']``, ``in``, ``.get`` and ``.to_dict``.
-    Unknown attribute reads raise AttributeError just like ml_collections.
+    Supports ``cfg.key``, ``cfg['key']``, ``in``, ``.get``, ``.keys``,
+    ``.to_dict``, ``del cfg.key`` and a deep ``.copy()``.  Unknown attribute
+    reads raise AttributeError just like ml_collections.
     """
 
     def __init__(self, **kwargs: Any) -> None:
@@ -34,6 +36,9 @@ class Config:
     def __setattr__(self, name: str, value: Any) -> None:
         self.__dict__["_fields"][name] = value
 
+    def __delattr__(self, name: str) -> None:
+        del self.__dict__["_fields"][name]
+
     # -- mapping protocol ----------------------------------------------------
     def __getitem__(self, name: str) -> Any:
         return self.__dict__["_fields"][name]
@@ -47,8 +52,14 @@ class Config:
     def get(self, name: str, default: Any = None) -> Any:
         return self.__dict__["_fields"].get(name, default)
 
+    def keys(self):
+        return self.__dict__["_fields"].keys()
+
     def to_dict(self) -> dict:
         return dict(self.__dict__["_fields"])
+
+    def copy(self) -> "Config":
+        return Config(**copy.deepcopy(self.__dict__["_fields"]))
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         body = ", ".join(f"{k}={v!r}" for k, v in self.__dict__["_fields"].items())

@@ -59,6 +59,10 @@ class NiftiHeader:
     magic: bytes
 
     @property
+    def shape(self) -> tuple[int, ...]:
+        return self.dim
+
+    @property
     def numpy_dtype(self) -> np.dtype:
         try:
             return np.dtype(_DTYPES[self.datatype]).newbyteorder(self.byteorder)
@@ -111,6 +115,14 @@ def parse_header(raw: bytes) -> NiftiHeader:
         byteorder=bo,
         magic=magic,
     )
+
+
+def read_header(path: str | Path) -> NiftiHeader:
+    """Parse only the header (the first block of a gzip stream)."""
+    path = Path(path)
+    opener = gzip.open if path.name.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        return parse_header(f.read(_HEADER_SIZE + 4))
 
 
 def read_volume(path: str | Path, dtype=np.float32) -> np.ndarray:

@@ -13,12 +13,15 @@ MONAI conventions (port of ``cross_attention_vit_tpu/data/preprocess.py``):
   * ResizeWithPadOrCrop = pad-then-crop per dim with constant fill.
 
 For the live shapes (240,240,155)→(128,128,64) this is pure cropping:
-x,y: 56:184; z: 45:109.
+x,y: 56:184; z: 45:109.  ``resize_with_pad_or_crop`` does the same on a
+tensor on its own device (JAX's jitted version).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 def _pad_crop_bounds(size: int, target: int) -> tuple[int, int, int, int]:
@@ -43,6 +46,22 @@ def resize_with_pad_or_crop_np(vol: np.ndarray, target: tuple[int, ...],
         slices.append(slice(s0, s1))
     if any(p != (0, 0) for p in pads):
         vol = np.pad(vol, pads, mode="constant", constant_values=fill)
+    return vol[tuple(slices)]
+
+
+def resize_with_pad_or_crop(vol: torch.Tensor, target: tuple[int, ...],
+                            fill: float = -1.0) -> torch.Tensor:
+    """``resize_with_pad_or_crop_np`` on a tensor: constant pad, then a
+    slice, over the trailing len(target) dims."""
+    nd = len(target)
+    lead = vol.dim() - nd
+    pads, slices = [], [slice(None)] * lead
+    for i, tgt in enumerate(target):
+        pf, pb, s0, s1 = _pad_crop_bounds(vol.shape[lead + i], tgt)
+        pads = [pf, pb] + pads                 # F.pad lists the last dim first
+        slices.append(slice(s0, s1))
+    if any(pads):
+        vol = F.pad(vol, pads, value=fill)
     return vol[tuple(slices)]
 
 

@@ -39,9 +39,28 @@ model has no ``to_out`` / ``out`` projection (the reference's Identity); the
 port skips it both ways, where the JAX ``export_model_cross`` /
 ``export_model_vit`` raise KeyError.  The heads-axis layouts are reshapes of
 the 2-D weights, so the mapping is exact in both directions.
+
+The legacy families (``models/vit3d.py``, ``models/cnn_vit.py``,
+``models/densenet.py``; the JAX package has no torch mapping for them) map
+path by path: the JAX tree's dotted paths are the port's names, with
+``kernel`` → ``weight`` (a Linear's transposed, a Conv3d's OIDHW as is),
+``scale`` → ``weight``, and the BatchNorm state ``{"mean", "var"}`` →
+``running_mean`` / ``running_var`` (``num_batches_tracked`` is not in JAX's
+layout and stays the model's).  ViT3D's renames:
+
+  ViT3D state dict                          JAX param tree
+  ------------------------------------------------------------------
+  transformer.layers.{i}.self_attn          layers[i]
+      .in_proj_weight (3H, H) / _bias (3H)    .qkv.kernel (H,3,K,D) / .bias (3,K,D)
+      .out_proj.{weight,bias}                 .out (K,D,H)
+  transformer.layers.{i}.linear1/2, norm1/2 layers[i].fc1/fc2, norm1/norm2
+  mlp_head.0 / .1 / .2                      head.norm / head.fc1 / head.fc2
+  ...denselayer{j}.layers.{norm1,...}       ...denselayer{j}.{norm1,...} (DenseNet)
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -50,7 +69,7 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from ..configs import Config
 from ..parallel.pipeline import stack_layers, unstack_layers
 from ..parallel.sharding import full_tensor, local_tensors, unwrap, whole_tensors
-from ..train.checkpoint import unflatten
+from ..train.checkpoint import flatten, unflatten
 
 
 def _t(w) -> np.ndarray:
@@ -123,9 +142,13 @@ def _exp_vit(params: dict) -> dict[str, np.ndarray]:
     return out
 
 
-def state_dict_from_jax(params: dict, config: Config) -> dict[str, np.ndarray]:
-    """JAX model_cross or model_vit param tree (numpy leaves) → the port's
-    state dict."""
+def state_dict_from_jax(params: dict, config: Config | None,
+                        state: dict | None = None) -> dict[str, np.ndarray]:
+    """JAX model_cross, model_vit or legacy param tree (numpy leaves) → the
+    port's state dict; a legacy family's BatchNorm ``state`` tree, when
+    given, becomes its running statistics."""
+    if _legacy_family(params):
+        return _legacy_sd(params, state)
     if _is_vit_tree(params):
         return _exp_vit(params)
     out = {
@@ -229,9 +252,11 @@ def _vit_from(sd: dict, heads: int) -> dict:
     }
 
 
-def jax_params_from_state_dict(sd: dict, config: Config) -> dict:
-    """The port's state dict (numpy values) → JAX model_cross or model_vit
-    param tree."""
+def jax_params_from_state_dict(sd: dict, config: Config | None) -> dict:
+    """The port's state dict (numpy values) → JAX model_cross, model_vit or
+    legacy param tree (buffers left out)."""
+    if _legacy_family(sd):
+        return _legacy_tree(sd, config.num_heads if config is not None else None, "params")
     heads = config.num_heads
     if _is_vit_state_dict(sd):
         params = _vit_from(sd, heads)
@@ -280,6 +305,92 @@ def jax_params_from_state_dict(sd: dict, config: Config) -> dict:
     return params
 
 
+# -- the legacy families ------------------------------------------------------
+
+# (JAX dotted path, port name) renames, applied in order; the leaf names after
+_TO_PORT = ((r"^layers\.(\d+)\.qkv\.kernel$", r"transformer.layers.\1.self_attn.in_proj_weight"),
+            (r"^layers\.(\d+)\.qkv\.bias$", r"transformer.layers.\1.self_attn.in_proj_bias"),
+            (r"^layers\.(\d+)\.out\.", r"transformer.layers.\1.self_attn.out_proj."),
+            (r"^layers\.(\d+)\.fc([12])\.", r"transformer.layers.\1.linear\2."),
+            (r"^layers\.(\d+)\.(norm[12])\.", r"transformer.layers.\1.\2."),
+            (r"^head\.norm\.", "mlp_head.0."), (r"^head\.fc1\.", "mlp_head.1."),
+            (r"^head\.fc2\.", "mlp_head.2."), (r"(denselayer\d+)\.", r"\1.layers."),
+            (r"\.(kernel|scale)$", ".weight"), (r"\.mean$", ".running_mean"),
+            (r"\.var$", ".running_var"))
+_TO_JAX = ((r"^transformer\.layers\.(\d+)\.self_attn\.in_proj_weight$", r"layers.\1.qkv.kernel"),
+           (r"^transformer\.layers\.(\d+)\.self_attn\.in_proj_bias$", r"layers.\1.qkv.bias"),
+           (r"^transformer\.layers\.(\d+)\.self_attn\.out_proj\.weight$", r"layers.\1.out.kernel"),
+           (r"^transformer\.layers\.(\d+)\.self_attn\.out_proj\.", r"layers.\1.out."),
+           (r"^transformer\.layers\.(\d+)\.linear([12])\.", r"layers.\1.fc\2."),
+           (r"^transformer\.layers\.(\d+)\.(norm[12])\.", r"layers.\1.\2."),
+           (r"^mlp_head\.0\.", "head.norm."), (r"^mlp_head\.1\.", "head.fc1."),
+           (r"^mlp_head\.2\.", "head.fc2."), (r"(denselayer\d+)\.layers\.", r"\1."),
+           (r"\.running_mean$", ".mean"), (r"\.running_var$", ".var"))
+
+
+def _legacy_family(keys) -> bool:
+    """A ViT3D, CNNViT or DenseNet121 tree (top-level keys) or state dict."""
+    keys = set(keys)
+    return bool(keys & {"encoder", "stem", "features"}) or any(
+        k.startswith(("encoder.", "stem.", "features.")) for k in keys)
+
+
+def _rename(path: str, rules) -> str:
+    for pattern, repl in rules:
+        path = re.sub(pattern, repl, path)
+    return path
+
+
+def _legacy_sd(params: dict, state: dict | None) -> dict[str, np.ndarray]:
+    out = {}
+    for tree in (params, state or {}):
+        for path, v in flatten(tree).items():
+            name = _rename(path.replace("/", "."), _TO_PORT)
+            v = np.asarray(v)
+            if name.endswith("in_proj_weight"):          # (H, 3, K, D) → (3H, H)
+                v = _t(v.reshape(v.shape[0], -1))
+            elif name.endswith("in_proj_bias"):          # (3, K, D) → (3H,)
+                v = v.reshape(-1)
+            elif name.endswith("out_proj.weight"):       # (K, D, H) → (H, H)
+                v = _t(v.reshape(-1, v.shape[-1]))
+            elif path.endswith("kernel") and v.ndim == 2:
+                v = _t(v)
+            out[name] = v
+    return out
+
+
+def _legacy_tree(sd: dict, heads: int | None, which: str) -> dict:
+    """The JAX param tree (``which="params"``) or BatchNorm state tree
+    (``"state"``) of a legacy family's state dict."""
+    flat = {}
+    for name, v in sd.items():
+        is_state = name.endswith(("running_mean", "running_var"))
+        if name.endswith("num_batches_tracked") or is_state != (which == "state"):
+            continue
+        path = _rename(name, _TO_JAX)
+        v = np.asarray(v)
+        if name.endswith("in_proj_weight"):
+            H = v.shape[1]
+            v = _t(v).reshape(H, 3, heads, H // heads)
+        elif name.endswith("in_proj_bias"):
+            v = v.reshape(3, heads, -1)
+        elif name.endswith("out_proj.weight"):
+            H = v.shape[1]
+            v = _t(v).reshape(heads, H // heads, H)
+        elif path.endswith(".weight"):
+            path = path[:-len("weight")] + ("scale" if v.ndim == 1 else "kernel")
+            if v.ndim == 2:
+                v = _t(v)
+        flat[path.replace(".", "/")] = v
+    return unflatten(flat)
+
+
+def jax_state_from_state_dict(sd: dict) -> dict:
+    """A legacy family's BatchNorm running statistics as JAX's state tree
+    (``{"encoder": {"bn1": {"mean", "var"}, ...}}``); {} for a stateless one."""
+    return _legacy_tree(sd, None, "state")
+
+
 # -- checkpoints and modules ---------------------------------------------------
 
 def params_from_flat(flat: dict[str, np.ndarray]) -> dict:
@@ -288,17 +399,27 @@ def params_from_flat(flat: dict[str, np.ndarray]) -> dict:
     return unflatten({k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)})
 
 
-def load_jax_params(model: torch.nn.Module, params: dict) -> None:
-    """Load a JAX param tree into the port's ModelCross or ModelVIT (strict:
-    every key and shape must match).  Values are cast to each parameter's
-    dtype on copy — the compute-dtype cast the JAX package makes on every
-    call.  A model placed over a mesh (``parallel.shard_params``) loads too:
-    each rank reads the whole tree and keeps its part of it — its FSDP shard,
-    its experts on an 'expert' axis, its stage's layers on 'pipe', its
-    slices on 'model' (``parallel.local_tensors``)."""
+def load_jax_params(model: torch.nn.Module, params: dict, state: dict | None = None) -> None:
+    """Load a JAX param tree into the port's model (strict: every key and
+    shape must match).  Values are cast to each parameter's dtype on copy —
+    the compute-dtype cast the JAX package makes on every call.  A legacy
+    family loads its BatchNorm running statistics from ``state`` (JAX's
+    state tree); a model with BatchNorm layers and no ``state`` raises, as
+    JAX cannot apply such a model without its state.  A model placed over a mesh
+    (``parallel.shard_params``) loads too: each rank reads the whole tree and
+    keeps its part of it — its FSDP shard, its experts on an 'expert' axis,
+    its stage's layers on 'pipe', its slices on 'model'
+    (``parallel.local_tensors``)."""
     model = unwrap(model)
+    config = getattr(model, "config", None)
+    own = model.state_dict()
+    if state is None and any(k.endswith("running_mean") for k in own):
+        raise ValueError(f"{type(model).__name__} has BatchNorm layers: load its params "
+                         "with JAX's state tree of running statistics")
     sd = {k: torch.as_tensor(np.array(v))
-          for k, v in local_tensors(model, state_dict_from_jax(params, model.config)).items()}
+          for k, v in local_tensors(model, state_dict_from_jax(params, config, state)).items()}
+    # num_batches_tracked is not in JAX's layout: the model keeps its count
+    sd.update({k: v for k, v in own.items() if k.endswith("num_batches_tracked")})
     sharded = {n: p for n, p in model.named_parameters() if isinstance(p, DTensor)}
     if not sharded:
         model.load_state_dict(sd, strict=True)
@@ -318,14 +439,25 @@ def load_jax_params(model: torch.nn.Module, params: dict) -> None:
         raise RuntimeError(f"state dict mismatch: missing {missing}, unexpected {unexpected}")
 
 
-def jax_params_from_model(model: torch.nn.Module) -> dict:
-    """The port's ModelCross or ModelVIT → JAX param tree of float32 numpy
-    arrays.  A model placed over a mesh gives its whole parameters (a
-    collective when they are split: every rank calls it)."""
+def _host_state_dict(model: torch.nn.Module) -> dict[str, np.ndarray]:
     model = unwrap(model)
     sd = whole_tensors(model, {k: full_tensor(v).detach()
                                for k, v in model.state_dict().items()})
     # copies: on the CPU a view would follow the live parameter (and an
     # asynchronous checkpoint write would see the next steps' values)
-    sd = {k: v.to("cpu", torch.float32, copy=True).numpy() for k, v in sd.items()}
-    return jax_params_from_state_dict(sd, model.config)
+    return {k: v.to("cpu", torch.float32, copy=True).numpy() for k, v in sd.items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def jax_params_from_model(model: torch.nn.Module) -> dict:
+    """The port's model → JAX param tree of float32 numpy arrays.  A model
+    placed over a mesh gives its whole parameters (a collective when they
+    are split: every rank calls it)."""
+    return jax_params_from_state_dict(_host_state_dict(model),
+                                      getattr(unwrap(model), "config", None))
+
+
+def jax_state_from_model(model: torch.nn.Module) -> dict:
+    """A legacy family's BatchNorm running statistics → JAX's state tree of
+    float32 numpy arrays."""
+    return jax_state_from_state_dict(_host_state_dict(model))

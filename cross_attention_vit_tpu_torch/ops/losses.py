@@ -1,5 +1,7 @@
 """Losses matching torch.nn.functional semantics (port of
-``cross_attention_vit_tpu/ops/losses.py``)."""
+``cross_attention_vit_tpu/ops/losses.py``): cross-entropy for the live
+models, BCE with logits for the legacy CNN-stem ViT's single logit
+(reference model.py:239)."""
 
 from __future__ import annotations
 
@@ -19,3 +21,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     else:
         loss = nll
     return loss.mean()
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """nn.BCEWithLogitsLoss (mean reduction) in float32, the stable form
+    max(x, 0) − x·y + log(1 + exp(−|x|))."""
+    x, y = logits.float(), targets.float()
+    return (torch.clamp(x, min=0) - x * y + torch.log1p(torch.exp(-x.abs()))).mean()

@@ -24,6 +24,17 @@ def patchify_3d(vol: torch.Tensor, patch_size: tuple[int, int, int]) -> torch.Te
     return x.reshape(B, h * w * d, p1 * p2 * p3 * C)
 
 
+def unpatchify_3d(tokens: torch.Tensor, patch_size: tuple[int, int, int],
+                  img_size: tuple[int, int, int], channels: int = 1) -> torch.Tensor:
+    """Inverse of ``patchify_3d``: (B, N, p1·p2·p3·C) → (B, C, D, H, W)."""
+    p1, p2, p3 = patch_size
+    D, H, W = img_size
+    d, h, w = D // p1, H // p2, W // p3
+    x = tokens.reshape(tokens.shape[0], h, w, d, p1, p2, p3, channels)
+    x = x.permute(0, 7, 3, 4, 1, 5, 2, 6)     # b, c, d, p1, h, p2, w, p3
+    return x.reshape(tokens.shape[0], channels, D, H, W)
+
+
 def num_patches(img_size: tuple[int, int, int], patch_size: tuple[int, int, int]) -> int:
     D, H, W = img_size
     p1, p2, p3 = patch_size

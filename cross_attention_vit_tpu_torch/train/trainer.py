@@ -48,8 +48,18 @@ axis ModelVIT's trunk into GPipe stages (``config.pipeline_stages`` > 1;
 JAX ``train/trainer.py:338-370``; the steps set the ambient expert, seq and
 pipeline meshes the models read, see ``_ambient_meshes``).  Checkpoints
 are written whole, in the JAX layout, and split again on load, so they
-cross mesh shapes.  The stateful (BatchNorm)
-families are a later slice.
+cross mesh shapes.
+
+``stateful=True`` trains the BatchNorm families (``models.vit3d.ViT3D``;
+JAX ``make_stateful_train_step`` / ``make_stateful_eval_step``,
+:234-295): the running statistics are the model's buffers, which the train
+forward moves in place from the pre-step parameters while the gradients
+reach the parameters only, and which the eval forward reads.  The
+checkpoint carries them as ``model_state/...`` in JAX's state layout beside
+the plateau state, and resume restores them.  ``grad_accum`` > 1 is refused
+for them, as in JAX, and so is a mesh: JAX normalises over the global batch
+there (SyncBatchNorm semantics, ``ops/conv.py:13-16``), which the port has
+not ported (ROADMAP item 14's remainder).
 """
 
 from __future__ import annotations
@@ -63,7 +73,8 @@ import torch
 from ..configs import Config
 from ..data.augment import AugmentConfig, augment_batch
 from ..models.convert import (jax_params_from_model, jax_params_from_state_dict,
-                              load_jax_params, params_from_flat, state_dict_from_jax)
+                              jax_state_from_model, load_jax_params, params_from_flat,
+                              state_dict_from_jax)
 from ..ops.layers import promote_input
 from ..parallel.mesh import axis_index, axis_size
 from ..parallel.moe import active_expert_mesh, set_expert_mesh
@@ -142,7 +153,7 @@ def _dropout_generator(generator: torch.Generator, device: torch.device) -> torc
 
 def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
                     grad_accum: int = 1, augment_cfg: AugmentConfig = AugmentConfig(),
-                    accum_impl: str = "scan", mesh=None):
+                    accum_impl: str = "scan", mesh=None, zero_unreached: bool = False):
     """Returns ``step(img, labels, lr, generator) -> aux``.
 
     ``generator`` is a CPU ``torch.Generator``: each step draws from it the
@@ -160,7 +171,13 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
     ``mesh``: the model is ``parallel.shard_params``' (DDP or FSDP) over it;
     ``img`` and ``labels`` are this data coordinate's rows, the gradients
     are averaged across data coordinates (the microbatches before the last
-    do not reduce), and the aux dict is replicated (``_replicate_aux``)."""
+    do not reduce), and the aux dict is replicated (``_replicate_aux``).
+
+    ``zero_unreached``: a parameter the forward never reached gets JAX's
+    zero gradient, so Adam's moments and weight decay move it as JAX's do
+    (a truncated DenseNet's tail; the stateful step sets it).  ModelCross
+    and ModelVIT reach every parameter in each forward, so their steps
+    leave it off."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if accum_impl not in ("scan", "unroll"):
@@ -194,6 +211,10 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
                 loss.backward()
             logit_parts.append(logits.detach())
             loss_sum = loss_sum + loss.detach()
+        if zero_unreached:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         if mesh is not None:
             sync_replicated_grads(model, mesh)
         if grad_accum > 1:
@@ -205,6 +226,17 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
 
     step.augmented = {}
     return step
+
+
+def make_stateful_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
+                             augment_cfg: AugmentConfig = AugmentConfig()):
+    """The BatchNorm families' train step (JAX :234-274): ``make_train_step``
+    at one microbatch.  The train-mode forward moves the running statistics
+    in place from the pre-step parameters; the backward and Adam touch the
+    parameters only, every one of them (an unreached one with a zero
+    gradient, as JAX's)."""
+    return make_train_step(model, optimizer, config, augment_cfg=augment_cfg,
+                           zero_unreached=True)
 
 
 def make_eval_step(model: torch.nn.Module, config: Config, mesh=None):
@@ -221,6 +253,10 @@ def make_eval_step(model: torch.nn.Module, config: Config, mesh=None):
         return {**_aux(logits, loss, labels, mesh), "logits": logits}
 
     return step
+
+
+# the BatchNorm families' eval step reads the running statistics: the eval step
+make_stateful_eval_step = make_eval_step
 
 
 class EarlyStopping:
@@ -272,7 +308,8 @@ def _step_generator(seed: int, epoch: int, step: int, shard: int = 0) -> torch.G
 class Trainer:
     """The epoch loop.
 
-    ``model_cls`` is ``ModelCross`` or ``ModelVIT``: ``init_state`` builds it
+    ``model_cls`` is ``ModelCross`` or ``ModelVIT``, or with ``stateful``
+    a BatchNorm family (``ViT3D``): ``init_state`` builds it
     with f32 master weights on ``device`` (default CUDA; raises without it),
     from the seed or from a JAX param tree.  schedule: 'cosine'
     (CosineAnnealingLR per epoch, the live contract) or 'plateau'
@@ -296,10 +333,13 @@ class Trainer:
         self.device = resolve_device(device)
         if fsdp and mesh is None:
             raise ValueError("fsdp=True requires a mesh")
-        if stateful:
+        if grad_accum > 1 and stateful:
+            raise ValueError("grad_accum > 1 is not supported for stateful (BatchNorm) models")
+        if stateful and mesh is not None:
             raise NotImplementedError(
-                "stateful (BatchNorm) model families are not ported yet: the legacy families "
-                "are a later slice of the PyTorch port (ROADMAP Queue 1, item 14)")
+                "stateful (BatchNorm) models over a mesh are not ported: JAX normalises over "
+                "the global batch there (SyncBatchNorm semantics); ROADMAP item 14's remainder")
+        self.stateful = bool(stateful)
         self.model_cls = model_cls
         self.config = config
         self.max_epochs = max_epochs
@@ -357,19 +397,26 @@ class Trainer:
         self.global_step = 0
 
     # -- lifecycle -------------------------------------------------------------
-    def init_state(self, params: dict | None = None) -> "Trainer":
+    def init_state(self, params: dict | None = None,
+                   model_state: dict | None = None) -> "Trainer":
         """Build the model (from the seed, or from ``params``, a JAX param
-        tree of arrays), place it on the mesh (``parallel.shard_params``; DDP
-        starts every rank from rank 0's parameters) and make a fresh Adam.
-        ``self.model`` is then what runs: the DDP wrapper, or the model."""
+        tree of arrays, and for a stateful family ``model_state``, JAX's
+        BatchNorm state tree), place it on the mesh
+        (``parallel.shard_params``; DDP starts every rank from rank 0's
+        parameters) and make a fresh Adam.  ``self.model`` is then what
+        runs: the DDP wrapper, or the model."""
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.model = self.model_cls(self.config, device=self.device, generator=gen,
                                     master_weights=True)
         if params is not None:
-            load_jax_params(self.model, params)
+            load_jax_params(self.model, params, model_state)
         if self.mesh is not None:
             self.model = shard_params(self.model, self.mesh, fsdp=self.fsdp)
         self.optimizer = Adam(self.model.parameters(), weight_decay=self.config.weight_decay)
+        if self.stateful:
+            self.train_step = make_stateful_train_step(self.model, self.optimizer, self.config)
+            self.eval_step = make_stateful_eval_step(self.model, self.config)
+            return self
         self.train_step = make_train_step(self.model, self.optimizer, self.config,
                                           grad_accum=self.grad_accum,
                                           accum_impl=self.accum_impl, mesh=self.mesh)
@@ -381,6 +428,12 @@ class Trainer:
         """The model's parameters as a JAX param tree of f32 numpy arrays
         (under FSDP a collective)."""
         return jax_params_from_model(self.model)
+
+    @property
+    def model_state(self) -> dict | None:
+        """A stateful family's running statistics as JAX's state tree of f32
+        numpy arrays (None for a stateless model)."""
+        return jax_state_from_model(self.model) if self.stateful else None
 
     def _moment_trees(self) -> tuple[dict, dict]:
         model = unwrap(self.model)
@@ -402,6 +455,8 @@ class Trainer:
                  "opt": {"step": np.asarray(self.optimizer.step_count, np.int32),
                          "mu": mu, "nu": nu},
                  "epoch": np.asarray(epoch, np.int32)}
+        if self.stateful:
+            state["model_state"] = self.model_state
         if self.plateau is not None:
             state["plateau"] = {"lr": np.asarray(self.plateau.lr, np.float32),
                                 "best": np.asarray(self.plateau.best, np.float32),
@@ -433,7 +488,12 @@ class Trainer:
         return int(flat["epoch"]) + 1
 
     def _load_flat(self, flat: dict) -> None:
-        load_jax_params(self.model, params_from_flat(flat))
+        model_state = None
+        if self.stateful:
+            prefix = "model_state/"
+            model_state = unflatten({k[len(prefix):]: v for k, v in flat.items()
+                                     if k.startswith(prefix)})
+        load_jax_params(self.model, params_from_flat(flat), model_state)
         model = unwrap(self.model)
         names = [n for n, _ in model.named_parameters()]
         moments = []

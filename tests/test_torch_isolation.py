@@ -205,3 +205,71 @@ def test_expert_and_sequence_parallel_entry_points_default_to_cuda(tmp_path):
             experiments.main(["--labels", str(labels), "--data", str(data), "--out",
                               str(tmp_path / "runs"), *flags])
     assert not (tmp_path / "runs").exists()
+
+
+LEGACY_MODULES = ("ops.conv", "models.densenet", "models.vit3d", "models.cnn_vit",
+                  "models.surgery", "data.dicom", "data.dataset_rsna", "drivers.legacy",
+                  "drivers.convert", "utils.profiling", "utils.misc")
+
+
+def test_legacy_modules_import_neither_jax_nor_the_jax_package():
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {LEGACY_MODULES!r}:
+            importlib.import_module("cross_attention_vit_tpu_torch." + name)
+        banned = ("jax", "jaxlib", "cross_attention_vit_tpu", "pandas", "sklearn", "cv2",
+                  "ml_dtypes", "tensorboardX")
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+        print(bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Each module of the JAX package has a port file of the same path; the
+    only one still without is utils/flops.py (ROADMAP item 10, the bench)."""
+    jax_pkg, port = ROOT / "cross_attention_vit_tpu", ROOT / "cross_attention_vit_tpu_torch"
+    missing = sorted(str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py")
+                     if not (port / p.relative_to(jax_pkg)).is_file())
+    assert missing == ["utils/flops.py"]
+
+
+def _legacy_cfg():
+    cfg = get_mgmt_config()
+    modify_config(cfg, dict(hidden_dim=32, num_heads=4, num_layers=1, img_size=(32, 32, 16),
+                            num_modalities=1))
+    return cfg
+
+
+def test_legacy_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    """ViT3D, CNNViT, DenseNet121, the legacy drivers, the convert CLI and
+    profile_trace default to CUDA and raise here before writing anything."""
+    _no_cuda()
+    from cross_attention_vit_tpu_torch.drivers import convert, legacy
+    from cross_attention_vit_tpu_torch.models.cnn_vit import CNNViT
+    from cross_attention_vit_tpu_torch.models.densenet import DenseNet121
+    from cross_attention_vit_tpu_torch.models.vit3d import ViT3D
+    from cross_attention_vit_tpu_torch.train.trainer import Trainer
+    from cross_attention_vit_tpu_torch.utils.profiling import profile_trace
+
+    cfg = _legacy_cfg()
+    for build in (lambda: ViT3D(cfg), lambda: CNNViT(cfg), lambda: DenseNet121(),
+                  lambda: Trainer(ViT3D, cfg, max_epochs=1, stateful=True)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    labels, data = _cli_cohort(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        legacy.train_vit3d(labels_csv=labels, folder=data, out_dir=tmp_path / "runs")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        legacy.train_rsna(labels_csv=labels, folder=data, out_dir=tmp_path / "runs")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.main(["--torch-ckpt", str(tmp_path / "none.ckpt"), "--out",
+                      str(tmp_path / "runs" / "m.npz")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        with profile_trace(tmp_path / "runs" / "trace"):
+            pass
+    assert not (tmp_path / "runs").exists()
+    assert ViT3D(cfg, device="cpu").pos_embed.device.type == "cpu"

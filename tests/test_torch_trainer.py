@@ -241,18 +241,19 @@ def test_trainer_early_stopping_halts():
 
 def test_trainer_rejects_unported_options():
     """A mesh and FSDP build (over a one-process gloo group here); FSDP
-    without a mesh is refused as in JAX, and the stateful families still
-    name their ROADMAP item."""
+    without a mesh is refused as in JAX, and a stateful family over a mesh
+    (JAX's SyncBatchNorm semantics, not ported) names its ROADMAP item."""
     cfg, _ = _cfgs()
     with pytest.raises(ValueError, match="requires a mesh"):
         ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", fsdp=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", stateful=True)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     multihost_init(f"127.0.0.1:{port}", 1, 0, device="cpu", timeout_s=30)
     try:
+        with pytest.raises(NotImplementedError, match="item 14"):
+            ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", stateful=True,
+                             mesh=make_mesh())
         for fsdp in (False, True):
             t = ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", mesh=make_mesh(),
                                  fsdp=fsdp).init_state()
