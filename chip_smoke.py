@@ -202,7 +202,29 @@ Phases, each printed as one JSON line with a ``phase`` key:
              schedule (f32 with dropout and augmentation, the same gates)
              and ``PP_STEPS`` bf16 steps: 8 K1 + 8 K2 a step per rank at B=2
              (2 layers × 4 microbatches); the bubble fraction.
-18. legacy_vit3d — ``drivers.legacy.train_vit3d`` at its own configuration
+18. train_tp_ep — the axes composed: the MoE ModelCross (``moe_experts`` 4,
+             544,168,966 parameters, f32 at dropout 0) over four gloo ranks
+             sharing the card, (expert 2 × model 2), each rank 8 of the 16
+             heads and 2 of the 4 experts of every site (``chip_smoke.py
+             --tp-ep-worker``): one step's loss within ``LOSS_REL_TOL`` and
+             gradients within ``KERNEL_TOL[float32]`` of one process's, loss
+             − CE = 0.01 × the mean balance within ``BALANCE_TOL``, 12 K1 +
+             12 K2 at B=8 K=8; then ``InferenceServer(mesh=)`` on the same
+             weights, rank 0 asked 3 and 8 volumes: within ``SERVE_TOL`` of
+             a direct one-process forward, 12 K1 a forward per rank.
+19. train_sync_bn — ViT3D at train_vit3d's width (CNN3DEncoder 128/256/512/
+             1024, hidden 1024, 16 heads, 4 layers, 257 tokens, T1c; f32,
+             dropout 0) over two gloo ranks sharing the card, (data 2), 4
+             volumes a rank (``chip_smoke.py --bn-worker``), against one
+             process at batch 8: the running means and variances after each
+             of ``BN_STEPS`` steps within ``BN_STAT_REL_TOL`` (1e-5) relative
+             (the global batch's statistics, one all-reduce a BatchNorm),
+             the first step's gradients within ``BN_NOISE_FACTOR`` × each
+             leaf's spread over the same one-process step on the batch's rows
+             in other orders (``BN_REORDERS``), never looser than
+             ``KERNEL_TOL[float32]`` (the stem's conv biases, zero in exact
+             arithmetic, reported), both ranks' buffers bit-equal.
+20. legacy_vit3d — ``drivers.legacy.train_vit3d`` at its own configuration
              (ViT3D: CNN3DEncoder 128/256/512/1024 channels, hidden 1024, 16
              heads, 4 layers, 128×128×64, T1c, dropout 0.1, plateau; 257
              tokens) over 16 synthetic T1c subjects at batch 8: one epoch,
@@ -216,13 +238,13 @@ Phases, each printed as one JSON line with a ``phase`` key:
              ``TF32_GRAD_TOL``); and at each stem shape of ``CONV_SHAPES``
              that its three products stay within ``CONV_F64_TOL`` of f64,
              each timed beside cuDNN's own.
-19. legacy_densenet — ViT3D with the DenseNet-121 stem truncated at
+21. legacy_densenet — ViT3D with the DenseNet-121 stem truncated at
              denseblock3.denselayer24.layers.conv1 (hidden 64, 4 heads, one
              modality, batch 8): the stem emits (8, 64, 8, 8, 4); train steps
              and an eval forward, finite.
-20. legacy_cnn_vit — CNNViT at its defaults on 2 modalities, batch 8:
+22. legacy_cnn_vit — CNNViT at its defaults on 2 modalities, batch 8:
              forward, BCE and Adam steps; every parameter moves.
-21. legacy_rsna — ``train_rsna`` at rsna_config's full width (ModelVIT
+23. legacy_rsna — ``train_rsna`` at rsna_config's full width (ModelVIT
              hidden 512, 4 layers, 8 heads, (32, 32, 32) patches over
              256×256×64; bf16 and flash attention) on 8 synthetic DICOM
              series of 64-78 slices written by the port's ``write_dicom``: 1
@@ -234,7 +256,7 @@ Phases, each printed as one JSON line with a ``phase`` key:
              for predict; finite history, predictions in [0, 1]; one step
              under ``utils.profiling.profile_trace``, whose Chrome trace must
              hold K1 and K2.
-22. convert_cli — a Lightning container (``{"state_dict": {"model." +
+24. convert_cli — a Lightning container (``{"state_dict": {"model." +
              name: tensor}}``) of the full-width live ModelCross through
              ``drivers.convert`` to an npz; ``evaluate.main`` on it over 4
              synthetic subjects equals a direct forward (and the npz's logits
@@ -702,14 +724,17 @@ def phase_kernels() -> dict:
     # bf16; strided reads qkv through a (B, 3, K, N, D) buffer permuted to
     # (B, N, 3, K, D) — the f32 path takes any strides; N = 1041 routes to
     # K7; the split paths' shapes: a TP rank's 8 heads (train_tp and
-    # serve_tp's buckets 8 and 4) and a PP microbatch of 2 rows at N = 1025
-    # (train_pp); then the ragged lengths at B=2 K=4 in both dtypes
+    # serve_tp's buckets 8 and 4; in f32 the comparison steps of train_tp and
+    # train_tp_ep and serve_tp_ep's buckets 8 and 4) and a PP microbatch of 2
+    # rows at N = 1025 (train_pp); then the ragged lengths at B=2 K=4 in both
+    # dtypes
     cases = [(1, 16, 513, torch.bfloat16, False), (2, 16, 513, torch.bfloat16, False),
              (4, 16, 513, torch.bfloat16, False), (8, 16, 513, torch.bfloat16, False),
              (1, 16, 513, torch.float32, False), (8, 16, 513, torch.float32, False),
              (1, 16, 513, torch.float32, True), (8, 16, 1025, torch.bfloat16, False),
              (8, 16, 1041, torch.bfloat16, False), (8, 8, 513, torch.bfloat16, False),
-             (4, 8, 513, torch.bfloat16, False), (2, 16, 1025, torch.bfloat16, False)]
+             (4, 8, 513, torch.bfloat16, False), (2, 16, 1025, torch.bfloat16, False),
+             (8, 8, 513, torch.float32, False), (4, 8, 513, torch.float32, False)]
     cases += [(2, 4, N, dt, False) for dt in (torch.bfloat16, torch.float32) for N in RAGGED_NS]
     cases += [(*shape, dt, False) for shape in RSNA_ATTN_SHAPES
               for dt in (torch.bfloat16, torch.float32)]
@@ -807,13 +832,15 @@ def phase_kernels_k2() -> dict:
     # (B, K, N, dtype, strided): the training batch and two smaller ones at
     # N = 513 in bf16; f32 at B = 1 (strided: every operand read through a
     # head-major buffer) and B = 8; bf16 at the longer N of the ViT geometry;
-    # the split paths' shapes: a TP rank's 8 heads (train_tp) and a PP
-    # microbatch of 2 rows at N = 1025 (train_pp); then the ragged lengths
-    # at B=2 K=4 in both dtypes
+    # the split paths' shapes: a TP rank's 8 heads (train_tp; in f32 the
+    # comparison steps of train_tp and train_tp_ep) and a PP microbatch of 2
+    # rows at N = 1025 (train_pp); then the ragged lengths at B=2 K=4 in both
+    # dtypes
     cases = [(1, 16, 513, torch.bfloat16, False), (2, 16, 513, torch.bfloat16, False),
              (8, 16, 513, torch.bfloat16, False), (1, 16, 513, torch.float32, True),
              (8, 16, 513, torch.float32, False), (8, 16, 1025, torch.bfloat16, False),
-             (8, 8, 513, torch.bfloat16, False), (2, 16, 1025, torch.bfloat16, False)]
+             (8, 8, 513, torch.bfloat16, False), (2, 16, 1025, torch.bfloat16, False),
+             (8, 8, 513, torch.float32, False)]
     cases += [(2, 4, N, dt, False) for dt in (torch.bfloat16, torch.float32) for N in RAGGED_NS]
     cases += [(*shape, dt, False) for shape in RSNA_ATTN_SHAPES
               for dt in (torch.bfloat16, torch.float32)]
@@ -1967,6 +1994,29 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+def _gloo_ranks(flag: str, world: int, tmp: Path, name: str,
+                timeout_s: float) -> list[dict]:
+    """``world`` processes of ``chip_smoke.py <flag> rank world port tmp``
+    sharing the card over gloo (NCCL refuses two ranks on one card); each
+    writes ``<name>_rank<r>.json``."""
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag, str(rank),
+                               str(world), str(port), str(tmp)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=timeout_s)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"{name} rank {rank} exited {p.returncode}:\n{err[-4000:]}")
+    return [json.loads((tmp / f"{name}_rank{r}.json").read_text()) for r in range(world)]
+
+
 def _dp_cmp_cfg():
     """The live configuration at dropout 0 without augmentation: the
     comparison steps of phase train_dp."""
@@ -2084,22 +2134,7 @@ def phase_train_dp(tmp: Path) -> dict:
 
 def _two_gloo_ranks(tmp: Path) -> dict:
     """Phase train_dp (b): ``dp_worker`` in two processes on this card."""
-    port = _free_port()
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker",
-                               str(rank), str(port), str(tmp)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for rank in range(2)]
-    errs = []
-    try:
-        for p in procs:
-            errs.append(p.communicate(timeout=DP_TIMEOUT_S)[1])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rank, (p, err) in enumerate(zip(procs, errs)):
-        check(p.returncode == 0, f"gloo rank {rank} exited {p.returncode}:\n{err[-4000:]}")
-    ranks = [json.loads((tmp / f"dp_rank{r}.json").read_text()) for r in range(2)]
+    ranks = _gloo_ranks("--dp-worker", 2, tmp, "dp", DP_TIMEOUT_S)
     check(ranks[0]["param_sha256"] == ranks[1]["param_sha256"],
           "the two gloo ranks' parameters differ after the steps")
     for r, got in enumerate(ranks):
@@ -2111,13 +2146,13 @@ def _two_gloo_ranks(tmp: Path) -> dict:
     return {"ranks": ranks, "params_identical": True}
 
 
-def dp_worker(rank: int, port: int, tmp: Path) -> int:
+def dp_worker(rank: int, world: int, port: int, tmp: Path) -> int:
     """One of phase train_dp's two gloo ranks on cuda:0: ``DP_STEPS`` DDP
     steps of batch 4 at dropout 0 without augmentation from the seeded
     masters; the first step's gradients against the one-process batch-8
     step's; a digest of the parameters; then steps with and without the
     gradient all-reduce, for its share of the step."""
-    multihost_init(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda",
+    multihost_init(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda",
                    timeout_s=DP_TIMEOUT_S)
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2785,22 +2820,7 @@ def _two_gloo_ep_ranks(tmp: Path) -> dict:
     """Phase train_moe's expert parallelism on this card: ``moe_worker`` in
     two processes over gloo (NCCL refuses two ranks on one card), each
     holding 2 of the 4 experts of every site."""
-    port = _free_port()
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--moe-worker",
-                               str(rank), str(port), str(tmp)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for rank in range(2)]
-    errs = []
-    try:
-        for p in procs:
-            errs.append(p.communicate(timeout=DP_TIMEOUT_S)[1])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rank, (p, err) in enumerate(zip(procs, errs)):
-        check(p.returncode == 0, f"gloo EP rank {rank} exited {p.returncode}:\n{err[-4000:]}")
-    ranks = [json.loads((tmp / f"moe_rank{r}.json").read_text()) for r in range(2)]
+    ranks = _gloo_ranks("--moe-worker", 2, tmp, "moe", DP_TIMEOUT_S)
     check(ranks[0]["loss"] == ranks[1]["loss"], "the two EP ranks' losses differ")
     for r, got in enumerate(ranks):
         check(got["experts_here"] == 2, f"gloo EP rank {r} holds {got['experts_here']} experts")
@@ -2815,13 +2835,13 @@ def _two_gloo_ep_ranks(tmp: Path) -> dict:
     return {"ranks": ranks}
 
 
-def moe_worker(rank: int, port: int, tmp: Path) -> int:
+def moe_worker(rank: int, world: int, port: int, tmp: Path) -> int:
     """One of phase train_moe's two gloo ranks on cuda:0, mesh (data 1,
     expert 2): one step of the MoE ModelCross at dropout 0 without
     augmentation from the seeded masters, its gradients (this rank's
     experts, the rest whole) against the one-process step's, and a second
     step's time."""
-    multihost_init(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda",
+    multihost_init(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda",
                    timeout_s=DP_TIMEOUT_S)
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3086,7 +3106,7 @@ def phase_split(tmp: Path) -> tuple[dict, dict, dict]:
     torch.cuda.empty_cache()
     (tmp / "split_refs.json").write_text(json.dumps(refs))
 
-    ranks = _two_split_ranks(tmp)
+    ranks = _gloo_ranks("--split-worker", 2, tmp, "split", SPLIT_TIMEOUT_S)
 
     # -- train_tp
     tp = [r["train_tp"] for r in ranks]
@@ -3169,25 +3189,6 @@ def phase_split(tmp: Path) -> tuple[dict, dict, dict]:
     return train_tp, serve_tp, train_pp
 
 
-def _two_split_ranks(tmp: Path) -> list[dict]:
-    port = _free_port()
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--split-worker",
-                               str(rank), str(port), str(tmp)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for rank in range(2)]
-    errs = []
-    try:
-        for p in procs:
-            errs.append(p.communicate(timeout=SPLIT_TIMEOUT_S)[1])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rank, (p, err) in enumerate(zip(procs, errs)):
-        check(p.returncode == 0, f"split rank {rank} exited {p.returncode}:\n{err[-4000:]}")
-    return [json.loads((tmp / f"split_rank{r}.json").read_text()) for r in range(2)]
-
-
 def _split_steps(t, cfg, img, labels, steps: int) -> dict:
     """``steps`` bf16 train steps of a Trainer over its mesh: losses, ms,
     launches per step and the attention kernels' (kernel, B, K), peak memory."""
@@ -3224,14 +3225,14 @@ def _split_cmp(t, img, labels, want_path: Path, want_loss: float, vit: bool) -> 
             "f32_grad_worst_gated": list(_gated_worst(errs)), "f32_grad_leaves": len(errs)}
 
 
-def split_worker(rank: int, port: int, tmp: Path) -> int:
+def split_worker(rank: int, world: int, port: int, tmp: Path) -> int:
     """One of the two gloo ranks of phases train_tp, serve_tp and train_pp on
     cuda:0: the live ModelCross over (model 2) — an f32 comparison step with
     dropout and augmentation against the one-process step, TP_STEPS bf16
     steps, then InferenceServer(mesh=) — and the 2-stream ModelVIT over
     (pipe 2): an f32 comparison step against the serial schedule, PP_STEPS
     bf16 steps."""
-    multihost_init(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda",
+    multihost_init(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda",
                    timeout_s=SPLIT_TIMEOUT_S)
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3299,6 +3300,341 @@ def split_worker(rank: int, port: int, tmp: Path) -> int:
         pp["stage_layers"] = list(unwrap(t.model).stage.local())
         out["train_pp"] = pp
         (tmp / f"split_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+# -- the composed axes: TP x EP and a synchronised BatchNorm over 'data' ---------
+
+COMPOSE_TIMEOUT_S = 900
+# the MoE ModelCross over (expert 2 x model 2): 4 ranks, each half the heads and
+# 2 of the 4 experts of every site
+TP_EP_MESH = {"data": 1, "expert": 2, "model": 2}
+# ViT3D at train_vit3d's width over (data 2): 4 volumes a rank; BN statistics
+# after BN_STEPS steps against one process at batch 8
+BN_STEPS = 2
+BN_STAT_REL_TOL = 1e-5
+# The stem's gradients are ill-conditioned in f32: each conv feeds a BatchNorm,
+# whose backward leaves a nearly zero-mean gradient, so the conv weights' and
+# the next BatchNorm's gradients are small sums of large terms, and the
+# one-process gradient itself moves up to ~1.4e-2 normalised on an H100 when
+# the batch's rows come in another order (PERF.md §6).  Each leaf is held to
+# BN_NOISE_FACTOR × its own reorder spread in this run, never looser than
+# ``KERNEL_TOL[float32]``.
+BN_NOISE_FACTOR = 3.0
+BN_REORDERS = ((7, 6, 5, 4, 3, 2, 1, 0), (4, 5, 6, 7, 0, 1, 2, 3))
+# the stem's conv biases each feed a BatchNorm: zero gradient in exact arithmetic
+BN_ZERO_GRAD = tuple(f"encoder.conv{i}.bias" for i in range(1, 5))
+
+
+def _tp_ep_cfg():
+    """The MoE ModelCross in f32 at dropout 0 without augmentation."""
+    cfg = _f32(moe_config(use_flash=True))
+    modify_config(cfg, {"dropout": 0.0, "img_aug": False})
+    return cfg
+
+
+def phase_train_tp_ep(tmp: Path) -> dict:
+    """Phase train_tp_ep: the MoE ModelCross over four gloo ranks sharing the
+    card, (expert 2 x model 2), against one-process references taken first:
+    one f32 step's loss and gradients, the balance term, the K1/K2 launches
+    at 8 heads, then the same weights through ``InferenceServer(mesh=)``
+    against a direct one-process forward."""
+    _fresh_peak()
+    cfg = _tp_ep_cfg()
+    model = ModelCross(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0),
+                       master_weights=True)
+    check(model.num_params() == MOE_PARAMS, f"{model.num_params()} params, expected {MOE_PARAMS}")
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    img, labels = _train_batch(cfg)
+    aux = {}
+    grads = _grads_after_step(cfg, state, img, labels, aux_out=aux)
+    torch.save({n: g.cpu() for n, g in grads.items()}, tmp / "tp_ep_grads.pt")
+    refs = {"loss": float(aux["loss"])}
+    del grads
+    (tmp / "tp_ep_serve").mkdir()
+    ckpt_path = tmp / "tp_ep_serve" / "epoch=00-val_loss=0.0000.npz"
+    save_pytree(ckpt_path, {"params": jax_params_from_state_dict(
+        {k: v.numpy() for k, v in state.items()}, cfg)})
+    save_config(tmp / "tp_ep_serve", cfg)
+    del state
+    server = InferenceServer(ckpt_path, img_types=MODALITIES, buckets=(1, 2, 4, 8),
+                             device="cuda")
+    direct = {}
+    for n, seed in SPLIT_SERVE:
+        vols = (np.random.default_rng(seed).normal(size=(n, 3, 1, *cfg.img_size)) * 100
+                ).astype(np.float32)
+        bucket = next(b for b in server.buckets if b >= n)
+        padded = np.concatenate([vols, np.zeros((bucket - n, *vols.shape[1:]), np.float32)])
+        direct[n] = _forward(server.model, padded)[:n].cpu().numpy().tolist()
+    refs["serve_direct"] = direct
+    del server
+    _fresh_peak()
+    (tmp / "tp_ep_refs.json").write_text(json.dumps(refs))
+
+    ranks = _gloo_ranks("--tp-ep-worker", 4, tmp, "tp_ep", COMPOSE_TIMEOUT_S)
+    H, mlp = cfg.hidden_dim, cfg.mlp_dim
+    for r, got in enumerate(ranks):
+        check(got["f32_loss_rel"] <= LOSS_REL_TOL,
+              f"TPxEP rank {r}: f32 loss {got['f32_loss']} vs one process {refs['loss']}")
+        check(got["f32_grad_worst_gated"][1] <= KERNEL_TOL[torch.float32],
+              f"TPxEP rank {r}: gradient of {got['f32_grad_worst_gated'][0]} "
+              f"{got['f32_grad_worst_gated'][1]:.3e} > {KERNEL_TOL[torch.float32]}")
+        check(abs(got["loss_minus_ce"] - got["balance_term"]) <= BALANCE_TOL,
+              f"TPxEP rank {r}: loss - CE {got['loss_minus_ce']:.9f} vs 0.01 x balance "
+              f"{got['balance_term']:.9f}")
+        check(got["launches"]["K1"] == 12 and got["launches"]["K2"] == 12,
+              f"TPxEP rank {r}: launches {got['launches']} (12 K1, 12 K2 expected)")
+        check(got["attention_shapes"] == [["flash_attention_qkv_bwd", 8, 8],
+                                          ["flash_attention_qkv_fwd", 8, 8]],
+              f"TPxEP rank {r}: attention at (kernel, B, K) {got['attention_shapes']}")
+        check(got["local_experts"] == [2, mlp, H] and got["local_to_qkv"] == [3 * H // 2, H],
+              f"TPxEP rank {r}: local experts {got['local_experts']}, qkv {got['local_to_qkv']}")
+        check(got["serve"]["launches"]["K1"] == 12 * len(SPLIT_SERVE),
+              f"TPxEP server rank {r}: K1 launched {got['serve']['launches']['K1']} times")
+    check(ranks[0]["serve"]["served_vs_direct_max_abs"] <= SERVE_TOL,
+          f"TPxEP server vs direct forward {ranks[0]['serve']['served_vs_direct_max_abs']:.3e}")
+    result = {"phase": "train_tp_ep", "model": "ModelCross", "params": MOE_PARAMS,
+              "moe_experts": 4, "mesh": TP_EP_MESH, "heads_per_rank": 8,
+              "experts_per_rank": 2, "batch": 8, "dtype": "float32",
+              "backend": "gloo, four ranks sharing one card (not a speed figure)",
+              "one_process_f32_loss": refs["loss"], "loss_rel_tol": LOSS_REL_TOL,
+              "grad_tol": KERNEL_TOL[torch.float32], "balance_tol": BALANCE_TOL,
+              "serve_tol": SERVE_TOL, "ranks": ranks}
+    emit(result)
+    return result
+
+
+def tp_ep_worker(rank: int, world: int, port: int, tmp: Path) -> int:
+    """One of phase train_tp_ep's four gloo ranks on cuda:0."""
+    multihost_init(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda",
+                   timeout_s=COMPOSE_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from cross_attention_vit_tpu_torch.parallel import set_expert_mesh
+
+        refs = json.loads((tmp / "tp_ep_refs.json").read_text())
+        mesh = make_mesh(1, model=2, expert=2)
+        cfg = _tp_ep_cfg()
+        img, labels = _train_batch(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t = Trainer(ModelCross, cfg, max_epochs=1, mesh=mesh, device="cuda").init_state()
+        seen: set = set()
+        _zero_counts()
+        with _attention_shapes(seen):
+            aux, ms = _timed_step(t.train_step, img, labels, cfg.lr,
+                                  torch.Generator().manual_seed(0))
+        out = {"rank": rank, "launches": _counts(), "attention_shapes": sorted(map(list, seen)),
+               "f32_loss": float(aux["loss"]), "f32_loss_rel": abs(float(aux["loss"])
+                                                                   / refs["loss"] - 1)}
+        got = _full_grads(t)
+        want = torch.load(tmp / "tp_ep_grads.pt", map_location="cuda")
+        errs = _leaf_errs(got, want)
+        del got, want
+        out["f32_grad_worst_gated"] = list(_gated_worst(errs))
+        out["f32_grad_leaves"] = len(errs)
+        model = unwrap(t.model)
+        site = model.transformer[0].blocks[0][0]
+        out["local_experts"] = list(site.ffn.fn.experts["fc1"].weight.shape)
+        out["local_to_qkv"] = list(site.attn.fn.to_qkv.weight.shape)
+        # the balance term of one train-mode forward over the mesh
+        set_expert_mesh(mesh)
+        try:
+            with torch.no_grad():
+                logits, loss = model(img, labels, train=True,
+                                     generator=torch.Generator(device="cuda").manual_seed(0))
+                ce = cross_entropy(logits, labels, cfg.label_smoothing)
+        finally:
+            set_expert_mesh(None)
+        out["loss_minus_ce"] = float(loss - ce)
+        out["balance_term"] = 0.01 * float(model.moe_aux["balance_loss"].mean())
+        _, ms2 = _timed_step(t.train_step, img, labels, cfg.lr, torch.Generator().manual_seed(1))
+        out["step_ms"] = [ms, ms2]
+        out["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del t, model, site
+        torch.cuda.empty_cache()
+        # the sharded server: rank 0 answers, the others run their part
+        server = InferenceServer(next((tmp / "tp_ep_serve").glob("epoch=*.npz")),
+                                 img_types=MODALITIES, buckets=(1, 2, 4, 8), mesh=mesh,
+                                 device="cuda")
+        sv, seen = {}, set()
+        _zero_counts()
+        with _attention_shapes(seen):
+            if rank == 0:
+                server.start()
+                try:
+                    diff = 0.0
+                    for n, seed in SPLIT_SERVE:
+                        vols = (np.random.default_rng(seed).normal(
+                            size=(n, 3, 1, *cfg.img_size)) * 100).astype(np.float32)
+                        ans = server.predict(vols)
+                        check(bool(np.isfinite(ans).all()) and ans.shape == (n, 2),
+                              f"served logits {ans.shape}")
+                        diff = max(diff, float(np.abs(ans - np.asarray(
+                            refs["serve_direct"][str(n)])).max()))
+                    sv["served_vs_direct_max_abs"] = diff
+                finally:
+                    server.stop()
+            else:
+                server.run_worker()
+        sv["launches"] = _counts()
+        sv["attention_shapes"] = sorted(map(list, seen))
+        out["serve"] = sv
+        del server
+        (tmp / f"tp_ep_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _bn_cfg():
+    """train_vit3d's configuration (``drivers/legacy.py``) at dropout 0."""
+    cfg = get_mgmt_config()
+    modify_config(cfg, dict(lr=1e-4, dropout=0.0, weight_decay=5e-4, label_smoothing=0.0,
+                            img_aug=False, num_modalities=1,
+                            optim_params={"factor": 0.5, "patience": 10, "type": "val_loss"}))
+    return cfg
+
+
+def _bn_batch(cfg, step: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Step ``step``'s 8 volumes, from a seed, on the card."""
+    rng = np.random.default_rng(31 + step)
+    img = torch.from_numpy((rng.normal(size=(8, 1, 1, *cfg.img_size)) * 100 + 300)
+                           .astype(np.float32)).cuda()
+    return img, torch.tensor([0, 1] * 4, device="cuda")
+
+
+def _bn_trainer(cfg, tmp: Path, mesh=None):
+    from cross_attention_vit_tpu_torch.models.vit3d import ViT3D
+
+    flat = ckpt.restore_flat(tmp / "bn_init.npz")
+    trees = {w: ckpt.unflatten({k[len(w) + 1:]: v for k, v in flat.items()
+                                if k.startswith(w + "/")}) for w in ("params", "state")}
+    return Trainer(ViT3D, cfg, max_epochs=1, stateful=True, schedule="plateau", mesh=mesh,
+                   device="cuda").init_state(trees["params"], trees["state"])
+
+
+def _bn_steps(t, rows, steps: int = BN_STEPS) -> dict:
+    """BN_STEPS stateful steps at learning rate 0 on ``rows`` of each step's
+    batch: the first step's whole gradients, the losses, ms, launches and
+    the BatchNorm buffers after each step.  At learning rate 0 the second
+    step's statistics come from the same parameters in both runs: Adam's
+    first update is ±lr wherever a gradient sits in its rounding noise, and
+    a batch split another way rounds otherwise."""
+    out = {"loss": [], "step_ms": [], "buffers": []}
+    _zero_counts()
+    for s in range(steps):
+        img, labels = (x[rows] for x in _bn_batch(t.config, s))
+        aux, ms = _timed_step(t.train_step, img, labels, 0.0, torch.Generator().manual_seed(s))
+        out["loss"].append(float(aux["loss"]))
+        out["step_ms"].append(ms)
+        if s == 0:
+            out["grads"] = _full_grads(t)
+        out["buffers"].append({n: b.detach().clone() for n, b in unwrap(t.model).named_buffers()
+                               if n.endswith(("running_mean", "running_var"))})
+    out["launches"] = _counts()
+    return out
+
+
+def phase_train_sync_bn(tmp: Path) -> dict:
+    """Phase train_sync_bn: ViT3D at train_vit3d's width (CNN3DEncoder 128/256/
+    512/1024, hidden 1024, 16 heads, 4 layers, 257 tokens, T1c) over two gloo
+    ranks sharing the card, (data 2), 4 volumes a rank, against one process
+    at batch 8: the running statistics after each of BN_STEPS steps (the
+    global batch's, ``ops.conv.batch_norm3d``), the first step's gradients,
+    both ranks' buffers bit-equal."""
+    from cross_attention_vit_tpu_torch.models.convert import jax_state_from_model
+    from cross_attention_vit_tpu_torch.models.vit3d import ViT3D
+
+    _fresh_peak()
+    cfg = _bn_cfg()
+    model = ViT3D(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    n_params = model.num_params()
+    save_pytree(tmp / "bn_init.npz", {"params": jax_params_from_model(model),
+                                      "state": jax_state_from_model(model)})
+    del model
+    one = _bn_steps(_bn_trainer(cfg, tmp), slice(None))
+    # the one-process gradient's own spread: the same step on the batch's rows
+    # in other orders
+    floor = {}
+    for order in BN_REORDERS:
+        rows = torch.tensor(order, device="cuda")
+        errs = _leaf_errs(_bn_steps(_bn_trainer(cfg, tmp), rows, steps=1)["grads"], one["grads"])
+        floor = {n: max(e, floor.get(n, 0.0)) for n, e in errs.items()}
+    torch.save({"grads": {n: g.cpu() for n, g in one["grads"].items()},
+                "buffers": [{n: b.cpu() for n, b in bufs.items()} for bufs in one["buffers"]],
+                "floor": floor}, tmp / "bn_ref.pt")
+    del one["grads"], one["buffers"]
+    _fresh_peak()
+    ranks = _gloo_ranks("--bn-worker", 2, tmp, "sync_bn", COMPOSE_TIMEOUT_S)
+    check(ranks[0]["buffers_sha256"] == ranks[1]["buffers_sha256"],
+          "the two ranks' BatchNorm buffers differ")
+    for r, got in enumerate(ranks):
+        for s, worst in enumerate(got["stat_rel_worst"]):
+            check(worst[1] <= BN_STAT_REL_TOL,
+                  f"SyncBN rank {r} step {s}: running statistic {worst[0]} rel "
+                  f"{worst[1]:.3e} > {BN_STAT_REL_TOL}")
+        name, err, bound = got["grad_worst_gated"]
+        check(err <= bound, f"SyncBN rank {r}: gradient of {name} {err:.3e} > {bound:.3e} "
+                            f"(max of {KERNEL_TOL[torch.float32]} and {BN_NOISE_FACTOR} x its "
+                            "reorder spread)")
+        check(got["sync_groups"] == 4, f"SyncBN rank {r}: {got['sync_groups']} BatchNorms synced")
+        check(all(np.isfinite(got["loss"])), f"SyncBN rank {r}: non-finite losses")
+    result = {"phase": "train_sync_bn", "model": "ViT3D", "params": n_params,
+              "stem": "CNN3DEncoder 128/256/512/1024", "tokens": 257, "mesh": {"data": 2},
+              "volumes_per_rank": 4, "steps": BN_STEPS, "lr": 0.0, "dtype": "float32",
+              "backend": "gloo, two ranks sharing one card (not a speed figure)",
+              "one_process": {"loss": one["loss"], "step_ms": one["step_ms"],
+                              "launches": one["launches"]},
+              "stat_rel_tol": BN_STAT_REL_TOL, "grad_tol": KERNEL_TOL[torch.float32],
+              "grad_noise_factor": BN_NOISE_FACTOR, "reorders": BN_REORDERS,
+              "reorder_spread_worst": list(max(floor.items(), key=lambda kv: kv[1])),
+              "ranks": ranks}
+    emit(result)
+    return result
+
+
+def bn_worker(rank: int, world: int, port: int, tmp: Path) -> int:
+    """One of phase train_sync_bn's two gloo ranks on cuda:0."""
+    multihost_init(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda",
+                   timeout_s=COMPOSE_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = _bn_cfg()
+        mesh = make_mesh(world)
+        torch.cuda.reset_peak_memory_stats()
+        t = _bn_trainer(cfg, tmp, mesh)
+        per = 8 // world
+        got = _bn_steps(t, slice(rank * per, (rank + 1) * per))
+        ref = torch.load(tmp / "bn_ref.pt", map_location="cuda")
+        rel = [{n: float((b - want[n]).abs().max() / want[n].abs().max())
+                for n, b in bufs.items()} for bufs, want in zip(got["buffers"], ref["buffers"])]
+        errs = _leaf_errs(got["grads"], ref["grads"])
+        bound = {n: max(KERNEL_TOL[torch.float32], BN_NOISE_FACTOR * f)
+                 for n, f in ref["floor"].items()}
+        gated = {n: e for n, e in errs.items() if n not in BN_ZERO_GRAD}
+        worst = max(gated, key=lambda n: gated[n] / bound[n])
+        digest = hashlib.sha256()
+        for bufs in got["buffers"]:
+            for n in sorted(bufs):
+                digest.update(bufs[n].cpu().numpy().tobytes())
+        out = {"rank": rank, "loss": got["loss"], "step_ms": got["step_ms"],
+               "launches": got["launches"], "stat_rel": rel,
+               "stat_rel_worst": [list(max(r.items(), key=lambda kv: kv[1])) for r in rel],
+               "grad_worst_gated": [worst, gated[worst], bound[worst]],
+               "grad_zero_in_exact_arithmetic": {n: errs[n] for n in BN_ZERO_GRAD},
+               # the leaves nearest their bounds: (name, error, reorder spread)
+               "grad_nearest_bound": [[n, gated[n], ref["floor"][n]] for n in sorted(
+                   gated, key=lambda n: -gated[n] / bound[n])[:6]],
+               "sync_groups": sum(getattr(m, "sync_group", None) is not None
+                                  for m in unwrap(t.model).modules()),
+               "buffers_sha256": digest.hexdigest(),
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+        (tmp / f"sync_bn_rank{rank}.json").write_text(json.dumps(out))
     finally:
         torch.distributed.destroy_process_group()
     return 0
@@ -3850,6 +4186,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             trained_tp, served_tp, trained_pp = phase_split(Path(tmp))
         with tempfile.TemporaryDirectory() as tmp:
+            trained_tp_ep = phase_train_tp_ep(Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            trained_sync_bn = phase_train_sync_bn(Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
             trained_cli = phase_train_cli(Path(tmp))
         with tempfile.TemporaryDirectory() as tmp:
             phase_legacy_vit3d(Path(tmp))
@@ -3885,6 +4225,11 @@ def main() -> int:
         for r, rank in enumerate(result["ranks"]):
             paths[f"{name}_rank{r}"] = rank["launches"]
     paths["train_pp_serial_f32"] = trained_pp["serial_vs_plain"]["launches"]
+    for r, rank in enumerate(trained_tp_ep["ranks"]):
+        paths[f"train_tp_ep_rank{r}"] = rank["launches"]
+        paths[f"serve_tp_ep_rank{r}"] = rank["serve"]["launches"]
+    for r, rank in enumerate(trained_sync_bn["ranks"]):
+        paths[f"train_sync_bn_rank{r}"] = rank["launches"]
     paths["legacy_rsna"] = legacy_rsna["launches"]
     paths["convert_cli_evaluate"] = converted["evaluate_launches"]
     launches = _launch_rows(paths)
@@ -4018,11 +4363,12 @@ def main() -> int:
     return 0
 
 
+# the worker processes of the phases over gloo ranks sharing the card
+WORKERS = {"--dp-worker": dp_worker, "--moe-worker": moe_worker, "--split-worker": split_worker,
+           "--tp-ep-worker": tp_ep_worker, "--bn-worker": bn_worker}
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--moe-worker"]:     # phase train_moe's gloo EP ranks
-        sys.exit(moe_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
-    if sys.argv[1:2] == ["--split-worker"]:   # phases train_tp, serve_tp, train_pp
-        sys.exit(split_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
-    if sys.argv[1:2] == ["--dp-worker"]:      # phase train_dp's gloo ranks
-        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])))
+    if sys.argv[1:2] and sys.argv[1] in WORKERS:     # rank world port tmp
+        sys.exit(WORKERS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                                      Path(sys.argv[5])))
     sys.exit(main())

@@ -26,17 +26,24 @@ carries ``moe_experts``) is served whole on one card, the router and experts
 in f32 (they are not quantized, as in JAX); a ``seq_parallel`` config runs
 the dense attention, having no seq mesh.
 
-Sharded serving (``mesh``, a ``parallel.make_mesh`` mesh with 'data' and
-'model' axes; JAX :121-134).  The JAX server is one process over many
+Sharded serving (``mesh``, any ``parallel.make_mesh`` mesh; JAX :121-134,
+which places the parameters by ``shard_params(params, mesh)`` and sets no
+ambient seq or pipeline mesh).  The JAX server is one process over many
 chips; the port's is one process per card, every rank building the same
 server.  Rank 0 runs HTTP and the dispatcher, and sends each padded bucket
 batch to every rank (a broadcast over the world); each rank runs its part,
 its data coordinate's rows on its 'model' slices of the heads and MLP
-columns (``parallel.shard_params``' TP split; int8 layers stay whole, as
-JAX's rules leave int8 leaves whole), and the logits come back to rank 0
-(``parallel.gather_rows``).  The other ranks run ``run_worker``, which
-returns when rank 0 stops.  Buckets that the data axis does not divide
-raise ValueError up front.
+columns (``parallel.tensor``'s split; int8 layers stay whole, as JAX's
+rules leave int8 leaves whole) and, for a MoE checkpoint over an 'expert'
+axis, on its E/P experts (``parallel.moe.shard_experts``; the forward runs
+over the expert mesh, routing the bucket's global batch as JAX's does), and
+the logits come back to rank 0 (``parallel.gather_rows``).  As in JAX, the
+'seq' and 'pipe' axes split nothing here: their ranks run their data
+coordinate's rows alike, with the dense attention and the serial schedule
+(JAX's server fails on a stacked ModelVIT over 'pipe' × 'model', whose TP
+spec it does not shift past the depth axis; the port serves it).  The other
+ranks run ``run_worker``, which returns when rank 0 stops.  Buckets that
+the data axis does not divide raise ValueError up front.
 
 Endpoints:
   GET  /healthz           — model family, param count, buckets, config dims
@@ -77,6 +84,7 @@ from ..models.model_cross import ModelCross
 from ..models.model_vit import ModelVIT
 from ..models.quantize import count_quantized, quantize_for_inference
 from ..parallel.mesh import axis_size, make_mesh, multihost_init
+from ..parallel.moe import active_expert_mesh, set_expert_mesh, shard_experts
 from ..parallel.sharding import gather_rows, shard_batch
 from ..parallel.tensor import shard_tensor_parallel
 from ..train.checkpoint import load_config_for, restore_flat
@@ -129,12 +137,6 @@ class InferenceServer:
             if not isinstance(mesh, DeviceMesh):
                 raise TypeError(f"mesh must be a parallel.make_mesh DeviceMesh, got "
                                 f"{type(mesh).__name__}")
-            others = [a for a in mesh.mesh_dim_names if a not in ("data", "model")]
-            if others:
-                raise NotImplementedError(
-                    f"sharded serving splits the batch over 'data' and the heads over 'model'; "
-                    f"a mesh with {others} (ROADMAP Queue 1, item 13: parallel combinations "
-                    "not composed yet)")
             data = axis_size(mesh, "data")
             bad = [b for b in buckets if b % data]
             if bad:
@@ -175,6 +177,7 @@ class InferenceServer:
         # the leaves of its rewritten tree), before any split
         self.n_params = sum(t.numel() for t in self.model.state_dict().values())
         if mesh is not None:
+            shard_experts(self.model, mesh)
             shard_tensor_parallel(self.model, mesh)
             # the batches travel where the group's backend can move them
             self._wire = torch.device("cpu") if dist.get_backend() == "gloo" else self.device
@@ -420,9 +423,15 @@ class InferenceServer:
         """This rank's data coordinate's rows of the batch through its part
         of the model; every coordinate's logits, in data order."""
         rows, = shard_batch((batch,), self.mesh)
-        with torch.inference_mode():
-            logits = self.model(rows.to(self.device))
-            return gather_rows(logits.float(), self.mesh).cpu().numpy()
+        before = active_expert_mesh()
+        if axis_size(self.mesh, "expert") > 1:      # the MoE sites' experts are split
+            set_expert_mesh(self.mesh)
+        try:
+            with torch.inference_mode():
+                logits = self.model(rows.to(self.device))
+                return gather_rows(logits.float(), self.mesh).cpu().numpy()
+        finally:
+            set_expert_mesh(before)
 
     # -- introspection -----------------------------------------------------
     def health(self) -> dict:
@@ -543,7 +552,8 @@ def main(argv=None):
                         "int8+attn also quantizes the self-attention qkv/out projections "
                         "(the attention stays float, on its kernels)")
     p.add_argument("--mesh", default="",
-                   help="e.g. 'data=2,model=2' for sharded serving, one process per device "
+                   help="e.g. 'data=2,model=2' or 'data=1,expert=2,model=2' for sharded "
+                        "serving (axes pipe, data, expert, seq, model), one process per device "
                         "under torchrun (buckets must divide the data axis); rank 0 serves "
                         "HTTP")
     p.add_argument("--device", default="cuda",
@@ -554,7 +564,8 @@ def main(argv=None):
     if args.mesh:
         spec = {k: int(v) for k, v in (kv.split("=") for kv in args.mesh.split(","))}
         multihost_init(device=args.device)     # torchrun's environment
-        mesh = make_mesh(spec.get("data", -1), spec.get("model", 1))
+        mesh = make_mesh(spec.get("data", -1), spec.get("model", 1), pipe=spec.get("pipe", 1),
+                         seq=spec.get("seq", 1), expert=spec.get("expert", 1))
     server = InferenceServer(args.checkpoint, args.model, img_types=tuple(args.img_types),
                              data_folder=args.data, buckets=args.buckets,
                              max_wait_ms=args.max_wait_ms, quantize=args.quantize,

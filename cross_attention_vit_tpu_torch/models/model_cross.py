@@ -48,7 +48,7 @@ forward leaves the sites' balance losses and dispatch fractions in
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import torch
 from torch import nn
@@ -117,13 +117,15 @@ def _opts(config: Config) -> _Opts:
                  moe_capacity=float(config.get("moe_capacity_factor", 1.25)))
 
 
-@dataclass(frozen=True)
 class _Run:
     """Per-call training state threaded through the blocks; the MoE sites
-    append their aux dicts to ``moe``."""
-    train: bool = False
-    generator: torch.Generator | None = None
-    moe: list = field(default_factory=list)
+    append their aux dicts to ``moe``.  A plain class, not a dataclass: an
+    FSDP2 unit's forward hook rebuilds the dataclasses and lists among its
+    arguments (``_apply_to_tensors``), and a site would append to a copy."""
+    __slots__ = ("train", "generator", "moe")
+
+    def __init__(self, train: bool = False, generator: torch.Generator | None = None):
+        self.train, self.generator, self.moe = train, generator, []
 
 
 def _keep_moe_aux(model: nn.Module, run: _Run) -> None:

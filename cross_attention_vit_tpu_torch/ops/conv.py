@@ -30,12 +30,20 @@ same products run through ``F.conv3d`` / ``F.conv_transpose3d`` and the
 same GEMMs.
 
 Over a data-parallel mesh JAX normalises over the global batch (SyncBatchNorm
-semantics, JAX :13-16); the port's stateful Trainer refuses a mesh.
+semantics, JAX :13-16, where GSPMD inserts the cross-device mean).  The port
+does the same where ``parallel.shard_params`` gave a BatchNorm layer its data
+line's group (``sync_group``): in train mode each rank's per-channel count,
+mean and sum of squared deviations (f32) cross one all-reduce and merge into
+the global batch's mean and biased variance; the running variance takes the
+unbiased estimate at the global count; the backward all-reduces the two
+per-channel gradient sums, as ``nn.SyncBatchNorm`` does.  Without a group
+the path is ``F.batch_norm``'s.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -158,12 +166,69 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the group's global batch: returns y and
+    the global (mean, biased variance, count) of each channel."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.float()
+        n = x.numel() // c
+        mean = xf.mean(dim=dims)
+        m2 = (xf - mean.view(1, c, *[1] * (x.dim() - 2))).square().sum(dim=dims)
+        # every rank's (count, mean, M2) in its own row, one all-reduce
+        rows = xf.new_zeros((dist.get_world_size(group), 1 + 2 * c))
+        rows[dist.get_rank(group)] = torch.cat([mean.new_tensor([float(n)]), mean, m2])
+        dist.all_reduce(rows, group=group)
+        counts, means, m2s = rows[:, :1], rows[:, 1:1 + c], rows[:, 1 + c:]
+        total = counts.sum()
+        g_mean = (counts * means).sum(0) / total
+        g_var = (m2s.sum(0) + (counts * (means - g_mean).square()).sum(0)) / total
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        invstd = torch.rsqrt(g_var + eps)
+        xhat = (xf - g_mean.view(shape)) * invstd.view(shape)
+        y = xhat * weight.float().view(shape) + bias.float().view(shape)
+        ctx.save_for_backward(xhat, invstd, weight)
+        ctx.group, ctx.total = group, total
+        ctx.mark_non_differentiable(g_mean, g_var)
+        return y.to(x.dtype), g_mean, g_var, total
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var, _total):
+        xhat, invstd, weight = ctx.saved_tensors
+        c = xhat.shape[1]
+        dims = [0] + list(range(2, xhat.dim()))
+        shape = (1, c) + (1,) * (xhat.dim() - 2)
+        dyf = dy.float()
+        sums = torch.stack([dyf.sum(dim=dims), (dyf * xhat).sum(dim=dims)])
+        d_bias, d_weight = sums[0].clone(), sums[1].clone()
+        dist.all_reduce(sums, group=ctx.group)
+        mean_dy, mean_dy_xhat = (sums / ctx.total).unbind(0)
+        dx = (weight.float() * invstd).view(shape) * (
+            dyf - mean_dy.view(shape) - xhat * mean_dy_xhat.view(shape))
+        return (dx.to(dy.dtype), d_weight.to(weight.dtype), d_bias.to(weight.dtype),
+                None, None)
+
+
 def batch_norm3d(norm: nn.BatchNorm3d, x: torch.Tensor, train: bool) -> torch.Tensor:
     """BatchNorm3d with ``norm``'s affine parameters and running statistics:
     in train mode the batch statistics normalise and the running mean and
     variance move by ``norm.momentum`` (0.1) in place, the variance by its
-    unbiased estimate; in eval mode the running statistics normalise."""
+    unbiased estimate; in eval mode the running statistics normalise.  With
+    ``norm.sync_group`` (set by ``parallel.shard_params`` over a data axis)
+    the train-mode statistics are the group's global batch's."""
     if train:
         norm.num_batches_tracked.add_(1)
+    group = getattr(norm, "sync_group", None)
+    if train and group is not None:
+        y, mean, var, total = _SyncBatchNorm.apply(x, norm.weight, norm.bias, norm.eps, group)
+        with torch.no_grad():
+            m = norm.momentum
+            unbiased = var * (total / torch.clamp(total - 1, min=1))
+            norm.running_mean.mul_(1 - m).add_(mean.to(norm.running_mean.dtype), alpha=m)
+            norm.running_var.mul_(1 - m).add_(unbiased.to(norm.running_var.dtype), alpha=m)
+        return y
     return F.batch_norm(x, norm.running_mean, norm.running_var, norm.weight, norm.bias,
                         train, norm.momentum, norm.eps)

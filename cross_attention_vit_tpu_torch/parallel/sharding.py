@@ -8,35 +8,39 @@ descriptor the loader and the ``Trainer`` read, not a placement:
 ``Sharding(mesh, ("data", None, ...))``, with ``replicated(mesh)`` its
 unsplit twin.
 
-Parameters.  ``shard_params(model, mesh)`` first splits the MoE experts
-over the 'expert' axis (``parallel.moe.shard_experts``: JAX's ``experts/*``
-rule, the router replicated), the trunk's layers over 'pipe'
-(``parallel.pipeline``) and the head-aligned Megatron regions over 'model'
-(``parallel.tensor``, by ``tp_dim``: JAX's ``_spec_for`` on the port's
-names and layout), then wraps the model in
-``DistributedDataParallel`` over the data axis's group: every rank holds
-every other parameter and the gradients are averaged across data
-coordinates by all-reduce, the DDP step JAX's GSPMD derives from a
-batch-sharded input.  Gradients of what the 'expert', 'seq' and 'model'
-lines share are whole on each rank of a line already (the layers that split
-the work sum them), so DDP never reduces over those axes.
+Parameters.  ``shard_params(model, mesh)`` composes the axes in JAX's
+order of annotation: the MoE experts over 'expert'
+(``parallel.moe.shard_experts``: JAX's ``experts/*`` rule, the router
+replicated), the trunk's layers over 'pipe' (``parallel.pipeline``), the
+head-aligned Megatron regions over 'model' (``parallel.tensor``, by
+``tp_dim``: JAX's ``_spec_for`` on the port's names and layout), then the
+data axis: a ``DistributedDataParallel`` over this rank's data line, whose
+all-reduce averages the gradients across data coordinates (the DDP step
+JAX's GSPMD derives from a batch-sharded input).  Gradients of what the
+'expert', 'seq' and 'model' lines share are whole on each rank of a line
+already (the layers that split the work sum them), so nothing reduces over
+those axes.  A model over a 'pipe' axis, or one with BatchNorm layers,
+stays unwrapped and ``sync_replicated_grads`` averages its gradients in one
+all-reduce; its BatchNorm layers normalise over the data line's global
+batch (JAX's SyncBatchNorm semantics, ``ops.conv.batch_norm3d``).
 
-``shard_params(model, mesh, fsdp=True)`` is FSDP2's ``fully_shard`` over
-the data axis on every block and at the root under JAX's rule
-(``_with_fsdp``): a parameter of at least ``FSDP_MIN_SIZE`` elements with an
-axis of its JAX layout that the rule may take and that the data size divides
-is ``Shard(d)`` on the largest dim of the port's layout that the data size
-divides (never an expert stack's E axis, which JAX leaves to 'expert');
-every other parameter stays replicated (FSDP2's ``ignored_params``,
-its gradient averaged by one explicit all-reduce,
-``sync_replicated_grads``).  Params, gradients and Adam moments of the
-sharded set then live 1/W on each rank, gathered a block at a time for the
-forward and backward and reduce-scattered after it.
+``shard_params(model, mesh, fsdp=True)`` ends instead with FSDP2's
+``fully_shard`` over the data line, on every block and at the root, under
+JAX's rule (``_with_fsdp``) read on the parameter's whole JAX layout
+(``fsdp_dim``): before the other splits, on the stacked (depth, ...) leaf of
+a trunk over 'pipe', and never on an axis JAX gives 'model', 'expert' or
+'pipe', so FSDP shards the same axis whatever the other axes' sizes, and
+that axis is never one a TP slice or an expert split cut.  A parameter
+without such an axis stays replicated (FSDP2's ``ignored_params``, its
+gradient averaged by ``sync_replicated_grads``).  Params, gradients and Adam
+moments of the sharded set then live 1/W on each rank of the data line,
+gathered a block at a time for the forward and backward (inside which the
+'model' regions' all-reduces run) and reduce-scattered after it.
 
 Which axes of the JAX layout the rule may take depends on JAX's TP table
 (``_spec_for``): the axes it gives the 'model' mesh axis are not free even
 when that axis has size 1.  ``_role`` names each parameter's part in that
-table; ``_free_axes`` (FSDP) and ``tp_dim`` (TP) read it.  At a world of
+table; ``_jax_axes`` (FSDP) and ``tp_dim`` (TP) read it.  At a world of
 one JAX shards nothing (its rule returns early for ``data_size <= 1``); the
 port applies the rule all the same, so a world of one runs FSDP2's gathers
 and the sharded Adam on shards that are whole tensors.
@@ -147,25 +151,32 @@ def _role(name: str) -> str | None:
     return _fc_role(parts)
 
 
-def _free_axes(name: str, shape: tuple[int, ...], heads: int) -> list[int]:
-    """The sizes of the axes of the parameter's JAX layout that JAX's FSDP
-    rule may shard: all of them, less those ``_spec_for`` gives 'model' or
-    'expert'."""
+def _jax_axes(name: str, shape: tuple[int, ...], heads: int) -> list[tuple[int, int, bool]]:
+    """The axes of the parameter's JAX layout, in JAX's order, from the
+    port's whole (unsplit) shape: (size, the port dim that holds the axis,
+    taken), taken where ``_spec_for`` gives the axis 'model' or 'expert'
+    (whatever those axes' sizes).  A JAX axis that is part of a port dim
+    (the fused qkv's 3 and D, a head's D) names the port dim it is part of."""
     role, weight = _role(name), name.endswith(".weight")
-    if role == "experts":                     # (E, ...) ↔ (E, ...), E on 'expert'
-        return list(shape[1:])
-    if role == "qkv":                         # (3H, H) ↔ (H, 3, K, D), K reserved
-        return [shape[1], 3, shape[1] // heads]
+    if role == "experts":                     # (E, a, b) ↔ (E, b, a); bias (E, m)
+        if weight:
+            return [(shape[0], 0, True), (shape[2], 2, False), (shape[1], 1, False)]
+        return [(shape[0], 0, True), (shape[1], 1, False)]
+    if role == "qkv":                         # (3H, H) ↔ (H, 3, K, D)
+        return [(shape[1], 1, False), (3, 0, False), (heads, 0, True),
+                (shape[1] // heads, 0, False)]
     if role == "heads_in":                    # (H, H) ↔ (H, K, D); bias (H,) ↔ (K, D)
-        d = shape[0] // heads
-        return [shape[1], d] if weight else [d]
-    if role == "heads_out":                   # (H, H) ↔ (K, D, H), K reserved
-        return [shape[1] // heads, shape[0]]
-    if role == "fc1":                         # (mlp, H) ↔ (H, mlp), mlp reserved
-        return [shape[1]] if weight else []
-    if role == "fc2":                         # (out, mlp) ↔ (mlp, out), mlp reserved
-        return [shape[0]] if weight else list(shape)
-    return list(shape)
+        head = [(heads, 0, True), (shape[0] // heads, 0, False)]
+        return [(shape[1], 1, False)] + head if weight else head
+    if role == "heads_out":                   # (H, H) ↔ (K, D, H)
+        return [(heads, 1, True), (shape[1] // heads, 1, False), (shape[0], 0, False)]
+    if role == "fc1":                         # (mlp, H) ↔ (H, mlp); bias (mlp,)
+        return [(shape[1], 1, False), (shape[0], 0, True)] if weight else [(shape[0], 0, True)]
+    if role == "fc2":                         # (out, mlp) ↔ (mlp, out); bias (out,)
+        return [(shape[1], 1, True), (shape[0], 0, False)] if weight else [(shape[0], 0, False)]
+    if weight and len(shape) == 2:            # a Linear's (out, in) ↔ kernel (in, out)
+        return [(shape[1], 1, False), (shape[0], 0, False)]
+    return [(d, i, False) for i, d in enumerate(shape)]
 
 
 def tp_dim(name: str, shape: tuple[int, ...]) -> tuple[int, int] | None:
@@ -184,68 +195,101 @@ def tp_dim(name: str, shape: tuple[int, ...]) -> tuple[int, int] | None:
     return None
 
 
-def fsdp_dim(name: str, shape: tuple[int, ...], heads: int, data_size: int) -> int | None:
-    """The dim of the port's parameter ``name`` that FSDP shards over a data
-    axis of ``data_size``, or None to keep it replicated."""
-    if math.prod(shape) < FSDP_MIN_SIZE:
+def fsdp_dim(name: str, shape: tuple[int, ...], heads: int, data_size: int,
+             depth: int = 1) -> int | None:
+    """The dim of the port's parameter ``name`` (``shape`` its whole shape,
+    before any split over 'model', 'expert' or 'pipe') that FSDP shards over
+    a data axis of ``data_size``, or None to keep it replicated: JAX's
+    ``_with_fsdp`` on the parameter's JAX layout — at least
+    ``FSDP_MIN_SIZE`` elements, then the largest free axis that the data
+    size divides (the first of equals, in JAX's axis order), mapped to the
+    port dim holding it.  ``depth`` > 1: the parameter is one layer of a
+    trunk JAX stacks on a leading depth axis (a 'pipe' axis): the min-size
+    test reads the stacked leaf, and the depth axis is 'pipe''s."""
+    if depth * math.prod(shape) < FSDP_MIN_SIZE:
         return None
-    if not any(d > 1 and d % data_size == 0 for d in _free_axes(name, shape, heads)):
-        return None
-    first = 1 if _is_expert_stack(name) else 0
-    dims = [i for i, d in enumerate(shape) if i >= first and d > 1 and d % data_size == 0]
-    return max(dims, key=lambda i: shape[i], default=None)
+    best = None
+    for size, dim, taken in _jax_axes(name, shape, heads):
+        if not taken and size > 1 and size % data_size == 0:
+            if best is None or size > best[0]:
+                best = (size, dim)
+    return None if best is None else best[1]
 
 
 # -- placing the model --------------------------------------------------------------
 
-_COMBINED = "(ROADMAP Queue 1, item 13: parallel combinations not composed yet)"
-
-
-def _refuse_combinations(model: nn.Module, mesh: DeviceMesh, fsdp: bool) -> None:
-    """Raise for the mesh and FSDP combinations the port does not compose."""
-    size = {a: axis_size(mesh, a) for a in ("model", "pipe", "seq", "expert")}
-    if fsdp and size["expert"] > 1 and moe_sites(model):
+def _refuse_combinations(mesh: DeviceMesh) -> None:
+    """Raise for the one mesh the port does not compose because the JAX
+    package does not run it either: a 'pipe' axis with a 'seq' axis.  (A
+    pipelined model with MoE experts is refused where JAX refuses it, when
+    the model is built.)"""
+    if axis_size(mesh, "pipe") > 1 and axis_size(mesh, "seq") > 1:
         raise NotImplementedError(
-            "FSDP together with expert parallelism is not ported yet: run the experts over "
-            "'expert' under DDP, or FSDP without an 'expert' axis (ROADMAP Queue 1, item 13)")
-    for axis, name in (("model", "tensor parallelism"), ("pipe", "pipeline parallelism")):
-        if size[axis] <= 1:
-            continue
-        others = [what for on, what in ((fsdp, "FSDP"), (size["seq"] > 1, "a 'seq' axis"),
-                                        (size["expert"] > 1, "an 'expert' axis")) if on]
-        if others:
-            raise NotImplementedError(f"{name} (a {axis!r} axis of {size[axis]}) together "
-                                      f"with {' and '.join(others)} {_COMBINED}")
+            f"pipeline parallelism (a 'pipe' axis of {axis_size(mesh, 'pipe')}) together with "
+            f"a 'seq' axis of {axis_size(mesh, 'seq')}: the JAX package does not run it either "
+            "(its ring's shard_map nested inside the pipeline's raises ValueError: the context "
+            "mesh should match the mesh passed to shard_map) (ROADMAP Queue 1, item 13)")
+
+
+def _fsdp_dims(model: nn.Module, mesh: DeviceMesh) -> dict[str, int | None]:
+    """``fsdp_dim`` of every parameter by name, on the whole model (before
+    the splits): a trunk layer of a model over a 'pipe' axis is read as
+    JAX's stacked leaf."""
+    n, heads = axis_size(mesh, "data"), model.config.num_heads
+    trunk = getattr(model, "PIPELINE_TRUNK", None)
+    depth = len(model.get_submodule(trunk)) if trunk and axis_size(mesh, "pipe") > 1 else 1
+    return {name: fsdp_dim(name, tuple(p.shape), heads, n,
+                           depth if trunk and name.startswith(trunk + ".") else 1)
+            for name, p in model.named_parameters()}
+
+
+def _batch_norms(model: nn.Module) -> list[nn.Module]:
+    return [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+
+
+def _averaged_by_hand(model: nn.Module, mesh: DeviceMesh) -> bool:
+    """A model ``shard_params`` leaves unwrapped: one over a 'pipe' axis
+    (its layers' gradients accumulate inside the pipeline's backward, which
+    DDP's hooks do not allow) or one with BatchNorm layers (their train
+    forward reads the data group, and a truncated stem leaves parameters
+    unreached); ``sync_replicated_grads`` averages their gradients."""
+    return axis_size(mesh, "pipe") > 1 or bool(_batch_norms(model))
 
 
 def shard_params(model: nn.Module, mesh: DeviceMesh, fsdp: bool = False) -> nn.Module:
     """The model over ``mesh``: its experts split over the 'expert' axis,
     its trunk's layers over 'pipe' (``parallel.pipeline.shard_stages``), its
-    regions over 'model' (``parallel.tensor.shard_tensor_parallel``), then a
-    ``DistributedDataParallel`` around it over the data axis, or (``fsdp``)
-    the model itself with its blocks and root under ``fully_shard`` over the
-    data axis by the rule above.  A model over a 'pipe' axis stays bare: its
-    gradients are averaged over 'data' by ``sync_replicated_grads``.  Build
-    the optimizer afterwards: all of them replace parameters.  TP and PP
-    together with FSDP, SP or EP raise (``_refuse_combinations``)."""
-    _refuse_combinations(model, mesh, fsdp)
+    regions over 'model' (``parallel.tensor.shard_tensor_parallel``), then
+    either (``fsdp``) its blocks and root under ``fully_shard`` over this
+    rank's line of the data axis by JAX's rule, read on the whole JAX layout
+    (``fsdp_dim``), or a ``DistributedDataParallel`` around it over that
+    line.  A model over a 'pipe' axis, or with BatchNorm layers, stays
+    unwrapped (``_averaged_by_hand``); its BatchNorm layers normalise over
+    the data line's global batch (``ops.conv.batch_norm3d``).  Build the
+    optimizer afterwards: all of them replace parameters.  A 'pipe' axis
+    with a 'seq' axis raises (``_refuse_combinations``)."""
+    _refuse_combinations(mesh)
+    dims = _fsdp_dims(model, mesh) if fsdp else {}
     shard_experts(model, mesh)
     shard_stages(model, mesh)
     shard_tensor_parallel(model, mesh)
     data = axis_mesh(mesh, "data")
-    if axis_size(mesh, "pipe") > 1:
-        return model
+    if data.size() > 1:
+        for norm in _batch_norms(model):
+            norm.sync_group = data.get_group()
     if not fsdp:
+        if _averaged_by_hand(model, mesh):
+            return model
         return DistributedDataParallel(model, process_group=data.get_group())
     device_type = next(model.parameters()).device.type
     if device_type != mesh.device_type:
         raise ValueError(f"FSDP over a {mesh.device_type!r} mesh cannot shard a model on "
                          f"{device_type!r}: build the mesh with devices={device_type!r}")
-    n = data.size()
-    dims = {p: fsdp_dim(name, tuple(p.shape), model.config.num_heads, n)
-            for name, p in model.named_parameters()}
-    ignored = {p for p, d in dims.items() if d is None}
-    kw = dict(mesh=data, shard_placement_fn=lambda p: Shard(dims[p]), ignored_params=ignored)
+    params = dict(model.named_parameters())
+    placement = {p: dims[name] for name, p in params.items()}
+    ignored = {p for p, d in placement.items() if d is None}
+    kw = dict(mesh=data, shard_placement_fn=lambda p: Shard(placement[p]),
+              ignored_params=ignored)
     # modules FSDP gathers one at a time: each is called as a module
     for block in (model.blocks() if hasattr(model, "blocks") else ()):
         fully_shard(block, **kw)
@@ -256,9 +300,10 @@ def shard_params(model: nn.Module, mesh: DeviceMesh, fsdp: bool = False) -> nn.M
 def whole_tensors(model: nn.Module, tensors: dict) -> dict:
     """``tensors`` (by parameter name, this rank's parts) made whole: split
     experts, TP slices and the other stages' layers gathered (a collective:
-    every rank calls it, in the same order).  FSDP shards are DTensors,
-    whole through ``full_tensor``."""
+    every rank calls it, in the same order), FSDP shards (DTensors) first,
+    through ``full_tensor``."""
     model = unwrap(model)
+    tensors = {name: full_tensor(t) for name, t in tensors.items()}
     return gather_stages(model, gather_tp(model, gather_experts(model, tensors)))
 
 
@@ -295,12 +340,12 @@ def no_sync(model: nn.Module, skip: bool):
 def sync_replicated_grads(model: nn.Module, mesh: DeviceMesh) -> None:
     """Average across data coordinates, in one all-reduce, the gradients no
     wrapper reduces: an FSDP model's replicated parameters' (FSDP reduces
-    only those it shards) and every gradient of a model over a 'pipe' axis
-    (not wrapped in DDP, ``shard_params``)."""
+    only those it shards) and every gradient of a model ``shard_params``
+    left unwrapped (``_averaged_by_hand``)."""
     if isinstance(model, FSDPModule):
         grads = [p.grad for p in model.parameters()
                  if not isinstance(p, DTensor) and p.grad is not None]
-    elif isinstance(model, DistributedDataParallel) or axis_size(mesh, "pipe") <= 1:
+    elif isinstance(model, DistributedDataParallel) or not _averaged_by_hand(model, mesh):
         return
     else:
         grads = [p.grad for p in model.parameters() if p.grad is not None]

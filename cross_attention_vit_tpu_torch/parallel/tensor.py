@@ -146,6 +146,10 @@ def shard_tensor_parallel(model: nn.Module, mesh) -> nn.Module:
     size = axis_size(mesh, "model")
     if size <= 1 or getattr(model, "tp_layout", None) is not None:
         return model
+    if not hasattr(model, "tp_regions"):
+        raise NotImplementedError(
+            f"{type(model).__name__} has no tensor-parallel regions in the port: a 'model' "
+            "axis splits ModelCross and ModelVIT (ROADMAP item 14)")
     cfg = model.config
     for what, n in (("num_heads", cfg.num_heads), ("mlp_dim", cfg.mlp_dim)):
         if n % size:

@@ -57,9 +57,10 @@ forward moves in place from the pre-step parameters while the gradients
 reach the parameters only, and which the eval forward reads.  The
 checkpoint carries them as ``model_state/...`` in JAX's state layout beside
 the plateau state, and resume restores them.  ``grad_accum`` > 1 is refused
-for them, as in JAX, and so is a mesh: JAX normalises over the global batch
-there (SyncBatchNorm semantics, ``ops/conv.py:13-16``), which the port has
-not ported (ROADMAP item 14's remainder).
+for them, as in JAX.  Over a mesh their BatchNorm layers normalise over the
+global batch, as JAX's do (SyncBatchNorm semantics, ``ops.conv.batch_norm3d``):
+the running statistics then move alike on every rank, stay replicated and
+are written whole.
 """
 
 from __future__ import annotations
@@ -229,13 +230,13 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
 
 
 def make_stateful_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
-                             augment_cfg: AugmentConfig = AugmentConfig()):
+                             augment_cfg: AugmentConfig = AugmentConfig(), mesh=None):
     """The BatchNorm families' train step (JAX :234-274): ``make_train_step``
     at one microbatch.  The train-mode forward moves the running statistics
-    in place from the pre-step parameters; the backward and Adam touch the
-    parameters only, every one of them (an unreached one with a zero
-    gradient, as JAX's)."""
-    return make_train_step(model, optimizer, config, augment_cfg=augment_cfg,
+    in place from the pre-step parameters (over ``mesh``, those of the
+    global batch); the backward and Adam touch the parameters only, every
+    one of them (an unreached one with a zero gradient, as JAX's)."""
+    return make_train_step(model, optimizer, config, augment_cfg=augment_cfg, mesh=mesh,
                            zero_unreached=True)
 
 
@@ -335,10 +336,6 @@ class Trainer:
             raise ValueError("fsdp=True requires a mesh")
         if grad_accum > 1 and stateful:
             raise ValueError("grad_accum > 1 is not supported for stateful (BatchNorm) models")
-        if stateful and mesh is not None:
-            raise NotImplementedError(
-                "stateful (BatchNorm) models over a mesh are not ported: JAX normalises over "
-                "the global batch there (SyncBatchNorm semantics); ROADMAP item 14's remainder")
         self.stateful = bool(stateful)
         self.model_cls = model_cls
         self.config = config
@@ -414,8 +411,9 @@ class Trainer:
             self.model = shard_params(self.model, self.mesh, fsdp=self.fsdp)
         self.optimizer = Adam(self.model.parameters(), weight_decay=self.config.weight_decay)
         if self.stateful:
-            self.train_step = make_stateful_train_step(self.model, self.optimizer, self.config)
-            self.eval_step = make_stateful_eval_step(self.model, self.config)
+            self.train_step = make_stateful_train_step(self.model, self.optimizer, self.config,
+                                                       mesh=self.mesh)
+            self.eval_step = make_stateful_eval_step(self.model, self.config, mesh=self.mesh)
             return self
         self.train_step = make_train_step(self.model, self.optimizer, self.config,
                                           grad_accum=self.grad_accum,

@@ -2,8 +2,8 @@
 package's: a ViT3D ``Trainer.fit`` under the plateau schedule from the same
 weights, BatchNorm state, batches and sampler draws gives JAX's history
 within 1e-4; checkpoints carry ``model_state`` and ``plateau`` in JAX's
-layout, so each package resumes the other's; ``grad_accum`` > 1 and a mesh
-are refused for a stateful model."""
+layout, so each package resumes the other's; ``grad_accum`` > 1 is refused
+for a stateful model, and a mesh of one rank gives the no-mesh step."""
 
 import socket
 
@@ -181,11 +181,19 @@ def test_stateful_refusals():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
+    # a mesh is no refusal: over a world of one the step is the no-mesh step
+    # bit for bit (the synchronised BatchNorm over two ranks:
+    # test_torch_sync_bn.py)
+    ds = _data()
+    img, lab = torch.from_numpy(ds.imgs[:4]), torch.from_numpy(ds.labels[:4]).long()
+    one = _port(cfg, *_setup()[2:], max_epochs=1)
+    one.train_step(img, lab, cfg.lr, torch.Generator().manual_seed(0))
     multihost_init(f"127.0.0.1:{port}", 1, 0, device="cpu", timeout_s=30)
     try:
-        with pytest.raises(NotImplementedError, match="item 14"):
-            ttrainer.Trainer(ViT3D, cfg, max_epochs=1, stateful=True, mesh=make_mesh(),
-                             device="cpu")
+        t = _port(cfg, *_setup()[2:], max_epochs=1, mesh=make_mesh())
+        t.train_step(img, lab, cfg.lr, torch.Generator().manual_seed(0))
+        for (k, a), b in zip(t.model.state_dict().items(), one.model.state_dict().values()):
+            assert torch.equal(a, b), k
     finally:
         torch.distributed.destroy_process_group()
 

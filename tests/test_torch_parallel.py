@@ -366,9 +366,11 @@ def test_world_of_one_in_process(monkeypatch):
         torch.distributed.destroy_process_group()
 
 
-def _jax_fsdp_set(port_model, data_size: int) -> set[str]:
-    """The port names of the parameters JAX's rule shards: its specs as 1/0
-    arrays in the JAX layout, mapped through convert."""
+def _jax_fsdp_shards(port_model, data_size: int, pipeline: bool) -> dict[str, np.ndarray]:
+    """Each element's shard over 'data' under JAX's rule (-1: not sharded),
+    in the port's layout: JAX's ``param_specs(fsdp=True, pipeline=...)`` on
+    the model's JAX tree (stacked for a pipelined trunk), each leaf's shard
+    index along its 'data' axis mapped through convert."""
     from jax.sharding import PartitionSpec as P
 
     import jax
@@ -376,13 +378,34 @@ def _jax_fsdp_set(port_model, data_size: int) -> set[str]:
     from cross_attention_vit_tpu_torch.models.convert import (jax_params_from_model,
                                                               state_dict_from_jax)
 
+    def marks(a, spec):
+        a = np.asarray(a)
+        axes = [i for i, s in enumerate(spec) if s == "data"]
+        if not axes:
+            return np.full(a.shape, -1.0)
+        ax = axes[0]
+        index = np.arange(a.shape[ax]) // (a.shape[ax] // data_size)
+        return np.broadcast_to(index.reshape([-1 if i == ax else 1 for i in range(a.ndim)]),
+                               a.shape).astype(np.float64)
+
     tree = jax_params_from_model(port_model)
-    specs = param_specs(tree, fsdp=True, data_size=data_size)
-    marks = jax.tree.map(lambda a, s: np.full(a.shape, float("data" in s), np.float32),
-                         tree, specs, is_leaf=lambda x: isinstance(x, P))
-    return {k for k, v in state_dict_from_jax(marks, port_model.config).items() if v.all()}
+    specs = param_specs(tree, fsdp=True, data_size=data_size, pipeline=pipeline)
+    tree = jax.tree.map(marks, tree, specs, is_leaf=lambda x: isinstance(x, P))
+    return state_dict_from_jax(tree, port_model.config)
 
 
+class _Sizes:
+    """The axis sizes ``_fsdp_dims`` reads, without a group."""
+
+    def __init__(self, **sizes):
+        self.mesh_dim_names = tuple(sizes)
+        self._sizes = list(sizes.values())
+
+    def size(self, i):
+        return self._sizes[i]
+
+
+_PP4 = dict(num_layers=4, pipeline_stages=2, pipeline_microbatches=2)
 GEOMETRIES = {
     "cross_mlp1024": ("cross", {}),
     "cross_h48_k3": ("cross", dict(hidden_dim=48, num_heads=3, mlp_dim=768)),
@@ -390,30 +413,56 @@ GEOMETRIES = {
     # at W = 3 the port's (1056, 32) fc1 has a dim 3 divides, JAX's free axis (32) none
     "cross_mlp1056": ("cross", dict(mlp_dim=1056)),
     "vit_h64": ("vit", dict(hidden_dim=64, mlp_dim=512, num_layers=2)),
+    # EP x FSDP: the (4, 256, 32) expert stacks, E left to 'expert'
+    "cross_moe_mlp256": ("cross", dict(moe_experts=4, mlp_dim=256)),
+    # PP x FSDP: fc1/fc2 (256 x 32) are under FSDP_MIN_SIZE a layer, over it stacked
+    "vit_pp_mlp256": ("vit", dict(_PP4, mlp_dim=256)),
+    # PP x TP x FSDP at a width where the per-layer rule alone also shards
+    "vit_pp_h64": ("vit", dict(_PP4, hidden_dim=64, mlp_dim=512)),
 }
 
 
 @pytest.mark.parametrize("data_size", [2, 3, 4])
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
 def test_fsdp_rule_shards_the_jax_set(geometry, data_size):
+    """The port's FSDP set and dims (``fsdp_dim`` on the whole JAX layout,
+    as ``shard_params`` reads it before its splits) put every element in
+    the data shard JAX's ``param_specs`` puts it in, the pipelined trunk
+    read as JAX's stacked leaf (a 'pipe' axis of 2); the dim is never an
+    axis JAX gives 'model' nor an expert stack's E."""
     from cross_attention_vit_tpu_torch.configs import modify_config
     from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
     from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
-    from cross_attention_vit_tpu_torch.parallel import fsdp_dim
+    from cross_attention_vit_tpu_torch.parallel import tp_dim
+    from cross_attention_vit_tpu_torch.parallel.sharding import _fsdp_dims
 
     family, extra = GEOMETRIES[geometry]
     cfg = _port_cfg(family)
     modify_config(cfg, extra)
     model = (ModelCross if family == "cross" else ModelVIT)(cfg, device="cpu",
                                                             master_weights=True)
-    dims = {n: fsdp_dim(n, tuple(p.shape), cfg.num_heads, data_size)
-            for n, p in model.named_parameters()}
-    want = _jax_fsdp_set(model, data_size)
-    assert want or data_size != 2, "the geometry shards nothing"
-    assert {n for n, d in dims.items() if d is not None} == want
+    pipeline = int(cfg.get("pipeline_stages", 0)) > 1
+    dims = _fsdp_dims(model, _Sizes(pipe=2 if pipeline else 1, data=data_size))
+    want = _jax_fsdp_shards(model, data_size, pipeline)
+    assert any(d is not None for d in dims.values()) or data_size != 2, "shards nothing"
     params = dict(model.named_parameters())
-    for n in want:
-        assert params[n].shape[dims[n]] % data_size == 0
+    assert set(want) >= set(params)
+    for n, p in params.items():
+        d = dims[n]
+        if d is None:
+            assert (want[n] == -1).all(), n
+            continue
+        assert p.shape[d] % data_size == 0
+        index = np.arange(p.shape[d]) // (p.shape[d] // data_size)
+        got = np.broadcast_to(index.reshape([-1 if i == d else 1 for i in range(p.dim())]),
+                              tuple(p.shape))
+        np.testing.assert_array_equal(got, want[n], err_msg=n)
+        # on the dim 'model' splits only along its (q, k, v) blocks (JAX's
+        # free 3 axis at a data size that H does not divide): the data
+        # shards of a TP slice are then the whole tensor's, block by block
+        split = tp_dim(n, tuple(p.shape))
+        assert split is None or split[0] != d or split[1] % data_size == 0, n
+        assert not (".experts." in n and d == 0), n
 
 
 # -- tests: two ranks, two steps ------------------------------------------------------

@@ -115,8 +115,11 @@ def test_jax_rules_leave_int8_leaves_whole():
 
 
 def test_sharded_server_refuses_other_axes(tmp_path):
-    """A mesh with an axis other than 'data' and 'model' (here a 'pipe' axis
-    of one, over a one-process group) is refused, naming ROADMAP item 13."""
+    """No axis is refused any more: a mesh with a 'pipe' and a 'seq' axis
+    (of one each, over a one-process group) builds, as JAX's server takes
+    any mesh, and answers as the server without a mesh does (the 'seq' and
+    'pipe' axes split nothing in serving, as in JAX; the expert split is
+    held over four ranks in ``test_torch_composed_fit.py``)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -126,11 +129,16 @@ def test_sharded_server_refuses_other_axes(tmp_path):
 
     save_pytree(tmp_path / "ckpt.npz", {"params": jax_init("cross")})
     save_config(tmp_path, port_config("cross"))
+    want = InferenceServer(tmp_path / "ckpt.npz", "cross", device="cpu")
     multihost_init(f"127.0.0.1:{free_port()}", 1, 0, device="cpu", timeout_s=30)
     try:
-        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("pipe", "data"))
-        with pytest.raises(NotImplementedError, match=r"\['pipe'\].*item 13"):
-            InferenceServer(tmp_path / "ckpt.npz", "cross", mesh=mesh, device="cpu")
+        mesh = init_device_mesh("cpu", (1, 1, 1), mesh_dim_names=("pipe", "data", "seq"))
+        server = InferenceServer(tmp_path / "ckpt.npz", "cross", mesh=mesh, device="cpu")
+        assert server.health()["mesh"] == {"pipe": 1, "data": 1, "seq": 1}
+        vols = serve_volumes(3)
+        np.testing.assert_allclose(server._run_padded(vols), want._run_padded(vols),
+                                   atol=TOL, rtol=TOL)
+        server.stop()
     finally:
         dist.destroy_process_group()
 

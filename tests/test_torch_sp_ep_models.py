@@ -339,8 +339,8 @@ def test_trainer_sets_ambient_meshes(runs):
     """Trainer(mesh=(seq 2, expert 2)) publishes the seq and expert meshes
     the models read while its train and eval steps run, and leaves none set
     after them (nor after its construction); it refuses a config that
-    disagrees with the mesh, and its step (a ModelVIT with both on) equals
-    the one-process step."""
+    disagrees with the mesh and builds with FSDP on the same mesh, and its
+    step (a ModelVIT with both on) equals the one-process step."""
     _, got, _ = runs
     for rank in got["vit_sp2_ep2"]:
         assert rank["ambient_in_steps"].shape == (STEPS + 1, 2)
@@ -348,7 +348,7 @@ def test_trainer_sets_ambient_meshes(runs):
         assert rank["ambient_after_init"].all() and rank["ambient_after_steps"].all()
         assert "seq_parallel=4" in str(rank["refused/seq_parallel"])
         assert "moe_experts=3" in str(rank["refused/moe_experts"])
-        assert "item 13" in str(rank["refused/fsdp"])      # FSDP with EP is not ported
+        assert str(rank["refused/fsdp"]) == ""      # FSDP with EP and SP composes
     _check_case(runs, "vit_sp2_ep2")
 
 

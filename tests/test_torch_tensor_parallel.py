@@ -20,8 +20,9 @@
 * Checkpoints cross TP sizes: the two-rank run writes whole tensors (JAX
   layout) equal to the one-process state, and the one-process state after
   step 0 resumes over (model 2) into the one-process step 1.
-* The refusals: T not dividing the heads or the MLP width, and TP with
-  FSDP, a 'seq' or an 'expert' axis.
+* The refusals: T not dividing the heads or the MLP width, and a 'pipe'
+  axis with a 'seq' axis alone among the axis combinations (TP and PP with
+  FSDP, SP and EP compose: ``test_torch_composed_parallel.py``).
 """
 
 import jax
@@ -203,10 +204,11 @@ def test_tp_checkpoint_crosses_tp_sizes(runs, name):
 # ---------------------------------------------------------------------------
 
 def test_tp_refusals_in_one_process():
-    """T not dividing the heads or the MLP width; TP and PP with FSDP, a
-    'seq' or an 'expert' axis (ROADMAP item 13's refused combinations; TP
-    with PP and DP composes), on the axis sizes alone; then make_mesh's
-    checks and a world of one over a one-process group."""
+    """T not dividing the heads or the MLP width; of the axis combinations
+    only a 'pipe' axis with a 'seq' axis is refused (JAX fails on it too,
+    ``test_torch_composed_parallel.py``): TP and PP with FSDP, a 'seq' or an
+    'expert' axis compose, on the axis sizes alone; then make_mesh's checks
+    and a world of one over a one-process group."""
     import torch.distributed as dist
     from cross_attention_vit_tpu_torch.parallel import multihost_init, shard_params
     from cross_attention_vit_tpu_torch.parallel.sharding import _refuse_combinations
@@ -223,11 +225,14 @@ def test_tp_refusals_in_one_process():
 
     model = ModelCross(port_config("cross", num_heads=4, mlp_dim=64), device="cpu")
     for split in ("model", "pipe"):
-        for fsdp, axes, words in ((True, {}, "FSDP"), (False, {"seq": 2}, "'seq' axis"),
-                                  (False, {"expert": 2}, "'expert' axis")):
-            with pytest.raises(NotImplementedError, match=f"'{split}' axis.*{words}.*item 13"):
-                _refuse_combinations(model, _Mesh(data=1, **{split: 2}, **axes), fsdp)
-    _refuse_combinations(model, _Mesh(pipe=2, data=2, model=2), False)    # composed
+        for axes in ({}, {"seq": 2}, {"expert": 2}, {"data": 2}):
+            sizes = {"data": 1, split: 2, **axes}
+            if split == "pipe" and "seq" in axes:
+                with pytest.raises(NotImplementedError, match="'pipe' axis.*'seq' axis.*item 13"):
+                    _refuse_combinations(_Mesh(**sizes))
+            else:
+                _refuse_combinations(_Mesh(**sizes))            # composed
+    _refuse_combinations(_Mesh(pipe=2, data=2, model=2))
     for fields, words in (({"num_heads": 4, "mlp_dim": 66}, "mlp_dim=66"),
                           ({"num_heads": 2, "hidden_dim": 32, "mlp_dim": 64}, "num_heads=2")):
         bad = ModelCross(port_config("cross", **fields), device="cpu")

@@ -241,8 +241,9 @@ def test_trainer_early_stopping_halts():
 
 def test_trainer_rejects_unported_options():
     """A mesh and FSDP build (over a one-process gloo group here); FSDP
-    without a mesh is refused as in JAX, and a stateful family over a mesh
-    (JAX's SyncBatchNorm semantics, not ported) names its ROADMAP item."""
+    without a mesh is refused as in JAX; a stateful Trainer over a mesh
+    builds (its BatchNorms take the global batch's statistics,
+    ``test_torch_sync_bn.py``)."""
     cfg, _ = _cfgs()
     with pytest.raises(ValueError, match="requires a mesh"):
         ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", fsdp=True)
@@ -251,9 +252,9 @@ def test_trainer_rejects_unported_options():
         port = s.getsockname()[1]
     multihost_init(f"127.0.0.1:{port}", 1, 0, device="cpu", timeout_s=30)
     try:
-        with pytest.raises(NotImplementedError, match="item 14"):
-            ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", stateful=True,
-                             mesh=make_mesh())
+        t = ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", stateful=True,
+                             mesh=make_mesh()).init_state()
+        assert t.stateful and t.world == 1 and t.eval_step is not None
         for fsdp in (False, True):
             t = ttrainer.Trainer(ModelCross, cfg, max_epochs=1, device="cpu", mesh=make_mesh(),
                                  fsdp=fsdp).init_state()

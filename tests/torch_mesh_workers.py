@@ -1,7 +1,9 @@
 """Gloo ranks for the port's expert-, sequence-, tensor- and pipeline-parallel
-tests (``tests/test_torch_moe.py``, ``test_torch_ring.py``,
-``test_torch_sp_ep_models.py``, ``test_torch_tensor_parallel.py``,
-``test_torch_pipeline.py``, ``test_torch_sharded_serving.py``), run as
+tests and their compositions (``tests/test_torch_moe.py``,
+``test_torch_ring.py``, ``test_torch_sp_ep_models.py``,
+``test_torch_tensor_parallel.py``, ``test_torch_pipeline.py``,
+``test_torch_sharded_serving.py``, ``test_torch_composed_parallel.py``,
+``test_torch_composed_fit.py``, ``test_torch_sync_bn.py``), run as
 subprocesses of the test process.
 
 ``spawn(mode, tmp, world)`` starts ``python tests/torch_mesh_workers.py
@@ -82,6 +84,34 @@ PP_CASES = {
     "vit_pp2_dp2": ("vit", PP, {"pipe": 2, "data": 2}, 4),
     "vit_pp2_tp2": ("vit", PP, {"pipe": 2, "model": 2}, 4),
 }
+# the composed axes: name -> (family, config fields, mesh axes, world, fsdp).
+# The FSDP cases widen the MLP until parameters reach FSDP_MIN_SIZE: fc1/fc2
+# (512 x 64), the expert stacks (4 x 256 x 32), and under PP the stacked
+# (4 x 256 x 32) fc1/fc2 whose layers alone (8192) are under it
+MOE = {"moe_experts": 4}
+COMPOSED_CASES = {
+    "cross_dp2_tp2_fsdp": ("cross", {"hidden_dim": 64, "mlp_dim": 512}, {"data": 2, "model": 2},
+                           4, True),
+    "cross_sp2_tp2": ("cross", {"seq_parallel": 2}, {"seq": 2, "model": 2}, 4, False),
+    "cross_ep2_tp2": ("cross", MOE, {"expert": 2, "model": 2}, 4, False),
+    "cross_dp2_ep2_fsdp": ("cross", {**MOE, "mlp_dim": 256}, {"data": 2, "expert": 2}, 4,
+                           True),
+    "vit_pp2_dp2_fsdp": ("vit", {**PP, "mlp_dim": 256}, {"pipe": 2, "data": 2}, 4, True),
+}
+# Trainer.fit over (data 2 x model 2) with FSDP and grad_accum 2: one step an
+# epoch, so its global batch is the whole set in any order and JAX's
+# single-process fit over the same mesh sees the same batches
+COMPOSED_FIT = {"hidden_dim": 64, "mlp_dim": 512}
+COMPOSED_FIT_AXES = {"data": 2, "model": 2}
+# experiments --tp 2 --fsdp over four processes: fc1/fc2 (2048 x 16) reach
+# FSDP_MIN_SIZE at TINY_CLI's hidden 16
+COMPOSED_CLI = ("--set", "mlp_dim=2048")
+# the server over (data 1 x expert 2 x model 2) on a MoE checkpoint
+SERVE_EP_AXES = {"data": 1, "expert": 2, "model": 2}
+# the stateful ViT3D (BatchNorm stem) over (data 2), tests/test_torch_sync_bn.py
+BN_TINY = dict(hidden_dim=32, num_heads=4, num_layers=1, img_size=(32, 32, 16),
+               num_modalities=2, dropout=0.0, label_smoothing=0.0, lr=LR, weight_decay=5e-4,
+               img_aug=False, optim_params={"factor": 0.5, "patience": 0})
 # the server over a mesh (world -> mesh axes), and a width at which int8 quantizes
 SERVE_MESHES = {2: {"model": 2}, 4: {"data": 2, "model": 2}}
 SERVE_INT8 = {"hidden_dim": 256, "mlp_dim": 1024}
@@ -192,6 +222,11 @@ def fit_loaders():
                                                                           device="cpu")
 
 
+def history_rows(hist: list[dict]) -> list[dict]:
+    """A fit history without its wall times."""
+    return [{k: v for k, v in row.items() if k != "epoch_time_s"} for row in hist]
+
+
 def whole_grads(model) -> dict[str, np.ndarray]:
     """Every parameter's gradient, whole: FSDP shards, split experts, TP
     slices and the other stages' layers gathered (a collective)."""
@@ -216,7 +251,7 @@ def _clear_ambient():
     set_pipeline_mesh(None)
 
 
-def port_trainer(family: str, fields: dict, mesh=None, params=None):
+def port_trainer(family: str, fields: dict, mesh=None, params=None, fsdp: bool = False):
     """A Trainer of the family over ``mesh`` (one process without), from a
     JAX param tree."""
     from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
@@ -224,7 +259,7 @@ def port_trainer(family: str, fields: dict, mesh=None, params=None):
     from cross_attention_vit_tpu_torch.train.trainer import Trainer
 
     return Trainer(ModelCross if family == "cross" else ModelVIT, port_config(family, **fields),
-                   max_epochs=1, mesh=mesh, device="cpu").init_state(params)
+                   max_epochs=1, mesh=mesh, fsdp=fsdp, device="cpu").init_state(params)
 
 
 def split_steps(t, family: str, mesh=None, one_ckpt: Path | None = None,
@@ -440,30 +475,36 @@ def _fit_worker(rank: int, world: int, tmp: Path) -> None:
         t = fit_trainer(name, _mesh(axes))
         t.latest = LatestCheckpointer(tmp / name / "latest")
         hist = t.fit(*fit_loaders(), verbose=False)
-        (tmp / f"{name}_{rank}.json").write_text(json.dumps(
-            [{k: v for k, v in row.items() if k != "epoch_time_s"} for row in hist]))
+        (tmp / f"{name}_{rank}.json").write_text(json.dumps(history_rows(hist)))
 
 
 def _split_worker(rank: int, world: int, tmp: Path) -> None:
-    """Each TP_CASES and PP_CASES case of this world (those in ``tmp/cases``)
-    over its mesh from the JAX-initialised parameters (``split_steps``),
-    resuming step 1 from the one-process state after step 0, and the
-    layout this rank holds."""
+    """Each TP_CASES, PP_CASES and COMPOSED_CASES case of this world (those
+    in ``tmp/cases``) over its mesh from the JAX-initialised parameters
+    (``split_steps``), resuming step 1 from the one-process state after step
+    0, and the layout this rank holds: each parameter's local shape and,
+    for an FSDP shard, its placement's dim (``local/fsdp:<name>``)."""
+    from torch.distributed.tensor import DTensor
+
     from cross_attention_vit_tpu_torch.models.convert import params_from_flat
     from cross_attention_vit_tpu_torch.parallel import unwrap
     from cross_attention_vit_tpu_torch.train.checkpoint import restore_flat
 
     wanted = set((tmp / "cases").read_text().split())
-    for name, (family, fields, axes, w) in {**TP_CASES, **PP_CASES}.items():
+    for name, (family, fields, axes, w, *fsdp) in {**TP_CASES, **PP_CASES,
+                                                   **COMPOSED_CASES}.items():
         if w != world or name not in wanted:
             continue
         _clear_ambient()
         mesh = _mesh(axes)
         params = params_from_flat(restore_flat(tmp / f"init_{name}.npz"))
-        t = port_trainer(family, fields, mesh, params)
+        t = port_trainer(family, fields, mesh, params, fsdp=bool(fsdp and fsdp[0]))
         out = split_steps(t, family, mesh, tmp / f"one_ckpt_{name}.npz")
-        out.update({f"local/{n}": np.array(p.shape)
-                    for n, p in unwrap(t.model).named_parameters()})
+        for n, p in unwrap(t.model).named_parameters():
+            local = p.to_local() if isinstance(p, DTensor) else p
+            out[f"local/{n}"] = np.array(local.shape)
+            if isinstance(p, DTensor):
+                out[f"local/fsdp:{n}"] = np.array(p.placements[0].dim)
         np.savez(tmp / f"{name}_{rank}.npz", **out)
 
 
@@ -609,8 +650,7 @@ def _cli_worker(rank: int, world: int, tmp: Path, port: int) -> None:
                             device="cpu"),
             "sp": texp.main(cli_args(tmp, "sp", "--sp", "2", *group), device="cpu")}
     (tmp / f"cli_{rank}.json").write_text(json.dumps(
-        {k: {run: [{c: v for c, v in row.items() if c != "epoch_time_s"} for row in h]
-             for run, h in res.items()} for k, res in hist.items()}))
+        {k: {run: history_rows(h) for run, h in res.items()} for k, res in hist.items()}))
 
 
 def _cli_split_worker(rank: int, world: int, tmp: Path, port: int) -> None:
@@ -633,13 +673,150 @@ def _cli_split_worker(rank: int, world: int, tmp: Path, port: int) -> None:
                           "--only-available", "--batch-size", "4", "--mesh", "data=1,model=2"],
                          device="cpu")
     (tmp / f"cli_split_{rank}.json").write_text(json.dumps(
-        {"hist": {k: {run: [{c: v for c, v in row.items() if c != "epoch_time_s"} for row in h]
-                      for run, h in res.items()} for k, res in hist.items()},
+        {"hist": {k: {run: history_rows(h) for run, h in res.items()} for k, res in hist.items()},
          "evaluate": metrics}))
 
 
+# -- workers: the composed Trainer.fit and the expert-split server ---------------------
+
+def composed_fit_trainer(root: Path, init: Path, mesh=None, max_epochs: int = 2):
+    """The COMPOSED_FIT Trainer (FSDP over ``mesh``, grad_accum 2) from the
+    JAX param tree in ``init``, with its rolling checkpoints under ``root``."""
+    from cross_attention_vit_tpu_torch.models.convert import params_from_flat
+    from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
+    from cross_attention_vit_tpu_torch.train.checkpoint import LatestCheckpointer, restore_flat
+    from cross_attention_vit_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(ModelCross, port_config("cross", **COMPOSED_FIT), max_epochs=max_epochs,
+                seed=3, mesh=mesh, fsdp=mesh is not None, grad_accum=2,
+                latest=LatestCheckpointer(root / "latest", keep=4), device="cpu")
+    return t.init_state(params_from_flat(restore_flat(init)))
+
+
+def composed_fit_loaders(per_coordinate: int):
+    from cross_attention_vit_tpu_torch.data.loader import PrefetchLoader
+
+    ds = Data(n=8)
+    return (PrefetchLoader(ds, batch_size=per_coordinate, device="cpu"),
+            PrefetchLoader(ds, batch_size=per_coordinate, device="cpu"))
+
+
+def _composed_fit_worker(rank: int, world: int, tmp: Path) -> None:
+    """Two epochs of ``Trainer.fit`` over (data 2 x model 2) with FSDP and
+    grad_accum 2 (rank 0 writes the checkpoints); ``experiments.main --tp 2
+    --fsdp`` over the same four processes; then the server over
+    (data 1 x expert 2 x model 2) on the MoE checkpoint the test wrote:
+    rank 0 answers 3 and 4 volumes, the others run ``run_worker``."""
+    from cross_attention_vit_tpu_torch.drivers.serve import InferenceServer
+
+    from cross_attention_vit_tpu_torch.drivers import experiments as texp
+
+    _clear_ambient()
+    t = composed_fit_trainer(tmp / f"fit{rank}", tmp / "fit_init.npz", _mesh(COMPOSED_FIT_AXES))
+    hist = t.fit(*composed_fit_loaders(GLOBAL_BATCH // 2), verbose=False)
+    (tmp / f"composed_fit_{rank}.json").write_text(json.dumps(history_rows(hist)))
+    # the CLI over the same group: --tp 2 --fsdp, at an MLP width FSDP shards
+    _clear_ambient()
+    cli = texp.main(cli_args(tmp, "cli_tp_fsdp", "--tp", "2", "--fsdp", *COMPOSED_CLI),
+                    device="cpu")
+    (tmp / f"composed_cli_{rank}.json").write_text(json.dumps(
+        {run: history_rows(h) for run, h in cli.items()}))
+
+    server = InferenceServer(tmp / "serve_moe" / "ckpt.npz", "cross", buckets=(2, 4),
+                             max_wait_ms=1.0, mesh=_mesh(SERVE_EP_AXES), device="cpu")
+    site = server.model.transformer[0].blocks[0][0]
+    out = {"local/experts": np.array(site.ffn.fn.experts["fc1"].weight.shape),
+           "local/router": np.array(site.ffn.fn.router.weight.shape),
+           "local/qkv": np.array(site.attn.fn.to_qkv.weight.shape)}
+    if rank == 0:
+        server.start()
+        try:
+            out["3"] = server.predict(serve_volumes(3))
+            out["4"] = server.predict(serve_volumes(4, seed=8))
+            out["health_mesh"] = np.array(json.dumps(server.health()["mesh"]))
+        finally:
+            server.stop()
+    else:
+        server.run_worker()
+    np.savez(tmp / f"serve_ep_{rank}.npz", **out)
+
+
+# -- workers: the stateful ViT3D over a data axis ---------------------------------------
+
+def bn_config():
+    from cross_attention_vit_tpu_torch.configs import get_mgmt_config, modify_config
+
+    cfg = get_mgmt_config()
+    modify_config(cfg, BN_TINY)
+    return cfg
+
+
+def bn_batches() -> list[tuple[np.ndarray, np.ndarray]]:
+    """The global batches of 8 volumes, made from a seed."""
+    rng = np.random.default_rng(13)
+    out = []
+    for _ in range(STEPS):
+        labels = rng.integers(0, 2, size=GLOBAL_BATCH).astype(np.int64)
+        imgs = (rng.normal(size=(GLOBAL_BATCH, 2, 1, 32, 32, 16)) * 4
+                + labels[:, None, None, None, None, None]).astype(np.float32)
+        out.append((imgs, labels))
+    return out
+
+
+def bn_trainer(params: dict, state: dict, mesh=None):
+    from cross_attention_vit_tpu_torch.models.vit3d import ViT3D
+    from cross_attention_vit_tpu_torch.train.trainer import Trainer
+
+    return Trainer(ViT3D, bn_config(), max_epochs=1, stateful=True, schedule="plateau",
+                   mesh=mesh, device="cpu").init_state(params, state)
+
+
+def bn_steps(t, mesh=None) -> dict:
+    """STEPS stateful train steps on the global batches (this data
+    coordinate's rows over ``mesh``): loss, probs, the first step's whole
+    gradients, the parameters and the running statistics after each step;
+    then one eval step and the checkpoint state."""
+    from cross_attention_vit_tpu_torch.parallel import shard_batch
+    from cross_attention_vit_tpu_torch.train import trainer as ttrainer
+    from cross_attention_vit_tpu_torch.train.checkpoint import flatten
+
+    def rows(batch):
+        return tuple(torch.from_numpy(x) for x in
+                     (batch if mesh is None else shard_batch(batch, mesh)))
+
+    out = {}
+    for s, batch in enumerate(bn_batches()):
+        aux = t.train_step(*rows(batch), LR, ttrainer._step_generator(0, 0, s, t.shard))
+        out[f"loss/{s}"], out[f"probs/{s}"] = aux["loss"].numpy(), aux["probs"].numpy()
+        if s == 0:
+            out.update({f"grad/{n}": g for n, g in whole_grads(t.model).items()})
+        out.update({f"params{s}/{k}": v for k, v in flatten(t.params).items()})
+        out.update({f"state{s}/{k}": v for k, v in flatten(t.model_state).items()})
+    aux = t.eval_step(*rows(bn_batches()[0]))
+    out["eval/probs"], out["eval/loss"] = aux["probs"].numpy(), aux["loss"].numpy()
+    out.update({f"ckpt/{k}": v for k, v in t._ckpt_state(0).items()})
+    return out
+
+
+def _sync_bn_worker(rank: int, world: int, tmp: Path) -> None:
+    """``bn_steps`` of the stateful ViT3D over (data = world) from the
+    weights and BatchNorm state the test wrote."""
+    from cross_attention_vit_tpu_torch.train.checkpoint import restore_flat, unflatten
+
+    flat = restore_flat(tmp / "bn_init.npz")
+    trees = {which: unflatten({k[len(which) + 1:]: v for k, v in flat.items()
+                               if k.startswith(which + "/")}) for which in ("params", "state")}
+    mesh = _mesh({"data": world})
+    t = bn_trainer(trees["params"], trees["state"], mesh)
+    out = bn_steps(t, mesh)
+    out["sync_groups"] = np.array(sum(getattr(m, "sync_group", None) is not None
+                                      for m in t.model.modules()))
+    np.savez(tmp / f"sync_bn_{rank}.npz", **out)
+
+
 WORKERS = {"moe": _moe_worker, "ring": _ring_worker, "models": _model_worker,
-           "fit": _fit_worker, "split": _split_worker, "serve": _serve_worker}
+           "fit": _fit_worker, "split": _split_worker, "serve": _serve_worker,
+           "composed_fit": _composed_fit_worker, "sync_bn": _sync_bn_worker}
 
 
 if __name__ == "__main__":

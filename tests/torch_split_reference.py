@@ -53,11 +53,46 @@ def jax_step(family: str, params: dict, **fields) -> tuple[np.ndarray, dict]:
     return np.asarray(logits), flatten(jax.tree.map(np.asarray, new))
 
 
+def jax_mesh_step(family: str, params: dict, axes: dict, fsdp: bool = False,
+                  **fields) -> tuple[np.ndarray, dict]:
+    """JAX's train step over its own mesh of the same axes on the CPU's
+    virtual devices, set up as JAX's ``Trainer`` sets it up (parameters by
+    ``shard_params(..., fsdp, pipeline)``, the ambient pipeline, seq and
+    expert meshes): the loss and the parameters after one step on the first
+    global batch."""
+    from cross_attention_vit_tpu import parallel as jpar
+    from cross_attention_vit_tpu.parallel import moe as jmoe
+    from cross_attention_vit_tpu.parallel import pipeline as jpipe
+    from cross_attention_vit_tpu.parallel import ring as jring
+
+    cfg = jax_config(family, **fields)
+    mesh = jpar.make_mesh(axes.get("data", -1) if "data" in axes else 1, axes.get("model", 1),
+                          pipe=axes.get("pipe", 1), seq=axes.get("seq", 1),
+                          expert=axes.get("expert", 1))
+    pipeline = int(fields.get("pipeline_stages", 0)) > 1
+    jpipe.set_pipeline_mesh(mesh if pipeline else None)
+    jring.set_seq_mesh(mesh if int(fields.get("seq_parallel", 0)) > 1 else None)
+    jmoe.set_expert_mesh(mesh if axes.get("expert", 1) > 1 else None)
+    try:
+        placed = jpar.shard_params(jax.tree.map(jnp.asarray, params), mesh, fsdp=fsdp,
+                                   pipeline=pipeline)
+        img, lab = model_batches(family)[0]
+        img, lab = jpar.shard_batch((img, lab.astype(np.int32)), mesh)
+        step = jax_train_step(_JAX[family].apply, cfg, donate=False, mesh=mesh)
+        new, _, aux = step(placed, joptim.init(placed), img, lab,
+                           jnp.asarray(LR, jnp.float32), jax.random.key(9))
+        return float(aux["loss"]), flatten(jax.tree.map(np.asarray, new))
+    finally:
+        jpipe.set_pipeline_mesh(None)
+        jring.set_seq_mesh(None)
+        jmoe.set_expert_mesh(None)
+
+
 def run_cases(tmp, cases: dict) -> tuple[dict, dict]:
     """Each case over its gloo ranks and its one-process reference (which
     also writes its state after step 0 for the ranks to resume from)."""
     refs = {}
-    for name, (family, fields, _, _) in cases.items():
+    for name, (family, fields, *_) in cases.items():
         params = jax_init(family, seed=len(name), **fields)
         save_pytree(tmp / f"init_{name}.npz", {"params": params})
         refs[name] = split_steps(port_trainer(family, fields, params=params), family,
