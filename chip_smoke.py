@@ -136,6 +136,11 @@ Phases, each printed as one JSON line with a ``phase`` key:
              best checkpoint against a direct forward.  Checks the history,
              the resume, 12 K8 calls per step and no K2, the files; reports
              the decoder, the transfer dtype and the checkpoint-write time.
+             Then ``experiments.main --model vit`` on the same cohort: the
+             2-stream grid point (params_list2[1], SWI and DWI), one epoch
+             (line ``train_cli_vit``): a finite history, 4 K2 a train step,
+             ``evaluate.main`` on its checkpoint equal to a direct forward;
+             its K1/K2 launches and the decoder.
 
 14. train_dp — run right after train: the live ModelCross through the port's
              ``Trainer(mesh=make_mesh(1))`` (``cross_attention_vit_tpu_torch.
@@ -263,6 +268,29 @@ Phases, each printed as one JSON line with a ``phase`` key:
              the source model's exactly); ``--export`` returns the state dict
              bit for bit.
 
+25. decoder_toolchain, decoder — right after device: which of ``g++``,
+             ``zlib.h``, ``libdeflate.h``, ``libz.so`` and ``libdeflate.so``
+             the host has (``lacks`` names the missing), printed before the
+             NIfTI decoder is built; then the variant the dataset uses
+             (``native-libdeflate``, ``native-zlib`` or ``python``).
+26. train_remat — run after train_vit: the live ModelCross with
+             ``remat=True`` under ``save_attn`` and ``full`` beside the same
+             model without remat, from phase train's masters, batch and host
+             generator, ``TRAIN_STEPS`` steps each with augmentation and
+             dropout 0.25: step ms, peak memory, finite losses, 12 K1 + 12 K2
+             a step (24 K1 under ``full``: the recompute runs K1 again), and
+             one step's gradients against the step without remat within
+             ``SERVE_TOL`` per parameter (expected equal).
+27. augment_exact — ``augment_batch`` with ``affine_backend="exact"`` on the
+             live batch (24 bf16 volumes of 128×128×64), every volume gated
+             into the affine and the other transforms off: the card's result
+             against the same call on the CPU within ``AUGMENT_EXACT_TOL`` ×
+             max |vol|, no kernel launched (plain gathers, as JAX's were XLA);
+             its ms beside the LU path's at the same gates.
+28. mfu     — each train step's model FLOP utilisation from phases train and
+             train_vit: ``utils.flops``' 3 × forward matmul FLOPs at batch 8
+             over the card's dense bf16 peak (ModelCross also its trunk).
+
 Then a line ``{"phase": "profiler", ...}``: the profiles taken, how many of
 them recorded no kernel, and the calls timed by CUDA events after
 ``PROFILE_TRIES`` such profiles (``device_ms_split``).  Then one line
@@ -281,6 +309,7 @@ import hashlib
 import io
 import itertools
 import json
+import os
 import re
 import shutil
 import socket
@@ -647,6 +676,19 @@ def phase_device() -> dict:
             "nvidia_smi": smi_line, "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
             "tf32_cudnn": torch.backends.cudnn.allow_tf32,
             "torch": torch.__version__, "cuda": torch.version.cuda}
+    emit(info)
+    return info
+
+
+def phase_decoder_toolchain() -> dict:
+    """What this host has of the NIfTI decoder's build (``g++``, ``zlib.h``,
+    ``libdeflate.h``, ``libz.so``, ``libdeflate.so``), printed before the
+    decoder is built; then the variant the dataset uses (``native.variant``:
+    ``native-libdeflate``, ``native-zlib`` or ``python``)."""
+    have = native.toolchain()
+    emit({"phase": "decoder_toolchain", "lacks": [k for k, v in have.items() if not v],
+          "have": have})
+    info = {"phase": "decoder", "variant": native.variant()}
     emit(info)
     return info
 
@@ -2514,6 +2556,167 @@ def phase_train_vit() -> dict:
     return results
 
 
+REMAT_POLICIES = ("save_attn", "full")
+# one bf16 ulp at the batch's largest magnitude: the card's exact affine
+# against the same function on the CPU (the same f32 elementwise ops and
+# gathers; expected equal)
+AUGMENT_EXACT_TOL = 2.0 ** -8
+ONLY_AFFINE = {f: 0.0 for f in ("flip_prob", "rot90_prob", "contrast_prob", "noise_prob",
+                                "smooth_prob", "shuffle_prob", "dropout_prob", "zoom_prob")}
+
+
+def phase_train_remat() -> dict:
+    """The live ModelCross with ``remat=True`` under ``REMAT_POLICIES``
+    beside the same model without it, from phase train's masters, batch and
+    host generator: TRAIN_STEPS steps each (losses, step ms, peak memory, K1
+    and K2 a step: 12 + 12 where the policy keeps ``attn_out``, 24 + 12
+    where the recompute runs K1 again), the memory one train forward leaves
+    for its backward, and one step's gradients against the step without
+    remat (expected equal: the recompute replays the forward's dropout
+    draws)."""
+    from cross_attention_vit_tpu_torch.ops.remat import remat_names
+
+    cfg = live_config(use_flash=True)
+    model = ModelCross(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0),
+                       master_weights=True)
+    state0 = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy((rng.normal(size=(8, len(MODALITIES), 1, *cfg.img_size)) * 100)
+                           .astype(np.float32)).cuda()
+    labels = torch.tensor([0, 1] * 4, device="cuda")
+    op = cfg.optim_params
+    lr_at = cosine_annealing_lr(cfg.lr, op["T_max"], op["eta_min"])
+    want = _grads_after_step(cfg, state0, img, labels)
+    runs = {}
+    for policy in (None, *REMAT_POLICIES):
+        c = live_config(use_flash=True)
+        if policy is not None:
+            modify_config(c, {"remat": True, "remat_policy": policy})
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = ModelCross(c, device="cuda", master_weights=True)
+        model.load_state_dict(state0)
+        step = make_train_step(model, Adam(model.parameters(), c.weight_decay), c)
+        losses, step_ms, per_step, _ = _run_steps(step, img, labels, lr_at,
+                                                  torch.Generator().manual_seed(TRAIN_SEED))
+        launches = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # what one train forward leaves allocated for its backward: the
+        # activations the blocks keep (the step's peak falls in Adam's update)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        logits, loss = model(img, labels, train=True,
+                             generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        held_gb = (torch.cuda.memory_allocated() - before) / 1e9
+        loss.backward()
+        # the logits' graph holds the parameters and their gradients: drop it
+        # with the model, or the next run's peak counts them
+        del model, step, loss, logits
+        names = remat_names(c)
+        k1 = 12 if names is None or "attn_out" in names else 24
+        entry = {"policy": policy or "none", "kept": list(names or ()), "losses": losses,
+                 "step_ms": step_ms, "step_ms_steady": statistics.median(step_ms[1:]),
+                 "peak_device_gb": peak_gb, "forward_held_gb": held_gb, "launches": launches,
+                 "launches_per_step": [{k: n[k] for k in ("K1", "K2")} for n in per_step],
+                 "expected_per_step": {"K1": k1, "K2": 12}}
+        check(all(np.isfinite(losses)), f"remat {policy}: non-finite loss {losses}")
+        for i, n in enumerate(per_step):
+            check(n["K1"] == k1 and n["K2"] == 12,
+                  f"remat {policy} step {i}: K1 {n['K1']}, K2 {n['K2']} ({k1} and 12 expected)")
+        if policy is not None:
+            got = _grads_after_step(c, state0, img, labels)
+            errs = _leaf_errs(got, want)
+            gated = [n for n in errs if not n.endswith(ZERO_GRAD_LEAF)]
+            worst = max(gated, key=errs.get)
+            entry.update({"grad_vs_no_remat_worst_leaf": [worst, errs[worst]],
+                          "grad_vs_no_remat_max_abs": max((got[n] - want[n]).abs().max().item()
+                                                          for n in want),
+                          "losses_vs_no_remat_max_abs": max(
+                              abs(a - b) for a, b in zip(losses, runs["none"]["losses"]))})
+            check(errs[worst] <= SERVE_TOL,
+                  f"remat {policy}: gradient of {worst} {errs[worst]:.3e} > {SERVE_TOL} "
+                  "against the step without remat")
+            del got
+        runs[entry["policy"]] = entry
+        torch.cuda.empty_cache()
+    del want, state0
+    torch.cuda.empty_cache()
+    result = {"phase": "train_remat", "model": "ModelCross", "batch": 8, "dtype": "bfloat16",
+              "dropout": cfg.dropout, "steps": TRAIN_STEPS, "tol": SERVE_TOL, "runs": runs}
+    emit(result)
+    return result
+
+
+def phase_augment_exact(lu_augment_ms: float) -> dict:
+    """``augment_batch`` with ``affine_backend="exact"`` on the live batch (8 ×
+    3 volumes of 128×128×64, bf16) with every volume gated into the affine
+    and the other transforms off: the card's result against the same call on
+    the CPU (``AUGMENT_EXACT_TOL`` × max |vol|), and its ms beside the LU
+    path's at the same gates and phase train's ``augment_ms``."""
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy((rng.normal(size=(8, len(MODALITIES), 1, *VOLUME)) * 100)
+                           .astype(np.float32)).to(torch.bfloat16)
+    exact = augment.AugmentConfig(**ONLY_AFFINE, affine_prob=1.0, affine_backend="exact")
+    lu = augment.AugmentConfig(**ONLY_AFFINE, affine_prob=1.0)
+    applied = {}
+    got = augment.augment_batch(img.cuda(), torch.Generator().manual_seed(TRAIN_SEED), exact,
+                                applied).cpu()
+    t0 = time.perf_counter()
+    want = augment.augment_batch(img, torch.Generator().manual_seed(TRAIN_SEED), exact)
+    cpu_s = time.perf_counter() - t0
+    diff = (got.float() - want.float()).abs()
+    gpu_img = img.cuda()
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    _zero_counts()
+    exact_ms = cuda_ms(lambda: augment.augment_batch(gpu_img, gen, exact), runs=3, calls=2,
+                       warmup=1)
+    exact_counts = _counts()
+    lu_ms = cuda_ms(lambda: augment.augment_batch(gpu_img, gen, lu), runs=3, calls=2, warmup=1)
+    tol = AUGMENT_EXACT_TOL * want.float().abs().max().item()
+    result = {"phase": "augment_exact", "volumes": img.shape[0] * img.shape[1],
+              "volume": list(VOLUME), "dtype": "bfloat16", "affine_volumes": applied["affine"],
+              "max_abs_vs_cpu": diff.max().item(), "elements_differing": int((diff > 0).sum()),
+              "tol": tol, "exact_ms": exact_ms, "lu_ms_same_gates": lu_ms,
+              "train_augment_ms": lu_augment_ms, "cpu_s": cpu_s,
+              "kernel_launches": {k: v for k, v in exact_counts.items() if v}}
+    emit(result)
+    check(applied["affine"] == img.shape[0] * img.shape[1],
+          f"exact affine drawn by {applied['affine']} volumes, all expected")
+    check(bool(torch.isfinite(got.float()).all()), "non-finite exact affine output")
+    check(diff.max().item() <= tol,
+          f"exact affine: card vs CPU {diff.max().item():.3e} > {tol:.3e}")
+    check(not any(exact_counts.values()), f"the exact affine launched kernels: {exact_counts}")
+    return result
+
+
+def phase_mfu(trained: dict, trained_vit: dict) -> dict:
+    """Model FLOP utilisation of the train steps (``utils.flops``: 3 × the
+    forward's matmul FLOPs at batch 8, over the card's dense bf16 peak) from
+    phases train and train_vit's steady step ms."""
+    from cross_attention_vit_tpu_torch.utils import flops
+
+    name = torch.cuda.get_device_name(0)
+    rows = {"cross": (flops.model_cross_fwd_flops(live_config(True), 8),
+                      trained["step_ms_steady"], trained["trunk_ms"])}
+    for cfg_name, streams, _, _ in VIT_CONFIGS:
+        rows[cfg_name] = (flops.model_vit_fwd_flops(vit_config(streams, True), 8),
+                          trained_vit[cfg_name]["step_ms_steady"], None)
+    result = {"phase": "mfu", "device": name, "peak_bf16_flops": flops.chip_peak_bf16_flops(name),
+              "batch": 8, "steps": {}}
+    for key, (fwd, step_ms, trunk_ms) in rows.items():
+        train = flops.train_flops(fwd)
+        result["steps"][key] = {"fwd_flops": fwd, "train_flops": train, "step_ms": step_ms,
+                                "mfu": flops.mfu(train, step_ms / 1e3, name)}
+        if trunk_ms is not None:
+            result["steps"][key].update(trunk_ms=trunk_ms,
+                                        trunk_mfu=flops.mfu(train, trunk_ms / 1e3, name))
+    emit(result)
+    return result
+
+
 def _write_cohort(root: Path, modalities: tuple = MODALITIES, subjects: int = CLI_SUBJECTS,
                   volume: tuple = RAW_VOLUME) -> tuple[Path, Path, list[str]]:
     """``subjects`` subjects of ``modalities`` volumes (default the raw
@@ -2551,6 +2754,14 @@ def _metrics_as_evaluate(logits: torch.Tensor, targets: torch.Tensor) -> dict:
     metrics["auc_roc"] = float(binary_auroc(torch.from_numpy(probs), targets))
     metrics["n"] = len(targets)
     return metrics
+
+
+def _cli_split() -> tuple[int, int, int]:
+    """train_full's split of the CLI cohort: ceil(15%) test, ceil(18%) of the
+    rest val; and the train steps an epoch at batch 8."""
+    n_test = -(-CLI_SUBJECTS * 15 // 100)
+    n_val = -(-(CLI_SUBJECTS - n_test) * 18 // 100)
+    return n_test, n_val, -(-(CLI_SUBJECTS - n_test - n_val) // 8)
 
 
 def phase_train_cli(tmp: Path) -> dict:
@@ -2596,10 +2807,7 @@ def phase_train_cli(tmp: Path) -> dict:
         finally:
             fa.FUSED_QKV_GRADS = False
         cfg = ckpt.load_config_for(next((out / "checkpoints" / "cross").glob("*.npz")))
-        # the split of train_full: 16 subjects, ceil(15%) test, ceil(18%) of the rest val
-        n_test = -(-CLI_SUBJECTS * 15 // 100)
-        n_val = -(-(CLI_SUBJECTS - n_test) * 18 // 100)
-        steps = -(-(CLI_SUBJECTS - n_test - n_val) // 8)
+        n_test, n_val, steps = _cli_split()
         manifest = json.loads((out / "checkpoints" / "cross" / f"manifest_{run}.json").read_text())
         best = out / "checkpoints" / "cross" / manifest[0]["file"]
         files = sorted(str(p.relative_to(out)) for p in out.rglob("*")
@@ -2629,6 +2837,7 @@ def phase_train_cli(tmp: Path) -> dict:
         direct = _metrics_as_evaluate(torch.cat(logits), torch.cat(targets))
         del model
         torch.cuda.empty_cache()
+        vit = _train_cli_vit(root, labels, data)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2636,7 +2845,7 @@ def phase_train_cli(tmp: Path) -> dict:
     result = {"phase": "train_cli", "model": "ModelCross", "subjects": CLI_SUBJECTS,
               "raw_volume": list(RAW_VOLUME), "cohort_write_s": cohort_s,
               "split": {"test": n_test, "val": n_val, "train": CLI_SUBJECTS - n_test - n_val},
-              "steps_per_epoch": steps, "decoder": "native" if native.available() else "python",
+              "steps_per_epoch": steps, "decoder": native.variant(),
               "transfer_dtype": transfer_dtype_for(cfg), "fused_qkv_grads": True,
               "runs": [{k: v for k, v in r.items() if k != "history"} for r in runs],
               "history": hist, "files": files, "csv_rows": len(csv_rows) - 1,
@@ -2662,6 +2871,71 @@ def phase_train_cli(tmp: Path) -> dict:
           and any(f.startswith(f"lightning_logs/cross/{run}/events.out.tfevents") for f in files)
           and len(csv_rows) == 3, f"run files: {files}, {len(csv_rows)} CSV lines")
     check(metrics == direct, f"evaluate.main {metrics} != direct forward {direct}")
+    result["vit"] = vit
+    return result
+
+
+def _train_cli_vit(root: Path, labels: Path, data: Path) -> dict:
+    """``experiments.main --model vit`` on train_cli's cohort: the 2-stream
+    grid point (params_list2[1], SWI and DWI) one epoch at batch 8, bf16 and
+    flash attention; ``evaluate.main`` on its best checkpoint against a
+    direct forward.  Gates: a finite history, 4 K2 a train step, evaluate =
+    direct; prints the K1/K2 launches and the decoder."""
+    from cross_attention_vit_tpu_torch.data.dataset import BrainDataset
+    from cross_attention_vit_tpu_torch.data.labels import clean_data, load_labels
+
+    out = root / "runs_vit"
+    args = ["--model", "vit", "--grid-index", "1", "--seeds", "2004", "--batch-size", "8",
+            "--only-available", "--labels", str(labels), "--data", str(data), "--out", str(out),
+            "--epochs", "1", "--set", "compute_dtype='bfloat16'",
+            "--set", "activation_dtype='bfloat16'", "--set", "augment_dtype='bfloat16'",
+            "--set", "use_flash_attention=True", "--set", "gelu_approx=True"]
+    run = "test_200_0_1_0"
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):            # its epoch lines
+        hist = experiments.main(args)[run]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    best = next((out / "checkpoints" / "cross").glob("epoch=*.npz"))
+    cfg = ckpt.load_config_for(best)
+    streams = tuple(experiments.params_list2[1].img_types)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        metrics = evaluate.main(["--checkpoint", str(best), "--model", "vit", "--labels",
+                                 str(labels), "--data", str(data), "--img-types", *streams,
+                                 "--only-available"])
+    eval_s = time.perf_counter() - t0
+    model = ModelVIT(cfg, device="cuda", master_weights=True)
+    from cross_attention_vit_tpu_torch.models.convert import load_jax_params
+    load_jax_params(model, params_from_flat(ckpt.restore_flat(best)))
+    ds = BrainDataset(clean_data(load_labels(labels), "MGMT status"), cfg, types=streams,
+                      is_train=False, folder=data)
+    logits, targets = [], []
+    with torch.inference_mode():
+        for b0 in range(0, len(ds), 8):
+            imgs, lab = ds.batch(range(b0, min(b0 + 8, len(ds))))
+            logits.append(model(torch.from_numpy(imgs).to(torch.bfloat16).cuda()).float().cpu())
+            targets.append(torch.from_numpy(lab))
+    direct = _metrics_as_evaluate(torch.cat(logits), torch.cat(targets))
+    del model
+    torch.cuda.empty_cache()
+    steps = _cli_split()[2]
+    result = {"model": "ModelVIT", "streams": list(streams), "run": run,
+              "tokens": cfg.num_modalities * 512 + 1, "decoder": native.variant(),
+              "wall_s": wall_s, "history": hist, "steps_per_epoch": steps,
+              "launches": {k: v for k, v in launches.items() if v}, "evaluate": metrics,
+              "direct": direct, "evaluate_s": eval_s}
+    emit({"phase": "train_cli_vit", **result})
+    check(len(hist) == 1 and all(np.isfinite(v) for row in hist for v in row.values()),
+          f"--model vit history: {hist}")
+    check(launches["K2"] == 4 * steps and launches["K1"] >= 4 * steps,
+          f"--model vit: K1 {launches['K1']}, K2 {launches['K2']} launches "
+          f"({4 * steps} K2 and at least as many K1 expected)")
+    check(metrics == direct, f"--model vit: evaluate.main {metrics} != direct forward {direct}")
     return result
 
 
@@ -4164,6 +4438,7 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         device = phase_device()
+        phase_decoder_toolchain()
         phase_build()
         k1 = phase_kernels()
         k2 = phase_kernels_k2()
@@ -4180,6 +4455,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             trained_dp = phase_train_dp(Path(tmp))
         trained_vit = phase_train_vit()
+        trained_remat = phase_train_remat()
+        phase_augment_exact(trained["augment_ms"])
+        phase_mfu(trained, trained_vit)
         with tempfile.TemporaryDirectory() as tmp:
             trained_moe = phase_train_moe(Path(tmp))
         ring = phase_ring()
@@ -4217,6 +4495,9 @@ def main() -> int:
         paths[f"serve_int8+attn_{name}"] = result["launches"]
     for r in trained_cli["runs"]:
         paths[f"train_cli_{r['epochs']}_epochs"] = r["launches"]
+    paths["train_cli_vit"] = trained_cli["vit"]["launches"]
+    for policy, r in trained_remat["runs"].items():
+        paths[f"train_remat_{policy}"] = r["launches"]
     paths["train_moe"] = trained_moe["launches"]
     paths["train_moe_serve_bucket8"] = {"K1": trained_moe["serve_bucket8"]["launches"]}
     paths["train_sp_no_mesh"] = ring["sp_step"]["launches"]
@@ -4369,6 +4650,12 @@ WORKERS = {"--dp-worker": dp_worker, "--moe-worker": moe_worker, "--split-worker
 
 if __name__ == "__main__":
     if sys.argv[1:2] and sys.argv[1] in WORKERS:     # rank world port tmp
-        sys.exit(WORKERS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
-                                      Path(sys.argv[5])))
+        code = WORKERS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                                    Path(sys.argv[5]))
+        # a worker's results are on disk and its group destroyed: leave
+        # without the interpreter's teardown, where torch's c10d can abort
+        # ("terminate called without an active exception") under load
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
     sys.exit(main())

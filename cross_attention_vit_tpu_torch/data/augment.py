@@ -6,7 +6,9 @@ Transform order and parameters (the reference list, JAX ``:17-26``):
   2. RandRotate90    p=0.2,  k=1, axes (0,1)        [requires D == H]
   3. RandAffine      p=0.2,  rotate U(±0.1 rad)/axis, scale 1+U(±0.1)/axis,
                      the gather-free LU warp: 4 windowed 1-D resamples
-                     through the hand-written kernel (kernels/resample.py)
+                     through the hand-written kernel (kernels/resample.py);
+                     ``affine_backend="exact"``: one trilinear pass
+                     (``apply_affine_exact``, JAX ``_affine``)
   4. RandAdjustContrast p=0.3, gamma U(0.7, 1.3)
   5. RandGaussianNoise  p=0.2, std U(0, 0.1)
   6. RandGaussianSmooth p=0.2, sigma_x U(0.5,1.5), sigma_y/z U(0.25,1.5)
@@ -34,6 +36,7 @@ JAX one does.
 from __future__ import annotations
 
 import functools
+import itertools
 from dataclasses import dataclass
 
 import numpy as np
@@ -49,6 +52,9 @@ class AugmentConfig:
     affine_prob: float = 0.2
     affine_rotate: float = 0.1
     affine_scale: float = 0.1
+    # 'lu' = the LU-factored warp through K3 (the default, the main path);
+    # anything else = the single-pass trilinear warp (JAX's 'exact')
+    affine_backend: str = "lu"
     contrast_prob: float = 0.3
     gamma_low: float = 0.7
     gamma_high: float = 1.3
@@ -200,6 +206,53 @@ def apply_affine(vols: torch.Tensor, m: torch.Tensor, cfg: AugmentConfig) -> tor
                                       lu_spans(cfg, shape)):
         out = resample_axis_windowed_batched(out, axis, cd.to(vols.device), center, window,
                                              span=span)
+    return out
+
+
+def _reflect_index(index: torch.Tensor, size: int) -> torch.Tensor:
+    """scipy's 'reflect' mode (half-sample symmetric) on integer indices, as
+    ``jax.scipy.ndimage.map_coordinates`` folds them (its
+    ``_reflect_index_fixer``): index i of a line of ``size`` samples."""
+    s = 2 * size    # the half-wavelength of the triangle wave on 2i + 1
+    mirrored = torch.abs(torch.remainder(2 * index + 1 + s, 2 * s) - s)
+    return torch.div(mirrored - 1, 2, rounding_mode="floor")
+
+
+def apply_affine_exact(vols: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Warp each volume by its sampling matrix m (V, 3, 3) in one trilinear
+    pass (JAX ``_affine``: ``map_coordinates(order=1, mode="reflect")``).
+
+    Source coordinates m·(i − c) + c in f32 about the centre
+    c = ((D−1)/2, (H−1)/2, (W−1)/2), each row summed in index order; per
+    axis the floor and the next sample with weights (1 − t, t), their
+    indices folded by ``_reflect_index``; the eight corners' weight products
+    times the f32 samples summed in JAX's corner order, cast once to the
+    volumes' dtype.  Plain PyTorch gathers, as JAX's were plain XLA; one
+    volume at a time bounds the index tensors."""
+    V, D, H, W = vols.shape
+    dev = vols.device
+    m = m.to(device=dev, dtype=torch.float32)
+    center = [(D - 1) / 2.0, (H - 1) / 2.0, (W - 1) / 2.0]
+    grid = torch.meshgrid(*(torch.arange(n, device=dev, dtype=torch.float32)
+                            for n in (D, H, W)), indexing="ij")
+    rel = [g.reshape(-1) - c for g, c in zip(grid, center)]
+    strides = (H * W, W, 1)
+    out = torch.empty_like(vols)
+    for v in range(V):
+        flat = vols[v].reshape(-1)
+        taps = []       # per axis: [(flat offset, weight) of the floor, of the next]
+        for r, size in enumerate((D, H, W)):
+            src = (m[v, r, 0] * rel[0] + m[v, r, 1] * rel[1]) + m[v, r, 2] * rel[2] + center[r]
+            lo = torch.floor(src)
+            upper = src - lo
+            i = lo.long()
+            taps.append([(_reflect_index(i, size) * strides[r], 1 - upper),
+                         (_reflect_index(i + 1, size) * strides[r], upper)])
+        acc = None
+        for (o0, w0), (o1, w1), (o2, w2) in itertools.product(*taps):
+            term = (w0 * w1 * w2) * flat[o0 + o1 + o2].float()
+            acc = term if acc is None else acc + term
+        out[v] = acc.reshape(D, H, W).to(vols.dtype)
     return out
 
 
@@ -372,17 +425,22 @@ def apply_coarse_dropout(vols: torch.Tensor, corners: torch.Tensor, size,
 
 def _steps(cfg: AugmentConfig, shape):
     """(name, prob, run) in reference order; run(vols, host_gen, field_gen)
-    draws the parameters for len(vols) volumes and applies the transform."""
+    draws the parameters for len(vols) volumes and applies the transform.
+    The affine's backend follows ``cfg.affine_backend`` (JAX ``_steps``,
+    :499-503)."""
     radius = smooth_radius(cfg)
 
     def n(v):
         return v.shape[0]
 
+    def affine(v, g, fg):
+        m = draw_affine(n(v), cfg, g)
+        return apply_affine(v, m, cfg) if cfg.affine_backend == "lu" else apply_affine_exact(v, m)
+
     return [
         ("flip", cfg.flip_prob, lambda v, g, fg: apply_flip(v)),
         ("rot90", cfg.rot90_prob, lambda v, g, fg: apply_rot90(v)),
-        ("affine", cfg.affine_prob,
-         lambda v, g, fg: apply_affine(v, draw_affine(n(v), cfg, g), cfg)),
+        ("affine", cfg.affine_prob, affine),
         ("contrast", cfg.contrast_prob,
          lambda v, g, fg: apply_contrast(v, draw_contrast(n(v), cfg, g))),
         ("noise", cfg.noise_prob,

@@ -112,7 +112,7 @@ class BrainDataset:
 
     def _batch_native(self, indices: Sequence[int]) -> tuple[np.ndarray, np.ndarray]:
         """One C++ call decodes every (sample, modality) volume of the batch
-        straight into the batch buffer (native/nifti_decode.cpp batch API)."""
+        straight into the batch buffer (data/csrc/nifti_decode.cpp batch API)."""
         from . import native
 
         ids = [self.data["ID"][i] for i in indices]

@@ -1156,26 +1156,35 @@ def _use_fused_grads(qkv: torch.Tensor) -> bool:
             and qkv.shape[1] <= _SINGLE_BLOCK_MAX and qkv.shape[-1] % 8 == 0)
 
 
+def _compute(name: str, compute):
+    return compute()
+
+
 class _FusedQKVAttention(torch.autograd.Function):
     """The JAX ``fused_qkv_attention`` custom VJP: the forward is the QKV
     projection, then K1 (K7 above ``_SINGLE_BLOCK_MAX``), saving
     (x, w, qkv, out) and K1's row statistics (K7's logsumexp) — the slot of
     JAX's lse, None at short N; the backward follows ``_fused_qkv_bwd_rule``
-    and hands them to K2 or K8 (K7)."""
+    and hands them to K2 or K8 (K7).  ``keep(name, compute)`` returns
+    ``compute()`` for 'qkv' (the projection) and 'attn_out' (the output and
+    its statistics), or a value a rematerialised block kept for them
+    (``ops.remat.kept``)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor, with_stats: bool):
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, with_stats: bool, keep):
         B, N, H = x.shape
         _, _, K, D = w.shape
-        x2, w2 = _qkv_matrices(x, w)
-        qkv = torch.matmul(x2, w2).view(B, N, 3, K, D)
+        qkv = keep("qkv", lambda: torch.matmul(*_qkv_matrices(x, w)).view(B, N, 3, K, D))
         scale = D ** -0.5
-        if N > _SINGLE_BLOCK_MAX:
-            out, stats = _stream_qkv_fwd(qkv, scale)   # (B, N, K, D), lse
-        elif with_stats:
-            out, stats = flash_attention_qkv_fwd(qkv, scale, True)
-        else:
-            out, stats = flash_attention_qkv_fwd(qkv, scale), None
+
+        def attend():
+            if N > _SINGLE_BLOCK_MAX:
+                return _stream_qkv_fwd(qkv, scale)    # (B, N, K, D), lse
+            if with_stats:
+                return flash_attention_qkv_fwd(qkv, scale, True)
+            return flash_attention_qkv_fwd(qkv, scale), None
+
+        out, stats = keep("attn_out", attend)
         ctx.save_for_backward(x, w, qkv, out, stats)
         ctx.scale = scale
         return out.permute(0, 2, 3, 1)                # (B, K, D, N)
@@ -1185,15 +1194,15 @@ class _FusedQKVAttention(torch.autograd.Function):
         x, w, qkv, out, stats = ctx.saved_tensors
         dout = g.permute(0, 3, 1, 2).contiguous()     # (B, N, K, D)
         if _use_fused_grads(qkv):
-            return (*fused_qkv_bwd(x, w, qkv, out, dout, ctx.scale, stats), None)
+            return (*fused_qkv_bwd(x, w, qkv, out, dout, ctx.scale, stats), None, None)
         if qkv.shape[1] <= _SINGLE_BLOCK_MAX:
             dqkv = flash_attention_qkv_bwd(qkv, out, dout, ctx.scale, stats)
         else:
             dqkv = _stream_qkv_bwd(qkv, out, stats, dout, ctx.scale)
-        return (*_qkv_grads_plain(x, w, dqkv), None)
+        return (*_qkv_grads_plain(x, w, dqkv), None, None)
 
 
-def fused_qkv_attention(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def fused_qkv_attention(x: torch.Tensor, w: torch.Tensor, keep=_compute) -> torch.Tensor:
     """QKV projection + fused SDPA: (B, N, H) x, (H, 3, K, D) w → (B, K, D, N).
 
     Same signature, value and backward rule as the JAX
@@ -1203,5 +1212,8 @@ def fused_qkv_attention(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     Backward: with ``FUSED_QKV_GRADS`` on, bf16 and N ≤ 1040, K8
     (``fused_qkv_bwd``); otherwise K2 (K7 above ``_SINGLE_BLOCK_MAX``) for
     dqkv, then dx = dqkv·Wᵀ and dW = xᵀ·dqkv as plain GEMMs, f32 accumulation,
-    cast to x's and w's dtypes (``kernels/flash_attention.py:1016-1023``)."""
-    return _FusedQKVAttention.apply(x, w, _backward_follows(x, w))
+    cast to x's and w's dtypes (``kernels/flash_attention.py:1016-1023``).
+    ``keep``: a rematerialised block's store (``ops.remat.kept``), which its
+    recompute reads the projection and the kernel's output from instead of
+    computing them again."""
+    return _FusedQKVAttention.apply(x, w, _backward_follows(x, w), keep)

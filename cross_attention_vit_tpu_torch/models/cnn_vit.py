@@ -40,7 +40,7 @@ from torch import nn
 from ..configs import Config
 from ..ops import initializers as init_ops
 from ..ops.conv import conv3d, max_pool3d, relu
-from ..ops.layers import dropout, gelu, layernorm, linear, promote_input
+from ..ops.layers import dropout, dropout_bits, gelu, layernorm, linear, promote_input
 from ..ops.losses import bce_with_logits
 from ..utils.device import resolve_device
 
@@ -88,6 +88,7 @@ class CNNViT(nn.Module):
         device = resolve_device(device)
         self.config = config
         d = self.opts = _defaults(config)
+        self.dropout_bits = config.get("dropout_bits", "auto")   # the masks' width
         H, g = d["hidden_size"], d["grid"]
         c0, c1, c2 = config.encoder_channels
         D, Hh, W = config.img_size
@@ -166,8 +167,9 @@ class CNNViT(nn.Module):
         streams = [self._embed(img[:, m]) for m in range(img.shape[1])]
         # the CLS from stream 0 only; the other streams add their patch tokens
         x = torch.cat([streams[0]] + [s[:, 1:] for s in streams[1:]], dim=1)
-        for blk in self.blocks:
-            x = self._block(blk, x, generator, train)
+        with dropout_bits(self.dropout_bits):
+            for blk in self.blocks:
+                x = self._block(blk, x, generator, train)
         x = layernorm(x, self.encoder_norm.weight, self.encoder_norm.bias, eps=1e-6)
         logits = linear(x[:, 0], self.final.weight, self.final.bias)[:, 0].float()
         if labels is None:

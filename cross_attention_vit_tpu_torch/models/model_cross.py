@@ -30,6 +30,13 @@ sites (rate ``config.dropout``): after the positional embedding, on the
 self-attention output projection, on the cross-attention probabilities and
 projection, after GELU and after fc2 in every feed-forward, and in the
 per-stream heads.  ``g`` is a ``torch.Generator`` on the model's device.
+The masks draw ``config.dropout_bits`` random bits an element (JAX's
+``DROPOUT_BITS``: 'auto', 8, 16, or Bernoulli; ``ops.layers.dropout_mask``).
+
+Rematerialisation (``config.remat``, ``config.remat_policy``): each
+self-block runs under ``ops.remat.checkpoint``, where JAX wraps it in
+``jax.checkpoint``; values, masks and the generator's final state are
+those of the step without it.
 
 Tensor parallelism (``parallel.shard_params`` over a 'model' axis, JAX's
 head-aligned Megatron split): each attention, cross-attention, dense
@@ -56,7 +63,9 @@ from torch import nn
 from ..configs import Config
 from ..ops import initializers as init_ops
 from ..ops.attention import attention_impl, cross_attention_cls, self_attention
-from ..ops.layers import dropout, feed_forward, layernorm, linear, mlp_head, promote_input
+from ..ops import remat
+from ..ops.layers import (dropout, dropout_bits, feed_forward, layernorm, linear, mlp_head,
+                          promote_input)
 from ..ops.losses import cross_entropy
 from ..ops.patchify import num_patches, patchify_3d
 from ..parallel.moe import MoEFFN
@@ -104,6 +113,8 @@ class _Opts:
     dropout: float
     moe_selected: int = 2
     moe_capacity: float = 1.25
+    dropout_bits: object = "auto"                # the keep masks' random bits an element
+    remat: tuple[str, ...] | None = None         # the names a remat policy keeps; None: off
 
 
 def _opts(config: Config) -> _Opts:
@@ -114,7 +125,9 @@ def _opts(config: Config) -> _Opts:
                  gelu_approx=bool(config.get("gelu_approx", False)),
                  dropout=float(config.get("dropout", 0.0)),
                  moe_selected=int(config.get("moe_num_selected", 2)),
-                 moe_capacity=float(config.get("moe_capacity_factor", 1.25)))
+                 moe_capacity=float(config.get("moe_capacity_factor", 1.25)),
+                 dropout_bits=config.get("dropout_bits", "auto"),
+                 remat=remat.remat_names(config))
 
 
 class _Run:
@@ -196,7 +209,9 @@ class _FeedForward(nn.Module):
 
 
 class _SelfBlock(nn.Module):
-    """Pre-norm self-attention block (reference model_cross.py:64-72)."""
+    """Pre-norm self-attention block (reference model_cross.py:64-72); with
+    ``config.remat`` a rematerialised region under its policy
+    (``ops/remat.py``, JAX ``models/model_cross.py:236-248``)."""
 
     def __init__(self, dim: int, mlp: int, opts: _Opts, moe_experts: int = 0):
         super().__init__()
@@ -207,6 +222,9 @@ class _SelfBlock(nn.Module):
         self.ffn = _PreNorm(dim, ffn)
 
     def forward(self, x: torch.Tensor, run: _Run) -> torch.Tensor:
+        return remat.checkpoint(self._block, self.opts.remat, run.generator, x, run)
+
+    def _block(self, x: torch.Tensor, run: _Run) -> torch.Tensor:
         o, a, f = self.opts, self.attn, self.ffn
         h = layernorm(x, a.norm.weight, a.norm.bias)
         to_out = a.fn.to_out["0"] if a.fn.to_out is not None else None
@@ -215,7 +233,8 @@ class _SelfBlock(nn.Module):
         h = layernorm(x, f.norm.weight, f.norm.bias)
         if isinstance(f.fn, MoEFFN):
             y, aux = f.fn(h)
-            run.moe.append(aux)
+            if not remat.replaying():     # the forward recorded this site's terms
+                run.moe.append(aux)
             return dropout(y, o.dropout, run.generator, run.train) + x
         net = f.fn.net
         return feed_forward(h, net["0"], net["3"], o.compute_dtype, o.gelu_approx,
@@ -359,10 +378,16 @@ class ModelCross(nn.Module):
 
     def forward(self, img: torch.Tensor, labels: torch.Tensor | None = None,
                 train: bool = False, generator: torch.Generator | None = None):
-        cfg, o = self.config, self.opts
+        o = self.opts
         if train and o.dropout and generator is None:
             raise ValueError("train mode with dropout needs a torch.Generator on the "
                              "model's device")
+        with dropout_bits(o.dropout_bits):
+            return self._forward(img, labels, train, generator)
+
+    def _forward(self, img: torch.Tensor, labels: torch.Tensor | None, train: bool,
+                 generator: torch.Generator | None):
+        cfg, o = self.config, self.opts
         run = _Run(train, generator)
         img = promote_input(img)   # low-precision transfer batches re-promote at entry
         B, M = img.shape[:2]

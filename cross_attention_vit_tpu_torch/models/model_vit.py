@@ -22,9 +22,11 @@ Weights and dtypes work as in ``ModelCross``: f32 masters cast per call when
 ``master_weights=True`` (the model to train), else GEMM weights cast once to
 the compute dtype.  Train mode drops out after the positional embedding, on
 the attention output projection, after GELU and after fc2 in every
-feed-forward, and twice in the head.  With ``moe_experts`` = E > 1 every
-``moe_every``-th trunk FFN is a GShard MoE (``parallel.moe.MoEFFN``, f32,
-erf GELU; JAX :27-35, :66-83, :133-149, :197-205), followed by dropout and
+feed-forward, and twice in the head, with ``config.dropout_bits``'s masks;
+``config.remat`` rematerialises each trunk layer, as in ``ModelCross``.
+With ``moe_experts`` = E > 1 every ``moe_every``-th trunk FFN is a GShard
+MoE (``parallel.moe.MoEFFN``, f32, erf GELU; JAX :27-35, :66-83, :133-149,
+:197-205), followed by dropout and
 the row stochastic depth as the dense FFN; in train mode the loss gains
 ``moe_balance_weight`` × the mean of the sites' balance losses, and each
 forward leaves the sites' aux values in ``moe_aux``.
@@ -49,9 +51,10 @@ from torch import nn
 
 from ..configs import Config
 from ..ops import initializers as init_ops
+from ..ops import remat
 from ..ops.attention import self_attention
-from ..ops.layers import (dropout, feed_forward, gelu, layernorm, linear, linear_layer,
-                          promote_input, stochastic_depth_row)
+from ..ops.layers import (dropout, dropout_bits, feed_forward, gelu, layernorm, linear,
+                          linear_layer, promote_input, stochastic_depth_row)
 from ..ops.losses import cross_entropy
 from ..ops.patchify import num_patches, patchify_3d
 from ..parallel.moe import MoEFFN
@@ -150,7 +153,14 @@ class ModelVIT(nn.Module):
 
     def _layer(self, layer: nn.Module, x: torch.Tensor, generator: torch.Generator | None,
                train: bool, run: _Run) -> torch.Tensor:
-        """One pre-norm trunk layer (JAX ``layer_fn_bal``)."""
+        """One pre-norm trunk layer (JAX ``layer_fn_bal``); with
+        ``config.remat`` a rematerialised region (``ops/remat.py``), as JAX
+        wraps ``layer_fn_bal`` (:162-165), under the pipeline too."""
+        return remat.checkpoint(lambda h: self._layer_body(layer, h, generator, train, run),
+                                self.opts.remat, generator, x)
+
+    def _layer_body(self, layer: nn.Module, x: torch.Tensor,
+                    generator: torch.Generator | None, train: bool, run: _Run) -> torch.Tensor:
         o = self.opts
         a, f = layer["0"], layer["2"]
         to_out = a.fn.to_out["0"] if a.fn.to_out is not None else None
@@ -161,7 +171,8 @@ class ModelVIT(nn.Module):
         h = layernorm(x, f.norm.weight, f.norm.bias)
         if isinstance(f.fn, MoEFFN):
             y, aux = f.fn(h)
-            run.moe.append(aux)
+            if not remat.replaying():     # the forward recorded this site's terms
+                run.moe.append(aux)
             y = dropout(y, o.dropout, generator, train)
         else:
             net = f.fn.net
@@ -171,10 +182,16 @@ class ModelVIT(nn.Module):
 
     def forward(self, img: torch.Tensor, labels: torch.Tensor | None = None,
                 train: bool = False, generator: torch.Generator | None = None):
-        cfg, o = self.config, self.opts
+        o = self.opts
         if train and (o.dropout or self.drop_path) and generator is None:
             raise ValueError("train mode with dropout or drop path needs a torch.Generator "
                              "on the model's device")
+        with dropout_bits(o.dropout_bits):
+            return self._forward(img, labels, train, generator)
+
+    def _forward(self, img: torch.Tensor, labels: torch.Tensor | None, train: bool,
+                 generator: torch.Generator | None):
+        cfg, o = self.config, self.opts
         img = promote_input(img)   # low-precision transfer batches re-promote at entry
         B, M = img.shape[:2]
         if M != self.num_modalities:

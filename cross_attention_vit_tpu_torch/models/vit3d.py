@@ -48,7 +48,7 @@ from ..configs import Config
 from ..ops import initializers as init_ops
 from ..ops.attention import _sdpa
 from ..ops.conv import batch_norm3d, conv3d, max_pool3d, relu
-from ..ops.layers import dropout, layernorm, linear, promote_input
+from ..ops.layers import dropout, dropout_bits, layernorm, linear, promote_input
 from ..ops.losses import cross_entropy
 from ..utils.device import resolve_device
 from .densenet import DenseNet121
@@ -140,6 +140,7 @@ class ViT3D(nn.Module):
             # (modelv2.py:154-159): its pretrained path admits one modality
             raise ValueError(f"pretrained_cnn supports num_modalities == 1 (got {M})")
         self.config = config
+        self.dropout_bits = config.get("dropout_bits", "auto")   # the masks' width
         self.master_weights = True
         self.compute_dtype = _compute_dtype(config)
         num_tokens = n_tok * (1 if self.pretrained else M) + int(self.add_cls)
@@ -237,8 +238,9 @@ class ViT3D(nn.Module):
         if self.cls_token is not None:
             x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, x.shape[-1]), x], dim=1)
         x = x + self.pos_embed.to(x.dtype)
-        for layer in self.transformer.layers:
-            x = self._layer(layer, x, generator, train)
+        with dropout_bits(self.dropout_bits):
+            for layer in self.transformer.layers:
+                x = self._layer(layer, x, generator, train)
         pooled = x[:, 0] if self.cls_token is not None else x.mean(dim=1)
         norm, fc1, fc2 = self.mlp_head
         h = layernorm(pooled, norm.weight, norm.bias)

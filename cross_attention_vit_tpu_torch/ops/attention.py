@@ -26,6 +26,9 @@ Megatron's f, the attention runs on the local heads, the output
 projection's f32 partial products are summed over the 'model' group (g)
 before its bias, and the cross-attention's probability dropout keeps this
 rank's heads of the whole-width mask.
+
+Inside a rematerialised block (``ops/remat.py``) the QKV projection is
+named ``qkv`` and the attention's output ``attn_out``.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..parallel.ring import sharded_ring_sdpa
 from ..parallel.tensor import TP, copy_to, local_heads
 from .layers import dropout, linear
 from .quant import QuantLinear, attn_out_projection, qkv_projection
+from .remat import kept, kept_value
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -96,14 +100,14 @@ def self_attention(x: torch.Tensor, to_qkv: nn.Linear, to_out: nn.Linear | None,
     w = to_qkv.weight.to(x.dtype)
     if impl == "flash":
         # (H, 3, K, D) is the JAX kernel layout: a view of the (3H, H) weight
-        out = fused_qkv_attention(x, w.t().reshape(H, 3, K, D))    # (B, K, D, N)
+        out = fused_qkv_attention(x, w.t().reshape(H, 3, K, D), kept)    # (B, K, D, N)
         # back to the kernel's own (B, N, K, D) memory order: a view, no copy
         out = out.permute(0, 3, 1, 2)
     elif impl in ("xla", "ring"):
-        qkv = torch.matmul(x, w.t()).view(B, N, 3, K, D)
+        qkv = kept_value("qkv", torch.matmul(x, w.t()).view(B, N, 3, K, D))
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, K, N, D)
         sdpa = sharded_ring_sdpa if impl == "ring" else _sdpa
-        out = sdpa(q, k, v, D ** -0.5).transpose(1, 2)               # (B, N, K, D)
+        out = kept_value("attn_out", sdpa(q, k, v, D ** -0.5)).transpose(1, 2)  # (B, N, K, D)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
     out = out.reshape(B, N, K * D)

@@ -15,15 +15,31 @@ Dropout inside a tensor-parallel region (the FFN's hidden units, the
 cross-attention's probabilities on this rank's heads) draws the mask of the
 whole width and keeps this rank's slice: the mask is the one-process mask
 at the same generator state, and every rank's generator stays in step.
+
+Mask width (JAX ``DROPOUT_BITS``, set from ``config.dropout_bits`` by
+``apply_config_knobs``): the models read ``config.dropout_bits`` when they
+are built and run their forward under ``dropout_bits(...)``, so the value
+holds for that model's calls only and never outlives them.  JAX's other
+two dropout knobs, ``tie_key_mode`` and ``dropout_rng_impl``, choose how
+its keys are tied to the data and which RNG implementation draws them;
+``torch.Generator`` has neither choice, so the port accepts both fields and
+they change nothing.
+
+Inside a rematerialised block (``ops/remat.py``) the keep masks are named
+``dropout_mask`` and fc2's input ``ffn_hidden``.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
 
 from ..parallel.tensor import TP, copy_to, reduce_from, split_slice
 from .quant import QuantLinear, qlinear
+from .remat import kept, kept_value
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -122,18 +138,47 @@ def promote_input(img: torch.Tensor) -> torch.Tensor:
     return img
 
 
+# the mask width of the calls in scope (``dropout_bits``): 'auto', 8, 16, or
+# anything else for exact-probability Bernoulli masks
+_DROPOUT_BITS: contextvars.ContextVar = contextvars.ContextVar("dropout_bits", default="auto")
+
+
+@contextlib.contextmanager
+def dropout_bits(bits):
+    """The keep masks drawn in this block use ``bits`` (``config.dropout_bits``;
+    'auto' outside any such block)."""
+    token = _DROPOUT_BITS.set(bits)
+    try:
+        yield
+    finally:
+        _DROPOUT_BITS.reset(token)
+
+
+def mask_bits(keep: float, bits="auto"):
+    """The random bits a keep mask draws per element (JAX ``_mask_bits``):
+    'auto' picks 8 when keep·2^8 is an integer (the threshold is then exact:
+    the live dropout 0.25 → 192/256) and 16 otherwise; any other value is
+    returned as given (8, 16, or None and the rest: Bernoulli)."""
+    if bits == "auto":
+        return 8 if keep * 256 == int(keep * 256) else 16
+    return bits
+
+
 def dropout_mask(shape, keep: float, generator: torch.Generator,
                  device: torch.device) -> torch.Tensor:
-    """Boolean keep mask with P(keep) exactly ``keep`` where keep·2^8 is an
-    integer (8 random bits against round(keep·256): the live dropout 0.25 →
-    192/256), else to 2^-16 (16 bits) — the JAX package's 'auto' mask."""
-    bits = 8 if keep * 256 == int(keep * 256) else 16
-    thresh = int(round(keep * (1 << bits)))
-    if thresh >= (1 << bits):
-        return torch.ones(shape, dtype=torch.bool, device=device)
-    dtype = torch.uint8 if bits == 8 else torch.int32
-    r = torch.randint(0, 1 << bits, shape, generator=generator, device=device, dtype=dtype)
-    return r < thresh
+    """Boolean keep mask (JAX ``_mask``): with 8 or 16 bits (``mask_bits`` of
+    the width in scope, ``dropout_bits``), that many random bits per element
+    against round(keep·2^bits); otherwise, or where that threshold rounds up
+    to 2^bits, an exact-probability Bernoulli (a uniform f32 against keep)."""
+    b = mask_bits(keep, _DROPOUT_BITS.get())
+    if b in (8, 16):
+        thresh = int(round(keep * (1 << b)))
+        if thresh < (1 << b):      # keep ≈ 1 would wrap to all-False
+            dtype = torch.uint8 if b == 8 else torch.int32
+            r = torch.randint(0, 1 << b, shape, generator=generator, device=device,
+                              dtype=dtype)
+            return r < thresh
+    return torch.rand(shape, generator=generator, device=device) < keep
 
 
 def _drop(x: torch.Tensor, rate: float, generator: torch.Generator | None, train: bool,
@@ -147,14 +192,17 @@ def _drop(x: torch.Tensor, rate: float, generator: torch.Generator | None, train
     if generator is None:
         raise ValueError("dropout and stochastic depth in train mode need a torch.Generator")
     keep = 1.0 - rate
-    if split is not None and split[1] is not None:
-        dim, tp = split
-        shape = list(mask_shape)
-        shape[dim] *= tp.size
-        mask = split_slice(dropout_mask(tuple(shape), keep, generator, x.device), dim, 1,
-                           tp.rank, tp.size)
-    else:
-        mask = dropout_mask(mask_shape, keep, generator, x.device)
+
+    def draw() -> torch.Tensor:
+        if split is not None and split[1] is not None:
+            dim, tp = split
+            shape = list(mask_shape)
+            shape[dim] *= tp.size
+            return split_slice(dropout_mask(tuple(shape), keep, generator, x.device), dim, 1,
+                               tp.rank, tp.size)
+        return dropout_mask(mask_shape, keep, generator, x.device)
+
+    mask = kept("dropout_mask", draw)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -185,7 +233,7 @@ def feed_forward(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,
     rows and fc2's columns are this rank's slice of the MLP width."""
     h = linear_layer(fc1, copy_to(x, tp), compute_dtype)
     h = dropout(gelu(h, gelu_approx), rate, generator, train, split=(-1, tp))
-    h = linear_layer(fc2, h, compute_dtype, tp)
+    h = linear_layer(fc2, kept_value("ffn_hidden", h), compute_dtype, tp)
     return dropout(h, rate, generator, train)
 
 

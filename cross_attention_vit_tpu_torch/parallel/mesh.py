@@ -50,6 +50,9 @@ def multihost_init(coordinator_address: str | None = None, num_processes: int | 
                    timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
     """Join the process group: one process per device.
 
+    ``coordinator_address`` is ``host:port`` (rank 0 listens there, as
+    JAX's coordinator) or a ``file://`` path every process can reach (a
+    FileStore rendezvous: no port to pick, for processes of one host).
     Arguments left None come from torchrun's environment: ``MASTER_ADDR`` and
     ``MASTER_PORT`` (the coordinator ``host:port``), ``WORLD_SIZE`` and
     ``RANK``.  The backend is NCCL for a CUDA ``device`` and gloo for the CPU;
@@ -77,8 +80,10 @@ def multihost_init(coordinator_address: str | None = None, num_processes: int | 
         local = dev.index if dev.index is not None else int(
             env.get("LOCAL_RANK", process_id % torch.cuda.device_count()))
         torch.cuda.set_device(local)
+    init_method = (coordinator_address if coordinator_address.startswith("file://")
+                   else f"tcp://{coordinator_address}")
     dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
-                            init_method=f"tcp://{coordinator_address}",
+                            init_method=init_method,
                             world_size=num_processes, rank=process_id,
                             timeout=datetime.timedelta(seconds=timeout_s))
 

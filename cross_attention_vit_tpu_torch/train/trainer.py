@@ -26,9 +26,10 @@ mesh is left for a later model in the process.
 
 The model, the optimizer state and the generators are objects that the step
 updates in place, where the JAX step is a pure function of (params,
-opt_state, rng).  ``remat_policy`` is a memory knob of the JAX step; at batch
-8 the live models' activations fit on one H100 without recomputation, so the
-port ignores it.
+opt_state, rng).  ``config.remat`` and ``remat_policy`` are the models' own
+(``ops/remat.py``): each self-block or trunk layer recomputes its
+activations in the backward, keeping what the policy names, with the same
+values, masks and generator state as without.
 
 ``Trainer`` is the epoch loop of the reference's Lightning trainer: the
 weighted sampler's order (or a seeded permutation) per epoch, cosine or

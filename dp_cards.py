@@ -83,6 +83,7 @@ import contextlib
 import gc
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -467,6 +468,12 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
-        sys.exit(worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
-                        Path(sys.argv[5]), sys.argv[6].split(",")))
+        code = worker(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                      Path(sys.argv[5]), sys.argv[6].split(","))
+        # leave without the interpreter's teardown, where torch's c10d can
+        # abort under load after the group was destroyed (chip_smoke.py's
+        # workers do the same)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
     sys.exit(main())

@@ -42,8 +42,7 @@ def _jax_each(fn, keys, vols):
 
 
 def test_config_matches_jax_field_for_field():
-    want = {k: v for k, v in vars(JCFG).items() if k != "affine_backend"}
-    assert vars(TCFG) == want
+    assert vars(TCFG) == vars(JCFG)
 
 
 def test_flip_and_rot90_match_jax():
@@ -67,6 +66,66 @@ def test_affine_matrix_and_lu_affine_match_jax():
     want = np.asarray(jaug._affine_lu_batched(JCFG)(keys, jnp.asarray(vols)))
     got = taug.apply_affine(torch.from_numpy(vols), torch.tensor(np.asarray(m)), TCFG)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("shape", [SHAPE, (13, 17, 9)])
+def test_exact_affine_matches_jax(shape):
+    """``affine_backend="exact"``: the single-pass trilinear warp against
+    JAX's ``_affine`` at the matrices its ``_affine_matrix`` draws from the
+    same keys, f32, within 1e-5 × max |vol|; the reflect fold of the corner
+    indices is exercised by sources that leave the volume."""
+    vols, keys = _vols(4, seed=3, shape=shape) * 100, _keys(4, seed=3)
+    cfg = jaug.AugmentConfig(affine_backend="exact")
+    want = _jax_each(jaug._affine(cfg), keys, vols)
+    m = np.asarray(jax.vmap(lambda k: jaug._affine_matrix(cfg, k))(keys))
+    got = taug.apply_affine_exact(torch.from_numpy(vols), torch.from_numpy(m))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(vols).max(), rtol=0)
+
+
+def test_exact_affine_folds_indices_as_scipy_reflect():
+    """Large scales send sources far outside the volume: the corner indices
+    fold as ``map_coordinates(mode="reflect")``'s; bf16 volumes round the f32
+    result once (one bf16 ulp of JAX's)."""
+    from jax.scipy.ndimage import map_coordinates
+
+    vols = _vols(1, seed=4, shape=(10, 12, 8))
+    m = np.array([[[1.9, 0.2, 0.1], [0.0, 0.6, 0.3], [0.1, -0.2, 1.7]]], np.float32)
+    D, H, W = vols.shape[1:]
+    center = np.array([(D - 1) / 2.0, (H - 1) / 2.0, (W - 1) / 2.0], np.float32)
+    coords = np.stack(np.meshgrid(np.arange(D), np.arange(H), np.arange(W), indexing="ij"))
+    src = np.einsum("rk,kdhw->rdhw", m[0], coords.astype(np.float32) - center[:, None, None, None])
+    src = src + center[:, None, None, None]
+    assert src.min() < -3 and src.max() > max(D, H, W) + 2     # both sides of the volume
+    for dtype, jdtype, atol in ((torch.float32, jnp.float32, 1e-5),
+                                (torch.bfloat16, jnp.bfloat16, 2 ** -8)):
+        want = np.asarray(map_coordinates(jnp.asarray(vols[0]).astype(jdtype), list(src),
+                                          order=1, mode="reflect").astype(jnp.float32))
+        got = taug.apply_affine_exact(torch.from_numpy(vols).to(dtype), torch.from_numpy(m))
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got[0].float().numpy(), want,
+                                   atol=atol * np.abs(want).max(), rtol=0)
+
+
+def test_pipeline_dispatches_the_affine_on_its_backend():
+    """``augment_batch`` with the affine alone at p = 1: 'lu' warps through
+    the LU passes, 'exact' through the trilinear pass, each on the matrices
+    the same host generator draws; bf16 batches keep bf16."""
+    none = {f: 0.0 for f in ("flip_prob", "rot90_prob", "contrast_prob", "noise_prob",
+                             "smooth_prob", "shuffle_prob", "dropout_prob", "zoom_prob")}
+    imgs = _batch(B=2)
+    gen = torch.Generator().manual_seed(9)      # augment_batch's draws, in its order:
+    torch.randint(0, 2 ** 62, (), generator=gen)    # the field generator's seed,
+    torch.rand(4, generator=gen)                     # the affine's gates,
+    m = taug.draw_affine(4, TCFG, gen)               # its matrices
+    for backend, warp in (("lu", lambda v: taug.apply_affine(v, m, TCFG)),
+                          ("exact", lambda v: taug.apply_affine_exact(v, m))):
+        cfg = taug.AugmentConfig(**none, affine_prob=1.0, affine_backend=backend)
+        for dtype in (torch.float32, torch.bfloat16):
+            out = taug.augment_batch(imgs.to(dtype), torch.Generator().manual_seed(9), cfg)
+            want = warp(imgs.to(dtype).reshape(4, *imgs.shape[3:])).to(dtype)
+            assert out.dtype == dtype
+            assert torch.equal(out.reshape(want.shape), want), (backend, dtype)
 
 
 def test_lu_tables_match_jax():

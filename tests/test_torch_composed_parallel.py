@@ -11,6 +11,8 @@ Over four gloo ranks (``tests/torch_mesh_workers.py``, mode split,
   TP × EP     the MoE ModelCross over (expert 2 × model 2)
   FSDP × EP   the MoE ModelCross over (data 2 × expert 2), FSDP
   PP × FSDP   the 2-stage ModelVIT over (pipe 2 × data 2), FSDP
+  remat       the TP × FSDP case with ``remat=True`` (policy 'full'): the
+              recompute runs inside FSDP's units and through TP's f and g
 
 * Each case's first step against JAX's own step over a mesh of the same
   axes on the CPU's virtual devices (``jax_mesh_step``: parameters placed by

@@ -10,6 +10,7 @@ exactly: the two packages run the same numpy arithmetic."""
 import socket
 import threading
 import types
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -122,7 +123,7 @@ def test_dataset_items_and_batches_match_jax(cohort, use_native):
     used here because its build writes the library in place, so xdist
     workers that build it at once can load a half-written file."""
     if use_native and not native.available():
-        pytest.skip("the native decoder did not build here (no g++ or libdeflate)")
+        pytest.skip("the native decoder did not build here (no g++ or zlib.h)")
     port, _ = _datasets(cohort, use_native=use_native, cache=False)
     _, ref = _datasets(cohort, use_native=False, cache=False)
     assert len(port) == len(ref) == 14 and port.use_native == use_native
@@ -168,7 +169,7 @@ def test_sampler_draws_match_jax(cohort):
 
 def test_native_decoder_matches_python_reader(cohort):
     if not native.available():
-        pytest.skip("the native decoder did not build here (no g++ or libdeflate)")
+        pytest.skip("the native decoder did not build here (no g++ or zlib.h)")
     from cross_attention_vit_tpu_torch.data.nifti import read_volume_cropped, volume_path
 
     root, _ = cohort
@@ -177,6 +178,51 @@ def test_native_decoder_matches_python_reader(cohort):
         np.testing.assert_array_equal(native.decode_crop(p, IMG), read_volume_cropped(p, IMG))
     batch = native.decode_crop_batch(paths, IMG, num_threads=2)
     np.testing.assert_array_equal(batch[1], read_volume_cropped(paths[1], IMG))
+
+
+def _variant_builds_here(variant: str) -> bool:
+    have = native.toolchain()
+    need = ("g++", "zlib.h", "libz.so") + (("libdeflate.h", "libdeflate.so")
+                                          if variant == "native-libdeflate" else ())
+    return all(have[k] for k in need)
+
+
+@pytest.mark.parametrize("variant", list(native.VARIANTS))
+def test_decoder_variants_match_python_reader(cohort, tmp_path, variant):
+    """Each variant of the port's decoder (libdeflate, zlib alone), built
+    here, decodes bit for bit like the Python reader: the cohort's
+    .nii.gz files, the same volume uncompressed, and as a gzip file of two
+    members whose footer is the second's (libdeflate hands such a file to
+    zlib, which reads member after member)."""
+    import gzip
+
+    from cross_attention_vit_tpu_torch.data.nifti import read_volume_cropped, volume_path
+
+    if not _variant_builds_here(variant):
+        pytest.skip(f"this host lacks a piece of {variant}'s toolchain: {native.toolchain()}")
+    assert native.load(variant) is not None
+    root, _ = cohort
+    paths = [volume_path(root / "data", f"UCSF-PDGM-{i:04d}", t) for i in (2, 5) for t in TYPES]
+    raw = gzip.decompress(Path(paths[0]).read_bytes())
+    (tmp_path / "plain.nii").write_bytes(raw)
+    (tmp_path / "members.nii.gz").write_bytes(gzip.compress(raw[:400]) + gzip.compress(raw[400:]))
+    paths += [tmp_path / "plain.nii", tmp_path / "members.nii.gz"]
+    for target in (IMG, (24, 10, 12)):
+        want = [read_volume_cropped(p, target) for p in paths]
+        for p, w in zip(paths, want):
+            np.testing.assert_array_equal(native.decode_crop(p, target, variant=variant), w)
+        batch = native.decode_crop_batch(paths, target, num_threads=3, variant=variant)
+        np.testing.assert_array_equal(batch, np.stack(want))
+
+
+def test_decoder_variant_follows_the_toolchain():
+    """The dataset's decoder is the first variant whose toolchain this host
+    has (libdeflate, then zlib alone), else the Python reader."""
+    want = next((v for v in native.VARIANTS if _variant_builds_here(v)), "python")
+    assert native.variant() == want
+    assert native.available() == (want != "python")
+    assert set(native.toolchain()) == {"g++", "zlib.h", "libdeflate.h", "libz.so",
+                                       "libdeflate.so"}
 
 
 @pytest.mark.parametrize("transfer", [None, "bfloat16"])

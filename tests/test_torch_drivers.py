@@ -75,6 +75,29 @@ def test_run_names_and_splits_match_jax(cohort, monkeypatch, mode):
         assert t[3] == {"model_cross": "ModelCross", "model_vit": "ModelVIT"}[j[3].split(".")[-1]]
 
 
+@pytest.mark.parametrize("model", ["cross", "vit"])
+def test_cli_sets_reach_the_model(cohort, monkeypatch, model):
+    """``--set dropout_bits=16 --set remat=True --set remat_policy=...``
+    through the experiments CLI: the model the run builds draws 16-bit masks
+    and rematerialises under that policy (JAX's CLI applies the same fields
+    through ``apply_config_knobs`` and ``remat_wrap``)."""
+    seen = []
+
+    def build(model_cls, cfg, params, train_df, val_df, **kw):
+        seen.append(model_cls(cfg, device="cpu").opts)
+        return None, [{"train_loss": 0.0}]
+
+    monkeypatch.setattr(texp, "_run_one", build)
+    texp.main(["--model", model, "--grid-index", "0", "--seeds", "2004", "--epochs", "1",
+               "--only-available", "--labels", str(cohort / "labels.csv"), "--data",
+               str(cohort / "data"), "--out", str(cohort / "unused"), *SETS,
+               "--set", "dropout_bits=16", "--set", "remat=True",
+               "--set", "remat_policy='save_attn_masks'"], device="cpu")
+    assert len(seen) == 1
+    assert seen[0].dropout_bits == 16
+    assert seen[0].remat == ("attn_out", "dropout_mask")
+
+
 @pytest.fixture(scope="module")
 def trained(cohort):
     """One real run of each driver (grid point 0 of the ModelCross list, one

@@ -229,12 +229,11 @@ def test_legacy_modules_import_neither_jax_nor_the_jax_package():
 
 
 def test_every_jax_module_has_a_port_counterpart():
-    """Each module of the JAX package has a port file of the same path; the
-    only one still without is utils/flops.py (ROADMAP item 10, the bench)."""
+    """Each module of the JAX package has a port file of the same path."""
     jax_pkg, port = ROOT / "cross_attention_vit_tpu", ROOT / "cross_attention_vit_tpu_torch"
     missing = sorted(str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py")
                      if not (port / p.relative_to(jax_pkg)).is_file())
-    assert missing == ["utils/flops.py"]
+    assert missing == []
 
 
 def _legacy_cfg():

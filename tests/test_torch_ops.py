@@ -189,6 +189,66 @@ def test_dropout_mask_draws_8_bits_when_exact():
     assert torch.equal(mask, bits < 192)
 
 
+# keep rates: 8-bit exact (0.75), not (0.9), and one whose 8-bit threshold
+# rounds up to 2^8 (0.999: JAX's _mask falls through to a Bernoulli there)
+KEEPS = (0.75, 0.9, 0.999)
+
+
+@pytest.mark.parametrize("bits", ["auto", 8, 16, None])
+def test_dropout_bits_follow_jax_mask(bits, monkeypatch):
+    """``dropout_bits`` ∈ {'auto', 8, 16, None}: the width JAX's
+    ``_mask_bits`` picks (its module knob set to the same value); a bool mask
+    equal to that many random bits against round(keep·2^bits), or, for None
+    and where the threshold rounds to 2^bits, a uniform f32 against keep; a
+    keep rate within 5 binomial standard deviations of the mask's
+    probability (keep, or keep quantised to 2^-bits) over 2^20 draws."""
+    monkeypatch.setattr(jl, "DROPOUT_BITS", bits)
+    n = 1 << 20
+    for keep in KEEPS:
+        b = tl.mask_bits(keep, bits)
+        assert b == jl._mask_bits(keep)
+        with tl.dropout_bits(bits):
+            mask = tl.dropout_mask((n,), keep, torch.Generator().manual_seed(2), "cpu")
+        g = torch.Generator().manual_seed(2)
+        p = keep                   # the mask's probability: keep quantised to the bits
+        if b in (8, 16) and round(keep * (1 << b)) < (1 << b):
+            draws = torch.randint(0, 1 << b, (n,), generator=g,
+                                  dtype=torch.uint8 if b == 8 else torch.int32)
+            want = draws < round(keep * (1 << b))
+            p = round(keep * (1 << b)) / (1 << b)
+        else:
+            want = torch.rand((n,), generator=g) < keep
+        assert mask.dtype == torch.bool and torch.equal(mask, want), (keep, b)
+        assert abs(p - keep) <= 2.0 ** -(b + 1) if b in (8, 16) else p == keep
+        sd = (p * (1 - p) / n) ** 0.5
+        assert abs(mask.float().mean().item() - p) < 5 * sd, (keep, b)
+
+
+def test_dropout_bits_hold_for_one_model_only():
+    """A model built with ``dropout_bits`` 16 draws 16-bit masks in its
+    forward and leaves the width outside it at 'auto' (JAX's knob is a
+    module global that sticks across a sweep); 'auto' and 8 draw the same
+    masks at dropout 0.25, 16 and None others."""
+    from cross_attention_vit_tpu_torch.configs import get_mgmt_cross_config, modify_config
+    from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
+
+    x = torch.from_numpy(_rng(3).normal(size=(2, 2, 1, 16, 16, 8)).astype(np.float32))
+    outs = {}
+    for bits in ("auto", 8, 16, None):
+        cfg = get_mgmt_cross_config()
+        modify_config(cfg, dict(hidden_dim=32, mlp_dim=64, num_heads=4, num_multi_blocks=1,
+                                num_self_blocks=1, img_size=(16, 16, 8), patch_size=(8, 8, 8),
+                                num_modalities=2, attn_order={"0": "1", "1": "0"},
+                                dropout=0.25, dropout_bits=bits))
+        model = ModelCross(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        assert model.opts.dropout_bits == bits
+        with torch.no_grad():
+            outs[bits] = model(x, train=True, generator=torch.Generator().manual_seed(1))
+        assert tl._DROPOUT_BITS.get() == "auto"
+    assert torch.equal(outs["auto"], outs[8])
+    assert not torch.equal(outs[8], outs[16]) and not torch.equal(outs[16], outs[None])
+
+
 def test_dropout_identity_in_eval_and_at_rate_zero_and_needs_a_generator():
     x = torch.randn(5, 5)
     assert tl.dropout(x, 0.25, None, train=False) is x

@@ -101,7 +101,7 @@ class _Data:
         return self.imgs[idx], self.labels[idx]
 
 
-# -- the workers: ``python tests/test_torch_parallel.py <mode> <port> <rank> <world> <dir>``
+# -- the workers: ``python tests/test_torch_parallel.py <mode> <rendezvous> <rank> <world> <dir>``
 
 def _flat_params(trainer) -> dict:
     from cross_attention_vit_tpu_torch.train.checkpoint import flatten
@@ -189,11 +189,11 @@ def _worker_fit(rank: int, tmp: Path) -> None:
          "start": start, "global_step": resumed.global_step}))
 
 
-def _worker_cli(rank: int, tmp: Path, port: int) -> None:
+def _worker_cli(rank: int, tmp: Path, address: str) -> None:
     from cross_attention_vit_tpu_torch.drivers import evaluate as teval
     from cross_attention_vit_tpu_torch.drivers import experiments as texp
 
-    hist = texp.main([*_cli_args(tmp), "--dp", "2", "--coordinator", f"127.0.0.1:{port}",
+    hist = texp.main([*_cli_args(tmp), "--dp", "2", "--coordinator", address,
                       "--num-processes", "2", "--process-id", str(rank),
                       "--dist-timeout", str(WORKER_TIMEOUT_S)], device="cpu")
     ckpt = next((tmp / "runs" / "checkpoints" / "cross").glob("epoch=*.npz"))
@@ -204,20 +204,23 @@ def _worker_cli(rank: int, tmp: Path, port: int) -> None:
          "metrics": metrics, "checkpoint": str(ckpt)}))
 
 
-def _worker(mode: str, port: int, rank: int, world: int, tmp: Path) -> None:
+def _worker(mode: str, address: str, rank: int, world: int, tmp: Path) -> None:
     torch.set_num_threads(1)
     from cross_attention_vit_tpu_torch.parallel import multihost_init
     if mode == "cli":       # the CLI joins the group itself
-        return _worker_cli(rank, tmp, port)
-    multihost_init(f"127.0.0.1:{port}", world, rank, device="cpu", timeout_s=WORKER_TIMEOUT_S)
+        return _worker_cli(rank, tmp, address)
+    multihost_init(address, world, rank, device="cpu", timeout_s=WORKER_TIMEOUT_S)
     {"steps": _worker_steps, "fit": _worker_fit}[mode](rank, tmp)
 
 
 def _spawn(mode: str, tmp: Path, world: int = 2) -> None:
-    """Run ``world`` ranks of the worker and wait for them all."""
-    port = _free_port()
+    """Run ``world`` ranks of the worker and wait for them all; they meet in
+    a FileStore under ``tmp`` (``torch_mesh_workers.rendezvous``)."""
+    from torch_mesh_workers import rendezvous
+
+    address = rendezvous(tmp)
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, str(HERE), mode, str(port), str(r), str(world),
+    procs = [subprocess.Popen([sys.executable, str(HERE), mode, address, str(r), str(world),
                                str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, env=env) for r in range(world)]
     errs = []
@@ -685,7 +688,10 @@ def test_sharded_evaluate_equals_one_process_and_jax(cli):
 
 if __name__ == "__main__":
     sys.path.insert(0, str(HERE.parent.parent))
-    _mode, _port, _rank, _world, _dir = sys.argv[1:6]
+    _mode, _address, _rank, _world, _dir = sys.argv[1:6]
     t0 = time.perf_counter()
-    _worker(_mode, int(_port), int(_rank), int(_world), Path(_dir))
+    _worker(_mode, _address, int(_rank), int(_world), Path(_dir))
     print(f"rank {_rank} {_mode}: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    from torch_mesh_workers import leave
+
+    leave()

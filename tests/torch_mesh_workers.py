@@ -7,11 +7,14 @@ tests and their compositions (``tests/test_torch_moe.py``,
 subprocesses of the test process.
 
 ``spawn(mode, tmp, world)`` starts ``python tests/torch_mesh_workers.py
-<mode> <port> <rank> <world> <tmp>`` once for each rank and waits for them
-all, each wait with a timeout.  Each rank joins a gloo group (the CLI modes
+<mode> <rendezvous> <rank> <world> <tmp>`` once for each rank and waits for
+them all, each wait with a timeout.  The ranks meet in a FileStore under
+``tmp`` (``rendezvous``), so no port is picked and released for another
+world, started at the same time by another test process, to take.  Each rank joins a gloo group (the CLI modes
 let the CLI join it), runs the mode's worker on inputs the test wrote into
-``tmp`` (or made here from a seed) and writes its results there as
-``<name>_<rank>.npz``.  Workers run with one thread each and import the port
+``tmp`` (or made here from a seed), writes its results there as
+``<name>_<rank>.npz`` and leaves without the interpreter's teardown
+(``leave``).  Workers run with one thread each and import the port
 only.  The geometry and the batches live here, so the test process builds
 its one-process references from the same definitions.
 """
@@ -26,6 +29,7 @@ import subprocess
 import sys
 import threading
 import time
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -97,6 +101,10 @@ COMPOSED_CASES = {
     "cross_dp2_ep2_fsdp": ("cross", {**MOE, "mlp_dim": 256}, {"data": 2, "expert": 2}, 4,
                            True),
     "vit_pp2_dp2_fsdp": ("vit", {**PP, "mlp_dim": 256}, {"pipe": 2, "data": 2}, 4, True),
+    # remat inside FSDP's units and across TP's f/g (the recompute re-runs them)
+    "cross_dp2_tp2_fsdp_remat": ("cross", {"hidden_dim": 64, "mlp_dim": 512, "remat": True,
+                                           "remat_policy": "full"},
+                                 {"data": 2, "model": 2}, 4, True),
 }
 # Trainer.fit over (data 2 x model 2) with FSDP and grad_accum 2: one step an
 # epoch, so its global batch is the whole set in any order and JAX's
@@ -144,12 +152,32 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def rendezvous(tmp: Path) -> str:
+    """A fresh ``file://`` rendezvous under ``tmp`` for one world of ranks
+    (``multihost_init``'s FileStore address)."""
+    return f"file://{tmp / f'rendezvous-{uuid.uuid4().hex}'}"
+
+
+def leave(code: int = 0) -> None:
+    """End a worker process without the interpreter's teardown, once its
+    results are on disk (and any checkpoint write has finished).  torch's
+    c10d can abort in that teardown under load, after the group was
+    destroyed ("terminate called without an active exception", SIGABRT):
+    ``spawn`` would then fail a test on a rank whose work was done."""
+    from cross_attention_vit_tpu_torch.train.checkpoint import wait_for_writes
+
+    wait_for_writes()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
 def spawn(mode: str, tmp: Path, world: int) -> None:
     """Run ``world`` ranks of the worker ``mode`` and wait for them all;
     fails with the stderr of a rank that did not exit 0."""
-    port = free_port()
+    address = rendezvous(tmp)
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, __file__, mode, str(port), str(r), str(world),
+    procs = [subprocess.Popen([sys.executable, __file__, mode, address, str(r), str(world),
                                str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, env=env) for r in range(world)]
     errs = []
@@ -639,12 +667,12 @@ def cli_args(root: Path, out: str, *extra: str) -> list[str]:
             *[a for k, v in TINY_CLI.items() for a in ("--set", f"{k}={v!r}")], *extra]
 
 
-def _cli_worker(rank: int, world: int, tmp: Path, port: int) -> None:
+def _cli_worker(rank: int, world: int, tmp: Path, address: str) -> None:
     """``experiments.main`` over two processes with ``--ep 2 --set
     moe_experts=4``, then with ``--sp 2``."""
     from cross_attention_vit_tpu_torch.drivers import experiments as texp
 
-    group = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(world),
+    group = ["--coordinator", address, "--num-processes", str(world),
              "--process-id", str(rank), "--dist-timeout", str(WORKER_TIMEOUT_S)]
     hist = {"ep": texp.main(cli_args(tmp, "ep", "--ep", "2", "--set", "moe_experts=4", *group),
                             device="cpu"),
@@ -653,14 +681,14 @@ def _cli_worker(rank: int, world: int, tmp: Path, port: int) -> None:
         {k: {run: history_rows(h) for run, h in res.items()} for k, res in hist.items()}))
 
 
-def _cli_split_worker(rank: int, world: int, tmp: Path, port: int) -> None:
+def _cli_split_worker(rank: int, world: int, tmp: Path, address: str) -> None:
     """``experiments.main`` over two processes with ``--tp 2`` (ModelCross)
     and ``--pp 2 --model vit``, then ``evaluate.main --mesh data=1,model=2``
     on the --tp run's checkpoint."""
     from cross_attention_vit_tpu_torch.drivers import evaluate as teval
     from cross_attention_vit_tpu_torch.drivers import experiments as texp
 
-    group = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(world),
+    group = ["--coordinator", address, "--num-processes", str(world),
              "--process-id", str(rank), "--dist-timeout", str(WORKER_TIMEOUT_S)]
     # one microbatch: the epoch's last batches are ragged (1 to 4 rows)
     vit = cli_args(tmp, "pp", "--pp", "2", *CLI_PP, *group)
@@ -814,7 +842,15 @@ def _sync_bn_worker(rank: int, world: int, tmp: Path) -> None:
     np.savez(tmp / f"sync_bn_{rank}.npz", **out)
 
 
-WORKERS = {"moe": _moe_worker, "ring": _ring_worker, "models": _model_worker,
+def _ping_worker(rank: int, world: int, tmp: Path) -> None:
+    """One all-reduce of (rank + 1) over the world: the harness's own test
+    (``tests/test_torch_mesh_harness.py``)."""
+    t = torch.full((4,), float(rank + 1))
+    torch.distributed.all_reduce(t)
+    np.savez(tmp / f"ping_{rank}.npz", sum=t.numpy())
+
+
+WORKERS = {"ping": _ping_worker, "moe": _moe_worker, "ring": _ring_worker, "models": _model_worker,
            "fit": _fit_worker, "split": _split_worker, "serve": _serve_worker,
            "composed_fit": _composed_fit_worker, "sync_bn": _sync_bn_worker}
 
@@ -823,14 +859,15 @@ if __name__ == "__main__":
     torch.set_num_threads(1)
     from cross_attention_vit_tpu_torch.parallel import multihost_init
 
-    _mode, _port, _rank, _world, _tmp = sys.argv[1:6]
+    _mode, _address, _rank, _world, _tmp = sys.argv[1:6]
     t0 = time.perf_counter()
     if _mode in ("cli", "cli_split"):          # the CLI joins the group itself
         (_cli_worker if _mode == "cli" else _cli_split_worker)(int(_rank), int(_world),
-                                                               Path(_tmp), int(_port))
+                                                               Path(_tmp), _address)
     else:
-        multihost_init(f"127.0.0.1:{_port}", int(_world), int(_rank), device="cpu",
+        multihost_init(_address, int(_world), int(_rank), device="cpu",
                        timeout_s=WORKER_TIMEOUT_S)
         WORKERS[_mode](int(_rank), int(_world), Path(_tmp))
     torch.distributed.destroy_process_group()
     print(f"rank {_rank} {_mode}: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    leave()
