@@ -290,6 +290,21 @@ Phases, each printed as one JSON line with a ``phase`` key:
 28. mfu     — each train step's model FLOP utilisation from phases train and
              train_vit: ``utils.flops``' 3 × forward matmul FLOPs at batch 8
              over the card's dense bf16 peak (ModelCross also its trunk).
+29. train_tp_vit3d — run right after train_sync_bn: ViT3D at train_vit3d's
+             width (69,371,266 parameters, 16 heads; f32, dropout 0) over
+             two gloo ranks sharing the card, (data 1 × model 2), as JAX's
+             rules place it (``chip_smoke.py --tp-vit3d-worker``): 8 of the
+             16 heads and half of each FFN and of the head a rank, the whole
+             batch of 8 on each, ``TP_VIT3D_STEPS`` steps at train_vit3d's
+             learning rate against one process at batch 8 taken first: the
+             first loss within ``LOSS_REL_TOL`` relative, the first step's
+             gathered gradients within ``TP_VIT3D_GRAD_TOL`` (2e-4)
+             normalised, or ``BN_NOISE_FACTOR`` × the leaf's reorder spread
+             where larger (as train_sync_bn; the stem's conv biases
+             reported), finite losses,
+             both ranks' gathered parameters and running statistics bit for
+             bit equal, no K kernel launched; each rank's step ms and peak
+             memory (gloo's host staging, not a speed figure).
 
 Then a line ``{"phase": "profiler", ...}``: the profiles taken, how many of
 them recorded no kernel, and the calls timed by CUDA events after
@@ -3791,18 +3806,18 @@ def _bn_trainer(cfg, tmp: Path, mesh=None):
                    device="cuda").init_state(trees["params"], trees["state"])
 
 
-def _bn_steps(t, rows, steps: int = BN_STEPS) -> dict:
-    """BN_STEPS stateful steps at learning rate 0 on ``rows`` of each step's
-    batch: the first step's whole gradients, the losses, ms, launches and
-    the BatchNorm buffers after each step.  At learning rate 0 the second
-    step's statistics come from the same parameters in both runs: Adam's
-    first update is ±lr wherever a gradient sits in its rounding noise, and
-    a batch split another way rounds otherwise."""
+def _bn_steps(t, rows, steps: int = BN_STEPS, lr: float = 0.0) -> dict:
+    """BN_STEPS stateful steps (at learning rate 0 by default) on ``rows``
+    of each step's batch: the first step's whole gradients, the losses, ms,
+    launches and the BatchNorm buffers after each step.  At learning rate 0
+    the second step's statistics come from the same parameters in both
+    runs: Adam's first update is ±lr wherever a gradient sits in its
+    rounding noise, and a batch split another way rounds otherwise."""
     out = {"loss": [], "step_ms": [], "buffers": []}
     _zero_counts()
     for s in range(steps):
         img, labels = (x[rows] for x in _bn_batch(t.config, s))
-        aux, ms = _timed_step(t.train_step, img, labels, 0.0, torch.Generator().manual_seed(s))
+        aux, ms = _timed_step(t.train_step, img, labels, lr, torch.Generator().manual_seed(s))
         out["loss"].append(float(aux["loss"]))
         out["step_ms"].append(ms)
         if s == 0:
@@ -3811,6 +3826,19 @@ def _bn_steps(t, rows, steps: int = BN_STEPS) -> dict:
                                if n.endswith(("running_mean", "running_var"))})
     out["launches"] = _counts()
     return out
+
+
+def _reorder_spread(cfg, tmp: Path, grads: dict) -> dict[str, float]:
+    """The one-process gradient's own spread: each leaf's largest
+    normalised distance from ``grads`` (the first step's on the batch of 8)
+    over the same step on the batch's rows in the orders of
+    ``BN_REORDERS``."""
+    floor = {}
+    for order in BN_REORDERS:
+        rows = torch.tensor(order, device="cuda")
+        errs = _leaf_errs(_bn_steps(_bn_trainer(cfg, tmp), rows, steps=1)["grads"], grads)
+        floor = {n: max(e, floor.get(n, 0.0)) for n, e in errs.items()}
+    return floor
 
 
 def phase_train_sync_bn(tmp: Path) -> dict:
@@ -3831,13 +3859,7 @@ def phase_train_sync_bn(tmp: Path) -> dict:
                                       "state": jax_state_from_model(model)})
     del model
     one = _bn_steps(_bn_trainer(cfg, tmp), slice(None))
-    # the one-process gradient's own spread: the same step on the batch's rows
-    # in other orders
-    floor = {}
-    for order in BN_REORDERS:
-        rows = torch.tensor(order, device="cuda")
-        errs = _leaf_errs(_bn_steps(_bn_trainer(cfg, tmp), rows, steps=1)["grads"], one["grads"])
-        floor = {n: max(e, floor.get(n, 0.0)) for n, e in errs.items()}
+    floor = _reorder_spread(cfg, tmp, one["grads"])
     torch.save({"grads": {n: g.cpu() for n, g in one["grads"].items()},
                 "buffers": [{n: b.cpu() for n, b in bufs.items()} for bufs in one["buffers"]],
                 "floor": floor}, tmp / "bn_ref.pt")
@@ -3909,6 +3931,116 @@ def bn_worker(rank: int, world: int, port: int, tmp: Path) -> int:
                "buffers_sha256": digest.hexdigest(),
                "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
         (tmp / f"sync_bn_rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+# ViT3D at train_vit3d's width over (data 1 x model 2): every rank steps on the
+# whole batch of 8 with 8 of the 16 heads and half of each FFN and of the head
+TP_VIT3D_STEPS = 3
+TP_VIT3D_PARAMS = 69_371_266
+TP_VIT3D_GRAD_TOL = 2e-4
+
+
+def phase_train_tp_vit3d(tmp: Path) -> dict:
+    """Phase train_tp_vit3d: ViT3D at train_vit3d's width (CNN3DEncoder stem,
+    hidden 1024, 16 heads, 4 layers, 257 tokens, T1c; f32, dropout 0) over
+    two gloo ranks sharing the card, (data 1 x model 2), as JAX's rules
+    place it, against one process at batch 8 taken first: ``TP_VIT3D_STEPS``
+    steps at train_vit3d's learning rate, the first step's loss within
+    ``LOSS_REL_TOL`` relative and its gathered gradients within
+    ``TP_VIT3D_GRAD_TOL`` normalised, or ``BN_NOISE_FACTOR`` × the leaf's
+    own reorder spread where that is larger (``_reorder_spread``, as phase
+    train_sync_bn holds the stem; the stem's conv biases, zero in exact
+    arithmetic, reported), finite losses, the ranks' gathered parameters and
+    running statistics bit-equal, no K kernel launched (ViT3D's attention is
+    plain, as JAX's is XLA)."""
+    from cross_attention_vit_tpu_torch.models.convert import jax_state_from_model
+    from cross_attention_vit_tpu_torch.models.vit3d import ViT3D
+
+    _fresh_peak()
+    cfg = _bn_cfg()
+    model = ViT3D(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    check(model.num_params() == TP_VIT3D_PARAMS,
+          f"ViT3D has {model.num_params()} params, expected {TP_VIT3D_PARAMS}")
+    save_pytree(tmp / "bn_init.npz", {"params": jax_params_from_model(model),
+                                      "state": jax_state_from_model(model)})
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    one = _bn_steps(_bn_trainer(cfg, tmp), slice(None), TP_VIT3D_STEPS, cfg.lr)
+    one["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    floor = _reorder_spread(cfg, tmp, one["grads"])
+    torch.save({"grads": {n: g.cpu() for n, g in one.pop("grads").items()},
+                "loss": one["loss"], "floor": floor}, tmp / "tp_vit3d_ref.pt")
+    del one["buffers"]
+    _fresh_peak()
+    ranks = _gloo_ranks("--tp-vit3d-worker", 2, tmp, "tp_vit3d", COMPOSE_TIMEOUT_S)
+    for key in ("params_sha256", "buffers_sha256"):
+        check(ranks[0][key] == ranks[1][key], f"TP ViT3D: the two ranks' {key[:-7]} differ")
+    for r, got in enumerate(ranks):
+        check(all(np.isfinite(got["loss"])), f"TP ViT3D rank {r}: losses {got['loss']}")
+        check(got["loss_rel"] <= LOSS_REL_TOL,
+              f"TP ViT3D rank {r}: first loss {got['loss'][0]} vs one process "
+              f"{one['loss'][0]} (rel {got['loss_rel']:.3e})")
+        name, err, bound = got["grad_worst_gated"]
+        check(err <= bound, f"TP ViT3D rank {r}: gradient of {name} {err:.3e} > {bound:.3e} "
+                            f"(max of {TP_VIT3D_GRAD_TOL} and {BN_NOISE_FACTOR} x its reorder "
+                            "spread)")
+        check(not any(got["launches"].values()),
+              f"TP ViT3D rank {r}: K kernels launched {got['launches']}")
+        check(got["local_in_proj"] == [3 * cfg.hidden_dim // 2, cfg.hidden_dim],
+              f"TP ViT3D rank {r}: local in_proj_weight {got['local_in_proj']}")
+    result = {"phase": "train_tp_vit3d", "model": "ViT3D", "params": TP_VIT3D_PARAMS,
+              "stem": "CNN3DEncoder 128/256/512/1024", "tokens": 257,
+              "mesh": {"data": 1, "model": 2}, "heads_per_rank": 8, "batch": 8,
+              "steps": TP_VIT3D_STEPS, "lr": cfg.lr, "dtype": "float32",
+              "backend": "gloo, two ranks sharing one card (not a speed figure)",
+              "one_process": one, "loss_rel_tol": LOSS_REL_TOL,
+              "grad_tol": TP_VIT3D_GRAD_TOL, "grad_noise_factor": BN_NOISE_FACTOR,
+              "reorders": BN_REORDERS,
+              "reorder_spread_worst": list(max(floor.items(), key=lambda kv: kv[1])),
+              "ranks": ranks}
+    emit(result)
+    return result
+
+
+def tp_vit3d_worker(rank: int, world: int, port: int, tmp: Path) -> int:
+    """One of phase train_tp_vit3d's two gloo ranks on cuda:0."""
+    multihost_init(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda",
+                   timeout_s=COMPOSE_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = _bn_cfg()
+        torch.cuda.reset_peak_memory_stats()
+        t = _bn_trainer(cfg, tmp, make_mesh(1, model=2))
+        got = _bn_steps(t, slice(None), TP_VIT3D_STEPS, cfg.lr)
+        ref = torch.load(tmp / "tp_vit3d_ref.pt", map_location="cuda")
+        errs = _leaf_errs(got["grads"], ref["grads"])
+        bound = {n: max(TP_VIT3D_GRAD_TOL, BN_NOISE_FACTOR * f) for n, f in ref["floor"].items()}
+        gated = {n: e for n, e in errs.items() if n not in BN_ZERO_GRAD}
+        worst = max(gated, key=lambda n: gated[n] / bound[n])
+        digests = {"params": hashlib.sha256(), "buffers": hashlib.sha256()}
+        for k, v in sorted(ckpt.flatten(t.params).items()):     # gathered: a collective
+            digests["params"].update(v.tobytes())
+        for bufs in got["buffers"]:
+            for n in sorted(bufs):
+                digests["buffers"].update(bufs[n].cpu().numpy().tobytes())
+        model = unwrap(t.model)
+        out = {"rank": rank, "loss": got["loss"], "step_ms": got["step_ms"],
+               "loss_rel": abs(got["loss"][0] / ref["loss"][0] - 1),
+               "launches": got["launches"],
+               "grad_worst_gated": [worst, gated[worst], bound[worst]],
+               "grad_worst_plain": list(max(gated.items(), key=lambda kv: kv[1])),
+               "grad_over_tol": {n: [e, ref["floor"][n]] for n, e in gated.items()
+                                 if e > TP_VIT3D_GRAD_TOL},
+               "grad_zero_in_exact_arithmetic": {n: errs[n] for n in BN_ZERO_GRAD},
+               "local_in_proj": list(model.transformer.layers[0].self_attn.in_proj_weight.shape),
+               "params_sha256": digests["params"].hexdigest(),
+               "buffers_sha256": digests["buffers"].hexdigest(),
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+        (tmp / f"tp_vit3d_rank{rank}.json").write_text(json.dumps(out))
     finally:
         torch.distributed.destroy_process_group()
     return 0
@@ -4468,6 +4600,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             trained_sync_bn = phase_train_sync_bn(Path(tmp))
         with tempfile.TemporaryDirectory() as tmp:
+            trained_tp_vit3d = phase_train_tp_vit3d(Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
             trained_cli = phase_train_cli(Path(tmp))
         with tempfile.TemporaryDirectory() as tmp:
             phase_legacy_vit3d(Path(tmp))
@@ -4511,6 +4645,8 @@ def main() -> int:
         paths[f"serve_tp_ep_rank{r}"] = rank["serve"]["launches"]
     for r, rank in enumerate(trained_sync_bn["ranks"]):
         paths[f"train_sync_bn_rank{r}"] = rank["launches"]
+    for r, rank in enumerate(trained_tp_vit3d["ranks"]):
+        paths[f"train_tp_vit3d_rank{r}"] = rank["launches"]
     paths["legacy_rsna"] = legacy_rsna["launches"]
     paths["convert_cli_evaluate"] = converted["evaluate_launches"]
     launches = _launch_rows(paths)
@@ -4646,7 +4782,8 @@ def main() -> int:
 
 # the worker processes of the phases over gloo ranks sharing the card
 WORKERS = {"--dp-worker": dp_worker, "--moe-worker": moe_worker, "--split-worker": split_worker,
-           "--tp-ep-worker": tp_ep_worker, "--bn-worker": bn_worker}
+           "--tp-ep-worker": tp_ep_worker, "--bn-worker": bn_worker,
+           "--tp-vit3d-worker": tp_vit3d_worker}
 
 if __name__ == "__main__":
     if sys.argv[1:2] and sys.argv[1] in WORKERS:     # rank world port tmp

@@ -65,6 +65,27 @@ from .model_cross import (_Attention, _FeedForward, _keep_moe_aux, _moe_fields, 
                           _PreNorm, _Run, _with_balance, tp_regions)
 
 
+class _Layer(nn.Module):
+    """One trunk layer: ``layer["0"]`` the attention and ``layer["2"]`` the
+    feed-forward (the reference's indices), called as a module
+    (``forward`` runs ``ModelVIT._layer_body`` on it, rematerialised under
+    ``config.remat``), so that FSDP gathers it as one unit
+    (``ModelVIT.blocks``; ``fully_shard`` refuses a ModuleDict)."""
+
+    def __init__(self, attn: nn.Module, ffn: nn.Module):
+        super().__init__()
+        self.add_module("0", attn)
+        self.add_module("2", ffn)
+
+    def __getitem__(self, key: str) -> nn.Module:
+        return self._modules[key]
+
+    def forward(self, x: torch.Tensor, model: "ModelVIT", generator: torch.Generator | None,
+                train: bool, run: _Run) -> torch.Tensor:
+        return remat.checkpoint(lambda h: model._layer_body(self, h, generator, train, run),
+                                model.opts.remat, generator, x)
+
+
 class _Layers(nn.Module):
     """The reference's ``Transformer``: ``layers.{i}.{0, 2}``."""
 
@@ -79,8 +100,7 @@ class _Layers(nn.Module):
             return _FeedForward(H, mlp)
 
         self.layers = nn.ModuleList(
-            nn.ModuleDict({"0": _PreNorm(H, _Attention(H, config.num_heads)),
-                           "2": _PreNorm(H, ffn(i))})
+            _Layer(_PreNorm(H, _Attention(H, config.num_heads)), _PreNorm(H, ffn(i)))
             for i in range(config.num_layers))
 
 
@@ -151,13 +171,19 @@ class ModelVIT(nn.Module):
         """The modules tensor parallelism splits (see ``ModelCross``)."""
         return tp_regions(self)
 
-    def _layer(self, layer: nn.Module, x: torch.Tensor, generator: torch.Generator | None,
+    def blocks(self) -> list[nn.Module]:
+        """The trunk layers (this stage's, over a 'pipe' axis: the others
+        are empty placeholders), each called as a module: the units FSDP
+        gathers one at a time (``parallel.shard_params``), as JAX gathers
+        each layer's leaves at their use."""
+        return [layer for layer in self.transformer.layers if isinstance(layer, _Layer)]
+
+    def _layer(self, layer: _Layer, x: torch.Tensor, generator: torch.Generator | None,
                train: bool, run: _Run) -> torch.Tensor:
         """One pre-norm trunk layer (JAX ``layer_fn_bal``); with
         ``config.remat`` a rematerialised region (``ops/remat.py``), as JAX
         wraps ``layer_fn_bal`` (:162-165), under the pipeline too."""
-        return remat.checkpoint(lambda h: self._layer_body(layer, h, generator, train, run),
-                                self.opts.remat, generator, x)
+        return layer(x, self, generator, train, run)
 
     def _layer_body(self, layer: nn.Module, x: torch.Tensor,
                     generator: torch.Generator | None, train: bool, run: _Run) -> torch.Tensor:

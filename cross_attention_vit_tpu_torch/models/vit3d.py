@@ -32,6 +32,22 @@ Sequential ``mlp_head.{0,1,2}``.  The attention is the port's own ops, not
 ``_mha``: the QKV product accumulated in f32, the bias added in f32 and
 one cast to ``compute_dtype``.
 
+Tensor parallelism (``parallel.shard_params`` over a 'model' axis of T),
+as JAX's ``_spec_for`` places the leaves by name: each layer is one region
+(``tp_regions``) for its attention (``in_proj`` rows by head inside their
+(3, K, D) order, ``out_proj`` columns by head) and its feed-forward
+(``linear1`` rows with their bias, ``linear2`` columns), and the head is
+one more (``mlp_head.1`` rows with their bias, ``mlp_head.2`` columns).
+Each region's input passes Megatron's f and its exit's f32 partial
+products g, before the exit's bias and the one cast; the attention runs
+on the rank's K/T heads.  JAX leaves the (3, K, D) qkv bias replicated, so
+each rank keeps it whole and adds its heads' slice, taken after f so that
+the bias's gradient is summed whole over the 'model' line.  The dropouts
+inside a region (the probabilities, the feed-forward's hidden) draw the
+whole mask and keep this rank's slice.  The DenseNet stem's 2-D classifier
+``encoder.class_layers.out`` is refused over a 'model' axis, as JAX's
+``shard_params`` refuses it (``parallel.sharding.jax_refuses_tp``).
+
 Parameters stay float32 (f32 masters) and the transformer's GEMM operands are
 cast to ``compute_dtype`` on every call, as in the JAX package; the stem's
 convolutions run in float32.  BatchNorm makes the model stateful: in train
@@ -50,6 +66,7 @@ from ..ops.attention import _sdpa
 from ..ops.conv import batch_norm3d, conv3d, max_pool3d, relu
 from ..ops.layers import dropout, dropout_bits, layernorm, linear, promote_input
 from ..ops.losses import cross_entropy
+from ..parallel.tensor import copy_to, local_heads, split_slice
 from ..utils.device import resolve_device
 from .densenet import DenseNet121
 
@@ -102,6 +119,7 @@ class _EncoderLayer(nn.Module):
         self.linear2 = nn.Linear(4 * dim, dim)
         self.norm1 = nn.LayerNorm(dim)
         self.norm2 = nn.LayerNorm(dim)
+        self.tp = None      # the 'model' split of its heads and FFN (parallel/tensor.py)
 
 
 def _stem_geometry(config: Config, pretrained: bool) -> tuple[int, int]:
@@ -192,30 +210,52 @@ class ViT3D(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
-    def _mha(self, attn: _SelfAttn, x: torch.Tensor, generator, train: bool) -> torch.Tensor:
+    def tp_regions(self) -> list[tuple[str, nn.Module]]:
+        """The modules tensor parallelism splits, by name
+        (``parallel/tensor.py``): each layer (its attention and its
+        feed-forward) and the head."""
+        return [(f"transformer.layers.{i}", layer)
+                for i, layer in enumerate(self.transformer.layers)] + [("mlp_head",
+                                                                        self.mlp_head)]
+
+    def tp_widths(self) -> tuple[tuple[str, int], ...]:
+        """The widths a 'model' axis splits, each of which it must divide."""
+        H = self.config.hidden_dim
+        return (("num_heads", self.config.num_heads), ("4·hidden_dim (the FFN)", 4 * H),
+                ("hidden_dim/8 (the head)", H // 8))
+
+    def _mha(self, layer: _EncoderLayer, x: torch.Tensor, generator, train: bool) -> torch.Tensor:
         """JAX ``_mha``: QKV with bias (f32 product and bias, one cast to the
         compute dtype), softmax in f32, dropout on the probabilities, the
-        output projection back in x's dtype."""
+        output projection back in x's dtype; over a 'model' axis on this
+        rank's heads (the whole qkv bias's slice), the projection's partial
+        products summed before its bias."""
+        attn, tp = layer.self_attn, layer.tp
         in_dtype, rate = x.dtype, self.config.get("dropout", 0.0)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
+        x = copy_to(x, tp)
         B, N, H = x.shape
-        K = self.config.num_heads
-        qkv = linear(x, attn.in_proj_weight, attn.in_proj_bias).view(B, N, 3, K, H // K)
+        K = local_heads(self.config.num_heads, tp)
+        D = H // self.config.num_heads
+        bias = attn.in_proj_bias
+        if tp is not None:
+            bias = split_slice(copy_to(bias, tp), 0, 3, tp.rank, tp.size)
+        qkv = linear(x, attn.in_proj_weight, bias).view(B, N, 3, K, D)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))   # (B, K, N, D)
-        o = _sdpa(q, k, v, (H // K) ** -0.5, rate, generator, train)
-        o = o.transpose(1, 2).reshape(B, N, H)
-        return linear(o, attn.out_proj.weight, attn.out_proj.bias, out_dtype=in_dtype)
+        o = _sdpa(q, k, v, D ** -0.5, rate, generator, train, tp)
+        o = o.transpose(1, 2).reshape(B, N, K * D)
+        return linear(o, attn.out_proj.weight, attn.out_proj.bias, out_dtype=in_dtype, tp=tp)
 
     def _layer(self, layer: _EncoderLayer, x: torch.Tensor, generator, train: bool):
         """Post-norm: x = norm1(x + drop(attn(x))); x = norm2(x + drop(ff(x)))."""
-        rate, cdt = self.config.get("dropout", 0.0), self.compute_dtype
-        a = self._mha(layer.self_attn, x, generator, train)
+        rate, cdt, tp = self.config.get("dropout", 0.0), self.compute_dtype, layer.tp
+        a = self._mha(layer, x, generator, train)
         x = layernorm(x + dropout(a, rate, generator, train), layer.norm1.weight,
                       layer.norm1.bias)
-        h = relu(linear(x, layer.linear1.weight, layer.linear1.bias, cdt))
-        h = dropout(h, rate, generator, train)
-        h = linear(h, layer.linear2.weight, layer.linear2.bias, cdt)
+        h = relu(linear(copy_to(x, tp), layer.linear1.weight, layer.linear1.bias, cdt))
+        h = dropout(h, rate, generator, train, split=(-1, tp))
+        h = linear(h, layer.linear2.weight, layer.linear2.bias, cdt, tp=tp)
         return layernorm(x + dropout(h, rate, generator, train), layer.norm2.weight,
                          layer.norm2.bias)
 
@@ -243,9 +283,10 @@ class ViT3D(nn.Module):
                 x = self._layer(layer, x, generator, train)
         pooled = x[:, 0] if self.cls_token is not None else x.mean(dim=1)
         norm, fc1, fc2 = self.mlp_head
+        tp = getattr(self.mlp_head, "tp", None)
         h = layernorm(pooled, norm.weight, norm.bias)
-        h = linear(h, fc1.weight, fc1.bias, self.compute_dtype)
-        logits = linear(h, fc2.weight, fc2.bias, self.compute_dtype).float()
+        h = linear(copy_to(h, tp), fc1.weight, fc1.bias, self.compute_dtype)
+        logits = linear(h, fc2.weight, fc2.bias, self.compute_dtype, tp=tp).float()
         if labels is None:
             return logits
         return logits, cross_entropy(logits, labels, cfg.get("label_smoothing", 0.0))

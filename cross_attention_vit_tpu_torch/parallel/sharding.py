@@ -19,15 +19,18 @@ all-reduce averages the gradients across data coordinates (the DDP step
 JAX's GSPMD derives from a batch-sharded input).  Gradients of what the
 'expert', 'seq' and 'model' lines share are whole on each rank of a line
 already (the layers that split the work sum them), so nothing reduces over
-those axes.  A model over a 'pipe' axis, or one with BatchNorm layers,
-stays unwrapped and ``sync_replicated_grads`` averages its gradients in one
-all-reduce; its BatchNorm layers normalise over the data line's global
-batch (JAX's SyncBatchNorm semantics, ``ops.conv.batch_norm3d``).
+those axes — except a BatchNorm model's over 'model', whose stem rounds
+them apart on CUDA: ``sync_replicated_grads`` averages them over the line.
+A model over a 'pipe' axis, or one with BatchNorm layers, stays unwrapped
+and ``sync_replicated_grads`` averages its gradients in one all-reduce;
+its BatchNorm layers normalise over the data line's global batch (JAX's
+SyncBatchNorm semantics, ``ops.conv.batch_norm3d``).
 
 ``shard_params(model, mesh, fsdp=True)`` ends instead with FSDP2's
-``fully_shard`` over the data line, on every block and at the root, under
-JAX's rule (``_with_fsdp``) read on the parameter's whole JAX layout
-(``fsdp_dim``): before the other splits, on the stacked (depth, ...) leaf of
+``fully_shard`` over the data line, on every block (``model.blocks()``:
+ModelCross's self- and cross-attention blocks, ModelVIT's trunk layers)
+and at the root, under JAX's rule (``_with_fsdp``) read on the
+parameter's whole JAX layout (``fsdp_dim``): before the other splits, on the stacked (depth, ...) leaf of
 a trunk over 'pipe', and never on an axis JAX gives 'model', 'expert' or
 'pipe', so FSDP shards the same axis whatever the other axes' sizes, and
 that axis is never one a TP slice or an expert split cut.  A parameter
@@ -117,10 +120,12 @@ def _fc_role(parts: list[str]) -> str | None:
     tree's names), None otherwise."""
     if len(parts) >= 3 and parts[-3] == "net":                       # *.ffn.fn.net.{0,3}
         return {"0": "fc1", "3": "fc2"}.get(parts[-2])
+    if parts[-2] in ("linear1", "linear2"):                          # ViT3D's layers
+        return "fc" + parts[-2][-1]
     if parts[0] == "mlp_head" and len(parts) == 4:                   # ModelCross heads
         return {"0": "fc1", "3": "fc2"}.get(parts[2])
-    if parts[0] == "mlp_head" and len(parts) == 3:                   # ModelVIT head
-        return {"1": "fc1", "4": "fc2"}.get(parts[1])
+    if parts[0] == "mlp_head" and len(parts) == 3:                   # ModelVIT, ViT3D heads
+        return {"1": "fc1", "2": "fc2", "4": "fc2"}.get(parts[1])
     return None
 
 
@@ -133,22 +138,38 @@ def _is_expert_stack(name: str) -> bool:
 def _role(name: str) -> str | None:
     """The part a parameter plays in JAX's TP table (``_spec_for``), by its
     port name: 'experts' (a stacked expert weight or bias), 'qkv' (the fused
-    projection), 'heads_in' (wq/wk/wv weight or bias), 'heads_out' (the
-    to_out / proj weight), 'fc1' or 'fc2' (weight or bias); None for the
-    rest, which JAX leaves replicated."""
+    projection: ``to_qkv``, ViT3D's ``in_proj_weight``), 'qkv_bias' (ViT3D's
+    ``in_proj_bias``, JAX's (3, K, D) ``qkv/bias``, which no rule splits),
+    'heads_in' (wq/wk/wv weight or bias), 'heads_out' (the to_out / proj /
+    out_proj weight), 'fc1' or 'fc2' (weight or bias); None for the rest,
+    which JAX leaves replicated."""
     parts = name.split(".")
     if len(parts) < 3:                        # pos_embedding, cls_token, patch_to_embedding
         return None
     leaf, mod = parts[-1], parts[-2]
     if _is_expert_stack(name):
         return "experts"
-    if mod == "to_qkv":
+    if mod == "to_qkv" or leaf == "in_proj_weight":
         return "qkv"
+    if leaf == "in_proj_bias":
+        return "qkv_bias"
     if mod in ("wq", "wk", "wv"):
         return "heads_in"
-    if leaf == "weight" and (mod == "proj" or parts[-3] == "to_out"):
+    if leaf == "weight" and (mod in ("proj", "out_proj") or parts[-3] == "to_out"):
         return "heads_out"
     return _fc_role(parts)
+
+
+def jax_refuses_tp(name: str, shape: tuple[int, ...]) -> bool:
+    """Whether JAX's ``shard_params`` fails on the parameter ``name`` over a
+    mesh with a 'model' axis: ``_spec_for`` gives every ``kernel`` leaf
+    under a parent named ``out`` the row split P('model', None, None) of a
+    (K, D, H) kernel, and ``device_put`` refuses that spec on a 2-D kernel.
+    In the port such a leaf is a Linear named ``out`` (the DenseNet stem's
+    classifier ``encoder.class_layers.out``, CNNViT's ``blocks.{i}.out``);
+    ViT3D's own (K, D, H) ``out`` is the port's ``out_proj``."""
+    parts = name.split(".")
+    return len(parts) >= 2 and parts[-2] == "out" and parts[-1] == "weight" and len(shape) == 2
 
 
 def _jax_axes(name: str, shape: tuple[int, ...], heads: int) -> list[tuple[int, int, bool]]:
@@ -165,6 +186,8 @@ def _jax_axes(name: str, shape: tuple[int, ...], heads: int) -> list[tuple[int, 
     if role == "qkv":                         # (3H, H) ↔ (H, 3, K, D)
         return [(shape[1], 1, False), (3, 0, False), (heads, 0, True),
                 (shape[1] // heads, 0, False)]
+    if role == "qkv_bias":                    # (3H,) ↔ (3, K, D), none of them 'model''s
+        return [(3, 0, False), (heads, 0, False), (shape[0] // (3 * heads), 0, False)]
     if role == "heads_in":                    # (H, H) ↔ (H, K, D); bias (H,) ↔ (K, D)
         head = [(heads, 0, True), (shape[0] // heads, 0, False)]
         return [(shape[1], 1, False)] + head if weight else head
@@ -336,12 +359,35 @@ def no_sync(model: nn.Module, skip: bool):
     return contextlib.nullcontext()
 
 
+def _mean_over(grads: list[torch.Tensor], mesh: DeviceMesh, axis: str) -> None:
+    """Replace each of ``grads`` by its mean over this rank's line of
+    ``axis``, in one all-reduce."""
+    if not grads or axis_size(mesh, axis) <= 1:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    flat.div_(axis_size(mesh, axis))
+    dist.all_reduce(flat, group=axis_group(mesh, axis))
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
 @torch.no_grad()
 def sync_replicated_grads(model: nn.Module, mesh: DeviceMesh) -> None:
     """Average across data coordinates, in one all-reduce, the gradients no
     wrapper reduces: an FSDP model's replicated parameters' (FSDP reduces
     only those it shards) and every gradient of a model ``shard_params``
-    left unwrapped (``_averaged_by_hand``)."""
+    left unwrapped (``_averaged_by_hand``).  A BatchNorm model over a
+    'model' axis first averages over its 'model' line the gradients of
+    what no region splits: each rank computes them whole, but its stem's
+    backward runs kernels with atomics on CUDA (max-pool's, cuDNN's input
+    gradient), so the ranks round them differently, and the parameters JAX
+    holds as one replicated value would drift apart."""
+    unwrapped = unwrap(model)
+    if axis_size(mesh, "model") > 1 and _batch_norms(unwrapped):
+        split = getattr(unwrapped, "tp_layout", None) or {}
+        _mean_over([p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad
+                    for n, p in unwrapped.named_parameters()
+                    if n not in split and p.grad is not None], mesh, "model")
     if isinstance(model, FSDPModule):
         grads = [p.grad for p in model.parameters()
                  if not isinstance(p, DTensor) and p.grad is not None]
@@ -349,13 +395,7 @@ def sync_replicated_grads(model: nn.Module, mesh: DeviceMesh) -> None:
         return
     else:
         grads = [p.grad for p in model.parameters() if p.grad is not None]
-    if not grads or axis_size(mesh, "data") <= 1:
-        return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    flat.div_(axis_size(mesh, "data"))
-    dist.all_reduce(flat, group=axis_group(mesh, "data"))
-    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(part.view_as(g))
+    _mean_over(grads, mesh, "data")
 
 
 def gather_rows(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:

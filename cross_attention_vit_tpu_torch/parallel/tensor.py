@@ -7,12 +7,17 @@ torch's (out, in) layout (``parallel.sharding.tp_dim`` is the rule):
 
   port parameter                  JAX leaf and spec              split
   ---------------------------------------------------------------------------
-  to_qkv.weight (3H, H)           qkv (H, 3, K, D), K on 'model'  rows, by head
-                                                                  inside (3, K, D)
+  to_qkv.weight (3H, H),          qkv (H, 3, K, D), K on 'model'  rows, by head
+    ViT3D's in_proj_weight                                        inside (3, K, D)
+  ViT3D's in_proj_bias (3H,)      qkv bias (3, K, D), replicated  whole; the forward
+                                                                  takes its heads'
   wq/wk/wv.weight (H, H), bias    (H, K, D) / (K, D), K           rows, by head
-  to_out.0.weight, proj.weight    out / proj (K, D, H), K         columns, by head
-  fc1.weight (mlp, H), bias       fc1 (H, mlp) / (mlp,), mlp      rows
-  fc2.weight (out, mlp)           fc2 (mlp, out), mlp             columns
+  to_out.0.weight, proj.weight,   out / proj (K, D, H), K         columns, by head
+    ViT3D's out_proj.weight
+  fc1.weight (mlp, H), bias,      fc1 (H, mlp) / (mlp,), mlp      rows
+    ViT3D's linear1, mlp_head.1
+  fc2.weight (out, mlp),          fc2 (mlp, out), mlp             columns
+    ViT3D's linear2, mlp_head.2
   everything else                 replicated                      whole
 
 At T model ranks, rank t keeps of ``to_qkv.weight`` the rows
@@ -21,13 +26,17 @@ still the (H, 3, K/T, D) kernel of K1 (a contiguous split would give rank 0
 all of q and half of k).  Biases of the row-split layers stay whole.
 
 A region is one column-split entry and one row-split exit: the
-self-attention (``to_qkv`` → ``to_out.0``), the cross-attention (``wq``,
-``wk``, ``wv`` → ``proj``), each feed-forward and each head (fc1 → fc2).
+self-attention (``to_qkv`` → ``to_out.0``; ViT3D's ``in_proj`` →
+``out_proj``), the cross-attention (``wq``, ``wk``, ``wv`` → ``proj``),
+each feed-forward and each head (fc1 → fc2).
 Megatron's pair bounds it: f (``copy_to``: identity forward, all-reduce
 backward) on its input and g (``reduce_from``: all-reduce forward,
 identity backward) on the f32 partial product of its exit, before the bias
 is added once and the result is cast once (``ops.layers.linear``).  The
-attention runs on the rank's own K/T heads.  A region with a layer in int8
+attention runs on the rank's own K/T heads; ViT3D's whole qkv bias passes
+f before its heads' slice is taken, so its gradient is summed whole over
+the line.  The DenseNet-stem ViT3D and CNNViT are refused, as JAX refuses
+them (``sharding.jax_refuses_tp``).  A region with a layer in int8
 form (a ``quantize_for_inference`` model) stays whole on every rank, as
 JAX's rules, which match only float ``kernel`` leaves, leave its int8
 leaves whole.
@@ -139,19 +148,26 @@ def shard_tensor_parallel(model: nn.Module, mesh) -> nn.Module:
     """Split ``model``'s float regions over the mesh's 'model' axis (size
     T): each split parameter becomes this rank's slice (a new parameter,
     build the optimizer afterwards) and each split region gets its ``TP``.
-    Raises ValueError when T does not divide the heads or the MLP width.
+    Raises ValueError when T does not divide the heads or a split width
+    (the config's ``mlp_dim``, or the model's ``tp_widths()``), and for a
+    model JAX does not place over a 'model' axis (``jax_refuses_tp``).
     Does nothing without a 'model' axis, or twice."""
-    from .sharding import tp_dim
+    from .sharding import jax_refuses_tp, tp_dim
 
     size = axis_size(mesh, "model")
     if size <= 1 or getattr(model, "tp_layout", None) is not None:
         return model
-    if not hasattr(model, "tp_regions"):
-        raise NotImplementedError(
-            f"{type(model).__name__} has no tensor-parallel regions in the port: a 'model' "
-            "axis splits ModelCross and ModelVIT (ROADMAP item 14)")
+    for name, p in model.named_parameters():
+        if jax_refuses_tp(name, tuple(p.shape)):
+            raise ValueError(
+                f"{type(model).__name__} over a 'model' axis of {size}: its 2-D parameter "
+                f"{name} is a kernel JAX names 'out', to which JAX's rule gives the "
+                "(K, D, H) row split P('model', None, None); JAX's shard_params refuses that "
+                "spec on a rank-2 leaf, so the JAX package does not place this model either")
     cfg = model.config
-    for what, n in (("num_heads", cfg.num_heads), ("mlp_dim", cfg.mlp_dim)):
+    widths = (model.tp_widths() if hasattr(model, "tp_widths")
+              else (("num_heads", cfg.num_heads), ("mlp_dim", cfg.mlp_dim)))
+    for what, n in widths:
         if n % size:
             raise ValueError(f"the 'model' axis of {size} does not divide {what}={n}: tensor "
                              "parallelism splits whole heads and whole MLP columns")

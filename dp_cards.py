@@ -66,7 +66,15 @@ And the axes composed, at four cards:
   statistics taken over the global batch of 8; the comparison step's
   running statistics within ``cs.BN_STAT_REL_TOL`` relative of the
   one-process step's and bit-equal on every rank (no K1, K2 or K3: ViT3D's
-  attention is plain and the legacy driver does not augment).
+  attention is plain and train_vit3d does not augment);
+- ``tp_vit3d``: the same ViT3D over (data N/2 × model 2), as JAX's rules
+  place it: each card holds 8 of the 16 heads and half of every FFN and of
+  the head, 8/(N/2) volumes a data coordinate, the BatchNorms synchronised
+  over the data line;
+- ``ddp_vit`` and ``fsdp_vit``: the 2-stream ModelVIT (N = 1025, 4 layers;
+  chip_smoke's phase train_vit) over (data N) under DDP and under FSDP,
+  whose units are its trunk layers (``ModelVIT.blocks``), 8 volumes a card,
+  4 K1 + 4 K2 a step.
 
 Under FSDP each sharded parameter and its Adam moments hold 1/D of the
 whole on a rank, D the data axis.
@@ -108,9 +116,9 @@ WORKER_TIMEOUT_S = 900
 
 
 MODES = ("ddp", "fsdp", "ep", "sp", "tp", "pp", "tp_fsdp", "tp_sp", "fsdp_ep", "pp_fsdp",
-         "tp_ep", "sync_bn")
+         "tp_ep", "sync_bn", "tp_vit3d", "ddp_vit", "fsdp_vit")
 # the modes with an axis of 2 besides 'data', and those with two such axes
-PAIRED = ("sp", "tp", "pp", "tp_fsdp", "fsdp_ep", "pp_fsdp")
+PAIRED = ("sp", "tp", "pp", "tp_fsdp", "fsdp_ep", "pp_fsdp", "tp_vit3d")
 QUADRUPLED = ("tp_sp", "tp_ep")
 
 
@@ -173,12 +181,19 @@ def mode_spec(mode: str, cards: int) -> dict:
                 "ref": _no_drop(cs.vit_config(("SWI", "DWI"), use_flash=True)),
                 "axes": {"pipe": 2, **half}, "batch": PER_CARD * (cards // 2),
                 "attention_launches": 2 * cs.PIPE_MB}
-    if mode == "sync_bn":
+    if mode in ("sync_bn", "tp_vit3d"):
         from cross_attention_vit_tpu_torch.models.vit3d import ViT3D
 
+        axes = {"data": cards} if mode == "sync_bn" else {**half, "model": 2}
         return {"model": ViT3D, "streams": 1, "fsdp": False, "augments": False,
                 "stateful": True, "cfg": cs._bn_cfg(), "cmp": cs._bn_cfg(), "ref": cs._bn_cfg(),
-                "axes": {"data": cards}, "batch": 8, "attention_launches": 0}
+                "axes": axes, "batch": 8, "attention_launches": 0}
+    if mode in ("ddp_vit", "fsdp_vit"):
+        vit = ("SWI", "DWI")
+        return {**cross, "model": ModelVIT, "streams": 2, "cfg": cs.vit_config(vit, True),
+                "cmp": _no_drop(cs.vit_config(vit, True)),
+                "ref": _no_drop(cs.vit_config(vit, True)), "axes": {"data": cards},
+                "batch": PER_CARD * cards, "attention_launches": 4}
     sp = {"seq_parallel": 2}
     axes = {"data": cards // 2, "seq": 2} if mode == "sp" else {"data": cards // 4, "seq": 2,
                                                                  "model": 2}
@@ -432,9 +447,10 @@ def main() -> int:
                 cs.emit({"phase": mode, "skipped": f"its axes need a multiple of {need} "
                                                    f"cards, not {cards}"})
                 modes.remove(mode)
-        if "sync_bn" in modes and 8 % cards:
-            cs.emit({"phase": "sync_bn", "skipped": f"8 volumes over {cards} cards"})
-            modes.remove("sync_bn")
+        for mode, data in (("sync_bn", cards), ("tp_vit3d", cards // 2)):
+            if mode in modes and 8 % data:
+                cs.emit({"phase": mode, "skipped": f"8 volumes over a data axis of {data}"})
+                modes.remove(mode)
         cs.check("ep" not in modes or 4 % cards == 0, f"ep: 4 experts over {cards} cards")
         cs.phase_build()
         with tempfile.TemporaryDirectory() as tmp:

@@ -11,6 +11,8 @@ Over four gloo ranks (``tests/torch_mesh_workers.py``, mode split,
   TP × EP     the MoE ModelCross over (expert 2 × model 2)
   FSDP × EP   the MoE ModelCross over (data 2 × expert 2), FSDP
   PP × FSDP   the 2-stage ModelVIT over (pipe 2 × data 2), FSDP
+  FSDP        the 2-stream ModelVIT over (data 2), two ranks: its trunk
+              layers are FSDP's units, gathered one at a time
   remat       the TP × FSDP case with ``remat=True`` (policy 'full'): the
               recompute runs inside FSDP's units and through TP's f and g
 
@@ -27,6 +29,8 @@ Over four gloo ranks (``tests/torch_mesh_workers.py``, mode split,
 * The placements: FSDP shards exactly the parameters ``fsdp_dim`` names, on
   its dim, over 'data' only (half of the TP slice or of the rank's experts);
   TP slices, expert splits and stages as without FSDP.
+* FSDP's units: each ModelVIT trunk layer (this stage's, under PP) and the
+  root; each ModelCross self- and cross-attention block and the root.
 * What stays refused: a 'pipe' axis with a 'seq' axis, which JAX's own step
   fails on (its ring's shard_map inside the pipeline's).
 """
@@ -114,6 +118,22 @@ def test_composed_placements(runs, name):
     if name == "vit_pp2_dp2_fsdp":
         per_layer = [n for n in sharded if n.startswith("transformer.layers.")]
         assert per_layer and all(np.prod(want[n][0]) * 2 < 2 ** 15 for n in per_layer)
+
+
+@pytest.mark.parametrize("name", [n for n, case in COMPOSED_CASES.items() if case[4]])
+def test_fsdp_gathers_a_block_at_a_time(runs, name):
+    """Under FSDP every rank's model is one unit per block FSDP gathers at
+    its use (``blocks()``: ModelVIT's trunk layers, this stage's under PP;
+    ModelCross's self- and cross-attention blocks) plus the root, as JAX's
+    GSPMD gathers each layer's leaves where they are used."""
+    _, got, _ = runs
+    family, fields, axes, _, _ = COMPOSED_CASES[name]
+    model = (ModelCross if family == "cross" else ModelVIT)(port_config(family, **fields),
+                                                            device="cpu")
+    blocks = len(model.blocks()) // axes.get("pipe", 1)
+    assert blocks > 1
+    for rank in got[name]:
+        assert int(rank["fsdp_units"]) == blocks + 1
 
 
 # ---------------------------------------------------------------------------

@@ -33,10 +33,8 @@ interpret mode.  Workers run with one thread and every wait has a timeout.
 """
 
 import json
-import os
 import shutil
 import socket
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -214,26 +212,12 @@ def _worker(mode: str, address: str, rank: int, world: int, tmp: Path) -> None:
 
 
 def _spawn(mode: str, tmp: Path, world: int = 2) -> None:
-    """Run ``world`` ranks of the worker and wait for them all; they meet in
-    a FileStore under ``tmp`` (``torch_mesh_workers.rendezvous``)."""
-    from torch_mesh_workers import rendezvous
+    """Run ``world`` ranks of this file's worker and wait for them all under
+    one deadline (``torch_mesh_workers.launch`` and ``wait_world``); they
+    meet in a FileStore under ``tmp``."""
+    from torch_mesh_workers import launch, wait_world
 
-    address = rendezvous(tmp)
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, str(HERE), mode, address, str(r), str(world),
-                               str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True, env=env) for r in range(world)]
-    errs = []
-    try:
-        for p in procs:
-            errs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[1])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, err) in enumerate(zip(procs, errs)):
-        assert p.returncode == 0, f"rank {r} of {mode} failed:\n{err[-6000:]}"
+    wait_world(launch(mode, tmp, world, script=HERE), WORKER_TIMEOUT_S)
 
 
 # -- references -----------------------------------------------------------------------

@@ -2,9 +2,10 @@
 'model' mesh axis, the counterpart of the TP cases of ``tests/test_parallel.py``.
 
 * The rule (``parallel.sharding.tp_dim``): for every parameter of ModelCross
-  and ModelVIT, dense and MoE, the elements each of T ranks keeps are those
+  and ModelVIT, dense and MoE, and of the stateful ViT3D (CNN3DEncoder
+  stem, CLS or mean pooling), the elements each of T ranks keeps are those
   JAX's ``param_specs`` gives that rank, the (3, K, D) interleave of the
-  fused qkv included.
+  fused qkv included (``test_torch_tp_vit3d.py`` trains the ViT3D split).
 * Over gloo ranks (``tests/torch_mesh_workers.py``), (model 2) and (data 2 ×
   model 2), both models, from JAX-initialised parameters: the logits before
   any step equal JAX's within 1e-5; one Adam step (f32, dropout 0) equals
@@ -34,11 +35,12 @@ from cross_attention_vit_tpu.parallel import param_specs
 from cross_attention_vit_tpu_torch.models.convert import jax_params_from_state_dict
 from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
 from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
+from cross_attention_vit_tpu_torch.models.vit3d import ViT3D
 from cross_attention_vit_tpu_torch.ops.layers import dropout, dropout_mask
 from cross_attention_vit_tpu_torch.parallel import TP, tp_dim
 from cross_attention_vit_tpu_torch.parallel.tensor import split_place, split_slice
 from cross_attention_vit_tpu_torch.train.checkpoint import flatten
-from torch_mesh_workers import CROSS, LR, TP_CASES, port_config, port_trainer
+from torch_mesh_workers import CROSS, LR, TP_CASES, bn_config, port_config, port_trainer
 from torch_split_reference import (TOL, assert_adam_step_matches, assert_matches_one_process,
                                    jax_init, jax_step, run_cases)
 
@@ -63,15 +65,24 @@ def _numbered(model) -> dict[str, np.ndarray]:
     return sd
 
 
+def _rule_model(family: str, fields: dict):
+    if family == "vit3d":          # the stateful ViT3D JAX places: the CNN3DEncoder stem
+        cfg = bn_config(**fields)
+        return cfg, ViT3D(cfg, device="cpu")
+    cfg = port_config(family, **fields)
+    return cfg, (ModelCross if family == "cross" else ModelVIT)(cfg, device="cpu")
+
+
 @pytest.mark.parametrize("family,fields", [("cross", {}), ("cross", {"moe_experts": 4}),
-                                           ("vit", {}), ("vit", {"moe_experts": 4})],
-                         ids=["cross", "cross_moe", "vit", "vit_moe"])
+                                           ("vit", {}), ("vit", {"moe_experts": 4}),
+                                           ("vit3d", {}), ("vit3d", {"add_cls_token": False})],
+                         ids=["cross", "cross_moe", "vit", "vit_moe", "vit3d",
+                              "vit3d_mean_pool"])
 @pytest.mark.parametrize("size", [2, 4])
 def test_tp_rule_matches_jax_param_specs(family, fields, size):
     """For each parameter and each of ``size`` ranks, the elements the port's
     rule keeps are those of JAX's shard of the same leaf."""
-    cfg = port_config(family, **fields)
-    model = (ModelCross if family == "cross" else ModelVIT)(cfg, device="cpu")
+    cfg, model = _rule_model(family, fields)
     sd = _numbered(model)
     tree = jax_params_from_state_dict(sd, cfg)
     owner = {int(v.flat[0]): name for name, v in sd.items()}
@@ -92,9 +103,16 @@ def test_tp_rule_matches_jax_param_specs(family, fields, size):
                    if rule else sd[name]).ravel()
             np.testing.assert_array_equal(np.sort(got), np.sort(want), err_msg=name)
     # what the split covers: the fused qkv, wq/wk/wv, both output projections,
-    # every dense fc1/fc2 weight and fc1 bias; never an expert stack
-    assert any(n.endswith("to_qkv.weight") for n in split_names)
-    assert not any(".experts." in n for n in split_names)
+    # every dense fc1/fc2 weight and fc1 bias; never an expert stack, nor
+    # ViT3D's qkv bias (JAX's (3, K, D) qkv/bias matches no rule)
+    assert any(n.endswith(("to_qkv.weight", "in_proj_weight")) for n in split_names)
+    assert not any(".experts." in n or n.endswith("in_proj_bias") for n in split_names)
+    if family == "vit3d":
+        assert {n.split(".", 3)[-1] for n in split_names if n.startswith("transformer.")} == {
+            "self_attn.in_proj_weight", "self_attn.out_proj.weight", "linear1.weight",
+            "linear1.bias", "linear2.weight"}
+        assert {n for n in split_names if n.startswith("mlp_head")} == {
+            "mlp_head.1.weight", "mlp_head.1.bias", "mlp_head.2.weight"}
 
 
 def test_qkv_split_keeps_the_kernel_layout():

@@ -3,15 +3,18 @@ tests and their compositions (``tests/test_torch_moe.py``,
 ``test_torch_ring.py``, ``test_torch_sp_ep_models.py``,
 ``test_torch_tensor_parallel.py``, ``test_torch_pipeline.py``,
 ``test_torch_sharded_serving.py``, ``test_torch_composed_parallel.py``,
-``test_torch_composed_fit.py``, ``test_torch_sync_bn.py``), run as
+``test_torch_composed_fit.py``, ``test_torch_sync_bn.py``,
+``test_torch_tp_vit3d.py``, ``test_torch_serve_mesh_cli.py``), run as
 subprocesses of the test process.
 
 ``spawn(mode, tmp, world)`` starts ``python tests/torch_mesh_workers.py
-<mode> <rendezvous> <rank> <world> <tmp>`` once for each rank and waits for
-them all, each wait with a timeout.  The ranks meet in a FileStore under
-``tmp`` (``rendezvous``), so no port is picked and released for another
-world, started at the same time by another test process, to take.  Each rank joins a gloo group (the CLI modes
-let the CLI join it), runs the mode's worker on inputs the test wrote into
+<mode> <rendezvous> <rank> <world> <tmp>`` once for each rank (``launch``)
+and waits for them all under one deadline for the whole world
+(``wait_world``), which ends the world as soon as a rank fails.  The
+ranks meet in a FileStore under ``tmp`` (``rendezvous``), so no port is
+picked and released for another world, started at the same time by
+another test process, to take.  Each rank joins a gloo group (the CLI
+modes let the CLI join it), runs the mode's worker on inputs the test wrote into
 ``tmp`` (or made here from a seed), writes its results there as
 ``<name>_<rank>.npz`` and leaves without the interpreter's teardown
 (``leave``).  Workers run with one thread each and import the port
@@ -101,6 +104,8 @@ COMPOSED_CASES = {
     "cross_dp2_ep2_fsdp": ("cross", {**MOE, "mlp_dim": 256}, {"data": 2, "expert": 2}, 4,
                            True),
     "vit_pp2_dp2_fsdp": ("vit", {**PP, "mlp_dim": 256}, {"pipe": 2, "data": 2}, 4, True),
+    # ModelVIT's trunk layers as FSDP's units: fc1/fc2 (1024 x 32) reach FSDP_MIN_SIZE
+    "vit_dp2_fsdp": ("vit", {"mlp_dim": 1024}, {"data": 2}, 2, True),
     # remat inside FSDP's units and across TP's f/g (the recompute re-runs them)
     "cross_dp2_tp2_fsdp_remat": ("cross", {"hidden_dim": 64, "mlp_dim": 512, "remat": True,
                                            "remat_policy": "full"},
@@ -120,6 +125,15 @@ SERVE_EP_AXES = {"data": 1, "expert": 2, "model": 2}
 BN_TINY = dict(hidden_dim=32, num_heads=4, num_layers=1, img_size=(32, 32, 16),
                num_modalities=2, dropout=0.0, label_smoothing=0.0, lr=LR, weight_decay=5e-4,
                img_aug=False, optim_params={"factor": 0.5, "patience": 0})
+# the stateful ViT3D over a 'model' axis (tests/test_torch_tp_vit3d.py):
+# name -> (config fields over BN_TINY, mesh axes, world, fsdp).  The FSDP
+# case widens the model to hidden 128, where the qkv (384 x 128), linear1
+# and linear2 (512 x 128) and the last stem conv reach FSDP_MIN_SIZE
+BN_TP_CASES = {
+    "tp2": ({}, {"model": 2}, 2, False),
+    "dp2_tp2": ({}, {"data": 2, "model": 2}, 4, False),
+    "dp2_tp2_fsdp": ({"hidden_dim": 128}, {"data": 2, "model": 2}, 4, True),
+}
 # the server over a mesh (world -> mesh axes), and a width at which int8 quantizes
 SERVE_MESHES = {2: {"model": 2}, 4: {"data": 2, "model": 2}}
 SERVE_INT8 = {"hidden_dim": 256, "mlp_dim": 1024}
@@ -172,25 +186,69 @@ def leave(code: int = 0) -> None:
     os._exit(code)
 
 
-def spawn(mode: str, tmp: Path, world: int) -> None:
-    """Run ``world`` ranks of the worker ``mode`` and wait for them all;
-    fails with the stderr of a rank that did not exit 0."""
-    address = rendezvous(tmp)
+class World:
+    """The ranks of one world: their processes and the files their output
+    goes to (a file each, so that no rank blocks on a full pipe)."""
+
+    def __init__(self, mode: str, procs: list, logs: list[Path]):
+        self.mode, self.procs, self.logs = mode, procs, logs
+
+    def tail(self, rank: int) -> str:
+        return self.logs[rank].read_text(errors="replace")[-6000:]
+
+
+def launch(mode: str, tmp: Path, world: int, script: Path | str = __file__,
+           address: str | None = None) -> World:
+    """Start ``world`` ranks of ``script``'s worker ``mode`` (``python
+    <script> <mode> <address> <rank> <world> <tmp>``), meeting at
+    ``address`` (default: a fresh ``rendezvous`` under ``tmp``), each rank's
+    stdout and stderr in a file under ``tmp``."""
+    address = address or rendezvous(tmp)
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, __file__, mode, address, str(r), str(world),
-                               str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True, env=env) for r in range(world)]
-    errs = []
+    tag = uuid.uuid4().hex[:8]
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(tmp / f"{mode}-{tag}-rank{r}.log")
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(script), mode, address, str(r), str(world), str(tmp)],
+                stdout=out, stderr=subprocess.STDOUT, text=True, env=env))
+    return World(mode, procs, logs)
+
+
+def wait_world(w: World, timeout_s: float = WORKER_TIMEOUT_S) -> None:
+    """Wait for every rank of ``w`` under one deadline for the whole world;
+    as soon as a rank exits with an error, or when the deadline passes, kill
+    the ranks still running.  Fails with the output of the rank at fault."""
+    deadline = time.monotonic() + timeout_s
+    failed = None
     try:
-        for p in procs:
-            errs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[1])
+        while True:
+            codes = [p.poll() for p in w.procs]
+            failed = next((r for r, c in enumerate(codes) if c not in (None, 0)), None)
+            if failed is not None or None not in codes or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
     finally:
-        for p in procs:
+        for p in w.procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
-    for r, (p, err) in enumerate(zip(procs, errs)):
-        assert p.returncode == 0, f"rank {r} of {mode} failed:\n{err[-6000:]}"
+            p.wait()
+    if failed is not None:
+        raise AssertionError(f"rank {failed} of {w.mode} failed (exit "
+                             f"{w.procs[failed].returncode}; the others were ended):\n"
+                             f"{w.tail(failed)}")
+    late = [r for r, c in enumerate(codes) if c is None]
+    if late:
+        raise AssertionError(f"{w.mode}: ranks {late} of {len(w.procs)} were still running "
+                             f"after the world's {timeout_s:.0f} s and were killed; rank "
+                             f"{late[0]}'s output:\n{w.tail(late[0])}")
+
+
+def spawn(mode: str, tmp: Path, world: int) -> None:
+    """Run ``world`` ranks of the worker ``mode`` and wait for them all
+    (``launch``, ``wait_world``)."""
+    wait_world(launch(mode, tmp, world))
 
 
 def load(tmp: Path, name: str, world: int) -> list[dict]:
@@ -511,7 +569,9 @@ def _split_worker(rank: int, world: int, tmp: Path) -> None:
     in ``tmp/cases``) over its mesh from the JAX-initialised parameters
     (``split_steps``), resuming step 1 from the one-process state after step
     0, and the layout this rank holds: each parameter's local shape and,
-    for an FSDP shard, its placement's dim (``local/fsdp:<name>``)."""
+    for an FSDP shard, its placement's dim (``local/fsdp:<name>``), and the
+    number of modules FSDP gathers as one unit (``fsdp_units``)."""
+    from torch.distributed.fsdp import FSDPModule
     from torch.distributed.tensor import DTensor
 
     from cross_attention_vit_tpu_torch.models.convert import params_from_flat
@@ -528,6 +588,7 @@ def _split_worker(rank: int, world: int, tmp: Path) -> None:
         params = params_from_flat(restore_flat(tmp / f"init_{name}.npz"))
         t = port_trainer(family, fields, mesh, params, fsdp=bool(fsdp and fsdp[0]))
         out = split_steps(t, family, mesh, tmp / f"one_ckpt_{name}.npz")
+        out["fsdp_units"] = np.array(sum(isinstance(m, FSDPModule) for m in t.model.modules()))
         for n, p in unwrap(t.model).named_parameters():
             local = p.to_local() if isinstance(p, DTensor) else p
             out[f"local/{n}"] = np.array(local.shape)
@@ -771,11 +832,11 @@ def _composed_fit_worker(rank: int, world: int, tmp: Path) -> None:
 
 # -- workers: the stateful ViT3D over a data axis ---------------------------------------
 
-def bn_config():
+def bn_config(**fields):
     from cross_attention_vit_tpu_torch.configs import get_mgmt_config, modify_config
 
     cfg = get_mgmt_config()
-    modify_config(cfg, BN_TINY)
+    modify_config(cfg, {**BN_TINY, **fields})
     return cfg
 
 
@@ -791,12 +852,21 @@ def bn_batches() -> list[tuple[np.ndarray, np.ndarray]]:
     return out
 
 
-def bn_trainer(params: dict, state: dict, mesh=None):
+def bn_trainer(params: dict, state: dict, mesh=None, fsdp: bool = False, **fields):
     from cross_attention_vit_tpu_torch.models.vit3d import ViT3D
     from cross_attention_vit_tpu_torch.train.trainer import Trainer
 
-    return Trainer(ViT3D, bn_config(), max_epochs=1, stateful=True, schedule="plateau",
-                   mesh=mesh, device="cpu").init_state(params, state)
+    return Trainer(ViT3D, bn_config(**fields), max_epochs=1, stateful=True, schedule="plateau",
+                   mesh=mesh, fsdp=fsdp, device="cpu").init_state(params, state)
+
+
+def bn_init(path: Path) -> tuple[dict, dict]:
+    """The JAX param and state trees a test wrote with ``save_pytree``."""
+    from cross_attention_vit_tpu_torch.train.checkpoint import restore_flat, unflatten
+
+    flat = restore_flat(path)
+    return tuple(unflatten({k[len(which) + 1:]: v for k, v in flat.items()
+                            if k.startswith(which + "/")}) for which in ("params", "state"))
 
 
 def bn_steps(t, mesh=None) -> dict:
@@ -829,17 +899,69 @@ def bn_steps(t, mesh=None) -> dict:
 def _sync_bn_worker(rank: int, world: int, tmp: Path) -> None:
     """``bn_steps`` of the stateful ViT3D over (data = world) from the
     weights and BatchNorm state the test wrote."""
-    from cross_attention_vit_tpu_torch.train.checkpoint import restore_flat, unflatten
-
-    flat = restore_flat(tmp / "bn_init.npz")
-    trees = {which: unflatten({k[len(which) + 1:]: v for k, v in flat.items()
-                               if k.startswith(which + "/")}) for which in ("params", "state")}
+    params, state = bn_init(tmp / "bn_init.npz")
     mesh = _mesh({"data": world})
-    t = bn_trainer(trees["params"], trees["state"], mesh)
+    t = bn_trainer(params, state, mesh)
     out = bn_steps(t, mesh)
     out["sync_groups"] = np.array(sum(getattr(m, "sync_group", None) is not None
                                       for m in t.model.modules()))
     np.savez(tmp / f"sync_bn_{rank}.npz", **out)
+
+
+def _tp_vit3d_worker(rank: int, world: int, tmp: Path) -> None:
+    """``bn_steps`` of each BN_TP_CASES case of this world over its mesh from
+    the weights and BatchNorm state the test wrote (``bn_init_<name>.npz``),
+    with the layout this rank holds (``local/<name>``: each parameter's
+    local shape; ``local/fsdp:<name>``: an FSDP shard's dim) and the
+    BatchNorms' sync groups."""
+    from torch.distributed.tensor import DTensor
+
+    from cross_attention_vit_tpu_torch.parallel import unwrap
+
+    for name, (fields, axes, w, fsdp) in BN_TP_CASES.items():
+        if w != world:
+            continue
+        mesh = _mesh(axes)
+        t = bn_trainer(*bn_init(tmp / f"bn_init_{name}.npz"), mesh, fsdp, **fields)
+        out = bn_steps(t, mesh)
+        model = unwrap(t.model)
+        out["sync_groups"] = np.array(sum(getattr(m, "sync_group", None) is not None
+                                          for m in model.modules()))
+        for n, p in model.named_parameters():
+            local = p.to_local() if isinstance(p, DTensor) else p
+            out[f"local/{n}"] = np.array(local.shape)
+            if isinstance(p, DTensor):
+                out[f"local/fsdp:{n}"] = np.array(p.placements[0].dim)
+        if not fsdp:
+            out.update(_model_line_mean(t, mesh, rank))
+        np.savez(tmp / f"tp_vit3d_{name}_{rank}.npz", **out)
+
+
+def _model_line_mean(t, mesh, rank: int) -> dict:
+    """``sync_replicated_grads`` on gradients set to 1 + this rank's
+    coordinate on the 'model' line: what no region splits (a stem conv)
+    gets the line's mean, a split slice (linear1's) keeps its own."""
+    from cross_attention_vit_tpu_torch.parallel import axis_index, sync_replicated_grads, unwrap
+
+    model = unwrap(t.model)
+    for p in model.parameters():
+        p.grad = torch.full_like(p, 1.0 + axis_index(mesh, "model"))
+    sync_replicated_grads(t.model, mesh)
+    return {"local/line_mean:replicated": model.encoder.conv1.weight.grad.numpy().copy(),
+            "local/line_mean:split": model.transformer.layers[0].linear1.weight.grad.numpy().copy()}
+
+
+def _serve_cli_worker(rank: int, world: int, tmp: Path, address: str) -> None:
+    """``drivers.serve.main`` with the arguments the test wrote
+    (``serve_cli_argv.json``), under torchrun's environment for this rank
+    (coordinator ``address``): rank 0 serves HTTP until SIGINT, the others
+    run the server's worker loop until rank 0 stops."""
+    from cross_attention_vit_tpu_torch.drivers import serve as tserve
+
+    host, port = address.rsplit(":", 1)
+    os.environ.update(MASTER_ADDR=host, MASTER_PORT=port, RANK=str(rank),
+                      WORLD_SIZE=str(world))
+    tserve.main(json.loads((tmp / "serve_cli_argv.json").read_text()))
 
 
 def _ping_worker(rank: int, world: int, tmp: Path) -> None:
@@ -850,9 +972,22 @@ def _ping_worker(rank: int, world: int, tmp: Path) -> None:
     np.savez(tmp / f"ping_{rank}.npz", sum=t.numpy())
 
 
-WORKERS = {"ping": _ping_worker, "moe": _moe_worker, "ring": _ring_worker, "models": _model_worker,
+def _stall_worker(rank: int, world: int, tmp: Path) -> None:
+    """Rank 0 exits with code 3 when ``tmp/fail`` exists; every other rank
+    (and rank 0 without it) sleeps far past any deadline: the harness's own
+    test of ``wait_world``."""
+    if rank == 0 and (tmp / "fail").exists():
+        leave(3)
+    time.sleep(3600)
+
+
+WORKERS = {"ping": _ping_worker, "stall": _stall_worker, "moe": _moe_worker, "ring": _ring_worker, "models": _model_worker,
            "fit": _fit_worker, "split": _split_worker, "serve": _serve_worker,
-           "composed_fit": _composed_fit_worker, "sync_bn": _sync_bn_worker}
+           "composed_fit": _composed_fit_worker, "sync_bn": _sync_bn_worker,
+           "tp_vit3d": _tp_vit3d_worker}
+# the modes whose CLI joins the group itself: (rank, world, tmp, address)
+CLI_WORKERS = {"cli": _cli_worker, "cli_split": _cli_split_worker,
+               "serve_cli": _serve_cli_worker}
 
 
 if __name__ == "__main__":
@@ -861,9 +996,8 @@ if __name__ == "__main__":
 
     _mode, _address, _rank, _world, _tmp = sys.argv[1:6]
     t0 = time.perf_counter()
-    if _mode in ("cli", "cli_split"):          # the CLI joins the group itself
-        (_cli_worker if _mode == "cli" else _cli_split_worker)(int(_rank), int(_world),
-                                                               Path(_tmp), _address)
+    if _mode in CLI_WORKERS:                   # the CLI joins the group itself
+        CLI_WORKERS[_mode](int(_rank), int(_world), Path(_tmp), _address)
     else:
         multihost_init(_address, int(_world), int(_rank), device="cpu",
                        timeout_s=WORKER_TIMEOUT_S)
