@@ -27,7 +27,12 @@ draws a Bernoulli per transform; the volumes that drew it are indexed out,
 transformed and written back (the JAX package's compaction gating without its
 cap).  The gates, scalar parameters and hole corners come from a host
 generator, so choosing the volumes never waits for the card; the noise field
-and the shuffle permutations are drawn on the volumes' device.  Every
+and the shuffle permutations are drawn on the volumes' device.  Each host
+draw reaches the card through ``utils.profiling.to_device``, a copy that
+blocks the host (a ``sync:h2d`` span under a profiler): on a card, with
+every transform drawn, 25 a batch (9 gate indices, the affine's 4 pass
+coefficients, the contrast, noise, smooth and zoom parameters, one copy of
+corners a hole: 5 shuffled, 3 dropped).  Every
 transform's output is cast back to the batch dtype, so a bf16 batch keeps
 bf16 step boundaries (JAX ``:573-581``) while each transform computes as the
 JAX one does.
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 
 from ..kernels.resample import resample_axis_windowed_batched
+from ..utils.profiling import to_device
 
 
 @dataclass(frozen=True)
@@ -204,7 +210,7 @@ def apply_affine(vols: torch.Tensor, m: torch.Tensor, cfg: AugmentConfig) -> tor
     out = vols
     for cd, axis, window, span in zip(lu_cdeltas(m), LU_AXES, lu_windows(cfg, shape),
                                       lu_spans(cfg, shape)):
-        out = resample_axis_windowed_batched(out, axis, cd.to(vols.device), center, window,
+        out = resample_axis_windowed_batched(out, axis, to_device(cd, vols.device), center, window,
                                              span=span)
     return out
 
@@ -231,7 +237,7 @@ def apply_affine_exact(vols: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     volume at a time bounds the index tensors."""
     V, D, H, W = vols.shape
     dev = vols.device
-    m = m.to(device=dev, dtype=torch.float32)
+    m = to_device(m, dev, torch.float32)
     center = [(D - 1) / 2.0, (H - 1) / 2.0, (W - 1) / 2.0]
     grid = torch.meshgrid(*(torch.arange(n, device=dev, dtype=torch.float32)
                             for n in (D, H, W)), indexing="ij")
@@ -281,7 +287,7 @@ def apply_zoom(vols: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Separable keep-size zoom: three f32 contractions with the zoom
     matrices, cast back to the input dtype once at the end."""
     _, D, H, W = vols.shape
-    z = z.to(vols.device)
+    z = to_device(z, vols.device)
     out = torch.einsum("vab,vbhw->vahw", zoom_matrix(D, z), vols.float())
     out = torch.einsum("vab,vdbw->vdaw", zoom_matrix(H, z), out)
     out = torch.einsum("vab,vdhb->vdha", zoom_matrix(W, z), out)
@@ -291,7 +297,7 @@ def apply_zoom(vols: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 # --- intensity ----------------------------------------------------------------
 
 def _per_volume(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    return x.to(device=like.device, dtype=torch.float32)[:, None, None, None]
+    return to_device(x, like.device, torch.float32)[:, None, None, None]
 
 
 def draw_contrast(n: int, cfg: AugmentConfig, generator: torch.Generator) -> torch.Tensor:
@@ -349,7 +355,7 @@ def apply_smooth(vols: torch.Tensor, sigmas: torch.Tensor, radius: int) -> torch
     the volumes' dtype and each pass rounds once to it."""
     out = vols
     subs = ("vij,vjhw->vihw", "vij,vdjw->vdiw", "vij,vdhj->vdhi")
-    sigmas = sigmas.to(vols.device)
+    sigmas = to_device(sigmas, vols.device)
     for axis in range(3):
         kern = gaussian_kernel(sigmas[:, axis], radius)
         size = vols.shape[1 + axis]
@@ -376,7 +382,7 @@ def draw_holes(n: int, holes: int, size, shape, generator: torch.Generator) -> t
 
 def _hole_index(corners: torch.Tensor, hs, device):
     """Advanced-index tuple selecting one (h0, h1, h2) hole per volume."""
-    c = corners.to(device)
+    c = to_device(corners, device)
     v = torch.arange(c.shape[0], device=device)[:, None, None, None]
     r = [c[:, d, None] + torch.arange(hs[d], device=device) for d in range(3)]
     return v, r[0][:, :, None, None], r[1][:, None, :, None], r[2][:, None, None, :]
@@ -483,6 +489,6 @@ def augment_batch(imgs: torch.Tensor, generator: torch.Generator,
         if applied is not None:
             applied[name] = int(sel.numel())
         if sel.numel():
-            sel = sel.to(flat.device)
+            sel = to_device(sel, flat.device)
             flat[sel] = run(flat[sel], generator, field_gen).to(flat.dtype)
     return flat.reshape(imgs.shape)

@@ -85,6 +85,7 @@ from ..parallel.ring import active_seq_mesh, set_seq_mesh
 from ..parallel.sharding import (batch_sharding, gather_rows, local_tensors, no_sync,
                                  shard_params, sync_replicated_grads, unwrap, whole_tensors)
 from ..utils.device import resolve_device
+from ..utils.profiling import span, to_device
 from .checkpoint import CheckpointManager, LatestCheckpointer, flatten, unflatten, wait_for_writes
 from .loggers import MultiLogger
 from .metrics import MetricAccumulator, confusion_counts
@@ -170,6 +171,12 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
     ``augmented`` (a dict attribute of the step) holds, after each step, the
     number of volumes that drew each transform.
 
+    While a profiler records, the step's phases are spans on its clock
+    (``utils.profiling.span``): ``step:augment`` (the input's copy and
+    promotion, the augmentation), ``step:forward`` and ``step:backward``
+    once per microbatch (the last backward also finishes the gradients),
+    then ``step:optimizer``.
+
     ``mesh``: the model is ``parallel.shard_params``' (DDP or FSDP) over it;
     ``img`` and ``labels`` are this data coordinate's rows, the gradients
     are averaged across data coordinates (the microbatches before the last
@@ -192,27 +199,9 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
     params = list(model.parameters())
     device = params[0].device
 
-    def step(img: torch.Tensor, labels: torch.Tensor, lr: float,
-             generator: torch.Generator) -> dict:
-        img = promote_input(img.to(device))
-        labels = labels.to(device)
-        if img_aug:
-            if aug_bf16:
-                img = img.to(torch.bfloat16)
-            step.augmented.clear()
-            img = promote_input(augment_batch(img, generator, augment_cfg, step.augmented))
-        if img.shape[0] % grad_accum:
-            raise ValueError(f"batch {img.shape[0]} not divisible by grad_accum {grad_accum}")
-        for p in params:
-            p.grad = None
-        logit_parts, loss_sum = [], 0.0
-        for i, (im, lb) in enumerate(zip(img.chunk(grad_accum), labels.chunk(grad_accum))):
-            dropout_gen = _dropout_generator(generator, device)
-            with no_sync(model, skip=i < grad_accum - 1), _ambient_meshes(config, mesh):
-                logits, loss = model(im, lb, train=True, generator=dropout_gen)
-                loss.backward()
-            logit_parts.append(logits.detach())
-            loss_sum = loss_sum + loss.detach()
+    def finish_grads():
+        """After the last microbatch's backward: JAX's zeros for unreached
+        parameters, the hand-averaged gradients, the mean over microbatches."""
         if zero_unreached:
             for p in params:
                 if p.grad is None:
@@ -223,7 +212,36 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(grad_accum)
-        optimizer.step(lr)
+
+    def step(img: torch.Tensor, labels: torch.Tensor, lr: float,
+             generator: torch.Generator) -> dict:
+        with span("step:augment"):
+            img = promote_input(to_device(img, device))
+            labels = to_device(labels, device)
+            if img_aug:
+                if aug_bf16:
+                    img = img.to(torch.bfloat16)
+                step.augmented.clear()
+                img = promote_input(augment_batch(img, generator, augment_cfg, step.augmented))
+        if img.shape[0] % grad_accum:
+            raise ValueError(f"batch {img.shape[0]} not divisible by grad_accum {grad_accum}")
+        for p in params:
+            p.grad = None
+        logit_parts, loss_sum = [], 0.0
+        for i, (im, lb) in enumerate(zip(img.chunk(grad_accum), labels.chunk(grad_accum))):
+            last = i == grad_accum - 1
+            with no_sync(model, skip=not last), _ambient_meshes(config, mesh):
+                with span("step:forward"):
+                    dropout_gen = _dropout_generator(generator, device)
+                    logits, loss = model(im, lb, train=True, generator=dropout_gen)
+                with span("step:backward"):
+                    loss.backward()
+                    if last:
+                        finish_grads()
+            logit_parts.append(logits.detach())
+            loss_sum = loss_sum + loss.detach()
+        with span("step:optimizer"):
+            optimizer.step(lr)
         return _aux(torch.cat(logit_parts), loss_sum / grad_accum, labels, mesh)
 
     step.augmented = {}

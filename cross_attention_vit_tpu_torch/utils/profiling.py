@@ -9,9 +9,16 @@ The reference's tooling was forward-hook shape prints and wall-clock prints
     and writes a Chrome trace (``trace.json``, viewable in Perfetto or
     chrome://tracing) into ``logdir`` on exit; it yields the profiler, whose
     ``key_averages()`` sums the kernels by name;
-  * ``StageTimer``: wall-clock time per named stage, synchronising a
-    tensor's CUDA stream (``block_on=``) so asynchronous launches do not hide
-    their work in a later stage;
+  * ``span(name)``: a named host range in whatever profiler session is
+    recording (``torch.profiler.record_function``), on the clock of its CUDA
+    kernels; with no profiler recording, one shared null context, so the
+    spans cost a check each and there is nothing to switch on.  The train
+    step opens ``step:augment``, ``step:forward``, ``step:backward`` and
+    ``step:optimizer`` (``train/trainer.py``);
+  * ``to_device(t, device, dtype)``: ``Tensor.to`` for the copies of host
+    data to the device, inside ``span("sync:h2d")`` when it copies from host
+    memory to a card, which blocks the host until the stream drains (the
+    augmentation's draws, the train step's inputs);
   * shape tracing lives in ``models.surgery`` (``trace_shapes``,
     ``inspect_model``).
 """
@@ -19,7 +26,6 @@ The reference's tooling was forward-hook shape prints and wall-clock prints
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
 
 import torch
@@ -46,29 +52,30 @@ def profile_trace(logdir: str | Path, device: str | torch.device = "cuda"):
     prof.export_chrome_trace(str(logdir / "trace.json"))
 
 
-class StageTimer:
-    """Wall time per named stage: ``with timer.stage("decode"): ...``;
-    ``block_on`` (a tensor) synchronises its device's current CUDA stream
-    before the stage's clock stops."""
+SYNC_H2D = "sync:h2d"
+_OFF = contextlib.nullcontext()
 
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
 
-    @contextlib.contextmanager
-    def stage(self, name: str, block_on: torch.Tensor | None = None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block_on is not None and block_on.is_cuda:
-                torch.cuda.current_stream(block_on.device).synchronize()
-            self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t0
-            self.counts[name] = self.counts.get(name, 0) + 1
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records,
+    else the shared null context: ``with span("step:forward"): ...``."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
-    def summary(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            tot, n = self.totals[name], self.counts[name]
-            lines.append(f"{name:24s} {tot:8.3f}s total  {tot / n * 1000:8.1f} ms/call  ×{n}")
-        return "\n".join(lines)
+
+def _host_to_card(t: torch.Tensor, device: str | torch.device) -> bool:
+    """A copy of ``t`` to ``device`` goes from host memory to a card: without
+    ``non_blocking`` it synchronises the stream (``cudaMemcpyAsync``, then
+    ``cudaStreamSynchronize``)."""
+    return t.device.type == "cpu" and torch.device(device).type == "cuda"
+
+
+def to_device(t: torch.Tensor, device: str | torch.device,
+              dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``t.to(device=device, dtype=dtype)``, spanned ``sync:h2d`` when it
+    blocks the host on a copy from host memory to a card."""
+    if _host_to_card(t, device):
+        with span(SYNC_H2D):
+            return t.to(device=device, dtype=dtype)
+    return t.to(device=device, dtype=dtype)

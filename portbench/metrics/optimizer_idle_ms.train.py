@@ -1,0 +1,8 @@
+"""Device-idle ms a step between operations inside the train step's
+``step:optimizer`` spans (Adam's update), read by ``portbench/spans.py``."""
+
+from portbench import spans
+
+
+def read(ctx):
+    return spans.phase_idle_ms(ctx.profile, "step:optimizer")

@@ -1,13 +1,12 @@
 """The port's small tools against the JAX package's: ``utils/misc.py``'s
-``accum_tensor``, ``utils/profiling.py`` (``StageTimer``, ``profile_trace``
-on the CPU), ``models/surgery.py`` (a shape trace on the meta device, the
+``accum_tensor``, ``utils/profiling.py`` (``profile_trace`` on the
+CPU), ``models/surgery.py`` (a shape trace on the meta device, the
 parameter count and summary equal to JAX's for the same weights), and the
 small public functions ported beside them: ``nifti.read_header``,
 ``preprocess.resize_with_pad_or_crop``, ``patchify.unpatchify_3d`` and
 ``Config.copy`` / ``keys`` / ``del``."""
 
 import json
-import time
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +33,7 @@ from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
 from cross_attention_vit_tpu_torch.models.vit3d import ViT3D
 from cross_attention_vit_tpu_torch.ops import patchify as tpatch
 from cross_attention_vit_tpu_torch.utils import misc as tmisc
-from cross_attention_vit_tpu_torch.utils.profiling import StageTimer, profile_trace
+from cross_attention_vit_tpu_torch.utils.profiling import profile_trace
 
 VIT = dict(hidden_dim=32, mlp_dim=64, num_heads=4, num_layers=1, img_size=(16, 16, 8),
            patch_size=(8, 8, 8), num_modalities=1, dropout=0.0)
@@ -57,18 +56,6 @@ def test_accum_tensor_matches_jax():
     with pytest.raises(ValueError, match="shape mismatch"):
         tmisc.accum_tensor(a, b[:1], fn)
     assert tmisc.compute_metrics is not None
-
-
-def test_stage_timer_accumulates():
-    timer = StageTimer()
-    for _ in range(2):
-        with timer.stage("decode", block_on=torch.zeros(1)):
-            time.sleep(0.01)
-    with timer.stage("step"):
-        pass
-    assert timer.counts == {"decode": 2, "step": 1}
-    assert timer.totals["decode"] >= 0.02
-    assert timer.summary().splitlines()[0].startswith("decode")
 
 
 def test_profile_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
