@@ -10,7 +10,7 @@ Phases, each printed as one JSON line with a ``phase`` key:
              power limit; TF32 switched off for matmuls and cuDNN.
 2. build   — compiles every kernel of the serving and training paths from
              ``cross_attention_vit_tpu_torch/kernels/csrc/`` with nvcc, one
-             process per source (five), all started together; keeps each
+             process per source (six), all started together; keeps each
              kernel's ptxas registers and spills.
 3. kernels — holds each kernel (K1 attention forward, K2 its backward, K3
              the windowed resample, K4 the same over all taps) against its
@@ -305,6 +305,20 @@ Phases, each printed as one JSON line with a ``phase`` key:
              both ranks' gathered parameters and running statistics bit for
              bit equal, no K kernel launched; each rank's step ms and peak
              memory (gloo's host staging, not a speed figure).
+30. kernels_epilogue — run right after kernels_k8: the linear epilogue's
+             forward and backward kernels (``kernels/linear_epilogue.py``)
+             against their plain version at the cells' shapes, 32,832 and
+             65,600 rows by 1024 and 4096 columns with uint8 and int32 draws
+             (tanh GELU at 4096), and checked at bias + cast alone, erf GELU,
+             the heads' 2 classes and a width of 1001: output, pre-GELU
+             value, packed mask and dp bit for bit (GELU outputs within one
+             bf16 ulp, their count reported), the bias gradient within
+             ``EPILOGUE_BIAS_TOL``, two backward calls bit for bit, one
+             forward and one backward launch a call, no ptxas spill; the four
+             live shapes timed (kernel, plain version, bound at 3.35 TB/s).
+             Then ``linear`` with tanh GELU and dropout 0.25 on the card
+             against the chain of ops it replaced: output within one ulp,
+             the generator's state equal, one launch each way.
 
 Then a line ``{"phase": "profiler", ...}``: the profiles taken, how many of
 them recorded no kernel, and the calls timed by CUDA events after
@@ -350,13 +364,14 @@ from cross_attention_vit_tpu_torch.drivers import evaluate, experiments
 from cross_attention_vit_tpu_torch.drivers.serve import InferenceServer, serve
 from cross_attention_vit_tpu_torch.kernels import _build
 from cross_attention_vit_tpu_torch.kernels import flash_attention as fa
+from cross_attention_vit_tpu_torch.kernels import linear_epilogue as le
 from cross_attention_vit_tpu_torch.kernels import resample as rs
 from cross_attention_vit_tpu_torch.models.convert import jax_params_from_model
 from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
 from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
 from cross_attention_vit_tpu_torch.models.quantize import count_quantized
 from cross_attention_vit_tpu_torch.ops.attention import _sdpa
-from cross_attention_vit_tpu_torch.ops.layers import linear
+from cross_attention_vit_tpu_torch.ops.layers import dropout, linear, matmul_f32
 from cross_attention_vit_tpu_torch.ops.quant import (QuantLinear, dynamic_quantize, qlinear,
                                                      quantize_weight)
 from cross_attention_vit_tpu_torch.models.convert import jax_params_from_state_dict, params_from_flat
@@ -409,7 +424,7 @@ TIMING_WINDOWS = 5
 SERVE_TOL = 5e-2
 REQUEST_SIZES = (1, 3, 8, 1, 3, 8)
 LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "resample",
-             "flash_attention_stream", "fused_qkv_bwd")
+             "flash_attention_stream", "fused_qkv_bwd", "linear_epilogue")
 K1 = {"name": "flash_attention_qkv", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:759"}
@@ -446,6 +461,24 @@ K6B = {"name": "flash_attention_tn_bwd (dq and dk/dv kernels)", "route": "cuda",
 K8 = {"name": "fused_qkv_bwd (dq, dk/dv, dx and dW kernels)", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/fused_qkv_bwd.cu",
       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:879"}
+EPF = {"name": "linear_epilogue (forward)", "route": "cuda",
+       "source": "cross_attention_vit_tpu_torch/kernels/csrc/linear_epilogue.cu",
+       "replaces": "none: XLA's GEMM epilogue in the JAX package (ops/layers.py linear, "
+                   "GELU, dropout)"}
+EPB = {"name": "linear_epilogue (backward: elementwise and bias column sums)", "route": "cuda",
+       "source": "cross_attention_vit_tpu_torch/kernels/csrc/linear_epilogue.cu",
+       "replaces": EPF["replaces"]}
+# the epilogue's shapes (rows, cols, draw dtype, GELU): the cells' FFN widths
+# (fc2, the projections: 1024; fc1: 4096) at their rows, 64 · 513 (ModelCross,
+# uint8 draws at rate 0.25) and 64 · 1025 (ModelVIT, int32 draws at rate 0.1)
+EPILOGUE_SHAPES = ((32832, 1024, torch.uint8, None), (32832, 4096, torch.uint8, True),
+                   (65600, 1024, torch.int32, None), (65600, 4096, torch.int32, True))
+# further cases checked, not timed: bias + cast alone, erf GELU, the heads'
+# two classes, a width that is not a multiple of 8
+EPILOGUE_EXTRA = ((32832, 1024, None, None), (4104, 4096, torch.uint8, False),
+                  (64, 2, torch.uint8, True), (1000, 1001, torch.int32, True))
+# the bias gradient, kernel against the plain f32 sum, by max |Δ| / max |want|
+EPILOGUE_BIAS_TOL = 1e-5
 # K6's lengths (those of K5) at B=2 K=4, and its timed shape (B, K, N)
 K6_NS = (100, 513, 1025, 1040)
 K6_TIMED = (8, 16, 513)
@@ -1623,6 +1656,149 @@ def phase_kernels_k8() -> dict:
     return live
 
 
+def epilogue_bound(rows: int, cols: int, draw, gelu) -> dict:
+    """Least ms of the forward and backward epilogue at 3.35 TB/s: each byte
+    read or written once.  Forward: the f32 product, the bias, the draws, the
+    output, the pre-GELU value and the packed mask; backward: the cotangent,
+    the pre-GELU value and the mask, dp (with GELU or dropout) and the bias
+    gradient."""
+    n = rows * cols
+    draw_b = 0 if draw is None else torch.empty((), dtype=draw).element_size()
+    mask_b = 0 if draw is None else rows * -(-cols // 8)
+    pre_b = 0 if gelu is None else 2 * n
+    fwd = 4 * n + 4 * cols + draw_b * n + 2 * n + pre_b + mask_b
+    bwd = 2 * n + pre_b + mask_b + (2 * n if draw is not None or gelu is not None else 0) \
+        + 4 * cols
+    return {"fwd_ms": fwd / 3.35e12 * 1e3, "bwd_ms": bwd / 3.35e12 * 1e3,
+            "fwd_mb": fwd / 1e6, "bwd_mb": bwd / 1e6, "by": "bytes"}
+
+
+def _epilogue_operands(rows: int, cols: int, draw, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.randn(rows, cols, device="cuda", generator=g) * 2.0
+    bias = torch.randn(cols, device="cuda", generator=g)
+    draws, thresh, keep = None, 0, 1.0
+    if draw is not None:
+        bits = 8 if draw == torch.uint8 else 16
+        keep = 0.75 if bits == 8 else 0.9
+        thresh = int(round(keep * (1 << bits)))
+        draws = torch.randint(0, 1 << bits, (rows, cols), generator=g, device="cuda",
+                              dtype=draw)
+    gy = torch.randn(rows, cols, device="cuda", generator=g).to(torch.bfloat16)
+    return p, bias, draws, thresh, keep, gy
+
+
+def _bits_diff(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Elements whose bits differ, and the largest distance in bf16 ulps."""
+    diff = got.view(torch.int16).int() - want.view(torch.int16).int()
+    return {"differ": int((diff != 0).sum()), "max_ulps": int(diff.abs().max())}
+
+
+def phase_kernels_epilogue() -> dict:
+    """The linear epilogue's kernels against their plain version (the
+    chain's ops on the card) at the cells' shapes: the forward's output, the
+    pre-GELU value and the packed mask, the backward's dp bit for bit (GELU
+    outputs within one bf16 ulp, the count reported), the bias gradient
+    within ``EPILOGUE_BIAS_TOL``; two identical backward calls bit for bit;
+    the launch counters; no ptxas spill.  Timed at the four live shapes:
+    kernel, plain version, the bound.  Then ``linear`` on the card with tanh
+    GELU and dropout against the chain of ops it replaces: output and the
+    three gradients.  Returns the timed entries."""
+    ptxas = {key: r for key, r in PTXAS.items() if "linear_epilogue" in key}
+    entries, failures = [], []
+    for i, (rows, cols, draw, gelu) in enumerate(EPILOGUE_SHAPES + EPILOGUE_EXTRA):
+        timed = i < len(EPILOGUE_SHAPES)
+        p, bias, draws, thresh, keep, gy = _epilogue_operands(rows, cols, draw, 100 + i)
+        before = (le.linear_epilogue.launches, le.linear_epilogue.bwd_launches)
+        out, pre, mask = le.linear_epilogue(p, bias, draws, thresh, keep, gelu,
+                                            torch.bfloat16, True)
+        want, want_pre, want_mask = le.linear_epilogue_reference(
+            p, bias, draws, thresh, keep, gelu, torch.bfloat16, True)
+        dp, dbias = le.linear_epilogue_backward(gy, want_mask, want_pre, keep, gelu, True)
+        dp2, dbias2 = le.linear_epilogue_backward(gy, want_mask, want_pre, keep, gelu, True)
+        want_dp, want_dbias = le.linear_epilogue_backward_reference(
+            gy, want_mask, want_pre, keep, gelu, True)
+        torch.cuda.synchronize()
+        after = (le.linear_epilogue.launches, le.linear_epilogue.bwd_launches)
+        entry = {"rows": rows, "cols": cols, "draws": None if draw is None else str(draw),
+                 "gelu": {None: None, True: "tanh", False: "erf"}[gelu],
+                 "out": _bits_diff(out, want), "dp": _bits_diff(dp, want_dp),
+                 "pre_equal": pre is None and want_pre is None or bool(torch.equal(pre, want_pre)),
+                 "mask_equal": mask is None and want_mask is None
+                 or bool(torch.equal(mask, want_mask)),
+                 "dbias_rel_err": ((dbias - want_dbias).abs().max()
+                                   / want_dbias.abs().max()).item(),
+                 "run_to_run_equal": bool(torch.equal(dp, dp2) and torch.equal(dbias, dbias2)),
+                 "launches": [after[0] - before[0], after[1] - before[1]]}
+        ulps = 1 if gelu is not None else 0
+        if not (entry["out"]["max_ulps"] <= ulps and entry["dp"]["max_ulps"] <= ulps
+                and entry["pre_equal"] and entry["mask_equal"] and entry["run_to_run_equal"]
+                and entry["dbias_rel_err"] <= EPILOGUE_BIAS_TOL and entry["launches"] == [1, 2]):
+            failures.append(entry)
+        if timed:
+            fwd = lambda: le.linear_epilogue(p, bias, draws, thresh, keep, gelu,   # noqa: E731
+                                             torch.bfloat16, True)
+            bwd = lambda: le.linear_epilogue_backward(gy, want_mask, want_pre,     # noqa: E731
+                                                      keep, gelu, True)
+            split = device_ms_split(bwd, {"elementwise": "elementwise_bwd",
+                                          "reduce": "bias_reduce"})
+            entry.update({
+                "fwd_ms": device_ms(fwd),
+                "bwd_ms": None if split["elementwise"] is None
+                else split["elementwise"] + split["reduce"],
+                "bwd_ms_by_kernel": split,
+                "plain_fwd_ms": device_ms(lambda: le.linear_epilogue_reference(
+                    p, bias, draws, thresh, keep, gelu, torch.bfloat16, True), calls=2),
+                "plain_bwd_ms": device_ms(lambda: le.linear_epilogue_backward_reference(
+                    gy, want_mask, want_pre, keep, gelu, True), calls=2),
+                "bound": epilogue_bound(rows, cols, draw, gelu)})
+        entries.append(entry)
+        del p, bias, draws, gy, out, pre, mask, want, want_pre, want_mask, dp, dp2, want_dp
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_epilogue", "kernels": [EPF, EPB], "ptxas": ptxas, "cases": entries})
+    check(not any(r.get("spill_stores") or r.get("spill_loads") for r in ptxas.values()),
+          f"a linear epilogue kernel spills: {ptxas}")
+    check(not failures, f"the linear epilogue disagrees with its plain version: {failures}")
+    linear_case = _epilogue_linear_vs_chain()
+    emit({"phase": "kernels_epilogue_linear", **linear_case})
+    check(linear_case["ok"], f"linear's epilogue route disagrees with the chain: {linear_case}")
+    return {"cases": entries[:len(EPILOGUE_SHAPES)], "linear": linear_case}
+
+
+def _epilogue_linear_vs_chain() -> dict:
+    """``ops.layers.linear`` with tanh GELU and dropout 0.25 on the card (the
+    kernel route) against the chain of ops it replaced, from the same
+    generator state, at a ModelCross fc1 of 8 samples: output and the
+    gradients of x, W and b."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(8, 513, 1024, device="cuda", generator=g).to(torch.bfloat16)
+    w = torch.randn(4096, 1024, device="cuda", generator=g) * 1024 ** -0.5
+    b = torch.randn(4096, device="cuda", generator=g) * 0.1
+    gy = torch.randn(8, 513, 4096, device="cuda", generator=g).to(torch.bfloat16)
+    got_g, want_g = (torch.Generator(device="cuda").manual_seed(9) for _ in range(2))
+    xa, wa, ba = (t.clone().requires_grad_(True) for t in (x, w, b))
+    before = (le.linear_epilogue.launches, le.linear_epilogue.bwd_launches)
+    got = linear(xa, wa, ba, gelu_approx=True, rate=0.25, generator=got_g, train=True)
+    got.backward(gy)
+    torch.cuda.synchronize()
+    launches = [le.linear_epilogue.launches - before[0],
+                le.linear_epilogue.bwd_launches - before[1]]
+    xb, wb, bb = (t.clone().requires_grad_(True) for t in (x, w, b))
+    y = (matmul_f32(xb, wb.to(torch.bfloat16).t(), True) + bb.float()).to(torch.bfloat16)
+    want = dropout(F.gelu(y, approximate="tanh"), 0.25, want_g, True)
+    want.backward(gy)
+    out = _bits_diff(got, want)
+    dx = _bits_diff(xa.grad, xb.grad)
+    dw_err = ((wa.grad - wb.grad).abs().max() / wb.grad.abs().max()).item()
+    db_err = ((ba.grad - bb.grad).abs().max() / bb.grad.abs().max()).item()
+    same_state = bool(torch.equal(got_g.get_state(), want_g.get_state()))
+    return {"shape": "x (8, 513, 1024) bf16, W (4096, 1024) f32, tanh GELU, dropout 0.25",
+            "out": out, "dx": dx, "dw_rel_err": dw_err, "db_rel_err": db_err,
+            "generator_state_equal": same_state, "launches": launches,
+            "ok": (out["max_ulps"] <= 1 and same_state and launches == [1, 1]
+                   and dx["max_ulps"] <= 2 and dw_err <= 1e-2 and db_err <= 1e-2)}
+
+
 def vit_config(streams: tuple, use_flash: bool):
     """params_list2[1] of the experiment grid with ``streams`` as its
     img_types: dropout 0.1, augmentation on, Adam lr 1e-4 wd 5e-4, cosine
@@ -1855,7 +2031,9 @@ _COUNTERS = {"K1": (fa.flash_attention_qkv, "launches"),
              "K6F": (fa.flash_attention_tn_fwd, "launches"),
              "K6DQ": (fa.flash_attention_tn_bwd, "dq_launches"),
              "K6DKV": (fa.flash_attention_tn_bwd, "dkdv_launches"),
-             "K8": (fa.fused_qkv_bwd, "launches")}
+             "K8": (fa.fused_qkv_bwd, "launches"),
+             "EPF": (le.linear_epilogue, "launches"),
+             "EPB": (le.linear_epilogue, "bwd_launches")}
 
 
 def _counts() -> dict:
@@ -4579,6 +4757,7 @@ def main() -> int:
         k5 = phase_kernels_k5()
         k6 = phase_kernels_k6()
         k8 = phase_kernels_k8()
+        epilogue = phase_kernels_epilogue()
         with tempfile.TemporaryDirectory() as tmp:
             served = phase_serve(Path(tmp))
             served_vit = phase_serve_vit(Path(tmp))
@@ -4772,7 +4951,11 @@ def main() -> int:
                       "dW_norm_err": k8["products"]["dW_norm_err"],
                       "dx_ulps": k8["products"]["dx_ulps"]},
          "unfused_ms": k8["unfused_ms"], "run_to_run_max_abs": k8["run_to_run_max_abs"],
-         "shape": "B=8 N=513 K=16 D=64 H=1024 bfloat16 (live ModelCross training shape)"}]})
+         "shape": "B=8 N=513 K=16 D=64 H=1024 bfloat16 (live ModelCross training shape)"},
+        *({**kernel, **launches[name], "cases": [
+            {key: case[key] for key in ("rows", "cols", "draws", "gelu", part, f"plain_{part}",
+                                        "bound")} for case in epilogue["cases"]]}
+          for kernel, name, part in ((EPF, "EPF", "fwd_ms"), (EPB, "EPB", "bwd_ms")))]})
     print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

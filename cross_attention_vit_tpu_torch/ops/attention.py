@@ -113,8 +113,8 @@ def self_attention(x: torch.Tensor, to_qkv: nn.Linear, to_out: nn.Linear | None,
     out = out.reshape(B, N, K * D)
     if to_out is None:
         return out.to(in_dtype)
-    y = linear(out, to_out.weight, to_out.bias, out_dtype=in_dtype, tp=tp)
-    return dropout(y, rate, generator, train)
+    return linear(out, to_out.weight, to_out.bias, out_dtype=in_dtype, tp=tp, rate=rate,
+                  generator=generator, train=train)
 
 
 def _self_attention_int8(x: torch.Tensor, to_qkv: QuantLinear, to_out: nn.Module | None,
@@ -169,6 +169,5 @@ def cross_attention_cls(x: torch.Tensor, wq: nn.Linear, wk: nn.Linear, wv: nn.Li
     k = _head_in(wk, x, heads)                  # (B, K, N, D)
     v = _head_in(wv, x, heads)
     out = _sdpa(q, k, v, q.shape[-1] ** -0.5, rate, generator, train, tp)
-    y = linear(out.transpose(1, 2).reshape(B, 1, -1), proj.weight, proj.bias,
-               out_dtype=in_dtype, tp=tp)
-    return dropout(y, rate, generator, train)
+    return linear(out.transpose(1, 2).reshape(B, 1, -1), proj.weight, proj.bias,
+                  out_dtype=in_dtype, tp=tp, rate=rate, generator=generator, train=train)

@@ -27,6 +27,15 @@ they change nothing.
 
 Inside a rematerialised block (``ops/remat.py``) the keep masks are named
 ``dropout_mask`` and fc2's input ``ffn_hidden``.
+
+The epilogue.  ``linear`` also applies the GELU and the dropout that follow
+a projection where the caller asks (``gelu_approx``, ``rate``).  On CUDA,
+with bf16 or f16 operands whose result keeps their dtype, no tensor-parallel
+split and no mask or a mask of 8- or 16-bit draws, everything after the f32
+product runs in one hand-written kernel each way
+(``kernels/linear_epilogue.py``): the same rounding points, the same draws
+from the same generator (what ``dropout_mask`` compares, kept under the
+name ``dropout_mask`` as drawn).  Everywhere else the ops run one by one.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import contextvars
 import torch
 import torch.nn.functional as F
 
+from ..kernels.linear_epilogue import linear_epilogue, linear_epilogue_backward
 from ..parallel.tensor import TP, copy_to, reduce_from, split_slice
 from .quant import QuantLinear, qlinear
 from .remat import kept, kept_value
@@ -86,32 +96,118 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor, lowp_backward: bool = False) ->
         *lead, b.shape[-1])
 
 
+class _LinearLowp(torch.autograd.Function):
+    """a @ b (+ bias) of two same-dtype bf16 or f16 2-D operands, rounded
+    once to their dtype, then GELU and dropout where asked: the f32 product
+    (``torch.mm(..., out_dtype=torch.float32)``; on the CPU the upcast
+    operands), then ``linear_epilogue``.  Backward: ``linear_epilogue_backward``
+    gives the product's cotangent in the operands' dtype and the bias's f32
+    gradient, then ``_MatmulF32``'s two GEMMs in that dtype."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None,
+                draws: torch.Tensor | None, thresh: int, keep: float,
+                gelu_approx: bool | None) -> torch.Tensor:
+        p = (torch.mm(a, b, out_dtype=torch.float32) if a.is_cuda
+             else torch.mm(a.float(), b.float()))
+        save = any(ctx.needs_input_grad[:3])
+        y, pre, mask = linear_epilogue(p, bias, draws, thresh, keep, gelu_approx, a.dtype, save)
+        ctx.save_for_backward(a, b, pre, mask)
+        ctx.keep, ctx.gelu_approx = keep, gelu_approx
+        return y
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        a, b, pre, mask = ctx.saved_tensors
+        g, dbias = linear_epilogue_backward(grad, mask, pre, ctx.keep, ctx.gelu_approx,
+                                            ctx.needs_input_grad[2])
+        da = torch.mm(g, b.t()) if ctx.needs_input_grad[0] else None
+        db = torch.mm(a.t(), g) if ctx.needs_input_grad[1] else None
+        return da, db, dbias, None, None, None, None
+
+
+def _epilogue(y: torch.Tensor, gelu_approx: bool | None, rate: float,
+              generator: torch.Generator | None, train: bool,
+              split: tuple[int, TP | None] | None) -> torch.Tensor:
+    """GELU where asked (``gelu_approx`` not None), then ``dropout``."""
+    if gelu_approx is not None:
+        y = gelu(y, gelu_approx)
+    return dropout(y, rate, generator, train, split)
+
+
+def takes_epilogue_kernel(device: torch.device, op_dtype: torch.dtype, out_dtype: torch.dtype,
+                          tp: TP | None, split: tuple[int, TP | None] | None, drop: bool,
+                          drawn: tuple[int, int] | None) -> bool:
+    """Whether ``linear`` runs its epilogue in the hand-written kernels: on
+    CUDA, bf16 or f16 operands whose result keeps their dtype, no
+    tensor-parallel reduction or mask slice, and no dropout or a mask of 8-
+    or 16-bit draws (``drawn``, from ``_draw_threshold``)."""
+    return (device.type == "cuda" and op_dtype in (torch.bfloat16, torch.float16)
+            and out_dtype == op_dtype and tp is None and (split is None or split[1] is None)
+            and (not drop or drawn is not None))
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
            compute_dtype: torch.dtype | None = None,
-           out_dtype: torch.dtype | None = None, tp: TP | None = None) -> torch.Tensor:
+           out_dtype: torch.dtype | None = None, tp: TP | None = None, *,
+           gelu_approx: bool | None = None, rate: float = 0.0,
+           generator: torch.Generator | None = None, train: bool = False,
+           split: tuple[int, TP | None] | None = None) -> torch.Tensor:
     """x @ weightᵀ + bias.  Operands go to ``compute_dtype`` when given, else
     x.dtype; the product is f32, the bias is added in f32 and the result is
     cast once to ``out_dtype`` (default x.dtype).  ``tp``: a row-split
     weight, whose f32 partial products are summed over the 'model' group
-    before the bias."""
+    before the bias.  Then ``gelu`` where ``gelu_approx`` is not None, and
+    ``dropout(·, rate, generator, train, split)``; on CUDA bf16/f16 one
+    kernel each way does all of it after the product (module docstring)."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     op_dtype = compute_dtype if compute_dtype is not None else x.dtype
+    drop = train and rate != 0.0
+    drawn = _draw_threshold(1.0 - rate) if drop else None
+    if takes_epilogue_kernel(x.device, op_dtype, out_dtype, tp, split, drop, drawn):
+        return _linear_lowp(x.to(op_dtype), weight.to(op_dtype), bias, drawn, rate, generator,
+                            gelu_approx)
     y = reduce_from(matmul_f32(x.to(op_dtype), weight.to(op_dtype).t(), out_dtype == op_dtype),
                     tp)
     if bias is not None:
         y = y + bias.float()
-    return y.to(out_dtype)
+    return _epilogue(y.to(out_dtype), gelu_approx, rate, generator, train, split)
+
+
+def _linear_lowp(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                 drawn: tuple[int, int] | None, rate: float,
+                 generator: torch.Generator | None,
+                 gelu_approx: bool | None) -> torch.Tensor:
+    """``linear``'s route through ``_LinearLowp``; ``drawn`` = (bits,
+    threshold) of the keep mask, or None for no dropout."""
+    lead, cols = x.shape[:-1], weight.shape[0]
+    draws, thresh = None, 0
+    if drawn is not None:
+        if generator is None:
+            raise ValueError("dropout and stochastic depth in train mode need a torch.Generator")
+        bits, thresh = drawn
+        draws = kept("dropout_mask",
+                     lambda: _draw(lead + (cols,), bits, generator, x.device)).reshape(-1, cols)
+    y = _LinearLowp.apply(x.reshape(-1, x.shape[-1]), weight.t(),
+                          None if bias is None else bias.float(), draws, thresh, 1.0 - rate,
+                          gelu_approx)
+    return y.reshape(*lead, cols)
 
 
 def linear_layer(lin: torch.nn.Module, x: torch.Tensor,
-                 compute_dtype: torch.dtype | None = None, tp: TP | None = None) -> torch.Tensor:
+                 compute_dtype: torch.dtype | None = None, tp: TP | None = None, *,
+                 gelu_approx: bool | None = None, rate: float = 0.0,
+                 generator: torch.Generator | None = None, train: bool = False,
+                 split: tuple[int, TP | None] | None = None) -> torch.Tensor:
     """``linear`` with a module's weight and bias, or, for a layer that
     ``models/quantize`` rewrote into int8 form, the w8a8 ``qlinear`` (which
     returns x's dtype and ignores ``compute_dtype``, as the JAX ``linear``
-    dispatch does; int8 layers are never split, ``parallel/tensor.py``)."""
+    dispatch does; int8 layers are never split, ``parallel/tensor.py``);
+    then GELU and dropout as ``linear`` applies them."""
     if isinstance(lin, QuantLinear):
-        return qlinear(x, lin)
-    return linear(x, lin.weight, lin.bias, compute_dtype, tp=tp)
+        return _epilogue(qlinear(x, lin), gelu_approx, rate, generator, train, split)
+    return linear(x, lin.weight, lin.bias, compute_dtype, tp=tp, gelu_approx=gelu_approx,
+                  rate=rate, generator=generator, train=train, split=split)
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -164,20 +260,35 @@ def mask_bits(keep: float, bits="auto"):
     return bits
 
 
+def _draw_threshold(keep: float) -> tuple[int, int] | None:
+    """(bits, threshold) of the integer draws a keep mask of the width in
+    scope (``dropout_bits``) compares, or None for a Bernoulli mask: widths
+    other than 8 and 16, and a threshold that rounds up to 2^bits (keep ≈ 1
+    would wrap to all-False)."""
+    b = mask_bits(keep, _DROPOUT_BITS.get())
+    if b in (8, 16):
+        thresh = int(round(keep * (1 << b)))
+        if thresh < (1 << b):
+            return b, thresh
+    return None
+
+
+def _draw(shape, bits: int, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    """``bits`` random bits per element: uint8 for 8, int32 for 16."""
+    dtype = torch.uint8 if bits == 8 else torch.int32
+    return torch.randint(0, 1 << bits, shape, generator=generator, device=device, dtype=dtype)
+
+
 def dropout_mask(shape, keep: float, generator: torch.Generator,
                  device: torch.device) -> torch.Tensor:
     """Boolean keep mask (JAX ``_mask``): with 8 or 16 bits (``mask_bits`` of
     the width in scope, ``dropout_bits``), that many random bits per element
     against round(keep·2^bits); otherwise, or where that threshold rounds up
     to 2^bits, an exact-probability Bernoulli (a uniform f32 against keep)."""
-    b = mask_bits(keep, _DROPOUT_BITS.get())
-    if b in (8, 16):
-        thresh = int(round(keep * (1 << b)))
-        if thresh < (1 << b):      # keep ≈ 1 would wrap to all-False
-            dtype = torch.uint8 if b == 8 else torch.int32
-            r = torch.randint(0, 1 << b, shape, generator=generator, device=device,
-                              dtype=dtype)
-            return r < thresh
+    drawn = _draw_threshold(keep)
+    if drawn is not None:
+        bits, thresh = drawn
+        return _draw(shape, bits, generator, device) < thresh
     return torch.rand(shape, generator=generator, device=device) < keep
 
 
@@ -231,10 +342,10 @@ def feed_forward(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,
     """Linear→GELU→Dropout→Linear→Dropout (reference model_cross.py:19-31);
     either Linear may be in int8 form (``linear_layer``).  ``tp``: fc1's
     rows and fc2's columns are this rank's slice of the MLP width."""
-    h = linear_layer(fc1, copy_to(x, tp), compute_dtype)
-    h = dropout(gelu(h, gelu_approx), rate, generator, train, split=(-1, tp))
-    h = linear_layer(fc2, kept_value("ffn_hidden", h), compute_dtype, tp)
-    return dropout(h, rate, generator, train)
+    h = linear_layer(fc1, copy_to(x, tp), compute_dtype, gelu_approx=gelu_approx, rate=rate,
+                     generator=generator, train=train, split=(-1, tp))
+    return linear_layer(fc2, kept_value("ffn_hidden", h), compute_dtype, tp, rate=rate,
+                        generator=generator, train=train)
 
 
 def mlp_head(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,
