@@ -3,12 +3,13 @@
 attention product on the forward path; elementwise work, softmax and
 LayerNorm are left out; a training step counts as three forwards.
 
-``cfg`` is a mapping of the configuration file's fields."""
+``cfg`` is a mapping of the configuration file's fields.  A model family's
+``forward_flops`` (``families/<family>.py``) calls its count here."""
 
 from __future__ import annotations
 
 
-def _patches(cfg) -> int:
+def patches(cfg) -> int:
     (d, h, w), (p1, p2, p3) = cfg["img_size"], cfg["patch_size"]
     return (d // p1) * (h // p2) * (w // p3)
 
@@ -31,7 +32,7 @@ def cross_block(n: int, d: int, mlp: int) -> int:
 
 
 def model_cross_fwd(cfg, batch: int) -> int:
-    m, n_p = cfg["num_modalities"], _patches(cfg)
+    m, n_p = cfg["num_modalities"], patches(cfg)
     n, d, mlp = n_p + 1, cfg["hidden_dim"], cfg["mlp_dim"]
     embed = m * 2 * n_p * _patch_dim(cfg) * d
     n_self = cfg["num_multi_blocks"] * m * cfg["num_self_blocks"]
@@ -42,24 +43,13 @@ def model_cross_fwd(cfg, batch: int) -> int:
 
 
 def model_vit_fwd(cfg, batch: int) -> int:
-    m, n_p = cfg["num_modalities"], _patches(cfg)
+    m, n_p = cfg["num_modalities"], patches(cfg)
     n, d, mlp = n_p * m + 1, cfg["hidden_dim"], cfg["mlp_dim"]
     embed = m * 2 * n_p * _patch_dim(cfg) * d
     head = 2 * (d * mlp + mlp * cfg["num_classes"])
     return batch * (embed + cfg["num_layers"] * self_block(n, d, mlp) + head)
 
 
-FORWARD = {"ModelCross": model_cross_fwd, "ModelVIT": model_vit_fwd}
-
-
-def train_step(family: str, cfg, batch: int) -> int:
-    """Matmul FLOPs of one training step of ``batch`` samples: 3× forward."""
-    return 3 * FORWARD[family](cfg, batch)
-
-
-def attention_shape(family: str, cfg, batch: int) -> tuple[int, int, int, int]:
-    """(B, K, N, D) of one self-attention call: ModelCross attends within a
-    stream of num_patches + 1 tokens, ModelVIT over all streams' tokens."""
-    n = _patches(cfg) * (cfg["num_modalities"] if family == "ModelVIT" else 1) + 1
-    k = cfg["num_heads"]
-    return batch, k, n, cfg["hidden_dim"] // k
+def train_step(forward: int) -> int:
+    """Matmul FLOPs of one training step whose forward is ``forward``: 3×."""
+    return 3 * forward

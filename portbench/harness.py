@@ -6,7 +6,10 @@ The program is the port's training step exactly as its ``Trainer`` drives
 it: ``make_train_step(model, Adam(model.parameters(), wd), config[, mesh])``
 called back to back on batches from a seeded pool, each step with its own
 seeded host generator, the aux dict folded into a ``MetricAccumulator`` and
-nothing read back to the host inside the window.
+nothing read back to the host inside the window.  The configuration names
+a model family, whose files (``families/<family>.py``,
+``reference/families/<family>.py``) give the port's model class, the frozen
+counts, the launch counters, the weights' layout and the plain forward.
 
 Set-up builds that one step object and drives it through the cell's
 ``warmup_steps`` steps on distinct batches; those steps are the warm-up (every kernel is
@@ -29,6 +32,7 @@ import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 
 import torch
 
@@ -36,7 +40,6 @@ from . import compare, inputs
 from .counts import attention as attn_counts
 from .counts import flops as flop_counts
 from .counts.peaks import card_peaks
-from .reference import model as ref_model
 from .reference import train as reference
 from .trace import Profile, read_profile
 
@@ -49,6 +52,10 @@ AGREE_EVERY = 8
 # modules that may not be loaded in a run, compared by top-level name
 FORBIDDEN = ("jax", "jaxlib", "flax", "cross_attention_vit_tpu")
 B1 = 0.9
+# what each side of a model family's files exposes (families/__init__.py,
+# reference/families/__init__.py)
+PROGRAM_FAMILY = ("model_class", "forward_flops", "attention_shape", "counters")
+REFERENCE_FAMILY = ("shapes", "logits")
 
 
 def log(obj) -> None:
@@ -59,12 +66,28 @@ def _json(path: Path) -> dict:
     return json.loads(path.read_text())
 
 
+@dataclass(frozen=True)
+class Family:
+    """A model family's two files: ``program``, ``families/<name>.py`` (the
+    port's model, the frozen counts, the launch counters), and
+    ``reference``, ``reference/families/<name>.py`` (the weights' layout and
+    the plain forward)."""
+    name: str
+    program: ModuleType
+    reference: ModuleType
+
+    def weights(self, cfg: dict, seed: int, device) -> dict:
+        """The initial weights from ``seed``, in the reference's layout."""
+        kind = getattr(self.reference, "weight_kind", inputs.weight_kind)
+        return inputs.make_weights(self.reference.shapes(cfg), seed, device, kind)
+
+
 @dataclass
 class Cell:
     name: str
     workload: dict
     config_name: str
-    family: str
+    family: Family
     cfg: dict            # the configuration's fields as run
 
     @property
@@ -93,7 +116,7 @@ def load_cell(name: str, overrides: dict | None = None) -> Cell:
     cfg = dict(conf["config"])
     cfg.update(overrides or {})
     cfg["img_aug"] = bool(workload["augment"])
-    return Cell(name, workload, workload["config"], conf["family"], cfg)
+    return Cell(name, workload, workload["config"], family(conf["family"]), cfg)
 
 
 def metrics_for(cell: str, bench: dict) -> tuple[list[dict], list[dict]]:
@@ -107,13 +130,33 @@ def metrics_for(cell: str, bench: dict) -> tuple[list[dict], list[dict]]:
     return e2e, layer
 
 
-def reader(name: str):
-    """The per-layer metric's reader, ``metrics/<name>.py``."""
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}",
-                                                  HERE / "metrics" / f"{name}.py")
+def _load(module_name: str, path: Path) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def reader(name: str) -> ModuleType:
+    """The per-layer metric's reader, ``metrics/<name>.py``."""
+    return _load(f"portbench_metric_{name}", HERE / "metrics" / f"{name}.py")
+
+
+def family(name: str) -> Family:
+    """The model family ``name``: ``families/<name>.py`` and
+    ``reference/families/<name>.py``, each with what it has to expose."""
+    paths = HERE / "families" / f"{name}.py", HERE / "reference" / "families" / f"{name}.py"
+    if not all(p.is_file() for p in paths):
+        raise FileNotFoundError(f"model family {name!r} needs both {paths[0]} and {paths[1]}; "
+                                f"missing: {[str(p) for p in paths if not p.is_file()]}")
+    fam = Family(name, _load(f"portbench_family_{name}", paths[0]),
+                 _load(f"portbench_reference_family_{name}", paths[1]))
+    for side, wanted, path in (("program", PROGRAM_FAMILY, paths[0]),
+                               ("reference", REFERENCE_FAMILY, paths[1])):
+        missing = [f for f in wanted if not callable(getattr(getattr(fam, side), f, None))]
+        if missing:
+            raise AttributeError(f"{path} does not define {missing}")
+    return fam
 
 
 def forbidden_modules() -> list[str]:
@@ -128,13 +171,6 @@ def port_config(cfg: dict):
     return Config(**{k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items()})
 
 
-def model_class(family: str):
-    from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
-    from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
-
-    return {"ModelCross": ModelCross, "ModelVIT": ModelVIT}[family]
-
-
 class Program:
     """The port's model, Adam and train step for one data coordinate."""
 
@@ -145,14 +181,15 @@ class Program:
 
         self.cell, self.seed, self.device = cell, seed, device
         self.config = port_config(cell.cfg)
-        model = model_class(cell.family)(self.config, device="meta", master_weights=True)
+        model = cell.family.program.model_class()(self.config, device="meta",
+                                                  master_weights=True)
         model = model.to_empty(device=device)
-        shapes = ref_model.shapes(cell.family, cell.cfg)
+        shapes = cell.family.reference.shapes(cell.cfg)
         mine = {n: tuple(p.shape) for n, p in model.named_parameters()}
         if mine != shapes:
             raise ValueError(f"the program's parameters differ from the reference's layout: "
                              f"{sorted(set(mine.items()) ^ set(shapes.items()))[:6]}")
-        weights = inputs.make_weights(shapes, seed, device)
+        weights = cell.family.weights(cell.cfg, seed, device)
         with torch.no_grad():
             for n, p in model.named_parameters():
                 p.copy_(weights.pop(n))
@@ -220,13 +257,6 @@ def run_steps(program: Program, seconds: float, keep_going) -> dict:
     return {"steps": len(losses), "wall_s": wall, "non_finite": bad}
 
 
-def _counters() -> dict[str, int]:
-    from cross_attention_vit_tpu_torch.kernels import flash_attention as fa
-
-    return {"k1_calls": fa.flash_attention_qkv.launches,
-            "k2_calls": fa.flash_attention_qkv_bwd.launches}
-
-
 def profile_steps(program: Program, any_rank=bool) -> tuple[Profile | None, dict, int]:
     """A short steady stretch under the profiler: (profile, counter deltas,
     empty sessions).  A session that recorded no device operation (on any
@@ -240,16 +270,17 @@ def profile_steps(program: Program, any_rank=bool) -> tuple[Profile | None, dict
     with profile(activities=acts):          # the profiler's own first-use cost
         program.step()
         synchronize(program.device)
+    counters = program.cell.family.program.counters
     empty = 0
     for _ in range(PROFILE_TRIES):
-        before = _counters()
+        before = counters()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(PROFILE_STEPS):
                 program.step()
             synchronize(program.device)
             wall = time.perf_counter() - t0
-        after = _counters()
+        after = counters()
         got = read_profile(prof, PROFILE_STEPS, wall)
         if not any_rank(got.empty):
             return got, {k: after[k] - before[k] for k in after}, empty
@@ -286,8 +317,9 @@ class Context:
         self.cell, self.timed, self.profile, self.counters = cell, timed, prof, counters
         self.world = cell.world
         self.peak_flops, self.peak_bytes_s = card_peaks(device_name)
-        self.step_flops = flop_counts.train_step(cell.family, cell.cfg, cell.global_batch)
-        self.attention_shape = flop_counts.attention_shape(cell.family, cell.cfg, cell.batch)
+        fam = cell.family.program
+        self.step_flops = flop_counts.train_step(fam.forward_flops(cell.cfg, cell.global_batch))
+        self.attention_shape = fam.attention_shape(cell.cfg, cell.batch)
         self.counts = attn_counts
         self._program = program
         self._augment_ms = None
@@ -380,7 +412,7 @@ def reference_readings(cell: Cell, seed: int, device: torch.device,
                        control: bool = False) -> dict:
     """The reference's losses, first gradients and changes on the checked
     steps of every data coordinate."""
-    weights = inputs.make_weights(ref_model.shapes(cell.family, cell.cfg), seed, device)
+    weights = cell.family.weights(cell.cfg, seed, device)
     imgs, labels = inputs.make_pool(seed, int(cell.workload["pool_batches"]), cell.global_batch,
                                     cell.cfg["num_modalities"], tuple(cell.cfg["img_size"]),
                                     device)
@@ -388,8 +420,8 @@ def reference_readings(cell: Cell, seed: int, device: torch.device,
     steps = [[(imgs[i % P, r * b:(r + 1) * b], labels[i % P, r * b:(r + 1) * b],
                inputs.step_generator(seed, i, r)) for r in range(cell.world)]
              for i in range(int(cell.workload["warmup_steps"]))]
-    return reference.run_steps(cell.family, cell.cfg, weights, steps, cell.cfg["img_aug"],
-                               float(cell.cfg["lr"]),
+    return reference.run_steps(cell.family.reference.logits, cell.cfg, weights, steps,
+                               cell.cfg["img_aug"], float(cell.cfg["lr"]),
                                int(cell.workload["reference_rows_per_block"]), control)
 
 

@@ -4,9 +4,10 @@ host generator.  The same seed gives the same inputs on every call.
 
 Weights follow the reference repository's initialisation: Xavier-uniform
 Linear weights, zero biases, LayerNorm weights one, the positional
-embedding and the CLS token N(0, 0.02).  They are made on the device in
-two calls (one uniform, one normal buffer) and sliced into leaves by name
-and shape.  Volumes are unit normal noise rounded to bfloat16, the dtype
+embedding and the CLS token N(0, 0.02) (``weight_kind``; a model family's
+reference may give its own rule).  They are made on the device in two
+calls (one uniform, one normal buffer) and sliced into leaves by name and
+shape.  Volumes are unit normal noise rounded to bfloat16, the dtype
 the step augments in; labels are balanced 0/1 in a seeded order.
 """
 
@@ -26,7 +27,8 @@ def sub_seed(seed: int, *purpose) -> int:
     return int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0]) & (2 ** 63 - 1)
 
 
-def _kind(name: str, shape) -> str:
+def weight_kind(name: str, shape) -> str:
+    """How a leaf starts: "xavier", "normal" (N(0, 0.02)), "ones" or "zeros"."""
     if name in ("pos_embedding", "cls_token"):
         return "normal"
     if len(shape) == 2:
@@ -34,29 +36,37 @@ def _kind(name: str, shape) -> str:
     return "ones" if name.endswith(".weight") else "zeros"
 
 
-def make_weights(shapes: dict, seed: int, device) -> dict:
-    """name → float32 leaf on ``device`` for every (name, shape) of ``shapes``."""
+def _xavier_bound(shape) -> float:
+    """Xavier-uniform's bound, with fans as ``torch.nn.init`` counts them
+    (a convolution's receptive field multiplies both)."""
+    return math.sqrt(6.0 / ((shape[0] + shape[1]) * math.prod(shape[2:])))
+
+
+def make_weights(shapes: dict, seed: int, device, kind=weight_kind) -> dict:
+    """name → float32 leaf on ``device`` for every (name, shape) of
+    ``shapes``, each started as ``kind(name, shape)`` says."""
     sizes = {"xavier": 0, "normal": 0}
+    kinds = {name: kind(name, shape) for name, shape in shapes.items()}
     for name, shape in shapes.items():
-        kind = _kind(name, shape)
-        if kind in sizes:
-            sizes[kind] += math.prod(shape)
+        if kinds[name] in sizes:
+            sizes[kinds[name]] += math.prod(shape)
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, "weights"))
     uniform = torch.rand(sizes["xavier"], generator=gen, device=device)
     normal = torch.randn(sizes["normal"], generator=gen, device=device)
     at = {"xavier": 0, "normal": 0}
     out = {}
     for name, shape in shapes.items():
-        kind, n = _kind(name, shape), math.prod(shape)
-        if kind == "xavier":
-            bound = math.sqrt(6.0 / (shape[0] + shape[1]))
-            out[name] = (uniform[at[kind]:at[kind] + n].view(shape) * 2 - 1) * bound
-        elif kind == "normal":
-            out[name] = normal[at[kind]:at[kind] + n].view(shape) * 0.02
-        else:
-            out[name] = torch.full(shape, 1.0 if kind == "ones" else 0.0, device=device)
+        k, n = kinds[name], math.prod(shape)
+        if k == "xavier":
+            out[name] = (uniform[at[k]:at[k] + n].view(shape) * 2 - 1) * _xavier_bound(shape)
+        elif k == "normal":
+            out[name] = normal[at[k]:at[k] + n].view(shape) * 0.02
+        elif k in ("ones", "zeros"):
+            out[name] = torch.full(shape, 1.0 if k == "ones" else 0.0, device=device)
             continue
-        at[kind] += n
+        else:
+            raise ValueError(f"unknown weight kind {k!r} for {name}")
+        at[k] += n
     return out
 
 

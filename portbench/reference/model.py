@@ -1,5 +1,7 @@
 """ModelCross and ModelVIT as plain float32 PyTorch, from a dict of weights
-under the reference repository's state-dict names.
+under the reference repository's state-dict names: the code that their
+families' files (``reference/families/ModelCross.py``, ``ModelVIT.py``)
+call.
 
 ModelCross (reference ``model_cross.py``): one shared patch embedding, CLS
 token and positional embedding for every stream; ``num_multi_blocks``
@@ -137,59 +139,80 @@ class Net:
         return self.masks(self.lin(h, "mlp_head.4"))
 
 
-def logits(family: str, w: dict, cfg: dict, img: torch.Tensor, masks, q=_ident) -> torch.Tensor:
-    net = Net(w, cfg, masks, q)
-    return net.model_cross(img) if family == "ModelCross" else net.model_vit(img)
+class Layout:
+    """name → shape of every weight in the reference's state-dict layout,
+    filled in the order the names are added (the order ``inputs.make_weights``
+    draws them in)."""
 
+    def __init__(self, cfg: dict):
+        self.cfg, self.H, self.out = cfg, cfg["hidden_dim"], {}
 
-def shapes(family: str, cfg: dict) -> dict:
-    """name → shape of every weight, in the reference's state-dict layout."""
-    H, mlp, classes = cfg["hidden_dim"], cfg["mlp_dim"], cfg["num_classes"]
-    (d, h, w), (p1, p2, p3) = cfg["img_size"], cfg["patch_size"]
-    patches, M = (d // p1) * (h // p2) * (w // p3), cfg["num_modalities"]
-    out = {}
-
-    def linear(name: str, n_in: int, n_out: int, bias: bool = True) -> None:
-        out[f"{name}.weight"] = (n_out, n_in)
+    def linear(self, name: str, n_in: int, n_out: int, bias: bool = True) -> None:
+        self.out[f"{name}.weight"] = (n_out, n_in)
         if bias:
-            out[f"{name}.bias"] = (n_out,)
+            self.out[f"{name}.bias"] = (n_out,)
 
-    def norm(name: str) -> None:
-        out[f"{name}.weight"], out[f"{name}.bias"] = (H,), (H,)
+    def norm(self, name: str) -> None:
+        self.out[f"{name}.weight"], self.out[f"{name}.bias"] = (self.H,), (self.H,)
 
-    def self_block(p: str, attn: str, ffn: str) -> None:
-        norm(f"{p}.{attn}.norm")
-        linear(f"{p}.{attn}.fn.to_qkv", H, 3 * H, bias=False)
-        linear(f"{p}.{attn}.fn.to_out.0", H, H)
-        norm(f"{p}.{ffn}.norm")
-        linear(f"{p}.{ffn}.fn.net.0", H, mlp)
-        linear(f"{p}.{ffn}.fn.net.3", mlp, H)
+    def self_block(self, p: str, attn: str, ffn: str) -> None:
+        H, mlp = self.H, self.cfg["mlp_dim"]
+        self.norm(f"{p}.{attn}.norm")
+        self.linear(f"{p}.{attn}.fn.to_qkv", H, 3 * H, bias=False)
+        self.linear(f"{p}.{attn}.fn.to_out.0", H, H)
+        self.norm(f"{p}.{ffn}.norm")
+        self.linear(f"{p}.{ffn}.fn.net.0", H, mlp)
+        self.linear(f"{p}.{ffn}.fn.net.3", mlp, H)
 
-    tokens = patches * (M if family == "ModelVIT" else 1) + 1
-    out["pos_embedding"], out["cls_token"] = (1, tokens, H), (1, 1, H)
-    linear("patch_to_embedding", p1 * p2 * p3 * cfg["in_channels"], H)
-    if family == "ModelVIT":
-        for i in range(cfg["num_layers"]):
-            self_block(f"transformer.layers.{i}", "0", "2")
-        norm("mlp_head.0")
-        linear("mlp_head.1", H, mlp)
-        linear("mlp_head.4", mlp, classes)
-        return out
+    def stem(self, tokens: int) -> None:
+        """The positional embedding over ``tokens``, the CLS token and the
+        shared patch embedding."""
+        (p1, p2, p3), H = self.cfg["patch_size"], self.H
+        self.out["pos_embedding"], self.out["cls_token"] = (1, tokens, H), (1, 1, H)
+        self.linear("patch_to_embedding", p1 * p2 * p3 * self.cfg["in_channels"], H)
+
+
+def patches(cfg: dict) -> int:
+    (d, h, w), (p1, p2, p3) = cfg["img_size"], cfg["patch_size"]
+    return (d // p1) * (h // p2) * (w // p3)
+
+
+def model_cross_shapes(cfg: dict) -> dict:
+    """ModelCross's weights: a stream's tokens behind the CLS token; the
+    per-stream self blocks and the fusion blocks of each multi block; the
+    per-stream norms, then the per-stream heads."""
+    H, mlp, M = cfg["hidden_dim"], cfg["mlp_dim"], cfg["num_modalities"]
+    lay = Layout(cfg)
+    lay.stem(patches(cfg) + 1)
     for b in range(cfg["num_multi_blocks"]):
         for s in range(M):
             for j in range(cfg["num_self_blocks"]):
-                self_block(f"transformer.{b}.blocks.{s}.{j}", "attn", "ffn")
+                lay.self_block(f"transformer.{b}.blocks.{s}.{j}", "attn", "ffn")
         for c in range(len(cfg["attn_order"])):
             p = f"transformer.{b}.fusion.{c}"
-            norm(f"{p}.attn.norm")
+            lay.norm(f"{p}.attn.norm")
             for part in ("wq", "wk", "wv", "proj"):
-                linear(f"{p}.attn.fn.{part}", H, H)
-            norm(f"{p}.ffn.norm")
-            linear(f"{p}.ffn.fn.net.0", H, mlp)
-            linear(f"{p}.ffn.fn.net.3", mlp, H)
+                lay.linear(f"{p}.attn.fn.{part}", H, H)
+            lay.norm(f"{p}.ffn.norm")
+            lay.linear(f"{p}.ffn.fn.net.0", H, mlp)
+            lay.linear(f"{p}.ffn.fn.net.3", mlp, H)
     for m in range(M):
-        norm(f"norm.{m}")
+        lay.norm(f"norm.{m}")
     for m in range(M):
-        linear(f"mlp_head.{m}.0", H, mlp)
-        linear(f"mlp_head.{m}.3", mlp, classes)
-    return out
+        lay.linear(f"mlp_head.{m}.0", H, mlp)
+        lay.linear(f"mlp_head.{m}.3", mlp, cfg["num_classes"])
+    return lay.out
+
+
+def model_vit_shapes(cfg: dict) -> dict:
+    """ModelVIT's weights: every stream's tokens behind one CLS token, the
+    layers, the head."""
+    H, mlp = cfg["hidden_dim"], cfg["mlp_dim"]
+    lay = Layout(cfg)
+    lay.stem(patches(cfg) * cfg["num_modalities"] + 1)
+    for i in range(cfg["num_layers"]):
+        lay.self_block(f"transformer.layers.{i}", "0", "2")
+    lay.norm("mlp_head.0")
+    lay.linear("mlp_head.1", H, mlp)
+    lay.linear("mlp_head.4", mlp, cfg["num_classes"])
+    return lay.out

@@ -2,6 +2,7 @@
 cross-entropy, backward and Adam, from the inputs and generators the
 benchmark hands the program.
 
+The model is a family's ``logits`` (``reference/families/<family>.py``).
 One step on a data coordinate's rows: ``augment`` draws from the step's
 host generator; then one seed (an integer below 2^62) from the same
 generator seeds the dropout generator on the device; the forward draws its
@@ -91,7 +92,7 @@ class Masks:
         return torch.where(m, x / self.keep, torch.zeros((), device=x.device))
 
 
-def coordinate_grads(family: str, w: dict, cfg: dict, img: torch.Tensor, labels: torch.Tensor,
+def coordinate_grads(logits, w: dict, cfg: dict, img: torch.Tensor, labels: torch.Tensor,
                      host_gen: torch.Generator, augment: bool, rows_per_block: int,
                      control: bool = False) -> float:
     """One data coordinate's step: its loss, and its gradients added into
@@ -109,7 +110,7 @@ def coordinate_grads(family: str, w: dict, cfg: dict, img: torch.Tensor, labels:
     for a in range(0, B, rows_per_block):
         rows = slice(a, min(B, a + rows_per_block))
         masks.start(rows)
-        out = ref_model.logits(family, w, cfg, img[rows], masks, q)
+        out = logits(w, cfg, img[rows], masks, q)
         loss = torch.nn.functional.cross_entropy(
             out, labels[rows].long(), reduction="sum",
             label_smoothing=float(cfg.get("label_smoothing", 0.0))) / B
@@ -145,7 +146,7 @@ class Adam:
         return taken
 
 
-def run_steps(family: str, cfg: dict, weights: dict, batches, augment: bool, lr: float,
+def run_steps(logits, cfg: dict, weights: dict, batches, augment: bool, lr: float,
               rows_per_block: int, control: bool = False) -> dict:
     """Train a float32 copy of ``weights`` through the steps of
     ``batches``: one entry per step, a list over data coordinates of (img,
@@ -161,7 +162,7 @@ def run_steps(family: str, cfg: dict, weights: dict, batches, augment: bool, lr:
         for coords in batches:
             loss = 0.0
             for img, labels, gen in coords:
-                loss += coordinate_grads(family, w, cfg, img, labels, gen, augment,
+                loss += coordinate_grads(logits, w, cfg, img, labels, gen, augment,
                                          rows_per_block, control)
             for p in w.values():
                 p.grad.div_(len(coords))

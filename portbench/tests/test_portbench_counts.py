@@ -6,29 +6,32 @@ from pathlib import Path
 
 import pytest
 
+from portbench import harness
 from portbench.counts import attention, flops, peaks
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 
 
-def _cfg(name: str) -> tuple[str, dict]:
+def _cfg(name: str) -> tuple[object, dict]:
+    """The configuration's family (its program-side file) and fields."""
     conf = json.loads((CONFIGS / f"{name}.json").read_text())
-    return conf["family"], conf["config"]
+    return harness.family(conf["family"]).program, conf["config"]
 
 
 @pytest.mark.parametrize("name, gflop", [("model_cross.live", 187.37),
                                          ("model_vit.live2", 124.70)])
 def test_forward_gflop_per_sample_equals_the_hand_figure(name, gflop):
     family, cfg = _cfg(name)
-    assert flops.FORWARD[family](cfg, 1) / 1e9 == pytest.approx(gflop, abs=0.005)
+    assert family.forward_flops(cfg, 1) / 1e9 == pytest.approx(gflop, abs=0.005)
 
 
 @pytest.mark.parametrize("name, tflop", [("model_cross.live", 35.98),
                                          ("model_vit.live2", 23.94)])
 def test_train_step_at_batch_64_is_three_forwards(name, tflop):
     family, cfg = _cfg(name)
-    assert flops.train_step(family, cfg, 64) == 3 * flops.FORWARD[family](cfg, 64)
-    assert flops.train_step(family, cfg, 64) / 1e12 == pytest.approx(tflop, abs=0.005)
+    step = flops.train_step(family.forward_flops(cfg, 64))
+    assert step == 3 * family.forward_flops(cfg, 64)
+    assert step / 1e12 == pytest.approx(tflop, abs=0.005)
 
 
 @pytest.mark.parametrize("name", ["model_cross.live", "model_vit.live2"])
@@ -38,12 +41,12 @@ def test_counts_equal_the_ports_flop_counter(name):
 
     family, cfg = _cfg(name)
     port_cfg = Config(**{k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items()})
-    port = {"ModelCross": port_flops.model_cross_fwd_flops,
-            "ModelVIT": port_flops.model_vit_fwd_flops}[family]
+    port = {"model_cross.live": port_flops.model_cross_fwd_flops,
+            "model_vit.live2": port_flops.model_vit_fwd_flops}[name]
     for batch in (1, 16, 64):
-        assert flops.FORWARD[family](cfg, batch) == port(port_cfg, batch)
-        assert flops.train_step(family, cfg, batch) == port_flops.train_flops(port(port_cfg,
-                                                                                   batch))
+        assert family.forward_flops(cfg, batch) == port(port_cfg, batch)
+        assert flops.train_step(family.forward_flops(cfg, batch)) == port_flops.train_flops(
+            port(port_cfg, batch))
     assert peaks.card_peaks("NVIDIA H100 80GB HBM3")[0] == port_flops.chip_peak_bf16_flops(
         "NVIDIA H100 80GB HBM3")
 
@@ -52,7 +55,7 @@ def test_counts_equal_the_ports_flop_counter(name):
                                          ("model_vit.live2", (64, 16, 1025, 64))])
 def test_attention_shape_of_the_cells(name, shape):
     family, cfg = _cfg(name)
-    assert flops.attention_shape(family, cfg, 64) == shape
+    assert family.attention_shape(cfg, 64) == shape
 
 
 def test_k1_at_the_cross_cell_is_bound_by_bytes():

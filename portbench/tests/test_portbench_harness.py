@@ -89,7 +89,7 @@ def test_a_new_cell_and_metric_are_found_by_name(tmp_path, monkeypatch):
         "def read(ctx):\n    return ctx.profile.steps\n")
     monkeypatch.setattr(harness, "HERE", here)
     cell = harness.load_cell("vit2.train.gb32")
-    assert cell.batch == 32 and cell.family == "ModelVIT"
+    assert cell.batch == 32 and cell.family.name == "ModelVIT"
     bench = harness.benchmark()
     bench["per_layer"].append({"name": "steps_profiled.train", "unit": "steps",
                                "better": "higher", "source": "device_trace", "layer": "x",
