@@ -10,7 +10,7 @@ Phases, each printed as one JSON line with a ``phase`` key:
              power limit; TF32 switched off for matmuls and cuDNN.
 2. build   — compiles every kernel of the serving and training paths from
              ``cross_attention_vit_tpu_torch/kernels/csrc/`` with nvcc, one
-             process per source (seven), all started together; keeps each
+             process per source (eight), all started together; keeps each
              kernel's ptxas registers and spills.
 3. kernels — holds each kernel (K1 attention forward, K2 its backward, K3
              the windowed resample, K4 the same over all taps) against its
@@ -337,6 +337,21 @@ Phases, each printed as one JSON line with a ``phase`` key:
              attention kernel, finite losses, the parameters moved; step ms
              and peak memory.
 
+33. kernels_layernorm — run right after kernels_window: LayerNorm's
+             forward and backward kernels (``kernels/layernorm.py``) against
+             their plain versions at every width the cells run: Swin UNETR's
+             block norms (16 · 64³ × 48 ... 16 · 8³ × 384) and merge norms
+             (16 · 32³ × 384 ... 16 · 4³ × 3072), cross's (64 · 513, 1024)
+             and vit2's (64 · 1025, 1024) in bf16, and checked at f32, f16,
+             widths not a multiple of 8, a width past one slab, an unaligned
+             view and cross's CLS rows: y, dx and the parameters' f32
+             gradients within ``LN_TOL`` and ``LN_PARAM_TOL``, two calls of
+             each bit for bit, one launch each way a call, no ptxas spill in the
+             bf16 kernels; each cell shape timed (kernel, plain version,
+             PyTorch's ``F.layer_norm`` and its backward in bf16, the bound
+             at 3.35 TB/s).  The train phases check LayerNorm's launches a
+             step: 39 each way in ModelCross, 9 in ModelVIT, 20 in Swin.
+
 Then a line ``{"phase": "profiler", ...}``: the profiles taken, how many of
 them recorded no kernel, and the calls timed by CUDA events after
 ``PROFILE_TRIES`` such profiles (``device_ms_split``).  Then one line
@@ -382,6 +397,7 @@ from cross_attention_vit_tpu_torch.drivers import evaluate, experiments
 from cross_attention_vit_tpu_torch.drivers.serve import InferenceServer, serve
 from cross_attention_vit_tpu_torch.kernels import _build
 from cross_attention_vit_tpu_torch.kernels import flash_attention as fa
+from cross_attention_vit_tpu_torch.kernels import layernorm as ln
 from cross_attention_vit_tpu_torch.kernels import linear_epilogue as le
 from cross_attention_vit_tpu_torch.kernels import resample as rs
 from cross_attention_vit_tpu_torch.kernels import window_attention as wa
@@ -445,7 +461,8 @@ TIMING_WINDOWS = 5
 SERVE_TOL = 5e-2
 REQUEST_SIZES = (1, 3, 8, 1, 3, 8)
 LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "resample",
-             "flash_attention_stream", "fused_qkv_bwd", "linear_epilogue", "window_attention")
+             "flash_attention_stream", "fused_qkv_bwd", "linear_epilogue", "window_attention",
+             "layernorm")
 K1 = {"name": "flash_attention_qkv", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:759"}
@@ -495,6 +512,46 @@ K9F = {"name": "window_attention_fwd", "route": "cuda",
                    "WindowAttention)"}
 K9B = {"name": "window_attention_bwd (dq, dk/dv, bias and table kernels)", "route": "cuda",
        "source": K9F["source"], "replaces": K9F["replaces"]}
+LNF = {"name": "layernorm (forward)", "route": "cuda",
+       "source": "cross_attention_vit_tpu_torch/kernels/csrc/layernorm.cu",
+       "replaces": "none: XLA fuses the JAX layernorm (ops/layers.py) into the ops around it"}
+LNB = {"name": "layernorm (backward: rows, then the parameters' column sums)", "route": "cuda",
+       "source": LNF["source"], "replaces": LNF["replaces"]}
+# LayerNorm's timed shapes (name, rows, C): the swin3d.train.b16 cell's at
+# B = 16 (the blocks' norms at each stage's tokens and width, the merges'
+# over 8C at the next stage's tokens), cross.train.gb64's (64 · 513 rows)
+# and vit2.train.gb64's (64 · 1025), all bf16
+LN_SHAPES = (("swin_stage1", 16 * 64 ** 3, 48), ("swin_stage2", 16 * 32 ** 3, 96),
+             ("swin_stage3", 16 * 16 ** 3, 192), ("swin_stage4", 16 * 8 ** 3, 384),
+             ("swin_merge1", 16 * 32 ** 3, 384), ("swin_merge2", 16 * 16 ** 3, 768),
+             ("swin_merge3", 16 * 8 ** 3, 1536), ("swin_merge4", 16 * 4 ** 3, 3072),
+             ("cross", 64 * 513, 1024), ("vit2", 64 * 1025, 1024))
+# further cases checked, not timed (name, rows, C, dtype, element offset
+# of an unaligned view): cross's CLS rows, f32 and f16 at the cells'
+# widths, widths not a multiple of 8 (masked tails), tiny widths, rows past
+# one slab
+LN_EXTRA = (("cls_rows", 64, 1024, torch.bfloat16, 0),
+            ("f32_1024", 4104, 1024, torch.float32, 0), ("f32_48", 9000, 48, torch.float32, 0),
+            ("f16_96", 9000, 96, torch.float16, 0), ("f32_3072", 1024, 3072, torch.float32, 0),
+            ("width_1001", 1000, 1001, torch.bfloat16, 0), ("width_3", 333, 3, torch.bfloat16, 0),
+            ("width_8", 640, 8, torch.float32, 0), ("width_50", 777, 50, torch.float16, 0),
+            ("width_5000", 300, 5000, torch.bfloat16, 0),
+            ("width_4100_f32", 70, 4100, torch.float32, 0),
+            ("unaligned_96", 4000, 96, torch.bfloat16, 3))
+# LayerNorm's kernels against their plain versions, by max |Δ| / max |plain|:
+# y and dx round once from f32 math that differs only in summation order
+# (and rsqrt), so an element differs by at most one ulp of the dtype, at
+# most 2^-7 of the largest value in bf16 and 2^-10 in f16 (f32: a few ulps
+# of the cancellation in dx); the parameters' gradients are f32 sums over
+# the rows in another order
+LN_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10, torch.float32: 1e-5}
+LN_PARAM_TOL = 1e-4
+# LayerNorm calls a train forward, each with its backward (counted on the
+# CPU): ModelCross 39 (3 streams × 2 × 2 self-blocks of two norms, 2 × 3
+# cross pairs of two, 3 heads of one), ModelVIT 9 (4 layers of two, the
+# head's one), Swin 20 (4 stages × (2 blocks of two, the merge's one); its
+# head's affine-free norm is PyTorch's)
+LN_PER_STEP = {"ModelCross": 39, "ModelVIT": 9, "SwinViT3D": 20}
 # Swin UNETR's four stages at 128³ (token grid, heads), their 7³ windows,
 # and the batch of the swin3d.train.b16 cell
 WINDOW_STAGES = (("stage1", (64, 64, 64), 3), ("stage2", (32, 32, 32), 6),
@@ -2030,6 +2087,107 @@ def phase_kernels_window() -> dict:
     return cases
 
 
+def layernorm_bound(rows: int, cols: int, dtype: torch.dtype) -> dict:
+    """Least ms of LayerNorm's forward and backward at 3.35 TB/s, each byte
+    read or written once: forward x, the f32 weight and bias, y; backward
+    x, dy, the weight, dx and the two f32 gradients."""
+    n, size = rows * cols, torch.empty((), dtype=dtype).element_size()
+    fwd, bwd = 2 * n * size + 8 * cols, 3 * n * size + 12 * cols
+    return {"fwd_ms": fwd / HBM_BYTES_S * 1e3, "bwd_ms": bwd / HBM_BYTES_S * 1e3,
+            "fwd_mb": fwd / 1e6, "bwd_mb": bwd / 1e6, "by": "bytes"}
+
+
+def _ln_operands(rows: int, cols: int, dtype: torch.dtype, offset: int, seed: int):
+    """x, dy (rows, cols) in dtype, each a view ``offset`` elements into a
+    larger tensor, weight and bias (cols,) f32 as the models hold them: x
+    with a per-row mean and scale, as a residual stream has."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = rows * cols + offset
+    x = torch.randn(n, device="cuda", generator=g)
+    row = torch.arange(n, device="cuda") // cols
+    x = x * (1 + 3 * torch.rand(rows + 1, device="cuda", generator=g))[row] \
+        + torch.randn(rows + 1, device="cuda", generator=g)[row]
+    x = x.to(dtype)[offset:].view(rows, cols)
+    dy = torch.randn(n, device="cuda", generator=g).to(dtype)[offset:].view(rows, cols)
+    weight = 1 + 0.1 * torch.randn(cols, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(cols, device="cuda", generator=g)
+    return x, dy, weight, bias
+
+
+def _ln_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def phase_kernels_layernorm() -> dict:
+    """LayerNorm's kernels against their plain versions (``LN_SHAPES`` and
+    ``LN_EXTRA``): y, dx and the parameters' gradients within ``LN_TOL``
+    and ``LN_PARAM_TOL`` (y's differing bits reported), two calls of each
+    bit for bit, one launch each way a call, the layout each width takes; no ptxas
+    spill in the bf16 kernels.  The cells' shapes timed: kernel (forward,
+    backward by kernel), plain version, PyTorch's ``F.layer_norm`` on bf16
+    with bf16 parameters and its backward, the bound.  Returns the timed
+    entries."""
+    ptxas = {key: r for key, r in PTXAS.items() if "layer_norm" in key}
+    entries, failures = [], []
+    cases = [(name, rows, cols, torch.bfloat16, 0) for name, rows, cols in LN_SHAPES] \
+        + list(LN_EXTRA)
+    for i, (name, rows, cols, dtype, offset) in enumerate(cases):
+        timed = i < len(LN_SHAPES)
+        x, dy, weight, bias = _ln_operands(rows, cols, dtype, offset, 200 + i)
+        before = (ln.layernorm.launches, ln.layernorm.bwd_launches)
+        y, y2 = (ln.layernorm(x, weight, bias) for _ in range(2))
+        (dx, dw, db), (dx2, dw2, db2) = (ln.layernorm_backward(dy, x, weight) for _ in range(2))
+        torch.cuda.synchronize()
+        after = (ln.layernorm.launches, ln.layernorm.bwd_launches)
+        want = ln.layernorm_reference(x, weight, bias)
+        want_dx, want_dw, want_db = ln.layernorm_backward_reference(dy, x, weight)
+        tol = LN_TOL[dtype]
+        entry = {"case": name, "rows": rows, "cols": cols, "dtype": str(dtype),
+                 "layout": ln.layout(cols), "y_err": _ln_err(y, want),
+                 "dx_err": _ln_err(dx, want_dx),
+                 "dw_err": _ln_err(dw, want_dw), "db_err": _ln_err(db, want_db),
+                 "run_to_run_equal": bool(torch.equal(y, y2) and torch.equal(dx, dx2)
+                                          and torch.equal(dw, dw2) and torch.equal(db, db2)),
+                 "launches": [after[0] - before[0], after[1] - before[1]]}
+        if dtype == torch.bfloat16:       # reported: near 0 an ulp is no scale
+            entry["y_bits"] = _bits_diff(y, want)
+        if not (entry["y_err"] <= tol and entry["dx_err"] <= tol
+                and max(entry["dw_err"], entry["db_err"]) <= LN_PARAM_TOL
+                and entry["run_to_run_equal"] and entry["launches"] == [2, 2]):
+            failures.append(entry)
+        if timed:
+            wb, bb = weight.to(dtype), bias.to(dtype)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(x, [cols], wb, bb, 1e-5)
+            split = device_ms_split(lambda: ln.layernorm_backward(dy, x, weight),
+                                    {"rows": "layer_norm_bwd_kernel",
+                                     "sums": "layer_norm_bwd_param_sums"})
+            entry.update({
+                "fwd_ms": device_ms(lambda: ln.layernorm(x, weight, bias)),
+                "bwd_ms": None if split["rows"] is None else split["rows"] + split["sums"],
+                "bwd_ms_by_kernel": split,
+                "plain_fwd_ms": device_ms(lambda: ln.layernorm_reference(x, weight, bias),
+                                          calls=2),
+                "plain_bwd_ms": device_ms(lambda: ln.layernorm_backward_reference(dy, x, weight),
+                                          calls=2),
+                "library_fwd_ms": device_ms(lambda: F.layer_norm(x, (cols,), wb, bb)),
+                "library_bwd_ms": device_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [cols], mean, rstd, wb, bb, [True, True, True])),
+                "bound": layernorm_bound(rows, cols, dtype)})
+            entry["fwd_gbs"] = entry["bound"]["fwd_mb"] / entry["fwd_ms"]
+            if entry["bwd_ms"]:
+                entry["bwd_gbs"] = entry["bound"]["bwd_mb"] / entry["bwd_ms"]
+            del wb, bb, mean, rstd
+        entries.append(entry)
+        del x, dy, y, y2, dx, dx2, want, want_dx
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_layernorm", "kernels": [LNF, LNB], "ptxas": ptxas, "cases": entries})
+    spills = {key: r for key, r in ptxas.items() if "nv_bfloat16" in key
+              and (r.get("spill_stores") or r.get("spill_loads"))}
+    check(not spills, f"a bf16 LayerNorm kernel spills: {spills}")
+    check(not failures, f"LayerNorm's kernels disagree with their plain versions: {failures}")
+    return {"cases": entries[:len(LN_SHAPES)]}
+
+
 def phase_serve(tmp: Path) -> dict:
     cfg = live_config(use_flash=True)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -2165,7 +2323,9 @@ _COUNTERS = {"K1": (fa.flash_attention_qkv, "launches"),
              "EPF": (le.linear_epilogue, "launches"),
              "EPB": (le.linear_epilogue, "bwd_launches"),
              "K9F": (wa.window_attention_fwd, "launches"),
-             "K9B": (wa.window_attention_bwd, "launches")}
+             "K9B": (wa.window_attention_bwd, "launches"),
+             "LNF": (ln.layernorm, "launches"),
+             "LNB": (ln.layernorm, "bwd_launches")}
 
 
 def _counts() -> dict:
@@ -2267,6 +2427,8 @@ def phase_train() -> dict:
               f"step {i}: K1 launched {c['K1']}, K2 {c['K2']} times (12 each expected)")
         check(c["K3"] == (4 if drawn else 0) and c["K4"] == 0,
               f"step {i}: K3 launched {c['K3']} times with {drawn} affine volumes")
+        check(c["LNF"] == c["LNB"] == LN_PER_STEP["ModelCross"],
+              f"step {i}: LayerNorm launched {c['LNF']} + {c['LNB']} times")
     check(launches["K3"] > 0, "no step drew the affine: K3 never ran on the training path")
 
     # augmentation and trunk apart: the pipeline alone on the same batch, and
@@ -2834,6 +2996,8 @@ def phase_train_vit() -> dict:
             check(got == want, f"{name} step {i}: attention launches {got}, expected {want}")
             check(c["K3"] == (4 if drawn else 0) and c["K4"] == 0,
                   f"{name} step {i}: K3 launched {c['K3']} times with {drawn} affine volumes")
+            check(c["LNF"] == c["LNB"] == LN_PER_STEP["ModelVIT"],
+                  f"{name} step {i}: LayerNorm launched {c['LNF']} + {c['LNB']} times")
         check(launches["K3"] > 0, f"{name}: no step drew the affine: K3 never ran")
         profile = _profiled(lambda: step(img, labels, lr_at(0), host_gen))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2927,6 +3091,8 @@ def phase_train_swin() -> dict:
         got = {k: c[k] for k in want}
         check(got == want, f"swin step {i}: attention launches {got}, expected {want}")
         check(c["EPF"] > 0 and c["EPB"] > 0, f"swin step {i}: no linear epilogue launch: {c}")
+        check(c["LNF"] == c["LNB"] == LN_PER_STEP["SwinViT3D"],
+              f"swin step {i}: LayerNorm launched {c['LNF']} + {c['LNB']} times")
     return result
 
 
@@ -4314,7 +4480,7 @@ def phase_train_tp_vit3d(tmp: Path) -> dict:
     train_sync_bn holds the stem; the stem's conv biases, zero in exact
     arithmetic, reported), finite losses, the ranks' gathered parameters and
     running statistics bit-equal, no K kernel launched (ViT3D's attention is
-    plain, as JAX's is XLA)."""
+    plain, as JAX's is XLA; its LayerNorms take the LayerNorm kernels)."""
     from cross_attention_vit_tpu_torch.models.convert import jax_state_from_model
     from cross_attention_vit_tpu_torch.models.vit3d import ViT3D
 
@@ -4346,7 +4512,7 @@ def phase_train_tp_vit3d(tmp: Path) -> dict:
         check(err <= bound, f"TP ViT3D rank {r}: gradient of {name} {err:.3e} > {bound:.3e} "
                             f"(max of {TP_VIT3D_GRAD_TOL} and {BN_NOISE_FACTOR} x its reorder "
                             "spread)")
-        check(not any(got["launches"].values()),
+        check(not any(n for k, n in got["launches"].items() if k not in ("LNF", "LNB")),
               f"TP ViT3D rank {r}: K kernels launched {got['launches']}")
         check(got["local_in_proj"] == [3 * cfg.hidden_dim // 2, cfg.hidden_dim],
               f"TP ViT3D rank {r}: local in_proj_weight {got['local_in_proj']}")
@@ -4940,6 +5106,7 @@ def main() -> int:
         k8 = phase_kernels_k8()
         epilogue = phase_kernels_epilogue()
         window = phase_kernels_window()
+        layernorm = phase_kernels_layernorm()
         with tempfile.TemporaryDirectory() as tmp:
             served = phase_serve(Path(tmp))
             served_vit = phase_serve_vit(Path(tmp))
@@ -5152,7 +5319,13 @@ def main() -> int:
               (K9F, "K9F", "fwd_ms", ("o", "lse"), lambda c: {}),
               (K9B, "K9B", "bwd_ms", ("dq", "dk", "dv", "dtable"),
                lambda c: {"ms_by_kernel": c["bwd_ms_by_kernel"],
-                          "run_to_run_equal": c["run_to_run_equal"]})))]})
+                          "run_to_run_equal": c["run_to_run_equal"]}))),
+        *({**kernel, **launches[name], "library": f"F.layer_norm on bf16 with bf16 weights{tail}",
+           "cases": [{key: c[key] for key in ("case", "rows", "cols", "layout", f"{part}_ms",
+                                              f"plain_{part}_ms", f"library_{part}_ms",
+                                              "bound")} for c in layernorm["cases"]]}
+          for kernel, name, part, tail in ((LNF, "LNF", "fwd", ""),
+                                           (LNB, "LNB", "bwd", ", its native backward")))]})
     print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

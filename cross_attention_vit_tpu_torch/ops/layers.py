@@ -36,6 +36,12 @@ product runs in one hand-written kernel each way
 (``kernels/linear_epilogue.py``): the same rounding points, the same draws
 from the same generator (what ``dropout_mask`` compares, kept under the
 name ``dropout_mask`` as drawn).  Everywhere else the ops run one by one.
+
+LayerNorm.  ``layernorm`` computes in f32 and rounds once to x's dtype, as
+the JAX ``layernorm``.  On CUDA it is one hand-written kernel each way
+(``kernels/layernorm.py``), which reads and writes x's dtype and keeps the
+f32 statistics in registers; elsewhere the f32 chain (upcast,
+``F.layer_norm``, cast back).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import contextvars
 import torch
 import torch.nn.functional as F
 
+from ..kernels import layernorm as ln
 from ..kernels.linear_epilogue import linear_epilogue, linear_epilogue_backward
 from ..parallel.tensor import TP, copy_to, reduce_from, split_slice
 from .quant import QuantLinear, qlinear
@@ -210,11 +217,40 @@ def linear_layer(lin: torch.nn.Module, x: torch.Tensor,
                   rate=rate, generator=generator, train=train, split=split)
 
 
+class _LayerNorm(torch.autograd.Function):
+    """LayerNorm over the last axis in x's dtype, its statistics in f32:
+    ``kernels/layernorm.py``'s forward kernel, and its backward kernels for
+    dx, dweight and dbias.  Saves x and the weight only."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> torch.Tensor:
+        ctx.save_for_backward(x, weight)
+        ctx.eps, ctx.bias_dtype = eps, bias.dtype
+        return ln.layernorm(x, weight, bias, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy: torch.Tensor):
+        x, weight = ctx.saved_tensors
+        dx, dweight, dbias = ln.layernorm_backward(dy, x, weight, ctx.eps)
+        return dx, dweight, dbias.to(ctx.bias_dtype), None
+
+
+def takes_layernorm_kernel(device: torch.device) -> bool:
+    """Whether ``layernorm`` runs the hand-written kernels: on CUDA."""
+    return device.type == "cuda"
+
+
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis, computed in float32."""
-    y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps)
-    return y.to(x.dtype)
+    """LayerNorm over the last axis, computed in float32: on CUDA
+    ``_LayerNorm``, one hand-written kernel each way; elsewhere (the CPU,
+    the meta device of a shape trace) the f32 chain,
+    ``ln.layernorm_reference``, with autograd through it."""
+    if takes_layernorm_kernel(x.device):
+        return _LayerNorm.apply(x, weight, bias, eps)
+    return ln.layernorm_reference(x, weight, bias, eps)
 
 
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
