@@ -51,7 +51,7 @@ class PrefetchLoader:
         self.drop_last = drop_last
         # a bf16 transfer halves the host→device bytes; the model's first
         # GEMM rounds its input to bf16 anyway when it computes in bf16, and
-        # models promote to f32 at entry (ops.layers.promote_input)
+        # each model casts its input once, at entry, to its activation dtype
         self.transfer_dtype = _resolve_dtype(transfer_dtype)
         self.device = resolve_device(device)
 

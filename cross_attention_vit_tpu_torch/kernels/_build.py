@@ -11,6 +11,14 @@ of the source, the shared headers and the flags, so an edited source or
 header is rebuilt and a stale library is never loaded.  Nothing is built
 when a module is imported: the CPU tests import every module on a host
 without ``nvcc``.
+
+Every library keeps one calling convention: an entry point that launches
+kernels takes the CUDA stream and the device index as its last two
+arguments and returns 0 or a CUDA error code, which the library's own
+``*_error_string`` names.  ``Library`` binds a library's entry points at
+first use and launches them on the device's current stream, raising on an
+error, so that no kernel wrapper declares a signature or checks an error
+code of its own.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
@@ -80,3 +90,54 @@ def load(name: str) -> ctypes.CDLL:
             lib, _, _ = build(name)
             _loaded[name] = ctypes.CDLL(str(lib))
         return _loaded[name]
+
+
+class Library:
+    """The entry points of ``csrc/<name>.cu``, bound at first use.
+
+    ``launches`` maps each entry point that launches kernels to the ctypes
+    types of its arguments before (stream, device); each returns a
+    ``c_int``.  ``functions`` maps any other entry point to (argument
+    types, result type); those are called as they are, as attributes of the
+    library.  ``error_string`` names the library's ``const char* (int)``
+    that describes an error code.  Nothing is built or loaded until the
+    first call."""
+
+    def __init__(self, name: str, error_string: str, launches: dict[str, list],
+                 functions: dict[str, tuple[list, object]] | None = None):
+        self.name = name
+        self.error_string = error_string
+        self.launches = launches
+        self.functions = functions or {}
+        self._lib: ctypes.CDLL | None = None
+
+    def _bound(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = load(self.name)
+            signatures = {fn: ([*args, ctypes.c_void_p, ctypes.c_int], ctypes.c_int)
+                          for fn, args in self.launches.items()}
+            signatures.update(self.functions)
+            signatures[self.error_string] = ([ctypes.c_int], ctypes.c_char_p)
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            self._lib = lib
+        return self._lib
+
+    def message(self, err: int) -> str:
+        """The library's description of CUDA error ``err``."""
+        return getattr(self._bound(), self.error_string)(err).decode()
+
+    def launch(self, fn: str, device: torch.device, *args) -> None:
+        """Call entry point ``fn`` with ``args``, then the current stream of
+        ``device`` and its index; raise RuntimeError when it returns an
+        error."""
+        err = getattr(self._bound(), fn)(*args, torch.cuda.current_stream(device).cuda_stream,
+                                         device.index)
+        if err:
+            raise RuntimeError(f"{fn} failed: CUDA error {err} ({self.message(err)})")
+
+    def __getattr__(self, fn: str):
+        if fn in self.__dict__.get("functions", ()):
+            return getattr(self._bound(), fn)
+        raise AttributeError(f"{self.__dict__.get('name')} declares no plain entry point {fn}")

@@ -373,12 +373,9 @@ def flash_attention_qkv_fwd(qkv: torch.Tensor, scale: float | None = None,
                          f"stride and strides that are multiples of 8, got {qkv.stride()}")
     out = torch.empty((B, N, K, D), dtype=qkv.dtype, device=qkv.device)
     row_stats = _new_stats(B, K, N, qkv.device) if stats else None
-    lib = _library("flash_attention_fwd")
-    err = lib.flash_attention_qkv_fwd(
-        qkv.data_ptr(), out.data_ptr(), row_stats.data_ptr() if stats else None,
-        _DTYPE_CODES[qkv.dtype], B, N, K, D, *qkv.stride(), *out.stride(), scale,
-        torch.cuda.current_stream(qkv.device).cuda_stream, qkv.device.index)
-    _raise_on(lib, err, "flash_attention_qkv_fwd")
+    _FWD.launch("flash_attention_qkv_fwd", qkv.device,
+                qkv.data_ptr(), out.data_ptr(), row_stats.data_ptr() if stats else None,
+                _DTYPE_CODES[qkv.dtype], B, N, K, D, *qkv.stride(), *out.stride(), scale)
     flash_attention_qkv.launches += 1
     return (out, row_stats) if stats else out
 
@@ -407,13 +404,10 @@ def flash_attention_qkv_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Te
                          "unit head-dim stride and strides that are multiples of 8")
     dqkv = torch.empty((B, N, 3, K, D), dtype=qkv.dtype, device=qkv.device)
     delta = _new_stats(B, K, N, qkv.device, rows=1)   # the dq kernel's, for the dk/dv kernel
-    lib = _library("flash_attention_bwd")
-    err = lib.flash_attention_qkv_bwd(
-        qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        delta.data_ptr(), _DTYPE_CODES[qkv.dtype], B, N, K, D, *qkv.stride(), *out.stride(),
-        *dout.stride(), scale, torch.cuda.current_stream(qkv.device).cuda_stream,
-        qkv.device.index)
-    _raise_on(lib, err, "flash_attention_qkv_bwd")
+    _BWD.launch("flash_attention_qkv_bwd", qkv.device,
+                qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+                stats.data_ptr(), delta.data_ptr(), _DTYPE_CODES[qkv.dtype], B, N, K, D,
+                *qkv.stride(), *out.stride(), *dout.stride(), scale)
     flash_attention_qkv_bwd.launches += 1
     return dqkv
 
@@ -551,12 +545,9 @@ def flash_attention_stream_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     _stream_cuda("flash_attention_stream_fwd", scale, q, k, v)
     out = torch.empty((B, N, K, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, K, N), dtype=torch.float32, device=q.device)
-    lib = _library("flash_attention_stream")
-    err = lib.flash_attention_stream_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, N, K, D, *_strides(q, k, v, out), scale,
-        torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
-    _raise_on(lib, err, "flash_attention_stream_fwd")
+    _STREAM.launch("flash_attention_stream_fwd", q.device,
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                   _DTYPE_CODES[q.dtype], B, N, K, D, *_strides(q, k, v, out), scale)
     flash_attention_stream_fwd.launches += 1
     return out, lse
 
@@ -602,14 +593,13 @@ def flash_attention_stream_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         raise ValueError(f"{name}: lse must be contiguous")
     delta = torch.empty((B, K, N), dtype=torch.float32, device=q.device)
     dq, dk, dv = grads
-    lib = _library("flash_attention_bwd")
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPE_CODES[q.dtype], B, N, K, D, *_strides(q, k, v, out, dout, dq, dk, dv),
-            scale, torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
-    _raise_on(lib, lib.flash_attention_stream_bwd_dq(*args), f"{name} (dq)")
+            scale)
+    _BWD.launch("flash_attention_stream_bwd_dq", q.device, *args)
     flash_attention_stream_bwd.dq_launches += 1
-    _raise_on(lib, lib.flash_attention_stream_bwd_dkdv(*args), f"{name} (dk/dv)")
+    _BWD.launch("flash_attention_stream_bwd_dkdv", q.device, *args)
     flash_attention_stream_bwd.dkdv_launches += 1
     return dq, dk, dv
 
@@ -657,13 +647,10 @@ def flash_attention_single_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     _stream_cuda(name, scale, q, k, v)
     out = torch.empty((B, N, K, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     row_stats = _new_stats(B, K, N, q.device) if stats else None
-    lib = _library("flash_attention_fwd")
-    err = lib.flash_attention_single_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        row_stats.data_ptr() if stats else None, _DTYPE_CODES[q.dtype], B, N, K, D,
-        *_strides(q, k, v, out), scale, torch.cuda.current_stream(q.device).cuda_stream,
-        q.device.index)
-    _raise_on(lib, err, name)
+    _FWD.launch("flash_attention_single_fwd", q.device,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                row_stats.data_ptr() if stats else None, _DTYPE_CODES[q.dtype], B, N, K, D,
+                *_strides(q, k, v, out), scale)
     flash_attention_single_fwd.launches += 1
     return (out, row_stats) if stats else out
 
@@ -700,14 +687,12 @@ def flash_attention_single_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   for _ in range(3))
     delta = _new_stats(B, K, N, q.device, rows=1)   # the dq kernel's, for the dk/dv kernel
     dq, dk, dv = grads
-    lib = _library("flash_attention_bwd")
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), stats.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, N, K, D, *_strides(q, k, v, dout, dq, dk, dv), scale,
-            torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
-    _raise_on(lib, lib.flash_attention_single_bwd_dq(*args), f"{name} (dq)")
+            _DTYPE_CODES[q.dtype], B, N, K, D, *_strides(q, k, v, dout, dq, dk, dv), scale)
+    _BWD.launch("flash_attention_single_bwd_dq", q.device, *args)
     flash_attention_single_bwd.dq_launches += 1
-    _raise_on(lib, lib.flash_attention_single_bwd_dkdv(*args), f"{name} (dk/dv)")
+    _BWD.launch("flash_attention_single_bwd_dkdv", q.device, *args)
     flash_attention_single_bwd.dkdv_launches += 1
     return dq, dk, dv
 
@@ -827,12 +812,10 @@ def flash_attention_tn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _new_tn(q)
     row_stats = _new_stats(B, K, N, q.device) if stats else None
     ops = _kernel_views(q, k, v)
-    lib = _library("flash_attention_fwd")
-    err = lib.flash_attention_tn_fwd(
-        *(t.data_ptr() for t in ops), out.data_ptr(), row_stats.data_ptr() if stats else None,
-        _DTYPE_CODES[q.dtype], B, N, K, D, *_strides(*ops, _nd(out)), scale,
-        torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
-    _raise_on(lib, err, name)
+    _FWD.launch("flash_attention_tn_fwd", q.device,
+                *(t.data_ptr() for t in ops), out.data_ptr(),
+                row_stats.data_ptr() if stats else None, _DTYPE_CODES[q.dtype], B, N, K, D,
+                *_strides(*ops, _nd(out)), scale)
     flash_attention_tn_fwd.launches += 1
     return (out, row_stats) if stats else out
 
@@ -862,14 +845,12 @@ def flash_attention_tn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (_new_tn(q) for _ in range(3))
     delta = _new_stats(B, K, N, q.device, rows=1)
     ops = _kernel_views(q, k, v, dout)
-    lib = _library("flash_attention_bwd")
     args = (*(t.data_ptr() for t in ops), stats.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype], B, N, K, D,
-            *_strides(*ops, *map(_nd, (dq, dk, dv))), scale,
-            torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
-    _raise_on(lib, lib.flash_attention_tn_bwd_dq(*args), f"{name} (dq)")
+            *_strides(*ops, *map(_nd, (dq, dk, dv))), scale)
+    _BWD.launch("flash_attention_tn_bwd_dq", q.device, *args)
     flash_attention_tn_bwd.dq_launches += 1
-    _raise_on(lib, lib.flash_attention_tn_bwd_dkdv(*args), f"{name} (dk/dv)")
+    _BWD.launch("flash_attention_tn_bwd_dkdv", q.device, *args)
     flash_attention_tn_bwd.dkdv_launches += 1
     return dq, dk, dv
 
@@ -913,79 +894,47 @@ def flash_attention_tn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _nd(flash_attention(*(_nd(t).contiguous() for t in (q, k, v)), scale))
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, fn: str) -> None:
-    if err != 0:
-        msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"{fn} failed: CUDA error {err} ({msg})")
-
-
-_ARGTYPES = {
+# The four libraries' entry points, by the arguments before (stream, device).
+_FWD = _build.Library("flash_attention_fwd", "flash_attention_error_string", {
     # K1: qkv, out, stats (or null), dtype, B, N, K, D, 5 qkv strides, 4 out
-    # strides, scale, stream, device; K6 and K5: q, k, v, out, stats, dtype,
-    # B, N, K, D, 4 strides each of q, k, v, out, scale, stream, device
-    "flash_attention_fwd": {"flash_attention_qkv_fwd":
-                            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                            + [ctypes.c_longlong] * 9
-                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
-                            **{fn: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                               + [ctypes.c_longlong] * 16
-                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
-                               for fn in ("flash_attention_tn_fwd",
-                                          "flash_attention_single_fwd")}},
-    # qkv, out, dout, dqkv, stats, delta, dtype, B, N, K, D, 5 qkv, 4 out, 4
-    # dout strides, scale, stream, device
+    # strides, scale
+    "flash_attention_qkv_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    + [ctypes.c_longlong] * 9 + [ctypes.c_float],
+    # K6 and K5: q, k, v, out, stats, dtype, B, N, K, D, 4 strides each of q,
+    # k, v, out, scale
+    **{fn: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
+       + [ctypes.c_float]
+       for fn in ("flash_attention_tn_fwd", "flash_attention_single_fwd")}})
+_BWD = _build.Library("flash_attention_bwd", "flash_attention_error_string", {
+    # K2: qkv, out, dout, dqkv, stats, delta, dtype, B, N, K, D, 5 qkv, 4 out,
+    # 4 dout strides, scale
+    "flash_attention_qkv_bwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    + [ctypes.c_longlong] * 13 + [ctypes.c_float],
     # K6's and K5's two kernels: q, k, v, dout, stats, delta, dq, dk, dv,
-    # dtype, B, N, K, D, 4 strides each of q, k, v, dout, dq, dk, dv, scale,
-    # stream, device
+    # dtype, B, N, K, D, 4 strides each of q, k, v, dout, dq, dk, dv, scale
+    **{fn: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 28
+       + [ctypes.c_float]
+       for fn in ("flash_attention_tn_bwd_dq", "flash_attention_tn_bwd_dkdv",
+                  "flash_attention_single_bwd_dq", "flash_attention_single_bwd_dkdv")},
     # K7's two kernels: q, k, v, out, dout, lse, delta, dq, dk, dv, dtype, B,
-    # N, K, D, 4 strides each of q, k, v, out, dout, dq, dk, dv, scale,
-    # stream, device
-    "flash_attention_bwd": {"flash_attention_qkv_bwd":
-                            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                            + [ctypes.c_longlong] * 13
-                            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
-                            **{fn: [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                               + [ctypes.c_longlong] * 28
-                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
-                               for fn in ("flash_attention_tn_bwd_dq",
-                                          "flash_attention_tn_bwd_dkdv",
-                                          "flash_attention_single_bwd_dq",
-                                          "flash_attention_single_bwd_dkdv")},
-                            **{fn: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                               + [ctypes.c_longlong] * 32
-                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
-                               for fn in ("flash_attention_stream_bwd_dq",
-                                          "flash_attention_stream_bwd_dkdv")}},
+    # N, K, D, 4 strides each of q, k, v, out, dout, dq, dk, dv, scale
+    **{fn: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 32
+       + [ctypes.c_float]
+       for fn in ("flash_attention_stream_bwd_dq", "flash_attention_stream_bwd_dkdv")}})
+_STREAM = _build.Library("flash_attention_stream", "flash_attention_error_string", {
     # q, k, v, out, lse, dtype, B, N, K, D, 4 strides each of q, k, v, out,
-    # scale, stream, device
-    "flash_attention_stream": {"flash_attention_stream_fwd":
-                               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                               + [ctypes.c_longlong] * 16
-                               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]},
-    # K8: its dq and dk/dv kernels take K2's arguments without the dtype;
-    # dx: dqkv, w, dx, M, H, J, 2 w strides, stream, device; dW: x, dqkv, dW,
-    # M, H, J, x's row stride, stream, device
-    "fused_qkv_bwd": {
-        **{fn: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 13
-           + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
-           for fn in ("fused_qkv_bwd_dq", "fused_qkv_bwd_dkdv")},
-        "fused_qkv_bwd_dx": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p, ctypes.c_int],
-        "fused_qkv_bwd_dw": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]},
-}
-
-
-def _library(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    if lib.flash_attention_error_string.restype is not ctypes.c_char_p:
-        for fn_name, argtypes in _ARGTYPES[name].items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    # scale
+    "flash_attention_stream_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    + [ctypes.c_longlong] * 16 + [ctypes.c_float]})
+_FUSED = _build.Library("fused_qkv_bwd", "flash_attention_error_string", {
+    # K8: its dq and dk/dv kernels take K2's arguments without the dtype
+    **{fn: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 13
+       + [ctypes.c_float]
+       for fn in ("fused_qkv_bwd_dq", "fused_qkv_bwd_dkdv")},
+    # dx: dqkv, w, dx, M, H, J, 2 w strides
+    "fused_qkv_bwd_dx": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2,
+    # dW: x, dqkv, dW, M, H, J, x's row stride
+    "fused_qkv_bwd_dw": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong]})
 
 
 # --- K8: the fused QKV projection + attention backward ----------------------
@@ -1078,17 +1027,13 @@ def _qkv_products_cuda(x: torch.Tensor, w: torch.Tensor, dqkv: torch.Tensor):
     if 1 not in w2.stride() or not all(s % 8 == 0 for s in w2.stride() if s != 1) \
             or w2.data_ptr() % 16:
         w2 = w2.contiguous()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     dx = torch.empty((B, N, H), dtype=x.dtype, device=x.device)
     dw = torch.empty((H, J), dtype=torch.float32, device=x.device)
-    lib = _library("fused_qkv_bwd")
-    _raise_on(lib, lib.fused_qkv_bwd_dx(dqkv.data_ptr(), w2.data_ptr(), dx.data_ptr(), B * N, H,
-                                        J, *w2.stride(), stream, x.device.index),
-              "fused_qkv_bwd (dx)")
+    _FUSED.launch("fused_qkv_bwd_dx", x.device,
+                  dqkv.data_ptr(), w2.data_ptr(), dx.data_ptr(), B * N, H, J, *w2.stride())
     fused_qkv_bwd.dx_launches += 1
-    _raise_on(lib, lib.fused_qkv_bwd_dw(x2.data_ptr(), dqkv.data_ptr(), dw.data_ptr(), B * N, H,
-                                        J, x2.stride(0), stream, x.device.index),
-              "fused_qkv_bwd (dW)")
+    _FUSED.launch("fused_qkv_bwd_dw", x.device,
+                  x2.data_ptr(), dqkv.data_ptr(), dw.data_ptr(), B * N, H, J, x2.stride(0))
     fused_qkv_bwd.dw_launches += 1
     return dx, dw.view(w.shape)
 
@@ -1127,16 +1072,13 @@ def fused_qkv_bwd(x: torch.Tensor, w: torch.Tensor, qkv: torch.Tensor, out: torc
     if not all(map(_rows_16b_aligned, (qkv, out, dout))):
         raise ValueError(f"{name}: qkv, out and dout need a unit head-dim stride and strides "
                          "that are multiples of 8")
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
     dqkv = torch.empty((B, N, 3, K, D), dtype=qkv.dtype, device=qkv.device)
     delta = _new_stats(B, K, N, qkv.device, rows=1)
-    lib = _library("fused_qkv_bwd")
     args = (qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            delta.data_ptr(), B, N, K, D, *qkv.stride(), *out.stride(), *dout.stride(), scale,
-            stream, qkv.device.index)
-    _raise_on(lib, lib.fused_qkv_bwd_dq(*args), f"{name} (dq)")
+            delta.data_ptr(), B, N, K, D, *qkv.stride(), *out.stride(), *dout.stride(), scale)
+    _FUSED.launch("fused_qkv_bwd_dq", qkv.device, *args)
     fused_qkv_bwd.dq_launches += 1
-    _raise_on(lib, lib.fused_qkv_bwd_dkdv(*args), f"{name} (dk/dv)")
+    _FUSED.launch("fused_qkv_bwd_dkdv", qkv.device, *args)
     fused_qkv_bwd.dkdv_launches += 1
     dx, dw = _qkv_products_cuda(x, w, dqkv)
     fused_qkv_bwd.launches += 1

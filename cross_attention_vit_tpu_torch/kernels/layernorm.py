@@ -33,6 +33,19 @@ import torch.nn.functional as F
 from . import _build
 
 _DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
+_LIB = _build.Library("layernorm", "layer_norm_error_string", {
+    # x, weight, bias, y, dtype, rows, cols, eps
+    "layer_norm_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                                ctypes.c_float],
+    # dy, x, weight, dx, partial, parts, sums, dtype, rows, cols, eps
+    "layer_norm_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                                                ctypes.c_longlong, ctypes.c_int, ctypes.c_float]},
+    functions={
+        # rows, cols, dtype, device → the partial sums' rows, or minus a CUDA error
+        "layer_norm_bwd_parts": ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+                                 ctypes.c_longlong),
+        # cols → lanes, iters, slabs
+        "layer_norm_layout": ([ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3, None)})
 
 
 def layernorm_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -89,13 +102,8 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if rows == 0:
         return y
     w, b = weight.float().contiguous(), bias.float().contiguous()
-    lib = _library()
-    err = lib.layer_norm_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                             _DTYPE_CODES[x.dtype], rows, C, eps,
-                             torch.cuda.current_stream(x.device).cuda_stream, x.device.index)
-    if err != 0:
-        raise RuntimeError(f"layer_norm_fwd failed: CUDA error {err} "
-                           f"({lib.layer_norm_error_string(err).decode()})")
+    _LIB.launch("layer_norm_fwd", x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                y.data_ptr(), _DTYPE_CODES[x.dtype], rows, C, eps)
     layernorm.launches += 1
     return y
 
@@ -118,21 +126,16 @@ def layernorm_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
         return torch.empty_like(x), zeros, zeros.clone()
     x, dy = x.contiguous(), dy.contiguous()
     w = weight.float().contiguous()
-    code, device = _DTYPE_CODES[x.dtype], x.device.index
-    lib = _library()
-    parts = lib.layer_norm_bwd_parts(rows, C, code, device)
+    code = _DTYPE_CODES[x.dtype]
+    parts = _LIB.layer_norm_bwd_parts(rows, C, code, x.device.index)
     if parts <= 0:
         raise RuntimeError(f"layer_norm_bwd_parts failed: CUDA error {-parts} "
-                           f"({lib.layer_norm_error_string(-parts).decode()})")
+                           f"({_LIB.message(-parts)})")
     dx = torch.empty_like(x)
     partial = torch.empty((parts, 2, C), dtype=torch.float32, device=x.device)
     sums = torch.empty((2, C), dtype=torch.float32, device=x.device)
-    err = lib.layer_norm_bwd(dy.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                             partial.data_ptr(), parts, sums.data_ptr(), code, rows, C, eps,
-                             torch.cuda.current_stream(x.device).cuda_stream, device)
-    if err != 0:
-        raise RuntimeError(f"layer_norm_bwd failed: CUDA error {err} "
-                           f"({lib.layer_norm_error_string(err).decode()})")
+    _LIB.launch("layer_norm_bwd", x.device, dy.data_ptr(), x.data_ptr(), w.data_ptr(),
+                dx.data_ptr(), partial.data_ptr(), parts, sums.data_ptr(), code, rows, C, eps)
     layernorm.bwd_launches += 1
     return dx, sums[0].to(weight.dtype), sums[1].to(weight.dtype)
 
@@ -144,32 +147,7 @@ layernorm.bwd_launches = 0
 def layout(cols: int) -> tuple[int, int, int]:
     """(lanes a row, chunks of 8 columns a lane, slabs) that the kernels
     take at this width."""
-    lib = _library()
     out = [ctypes.c_int() for _ in range(3)]
-    lib.layer_norm_layout(cols, *(ctypes.byref(v) for v in out))
+    _LIB.layer_norm_layout(cols, *(ctypes.byref(v) for v in out))
     return tuple(v.value for v in out)
 
-
-def _library() -> ctypes.CDLL:
-    lib = _build.load("layernorm")
-    if lib.layer_norm_fwd.argtypes is None:
-        # x, weight, bias, y, dtype, rows, cols, eps, stream, device
-        lib.layer_norm_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                                                ctypes.c_int, ctypes.c_float,
-                                                                ctypes.c_void_p, ctypes.c_int])
-        lib.layer_norm_fwd.restype = ctypes.c_int
-        lib.layer_norm_bwd_parts.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_int]
-        lib.layer_norm_bwd_parts.restype = ctypes.c_longlong
-        # dy, x, weight, dx, partial, parts, sums, dtype, rows, cols, eps, stream, device
-        lib.layer_norm_bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong,
-                                                                ctypes.c_void_p, ctypes.c_int,
-                                                                ctypes.c_longlong, ctypes.c_int,
-                                                                ctypes.c_float, ctypes.c_void_p,
-                                                                ctypes.c_int])
-        lib.layer_norm_bwd.restype = ctypes.c_int
-        lib.layer_norm_layout.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
-        lib.layer_norm_layout.restype = None
-        lib.layer_norm_error_string.argtypes = [ctypes.c_int]
-        lib.layer_norm_error_string.restype = ctypes.c_char_p
-    return lib

@@ -42,6 +42,13 @@ _DRAW_CODES = {torch.uint8: 1, torch.int32: 2}
 ROWS_PER_PART = 128
 # the grid's height limit, which bounds the number of partial sums
 _MAX_PARTS = 65535
+_LIB = _build.Library("linear_epilogue", "linear_epilogue_error_string", {
+    # p, bias, draws, draw, thresh, keep, out, pre, mask, dtype, gelu, rows, cols
+    "linear_epilogue_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_int],
+    # g, mask, pre, keep, dp, partial, dbias, dtype, gelu, rows, cols, rows_per_part
+    "linear_epilogue_bwd": [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2})
 
 
 def _gelu_code(gelu_approx: bool | None) -> int:
@@ -137,15 +144,10 @@ def linear_epilogue(p: torch.Tensor, bias: torch.Tensor | None, draws: torch.Ten
     pre = torch.empty_like(out) if save and gelu_approx is not None else None
     mask = (torch.empty((M, -(-N // 8)), dtype=torch.uint8, device=p.device)
             if save and draws is not None else None)
-    lib = _library()
-    err = lib.linear_epilogue_fwd(
-        p.data_ptr(), _ptr(bias), _ptr(draws), 0 if draws is None else _DRAW_CODES[draws.dtype],
-        thresh, keep, out.data_ptr(), _ptr(pre), _ptr(mask), _DTYPE_CODES[dtype],
-        _gelu_code(gelu_approx), M, N, torch.cuda.current_stream(p.device).cuda_stream,
-        p.device.index)
-    if err != 0:
-        raise RuntimeError(f"linear_epilogue_fwd failed: CUDA error {err} "
-                           f"({lib.linear_epilogue_error_string(err).decode()})")
+    _LIB.launch("linear_epilogue_fwd", p.device,
+                p.data_ptr(), _ptr(bias), _ptr(draws),
+                0 if draws is None else _DRAW_CODES[draws.dtype], thresh, keep, out.data_ptr(),
+                _ptr(pre), _ptr(mask), _DTYPE_CODES[dtype], _gelu_code(gelu_approx), M, N)
     linear_epilogue.launches += 1
     return out, pre, mask
 
@@ -177,14 +179,10 @@ def linear_epilogue_backward(g: torch.Tensor, mask: torch.Tensor | None,
     if bias_grad:
         partial = torch.empty((-(-M // rows_per_part), N), dtype=torch.float32, device=g.device)
         dbias = torch.empty(N, dtype=torch.float32, device=g.device)
-    lib = _library()
-    err = lib.linear_epilogue_bwd(
-        g.data_ptr(), _ptr(mask), _ptr(pre), keep, _ptr(dp if write else None), _ptr(partial),
-        _ptr(dbias), _DTYPE_CODES[g.dtype], _gelu_code(gelu_approx), M, N, rows_per_part,
-        torch.cuda.current_stream(g.device).cuda_stream, g.device.index)
-    if err != 0:
-        raise RuntimeError(f"linear_epilogue_bwd failed: CUDA error {err} "
-                           f"({lib.linear_epilogue_error_string(err).decode()})")
+    _LIB.launch("linear_epilogue_bwd", g.device,
+                g.data_ptr(), _ptr(mask), _ptr(pre), keep, _ptr(dp if write else None),
+                _ptr(partial), _ptr(dbias), _DTYPE_CODES[g.dtype], _gelu_code(gelu_approx), M,
+                N, rows_per_part)
     linear_epilogue.bwd_launches += 1
     return dp, dbias
 
@@ -196,24 +194,3 @@ linear_epilogue.bwd_launches = 0
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
-
-def _library() -> ctypes.CDLL:
-    lib = _build.load("linear_epilogue")
-    if lib.linear_epilogue_fwd.argtypes is None:
-        # p, bias, draws, draw, thresh, keep, out, pre, mask, dtype, gelu, rows, cols,
-        # stream, device
-        lib.linear_epilogue_fwd.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_int,
-                                                            ctypes.c_void_p, ctypes.c_int])
-        lib.linear_epilogue_fwd.restype = ctypes.c_int
-        # g, mask, pre, keep, dp, partial, dbias, dtype, gelu, rows, cols, rows_per_part,
-        # stream, device
-        lib.linear_epilogue_bwd.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 3
-            + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-            + [ctypes.c_void_p, ctypes.c_int])
-        lib.linear_epilogue_bwd.restype = ctypes.c_int
-        lib.linear_epilogue_error_string.argtypes = [ctypes.c_int]
-        lib.linear_epilogue_error_string.restype = ctypes.c_char_p
-    return lib

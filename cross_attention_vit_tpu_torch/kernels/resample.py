@@ -43,6 +43,11 @@ BOX_BYTES = 16384
 RING_SLOTS = 3
 # dynamic shared memory one block may use on an H100 (227 KB)
 SMEM_BYTES = 232_448
+_LIB = _build.Library("resample", "resample_error_string", {
+    # src, out, cdelta, dtype, V, D, H, W, axis, window, span, b0, b1, center
+    # (3), box (e0, e1, cw), pitch
+    "resample_axis_windowed": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+    + [ctypes.c_float] * 3 + [ctypes.c_int] * 4})
 
 
 def _block_size(size: int, want: int = 32) -> int:
@@ -177,14 +182,10 @@ def resample_axis_windowed_batched(vols: torch.Tensor, axis: int, cdelta: torch.
     b0, b1 = _tiles((D, H, W), axis)
     e0, e1, cw, pitch, _ = box_geometry((D, H, W), axis, src.element_size())
     out = torch.empty_like(src)
-    lib = _library()
-    err = lib.resample_axis_windowed(
-        src.data_ptr(), out.data_ptr(), cd.data_ptr(), _DTYPE_CODES[src.dtype], V, D, H, W,
-        axis, window, -1 if taps is None else taps, b0, b1, *(float(c) for c in center),
-        e0, e1, cw, pitch, torch.cuda.current_stream(vols.device).cuda_stream, vols.device.index)
-    if err != 0:
-        msg = lib.resample_error_string(err).decode()
-        raise RuntimeError(f"resample_axis_windowed failed: CUDA error {err} ({msg})")
+    _LIB.launch("resample_axis_windowed", vols.device,
+                src.data_ptr(), out.data_ptr(), cd.data_ptr(), _DTYPE_CODES[src.dtype], V, D, H,
+                W, axis, window, -1 if taps is None else taps, b0, b1,
+                *(float(c) for c in center), e0, e1, cw, pitch)
     if taps is None:
         resample_axis_windowed_batched.full_launches += 1
     else:
@@ -195,16 +196,3 @@ def resample_axis_windowed_batched(vols: torch.Tensor, axis: int, cdelta: torch.
 resample_axis_windowed_batched.launches = 0
 resample_axis_windowed_batched.full_launches = 0
 
-
-def _library() -> ctypes.CDLL:
-    lib = _build.load("resample")
-    fn = lib.resample_axis_windowed
-    if fn.argtypes is None:
-        # src, out, cdelta, dtype, V, D, H, W, axis, window, span, b0, b1,
-        # center (3), box (e0, e1, cw), pitch, stream, device
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int])
-        fn.restype = ctypes.c_int
-        lib.resample_error_string.argtypes = [ctypes.c_int]
-        lib.resample_error_string.restype = ctypes.c_char_p
-    return lib

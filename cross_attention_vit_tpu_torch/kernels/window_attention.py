@@ -69,6 +69,14 @@ BIAS_ROWS, BIAS_COLS = 64, 64
 # (heads × tiles × groups) reaches about this many
 _BIAS_PROGRAMS = 2048
 MASK_VALUE = -100.0
+_LIB = _build.Library("window_attention", "window_attention_error_string", {
+    # qkv, table, codes, regions, o, lse, BW, n, K, T, windows, c0, scale
+    "window_attention_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+    + [ctypes.c_float],
+    # qkv, table, codes, regions, o, do, lse, delta, dqkv, part, pairs, dtable,
+    # BW, n, K, T, windows, c0, scale, per_group, nb, slots
+    "window_attention_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+    + [ctypes.c_float] + [ctypes.c_int] * 3})
 
 
 @dataclass(frozen=True)
@@ -290,12 +298,9 @@ def window_attention_fwd(qkv: torch.Tensor, table: torch.Tensor, geom: WindowGeo
     o = torch.empty((BW, n, K * D), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((BW, K, n), dtype=torch.float32, device=qkv.device)
     codes, regions, T, windows, c0 = _geometry_args(geom, qkv.device)
-    lib = _library()
-    err = lib.window_attention_fwd(qkv.data_ptr(), table.data_ptr(), codes, regions,
-                                   o.data_ptr(), lse.data_ptr(), BW, n, K, T, windows, c0, scale,
-                                   torch.cuda.current_stream(qkv.device).cuda_stream,
-                                   qkv.device.index)
-    _raise(lib, err, "window_attention_fwd")
+    _LIB.launch("window_attention_fwd", qkv.device,
+                qkv.data_ptr(), table.data_ptr(), codes, regions, o.data_ptr(), lse.data_ptr(),
+                BW, n, K, T, windows, c0, scale)
     window_attention_fwd.launches += 1
     return o, lse
 
@@ -325,13 +330,11 @@ def window_attention_bwd(qkv: torch.Tensor, table: torch.Tensor, o: torch.Tensor
     dtable = torch.empty((geom.table_rows, K), dtype=torch.float32, device=qkv.device)
     pairs = _pairs(geom, nb, str(qkv.device))
     codes, regions, T, windows, c0 = _geometry_args(geom, qkv.device)
-    lib = _library()
-    err = lib.window_attention_bwd(
-        qkv.data_ptr(), table.data_ptr(), codes, regions, o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), part.data_ptr(), pairs.data_ptr(),
-        dtable.data_ptr(), BW, n, K, T, windows, c0, scale, per_group, nb, pairs.shape[0],
-        torch.cuda.current_stream(qkv.device).cuda_stream, qkv.device.index)
-    _raise(lib, err, "window_attention_bwd")
+    _LIB.launch("window_attention_bwd", qkv.device,
+                qkv.data_ptr(), table.data_ptr(), codes, regions, o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), part.data_ptr(),
+                pairs.data_ptr(), dtable.data_ptr(), BW, n, K, T, windows, c0, scale, per_group,
+                nb, pairs.shape[0])
     window_attention_bwd.launches += 1
     return dqkv, dtable
 
@@ -342,31 +345,6 @@ window_attention_bwd.launches = 0
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def _raise(lib: ctypes.CDLL, err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {err} "
-                           f"({lib.window_attention_error_string(err).decode()})")
-
-
-def _library() -> ctypes.CDLL:
-    lib = _build.load("window_attention")
-    if lib.window_attention_fwd.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # qkv, table, codes, regions, o, lse, BW, n, K, T, windows, c0, scale, stream, device
-        lib.window_attention_fwd.argtypes = (
-            [ptr] * 6 + [ctypes.c_longlong] + [i32] * 5 + [ctypes.c_float, ptr, i32])
-        lib.window_attention_fwd.restype = i32
-        # qkv, table, codes, regions, o, do, lse, delta, dqkv, part, pairs, dtable, BW, n, K,
-        # T, windows, c0, scale, per_group, nb, slots, stream, device
-        lib.window_attention_bwd.argtypes = (
-            [ptr] * 12 + [ctypes.c_longlong] + [i32] * 5 + [ctypes.c_float] + [i32] * 3
-            + [ptr, i32])
-        lib.window_attention_bwd.restype = i32
-        lib.window_attention_error_string.argtypes = [i32]
-        lib.window_attention_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 class WindowAttention(torch.autograd.Function):

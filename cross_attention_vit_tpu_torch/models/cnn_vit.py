@@ -40,7 +40,7 @@ from torch import nn
 from ..configs import Config
 from ..ops import initializers as init_ops
 from ..ops.conv import conv3d, max_pool3d, relu
-from ..ops.layers import dropout, dropout_bits, gelu, layernorm, linear, promote_input
+from ..ops.layers import dropout, dropout_bits, gelu, layernorm, linear
 from ..ops.losses import bce_with_logits
 from ..utils.device import resolve_device
 
@@ -163,7 +163,7 @@ class CNNViT(nn.Module):
         if train and (d["drop"] or d["attn_drop"]) and generator is None:
             raise ValueError("train mode with dropout needs a torch.Generator on the model's "
                              "device")
-        img = promote_input(img)
+        img = img.float()   # the activations are f32
         streams = [self._embed(img[:, m]) for m in range(img.shape[1])]
         # the CLS from stream 0 only; the other streams add their patch tokens
         x = torch.cat([streams[0]] + [s[:, 1:] for s in streams[1:]], dim=1)

@@ -64,8 +64,7 @@ from ..configs import Config
 from ..ops import initializers as init_ops
 from ..ops.attention import attention_impl, cross_attention_cls, self_attention
 from ..ops import remat
-from ..ops.layers import (dropout, dropout_bits, feed_forward, layernorm, linear, mlp_head,
-                          promote_input)
+from ..ops.layers import dropout, dropout_bits, feed_forward, layernorm, linear, mlp_head
 from ..ops.losses import cross_entropy
 from ..ops.patchify import num_patches, patchify_3d
 from ..parallel.moe import MoEFFN
@@ -389,15 +388,15 @@ class ModelCross(nn.Module):
                  generator: torch.Generator | None):
         cfg, o = self.config, self.opts
         run = _Run(train, generator)
-        img = promote_input(img)   # low-precision transfer batches re-promote at entry
+        img = img.to(self.activation_dtype)   # the one cast of the batch, before patchifying
         B, M = img.shape[:2]
         if M != len(self.norm):
             raise ValueError(f"img has {M} modalities, the model {len(self.norm)}")
         emb = self.patch_to_embedding
         streams = []
         for m in range(M):
-            x = patchify_3d(img[:, m], tuple(cfg.patch_size)).to(self.activation_dtype)
-            x = linear(x, emb.weight, emb.bias, o.compute_dtype)
+            x = linear(patchify_3d(img[:, m], tuple(cfg.patch_size)), emb.weight, emb.bias,
+                       o.compute_dtype)
             cls = self.cls_token.to(x.dtype).expand(B, 1, x.shape[-1])
             x = torch.cat([cls, x], dim=1)
             x = x + self.pos_embedding.to(x.dtype)

@@ -54,7 +54,7 @@ from ..ops import initializers as init_ops
 from ..ops import remat
 from ..ops.attention import self_attention
 from ..ops.layers import (dropout, dropout_bits, feed_forward, gelu, layernorm, linear,
-                          linear_layer, promote_input, stochastic_depth_row)
+                          linear_layer, stochastic_depth_row)
 from ..ops.losses import cross_entropy
 from ..ops.patchify import num_patches, patchify_3d
 from ..parallel.moe import MoEFFN
@@ -218,13 +218,13 @@ class ModelVIT(nn.Module):
     def _forward(self, img: torch.Tensor, labels: torch.Tensor | None, train: bool,
                  generator: torch.Generator | None):
         cfg, o = self.config, self.opts
-        img = promote_input(img)   # low-precision transfer batches re-promote at entry
+        img = img.to(self.activation_dtype)   # the one cast of the batch, before patchifying
         B, M = img.shape[:2]
         if M != self.num_modalities:
             raise ValueError(f"img has {M} modalities, the model {self.num_modalities}")
         emb = self.patch_to_embedding
-        tokens = [linear(patchify_3d(img[:, m], tuple(cfg.patch_size)).to(self.activation_dtype),
-                         emb.weight, emb.bias, o.compute_dtype) for m in range(M)]
+        tokens = [linear(patchify_3d(img[:, m], tuple(cfg.patch_size)), emb.weight, emb.bias,
+                         o.compute_dtype) for m in range(M)]
         x = torch.cat(tokens, dim=1)
         x = torch.cat([self.cls_token.to(x.dtype).expand(B, 1, x.shape[-1]), x], dim=1)
         x = dropout(x + self.pos_embedding.to(x.dtype), o.dropout, generator, train)

@@ -49,7 +49,7 @@ from torch import nn
 
 from ..configs import Config
 from ..ops import initializers as init_ops
-from ..ops.layers import layernorm, linear, promote_input
+from ..ops.layers import layernorm, linear
 from ..ops.losses import cross_entropy
 from ..ops.window_attention import geometry, patch_merge, window_attention
 from ..utils.device import resolve_device
@@ -192,8 +192,7 @@ class SwinViT3D(nn.Module):
         x = img.reshape(B, M * C, D // p1, p1, H // p2, p2, W // p3, p3)
         x = x.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(B, D // p1, H // p2, W // p3, -1)
         proj = self.swinViT.patch_embed.proj
-        return linear(x.to(self.activation_dtype), proj.weight.reshape(proj.out_channels, -1),
-                      proj.bias, self.compute_dtype)
+        return linear(x, proj.weight.reshape(proj.out_channels, -1), proj.bias, self.compute_dtype)
 
     def _block(self, x: torch.Tensor, blk: _Block, heads: int, shifted: bool) -> torch.Tensor:
         cdt = self.compute_dtype
@@ -210,7 +209,7 @@ class SwinViT3D(nn.Module):
     def forward(self, img: torch.Tensor, labels: torch.Tensor | None = None,
                 train: bool = False, generator: torch.Generator | None = None):
         cfg = self.config
-        img = promote_input(img)
+        img = img.to(self.activation_dtype)   # the one cast of the batch, before patchifying
         if img.shape[1] != cfg.num_modalities:
             raise ValueError(f"img has {img.shape[1]} modalities, the model "
                              f"{cfg.num_modalities}")

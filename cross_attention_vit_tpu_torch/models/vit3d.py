@@ -64,7 +64,7 @@ from ..configs import Config
 from ..ops import initializers as init_ops
 from ..ops.attention import _sdpa
 from ..ops.conv import batch_norm3d, conv3d, max_pool3d, relu
-from ..ops.layers import dropout, dropout_bits, layernorm, linear, promote_input
+from ..ops.layers import dropout, dropout_bits, layernorm, linear
 from ..ops.losses import cross_entropy
 from ..parallel.tensor import copy_to, local_heads, split_slice
 from ..utils.device import resolve_device
@@ -265,7 +265,7 @@ class ViT3D(nn.Module):
         if train and cfg.get("dropout", 0.0) and generator is None:
             raise ValueError("train mode with dropout needs a torch.Generator on the model's "
                              "device")
-        img = promote_input(img)
+        img = img.float()   # the stem's activations are f32
         B, M = img.shape[:2]
         tokens = []
         for m in range(M):          # one stem: its BN statistics chain across the streams

@@ -262,14 +262,6 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
-def promote_input(img: torch.Tensor) -> torch.Tensor:
-    """Re-promote a low-precision transfer batch (bf16/f16) to float32 at
-    model entry, so every downstream dtype decision is the f32 path's."""
-    if img.dtype in (torch.bfloat16, torch.float16):
-        return img.float()
-    return img
-
-
 # the mask width of the calls in scope (``dropout_bits``): 'auto', 8, 16, or
 # anything else for exact-probability Bernoulli masks
 _DROPOUT_BITS: contextvars.ContextVar = contextvars.ContextVar("dropout_bits", default="auto")

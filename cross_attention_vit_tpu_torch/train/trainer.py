@@ -3,9 +3,10 @@
 
 The steps take either live family, ``ModelCross`` or ``ModelVIT``: both are
 called as ``model(img, labels, train=..., generator=...)`` and return
-(logits, loss).  One train step: promote the input to f32, cast it to bf16 when
-``config.augment_dtype`` says so, augment it on the device (when
-``config.img_aug``), promote again; the model's forward and backward in train
+(logits, loss).  One train step: move the batch to the device; when
+``config.img_aug``, cast it once to ``config.augment_dtype`` and augment it
+there; hand the result to the model as it is (each model casts its input to
+its activation dtype at entry); the model's forward and backward in train
 mode (dropout), over ``grad_accum`` equal microbatches whose f32 gradients
 are summed and divided by their number; Adam at a step-time learning rate.
 It returns the aux dict of the JAX step: loss, confusion counts, probs[:, 1]
@@ -77,7 +78,6 @@ from ..data.augment import AugmentConfig, augment_batch
 from ..models.convert import (jax_params_from_model, jax_params_from_state_dict,
                               jax_state_from_model, load_jax_params, params_from_flat,
                               state_dict_from_jax)
-from ..ops.layers import promote_input
 from ..parallel.mesh import axis_index, axis_size
 from ..parallel.moe import active_expert_mesh, set_expert_mesh
 from ..parallel.pipeline import active_pipeline_mesh, set_pipeline_mesh
@@ -172,10 +172,10 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
     number of volumes that drew each transform.
 
     While a profiler records, the step's phases are spans on its clock
-    (``utils.profiling.span``): ``step:augment`` (the input's copy and
-    promotion, the augmentation), ``step:forward`` and ``step:backward``
-    once per microbatch (the last backward also finishes the gradients),
-    then ``step:optimizer``.
+    (``utils.profiling.span``): ``step:augment`` (the input's copy to the
+    device, its cast to the augmentation's dtype, the augmentation),
+    ``step:forward`` and ``step:backward`` once per microbatch (the last
+    backward also finishes the gradients), then ``step:optimizer``.
 
     ``mesh``: the model is ``parallel.shard_params``' (DDP or FSDP) over it;
     ``img`` and ``labels`` are this data coordinate's rows, the gradients
@@ -195,7 +195,8 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
         raise ValueError("training needs float32 master weights: build the model with "
                          "master_weights=True")
     img_aug = bool(config.get("img_aug", False))
-    aug_bf16 = config.get("augment_dtype", "float32") == "bfloat16"
+    aug_dtype = (torch.bfloat16 if config.get("augment_dtype", "float32") == "bfloat16"
+                 else torch.float32)
     params = list(model.parameters())
     device = params[0].device
 
@@ -216,13 +217,11 @@ def make_train_step(model: torch.nn.Module, optimizer: Adam, config: Config,
     def step(img: torch.Tensor, labels: torch.Tensor, lr: float,
              generator: torch.Generator) -> dict:
         with span("step:augment"):
-            img = promote_input(to_device(img, device))
+            img = to_device(img, device)
             labels = to_device(labels, device)
             if img_aug:
-                if aug_bf16:
-                    img = img.to(torch.bfloat16)
                 step.augmented.clear()
-                img = promote_input(augment_batch(img, generator, augment_cfg, step.augmented))
+                img = augment_batch(img.to(aug_dtype), generator, augment_cfg, step.augmented)
         if img.shape[0] % grad_accum:
             raise ValueError(f"batch {img.shape[0]} not divisible by grad_accum {grad_accum}")
         for p in params:

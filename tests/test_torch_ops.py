@@ -160,13 +160,6 @@ def test_linear_bf16_gradients_match_jax(out_dtype):
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(want_dw).T, atol=2e-2, rtol=2 ** -7)
 
 
-def test_promote_input():
-    for dt in (torch.bfloat16, torch.float16):
-        assert tl.promote_input(torch.ones(2, dtype=dt)).dtype == torch.float32
-    x = torch.ones(2)
-    assert tl.promote_input(x) is x
-
-
 @pytest.mark.parametrize("rate", [0.25, 0.1])
 def test_dropout_keep_fraction_and_scaling(rate):
     """keep 0.75 is exact in 8 random bits (192/256), 0.9 is drawn from 16
