@@ -352,6 +352,19 @@ Phases, each printed as one JSON line with a ``phase`` key:
              at 3.35 TB/s).  The train phases check LayerNorm's launches a
              step: 39 each way in ModelCross, 9 in ModelVIT, 20 in Swin.
 
+34. kernels_window_layout — run right after kernels_window: Swin's window
+             layout (``kernels/window_layout.py``), the pack into the windows
+             and the unpack out of them, at B = 16 and each published stage's
+             grid and width (64³ × 48 ... 8³ × 384), unshifted and shifted,
+             bf16, and checked in f32 at stage 2, at a clipped grid and at a
+             row of 50 bf16 values (4-byte units): each kernel and each one's
+             backward (the other kernel) equal PyTorch's chain and its
+             autograd bit for bit, one launch of each kernel a direction, no
+             ptxas spill; the bf16 stage shapes timed (kernel, the plain
+             chain, the bound at 3.35 TB/s: the pack's real and padded rows,
+             the unpack's real rows twice).  train_swin checks 16 launches
+             of each a step (8 forward, 8 backward).
+
 Then a line ``{"phase": "profiler", ...}``: the profiles taken, how many of
 them recorded no kernel, and the calls timed by CUDA events after
 ``PROFILE_TRIES`` such profiles (``device_ms_split``).  Then one line
@@ -401,6 +414,7 @@ from cross_attention_vit_tpu_torch.kernels import layernorm as ln
 from cross_attention_vit_tpu_torch.kernels import linear_epilogue as le
 from cross_attention_vit_tpu_torch.kernels import resample as rs
 from cross_attention_vit_tpu_torch.kernels import window_attention as wa
+from cross_attention_vit_tpu_torch.kernels import window_layout as wl
 from cross_attention_vit_tpu_torch.models.convert import jax_params_from_model
 from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
 from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
@@ -462,7 +476,7 @@ SERVE_TOL = 5e-2
 REQUEST_SIZES = (1, 3, 8, 1, 3, 8)
 LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "resample",
              "flash_attention_stream", "fused_qkv_bwd", "linear_epilogue", "window_attention",
-             "layernorm")
+             "layernorm", "window_layout")
 K1 = {"name": "flash_attention_qkv", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:759"}
@@ -517,6 +531,18 @@ LNF = {"name": "layernorm (forward)", "route": "cuda",
        "replaces": "none: XLA fuses the JAX layernorm (ops/layers.py) into the ops around it"}
 LNB = {"name": "layernorm (backward: rows, then the parameters' column sums)", "route": "cuda",
        "source": LNF["source"], "replaces": LNF["replaces"]}
+WLP = {"name": "window_pack (the pad, roll and partition in one gather)", "route": "cuda",
+       "source": "cross_attention_vit_tpu_torch/kernels/csrc/window_layout.cu",
+       "replaces": "none: the JAX package has no windowed model (MONAI swin_unetr's pad, "
+                   "roll and window_partition)"}
+WLU = {"name": "window_unpack (the reverse, roll back and crop in one gather)", "route": "cuda",
+       "source": WLP["source"], "replaces": WLP["replaces"]}
+# the layout's further cases (name, token grid, C, dtype, shifted), checked and not
+# timed: f32 at stage 2, a grid with clipped axes (window 4 × 7 × 7), a row of 50
+# bf16 values (100 bytes: 4-byte units)
+LAYOUT_EXTRA = (("f32_stage2", (32, 32, 32), 96, torch.float32, True),
+                ("clipped", (4, 9, 13), 48, torch.bfloat16, True),
+                ("row_100_bytes", (16, 16, 16), 50, torch.bfloat16, True))
 # LayerNorm's timed shapes (name, rows, C): the swin3d.train.b16 cell's at
 # B = 16 (the blocks' norms at each stage's tokens and width, the merges'
 # over 8C at the next stage's tokens), cross.train.gb64's (64 · 513 rows)
@@ -2087,6 +2113,82 @@ def phase_kernels_window() -> dict:
     return cases
 
 
+def layout_bound(batch: int, dims, geom, C: int, dtype: torch.dtype) -> dict:
+    """Least ms of a pack and of an unpack at 3.35 TB/s.  The pack reads each
+    real token's row once and writes each padded token's once; the unpack
+    needs only the real tokens' rows of the windows, each read once and
+    written once."""
+    row = C * torch.empty((), dtype=dtype).element_size()
+    real, padded = batch * int(np.prod(dims)), batch * int(np.prod(geom.padded))
+    pack, unpack = (real + padded) * row, 2 * real * row
+    return {"pack_ms": pack / HBM_BYTES_S * 1e3, "unpack_ms": unpack / HBM_BYTES_S * 1e3,
+            "pack_mb": pack / 1e6, "unpack_mb": unpack / 1e6, "by": "bytes"}
+
+
+def phase_kernels_window_layout() -> dict:
+    """The window layout's pack and unpack at B = ``WINDOW_BATCH`` and each
+    published stage's grid and width, unshifted and shifted, in bf16, and
+    ``LAYOUT_EXTRA``: each kernel and each one's backward (the other
+    kernel) against PyTorch's chain and its autograd bit for bit, one
+    launch of each kernel a direction, no ptxas spill.  The stage shapes
+    timed: kernel, the plain chain, the bound.  Returns the timed cases."""
+    ptxas = {key: r for key, r in PTXAS.items() if "window_layout" in key}
+    cases = [(f"{stage}_{'shifted' if sh else 'unshifted'}", dims, 16 * K, torch.bfloat16, sh)
+             for stage, dims, K in WINDOW_STAGES for sh in (False, True)] + list(LAYOUT_EXTRA)
+    timed, failures = [], []
+    for i, (name, dims, C, dtype, shifted) in enumerate(cases):
+        geom = window_geometry(dims, WINDOW, shifted)
+        g = torch.Generator(device="cuda").manual_seed(60 + i)
+        x = torch.randn(WINDOW_BATCH, *dims, C, device="cuda", generator=g).to(dtype)
+        o = torch.randn(WINDOW_BATCH * geom.windows, geom.n, C, device="cuda",
+                        generator=g).to(dtype)
+        x.requires_grad_()
+        o.requires_grad_()
+        dy, dz = torch.randn_like(o), torch.randn_like(x)
+        before = _counts()
+        y, z = wl.window_pack(x, geom), wl.window_unpack(o, geom, dims)
+        gx, go = torch.autograd.grad([y, z], [x, o], [dy, dz])
+        torch.cuda.synchronize()
+        after = _counts()
+        want_gx, want_go = torch.autograd.grad(
+            [wl.window_pack_reference(x, geom), wl.window_unpack_reference(o, geom, dims)],
+            [x, o], [dy, dz])
+        entry = {"case": name, "dims": list(dims), "C": C, "dtype": str(dtype),
+                 "shifted": shifted, "window": list(geom.window), "grid": list(geom.grid),
+                 "equal": {"pack": bool(torch.equal(y, wl.window_pack_reference(x.detach(),
+                                                                                 geom))),
+                           "unpack": bool(torch.equal(z, wl.window_unpack_reference(
+                               o.detach(), geom, dims))),
+                           "pack_backward": bool(torch.equal(gx, want_gx)),
+                           "unpack_backward": bool(torch.equal(go, want_go))},
+                 "launches": [after["WLP"] - before["WLP"], after["WLU"] - before["WLU"]]}
+        del want_gx, want_go, gx, go, y, z
+        if not (all(entry["equal"].values()) and entry["launches"] == [2, 2]):
+            failures.append(entry)
+        if i < 2 * len(WINDOW_STAGES):
+            xd, od = x.detach(), o.detach()
+            entry.update({
+                "pack_ms": device_ms(lambda: wl.window_pack(xd, geom)),
+                "unpack_ms": device_ms(lambda: wl.window_unpack(od, geom, dims)),
+                "plain_pack_ms": device_ms(lambda: wl.window_pack_reference(xd, geom), calls=3),
+                "plain_unpack_ms": device_ms(
+                    lambda: wl.window_unpack_reference(od, geom, dims), calls=3),
+                "bound": layout_bound(WINDOW_BATCH, dims, geom, C, dtype)})
+            for part in ("pack", "unpack"):
+                entry[f"{part}_share_of_bound"] = entry["bound"][f"{part}_ms"] / entry[f"{part}_ms"]
+            timed.append(entry)
+            del xd, od
+        emit({"phase": "kernels_window_layout_case", **entry})
+        del x, o, dy, dz
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_window_layout", "kernels": [WLP, WLU], "ptxas": ptxas})
+    check(bool(ptxas), "no ptxas report for the window layout's kernels")
+    check(not any(r.get("spill_stores") or r.get("spill_loads") for r in ptxas.values()),
+          f"a window layout kernel spills: {ptxas}")
+    check(not failures, f"the window layout's kernels disagree with PyTorch's chain: {failures}")
+    return {"cases": timed}
+
+
 def layernorm_bound(rows: int, cols: int, dtype: torch.dtype) -> dict:
     """Least ms of LayerNorm's forward and backward at 3.35 TB/s, each byte
     read or written once: forward x, the f32 weight and bias, y; backward
@@ -2325,7 +2427,9 @@ _COUNTERS = {"K1": (fa.flash_attention_qkv, "launches"),
              "K9F": (wa.window_attention_fwd, "launches"),
              "K9B": (wa.window_attention_bwd, "launches"),
              "LNF": (ln.layernorm, "launches"),
-             "LNB": (ln.layernorm, "bwd_launches")}
+             "LNB": (ln.layernorm, "bwd_launches"),
+             "WLP": (wl.window_pack, "launches"),
+             "WLU": (wl.window_unpack, "launches")}
 
 
 def _counts() -> dict:
@@ -3093,6 +3197,9 @@ def phase_train_swin() -> dict:
         check(c["EPF"] > 0 and c["EPB"] > 0, f"swin step {i}: no linear epilogue launch: {c}")
         check(c["LNF"] == c["LNB"] == LN_PER_STEP["SwinViT3D"],
               f"swin step {i}: LayerNorm launched {c['LNF']} + {c['LNB']} times")
+        check(c["WLP"] == c["WLU"] == 16,
+              f"swin step {i}: the window layout launched {c['WLP']} packs and {c['WLU']} "
+              f"unpacks, expected 8 + 8 each")
     return result
 
 
@@ -5106,6 +5213,7 @@ def main() -> int:
         k8 = phase_kernels_k8()
         epilogue = phase_kernels_epilogue()
         window = phase_kernels_window()
+        layout = phase_kernels_window_layout()
         layernorm = phase_kernels_layernorm()
         with tempfile.TemporaryDirectory() as tmp:
             served = phase_serve(Path(tmp))
@@ -5325,7 +5433,13 @@ def main() -> int:
                                               f"plain_{part}_ms", f"library_{part}_ms",
                                               "bound")} for c in layernorm["cases"]]}
           for kernel, name, part, tail in ((LNF, "LNF", "fwd", ""),
-                                           (LNB, "LNB", "bwd", ", its native backward")))]})
+                                           (LNB, "LNB", "bwd", ", its native backward"))),
+        *({**kernel, **launches[name], "library": "none (the plain version is PyTorch's chain)",
+           "cases": [{**{key: c[key] for key in ("case", "dims", "C", f"{part}_ms",
+                                                 f"plain_{part}_ms", f"{part}_share_of_bound")},
+                      "bound_ms": c["bound"][f"{part}_ms"], "bound_by": "bytes"}
+                     for c in layout["cases"]]}
+          for kernel, name, part in ((WLP, "WLP", "pack"), (WLU, "WLU", "unpack")))]})
     print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

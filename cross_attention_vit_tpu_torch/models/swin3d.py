@@ -20,7 +20,8 @@ the query and value biases, which learn:
     rolled by half the window, with MONAI's region mask) → residual, then
     norm2 → Linear → erf GELU → Linear → residual
     (``ops/window_attention.py``, whose attention runs in the hand-written
-    kernels K9 when ``use_flash_attention``);
+    kernels K9 when ``use_flash_attention``, and whose window layout runs in
+    ``kernels/window_layout.py``'s gathers on the card);
   * ``PatchMergingV2`` after every stage (``downsample``): the eight 2×2×2
     neighbours concatenated, LayerNorm(8C), Linear(8C → 2C, no bias).
 

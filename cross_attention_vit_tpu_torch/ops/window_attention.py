@@ -3,11 +3,14 @@ token grid, as MONAI's ``SwinTransformerBlock.forward_part1`` and
 ``PatchMergingV2`` compute them (``monai.networks.nets.swin_unetr``).
 
 ``window_attention`` takes the block's ``norm1`` output and does, inside
-``span("swin:window_attention")``: zero padding at the far end of each axis
-to whole windows, the cyclic roll by −shift, the partition into windows,
-the qkv Linear, the attention with the relative-position bias (and, in a
-shifted block, the region mask), the output projection, the reverse, the
-roll back and the crop.  ``impl="kernel"`` runs the attention in the
+``span("swin:window_attention")``: the window layout's pack (zero padding
+at the far end of each axis to whole windows, the cyclic roll by −shift,
+the partition into windows), the qkv Linear, the attention with the
+relative-position bias (and, in a shifted block, the region mask), the
+output projection, and the unpack (the reverse, the roll back, the crop).
+The layout runs in the hand-written gathers of ``kernels.window_layout``
+on CUDA tensors whatever ``impl`` says (their plain versions, PyTorch's
+chain, on CPU tensors).  ``impl="kernel"`` runs the attention in the
 hand-written kernels (``kernels.window_attention.WindowAttention``; on CPU
 tensors their plain versions); ``impl="plain"`` in the forward kernel's
 plain version (``window_attention_reference``: the scores materialised),
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 
 from ..kernels.window_attention import (WindowAttention, WindowGeometry,
                                        window_attention_reference)
+from ..kernels.window_layout import window_pack, window_unpack
 from ..utils.profiling import span
 from .layers import layernorm, linear
 
@@ -53,23 +57,6 @@ def geometry(dims, window, shifted: bool) -> WindowGeometry:
     return WindowGeometry(use_window, grid, use_shift, tuple(window))
 
 
-def partition(x: torch.Tensor, geom: WindowGeometry) -> torch.Tensor:
-    """(B, Dp, Hp, Wp, C) → (B·windows, n, C), windows and their tokens in
-    row-major order (MONAI ``window_partition``)."""
-    B, C = x.shape[0], x.shape[-1]
-    (gd, gh, gw), (w0, w1, w2) = geom.grid, geom.window
-    x = x.view(B, gd, w0, gh, w1, gw, w2, C).permute(0, 1, 3, 5, 2, 4, 6, 7)
-    return x.reshape(B * geom.windows, geom.n, C)
-
-
-def reverse(windows: torch.Tensor, geom: WindowGeometry, batch: int) -> torch.Tensor:
-    """``partition``'s inverse (MONAI ``window_reverse``)."""
-    C = windows.shape[-1]
-    (gd, gh, gw), (w0, w1, w2) = geom.grid, geom.window
-    x = windows.view(batch, gd, gh, gw, w0, w1, w2, C).permute(0, 1, 4, 2, 5, 3, 6, 7)
-    return x.reshape(batch, gd * w0, gh * w1, gw * w2, C)
-
-
 def window_attention(x: torch.Tensor, qkv_weight: torch.Tensor, qkv_bias: torch.Tensor,
                      proj: torch.nn.Linear, table: torch.Tensor, heads: int,
                      geom: WindowGeometry,
@@ -81,12 +68,8 @@ def window_attention(x: torch.Tensor, qkv_weight: torch.Tensor, qkv_bias: torch.
     if impl not in ("kernel", "plain"):
         raise ValueError(f"unknown window-attention impl {impl!r}")
     with span(SPAN):
-        B, d, h, w, C = x.shape
-        Dp, Hp, Wp = geom.padded
-        x = F.pad(x, (0, 0, 0, Wp - w, 0, Hp - h, 0, Dp - d))
-        if geom.shifted:
-            x = torch.roll(x, tuple(-s for s in geom.shift), (1, 2, 3))
-        t = linear(partition(x, geom), qkv_weight, qkv_bias, compute_dtype)
+        C = x.shape[-1]
+        t = linear(window_pack(x, geom), qkv_weight, qkv_bias, compute_dtype)
         t = t.view(t.shape[0], geom.n, 3, heads, C // heads)
         scale = (C // heads) ** -0.5
         if impl == "kernel":
@@ -94,10 +77,7 @@ def window_attention(x: torch.Tensor, qkv_weight: torch.Tensor, qkv_bias: torch.
         else:
             o = window_attention_reference(t, table.float(), geom, scale)[0]
         o = linear(o, proj.weight, proj.bias, compute_dtype, out_dtype=x.dtype)
-        x = reverse(o, geom, B)
-        if geom.shifted:
-            x = torch.roll(x, geom.shift, (1, 2, 3))
-        return x[:, :d, :h, :w].contiguous()
+        return window_unpack(o, geom, x.shape[1:4])
 
 
 def patch_merge(x: torch.Tensor, reduction: torch.nn.Linear, norm: torch.nn.LayerNorm,

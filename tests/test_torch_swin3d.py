@@ -7,8 +7,10 @@ cases and against MONAI's own construction, logits and one step's
 gradients (the bias tables included) with padded, shifted, unshifted and
 clipped windows through all four stages and their merging, the kernels'
 plain versions against the reference's attention, the checkpoint tree and
-the experiments CLI.  ``card``: the kernels against their plain versions
-at the four published stage shapes.
+the experiments CLI.  ``card``: the kernels (K9 and the window layout's
+gathers) against their plain versions at the four published stage shapes,
+and the layout's gathers in a train step, bit for bit against PyTorch's
+chain.
 
 Tolerances on the CPU compare two float32 computations of the same
 function whose sums run in other orders (a Conv3d against a patchify and a
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 
 from cross_attention_vit_tpu_torch.configs import get_swin3d_config, modify_config
 from cross_attention_vit_tpu_torch.kernels import window_attention as wa
+from cross_attention_vit_tpu_torch.kernels import window_layout as wl
 from cross_attention_vit_tpu_torch.models import convert
 from cross_attention_vit_tpu_torch.models.swin3d import SwinViT3D
 from cross_attention_vit_tpu_torch.ops.window_attention import geometry, get_window_size
@@ -429,3 +432,95 @@ def test_a_bf16_train_step_launches_eight_window_attention_calls_each_way_on_the
     aux = step(img, labels, cfg.lr, torch.Generator().manual_seed(2))
     assert (wa.window_attention_fwd.launches - f0, wa.window_attention_bwd.launches - b0) == (8, 8)
     assert math.isfinite(float(aux["loss"]))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("stage", sorted(STAGES))
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_layout_kernels_match_their_plain_versions_on_the_card(stage, shifted, dtype):
+    """At B = 16, the stage's published grid and width (C = 16 per head):
+    the pack and the unpack, and each one's backward (the other kernel),
+    equal PyTorch's chain and its autograd bit for bit; one launch of each
+    kernel a direction."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dims, K = STAGES[stage]
+    geom = geometry(dims, (7, 7, 7), shifted)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    C = 16 * K
+    x = torch.randn(16, *dims, C, device=dev, generator=g).to(dtype).requires_grad_()
+    o = torch.randn(16 * geom.windows, geom.n, C, device=dev, generator=g).to(dtype)
+    o.requires_grad_()
+    dy, dz = torch.randn_like(o), torch.randn_like(x)
+    p0, u0 = wl.window_pack.launches, wl.window_unpack.launches
+    y, z = wl.window_pack(x, geom), wl.window_unpack(o, geom, dims)
+    gx, go = torch.autograd.grad([y, z], [x, o], [dy, dz])
+    torch.cuda.synchronize()
+    assert (wl.window_pack.launches - p0, wl.window_unpack.launches - u0) == (2, 2)
+    assert torch.equal(y, wl.window_pack_reference(x.detach(), geom))
+    assert torch.equal(z, wl.window_unpack_reference(o.detach(), geom, dims))
+    want_gx, want_go = torch.autograd.grad(
+        [wl.window_pack_reference(x, geom), wl.window_unpack_reference(o, geom, dims)],
+        [x, o], [dy, dz])
+    assert torch.equal(gx, want_gx) and torch.equal(go, want_go)
+
+
+def _card_swin(batch: int):
+    cfg = get_swin3d_config()
+    modify_config(cfg, dict(compute_dtype="bfloat16", activation_dtype="bfloat16",
+                            augment_dtype="bfloat16", use_flash_attention=True))
+    model = SwinViT3D(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0),
+                      master_weights=True)
+    img = torch.randn((batch, 4, 1, 128, 128, 128), device="cuda").to(torch.bfloat16)
+    return cfg, model, img, torch.arange(batch, device="cuda") % 2
+
+
+@pytest.mark.card
+def test_a_bf16_train_step_gathers_its_layout_and_rolls_nothing_on_the_card():
+    """The published encoder at 128³, bf16, through ``make_train_step``:
+    the pack and the unpack each 8 times forward and 8 times backward a
+    step, and no ``torch.roll`` kernel in its profile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+
+    from cross_attention_vit_tpu_torch.train.optim import Adam
+    from cross_attention_vit_tpu_torch.train.trainer import make_train_step
+
+    cfg, model, img, labels = _card_swin(2)
+    step = make_train_step(model, Adam(model.parameters(), cfg.weight_decay), cfg)
+    step(img, labels, cfg.lr, torch.Generator().manual_seed(1))
+    p0, u0 = wl.window_pack.launches, wl.window_unpack.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(img, labels, cfg.lr, torch.Generator().manual_seed(2))
+        torch.cuda.synchronize()
+    assert (wl.window_pack.launches - p0, wl.window_unpack.launches - u0) == (16, 16)
+    names = [ev.key for ev in prof.key_averages()]
+    assert any("window_layout_pack" in k for k in names), names
+    assert not any("roll_cuda_kernel" in k for k in names), names
+
+
+@pytest.mark.card
+def test_the_layout_kernels_leave_a_bf16_steps_loss_and_gradients_unchanged_on_the_card(
+        monkeypatch):
+    """The published encoder at 128³, bf16, batch 2: the loss and every
+    parameter's gradient with the layout's gathers equal those with
+    PyTorch's chain in their place, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cross_attention_vit_tpu_torch.ops import window_attention as ops_wa
+
+    _, model, img, labels = _card_swin(2)
+    params = [p for p in model.parameters() if p.requires_grad]
+    readings = []
+    for pack, unpack in ((wl.window_pack, wl.window_unpack),
+                         (wl.window_pack_reference, wl.window_unpack_reference)):
+        monkeypatch.setattr(ops_wa, "window_pack", pack)
+        monkeypatch.setattr(ops_wa, "window_unpack", unpack)
+        _, loss = model(img, labels, train=True)
+        readings.append((loss.detach(), torch.autograd.grad(loss, params)))
+    (loss, grads), (want_loss, want_grads) = readings
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
