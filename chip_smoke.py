@@ -365,6 +365,29 @@ Phases, each printed as one JSON line with a ``phase`` key:
              the unpack's real rows twice).  train_swin checks 16 launches
              of each a step (8 forward, 8 backward).
 
+35. kernels_pool_attention — run right after kernels_layernorm: K10, the
+             pooling attention (``kernels/pool_attention.py``, MViTv2's
+             attention with the decomposed relative-position bias and the
+             ``+ q`` residual, D = 96), at B = 64 (the mvitv2s.train.b64
+             cell's batch) and MViTv2-S's seven block shapes (25,088 to 392
+             queries against 392 or 1,568 keys): o, lse, dq, dk, dv and the
+             bias terms' gradient against the plain versions
+             (``pool_attention_reference`` and its backward, a few
+             batch-heads at a time) within ``POOL_ATTN_TOL``, two backward
+             calls bit for bit, one launch each way a call, no ptxas spill;
+             each shape timed (forward, backward by kernel, the plain
+             versions) beside its bound and beside SDPA with the bias
+             materialised as one bf16 float mask (forward; forward and
+             backward with the mask's gradient off and on).
+36. train_mvit — run right after train_swin: the published MViTv2-S
+             (``models/mvit.py``, 16 × 224² × 3, bf16,
+             ``get_mvitv2_s_config``, the mvitv2s.train.b64 cell's setting)
+             at batch 64 through ``make_train_step``: TRAIN_STEPS steps from
+             launch counts of 0, 16 K10 forward and 16 K10 backward calls a
+             step, 48 pools (``mvit_pool.launches``) and no other attention
+             kernel, LayerNorm's launches, finite losses, the parameters
+             moved; step ms and peak memory.
+
 Then a line ``{"phase": "profiler", ...}``: the profiles taken, how many of
 them recorded no kernel, and the calls timed by CUDA events after
 ``PROFILE_TRIES`` such profiles (``device_ms_split``).  Then one line
@@ -383,6 +406,7 @@ import hashlib
 import io
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -402,8 +426,8 @@ import torch
 import torch.nn.functional as F
 
 from cross_attention_vit_tpu_torch.configs import (Params, get_mgmt_config,
-                                                   get_mgmt_cross_config, get_swin3d_config,
-                                                   modify_config)
+                                                   get_mgmt_cross_config, get_mvitv2_s_config,
+                                                   get_swin3d_config, modify_config)
 from cross_attention_vit_tpu_torch.data import augment, native
 from cross_attention_vit_tpu_torch.data.nifti import write_volume
 from cross_attention_vit_tpu_torch.drivers import evaluate, experiments
@@ -412,14 +436,17 @@ from cross_attention_vit_tpu_torch.kernels import _build
 from cross_attention_vit_tpu_torch.kernels import flash_attention as fa
 from cross_attention_vit_tpu_torch.kernels import layernorm as ln
 from cross_attention_vit_tpu_torch.kernels import linear_epilogue as le
+from cross_attention_vit_tpu_torch.kernels import pool_attention as pa
 from cross_attention_vit_tpu_torch.kernels import resample as rs
 from cross_attention_vit_tpu_torch.kernels import window_attention as wa
 from cross_attention_vit_tpu_torch.kernels import window_layout as wl
 from cross_attention_vit_tpu_torch.models.convert import jax_params_from_model
 from cross_attention_vit_tpu_torch.models.model_cross import ModelCross
 from cross_attention_vit_tpu_torch.models.model_vit import ModelVIT
+from cross_attention_vit_tpu_torch.models.mvit import MViTv2
 from cross_attention_vit_tpu_torch.models.quantize import count_quantized
 from cross_attention_vit_tpu_torch.models.swin3d import SwinViT3D
+from cross_attention_vit_tpu_torch.ops import pooling_attention as pops
 from cross_attention_vit_tpu_torch.ops.attention import _sdpa
 from cross_attention_vit_tpu_torch.ops.layers import dropout, linear, matmul_f32
 from cross_attention_vit_tpu_torch.ops.window_attention import geometry as window_geometry
@@ -476,7 +503,7 @@ SERVE_TOL = 5e-2
 REQUEST_SIZES = (1, 3, 8, 1, 3, 8)
 LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd", "resample",
              "flash_attention_stream", "fused_qkv_bwd", "linear_epilogue", "window_attention",
-             "layernorm", "window_layout")
+             "layernorm", "window_layout", "pool_attention")
 K1 = {"name": "flash_attention_qkv", "route": "cuda",
       "source": "cross_attention_vit_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
       "replaces": "cross_attention_vit_tpu/kernels/flash_attention.py:759"}
@@ -537,6 +564,31 @@ WLP = {"name": "window_pack (the pad, roll and partition in one gather)", "route
                    "roll and window_partition)"}
 WLU = {"name": "window_unpack (the reverse, roll back and crop in one gather)", "route": "cuda",
        "source": WLP["source"], "replaces": WLP["replaces"]}
+K10F = {"name": "pool_attention_fwd", "route": "cuda",
+        "source": "cross_attention_vit_tpu_torch/kernels/csrc/pool_attention.cu",
+        "replaces": "none: the JAX package has no multiscale model (PySlowFast MViTv2's "
+                    "MultiScaleAttention)"}
+K10B = {"name": "pool_attention_bwd (dq with the bias terms' gradient, dk/dv)", "route": "cuda",
+        "source": K10F["source"], "replaces": K10F["replaces"]}
+# MViTv2-S's seven distinct attention shapes (label, query grid, key grid,
+# heads) and the batch of the mvitv2s.train.b64 cell
+POOL_ATTN_BLOCKS = (("b0", (8, 56, 56), (8, 7, 7), 1), ("b1", (8, 28, 28), (8, 14, 14), 2),
+                    ("b2", (8, 28, 28), (8, 7, 7), 2), ("b3", (8, 14, 14), (8, 14, 14), 4),
+                    ("b4-13", (8, 14, 14), (8, 7, 7), 4), ("b14", (8, 7, 7), (8, 14, 14), 8),
+                    ("b15", (8, 7, 7), (8, 7, 7), 8))
+POOL_ATTN_BATCH = 64
+# K10 against its plain versions, by ‖Δ‖ / ‖plain‖ (tests/test_torch_mvit.py's
+# card test): o rounds P to bf16 unnormalised (the plain version normalised)
+# and o itself, each within 2^-9 a value; lse is f32 in both; the backward
+# runs on the kernel's own o and lse, so dq, dk and dv differ by f32
+# summation order and the rare flip of a bf16 rounding of P or dS, summed
+# over up to 25,088 queries for dk and dv; the bias terms' gradient sums the
+# f32 dS in both.  A dropped bias term, residual or scale moves each by 1e-1
+# or more.
+POOL_ATTN_TOL = {"o": 1e-2, "lse": 1e-5, "dq": 2e-3, "dk": 2e-3, "dv": 2e-3, "de": 1e-5}
+# the plain versions materialise (chunk, Nq, Nk) f32 scores: at most this many
+# scores a chunk of batch-heads
+POOL_ATTN_PLAIN_SCORES = 2 ** 28
 # the layout's further cases (name, token grid, C, dtype, shifted), checked and not
 # timed: f32 at stage 2, a grid with clipped axes (window 4 × 7 × 7), a row of 50
 # bf16 values (100 bytes: 4-byte units)
@@ -577,7 +629,7 @@ LN_PARAM_TOL = 1e-4
 # cross pairs of two, 3 heads of one), ModelVIT 9 (4 layers of two, the
 # head's one), Swin 20 (4 stages × (2 blocks of two, the merge's one); its
 # head's affine-free norm is PyTorch's)
-LN_PER_STEP = {"ModelCross": 39, "ModelVIT": 9, "SwinViT3D": 20}
+LN_PER_STEP = {"ModelCross": 39, "ModelVIT": 9, "SwinViT3D": 20, "MViTv2": 81}
 # Swin UNETR's four stages at 128³ (token grid, heads), their 7³ windows,
 # and the batch of the swin3d.train.b16 cell
 WINDOW_STAGES = (("stage1", (64, 64, 64), 3), ("stage2", (32, 32, 32), 6),
@@ -2290,6 +2342,117 @@ def phase_kernels_layernorm() -> dict:
     return {"cases": entries[:len(LN_SHAPES)]}
 
 
+def pool_attention_bound(BH: int, Nq: int, Nk: int, PP: int) -> dict:
+    """Least ms of K10's forward and backward at one call's shape, D = 96:
+    each operand read or written once at 3.35 TB/s (q, k, v and the bias
+    terms read, o and the lse written forward; q, k, v, o, do, the terms and
+    the lse read, dq, dk, dv and the terms' f32 gradient written backward)
+    against 4·BH·Nq·Nk·96 FLOP forward and 10·BH·Nq·Nk·96 backward (S, dV,
+    dP, dQ, dK) at the bf16 peak."""
+    D = 96
+    fwd_b = (2 * BH * (Nq + Nk) * D + BH * Nq * PP) * 2 + BH * Nq * 4
+    bwd_b = (4 * BH * (Nq + Nk) * D + BH * Nq * PP) * 2 + BH * Nq * (PP + 1) * 4
+    fwd_f, bwd_f = 4 * BH * Nq * Nk * D, 10 * BH * Nq * Nk * D
+    out = {}
+    for part, nbytes, flops in (("fwd", fwd_b, fwd_f), ("bwd", bwd_b, bwd_f)):
+        t_b, t_f = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[torch.bfloat16]
+        out[f"{part}_ms"] = max(t_b, t_f) * 1e3
+        out[f"{part}_by"] = "bytes" if t_b >= t_f else "flops"
+    return out
+
+
+def _pool_attention_plain(q, k, v, e, o, do, lse, k_dims, scale: float, chunk: int):
+    """The plain forward and backward over every batch-head, ``chunk`` at a
+    time: (o, lse, dq, dk, dv, de) in the kernels' layouts."""
+    parts = []
+    for a in range(0, q.shape[0], chunk):
+        w = slice(a, a + chunk)
+        ro, rlse = pa.pool_attention_reference(q[w], k[w], v[w], e[w], k_dims, scale)
+        parts.append((ro, rlse, *pa.pool_attention_backward_reference(
+            q[w], k[w], v[w], e[w], o[w], do[w], lse[w], k_dims, scale)))
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def phase_kernels_pool_attention() -> dict:
+    """K10 at B = ``POOL_ATTN_BATCH`` and MViTv2-S's seven block shapes, bf16:
+    the kernels against their plain versions (``POOL_ATTN_PLAIN_SCORES``
+    scores a chunk) within ``POOL_ATTN_TOL``, two backward calls bit for bit,
+    one launch each way a call, no ptxas spill; forward and backward (by
+    kernel) timed beside ``pool_attention_bound``, the plain versions and
+    SDPA with the bias terms summed into one bf16 float mask and the
+    residual added (forward; forward and backward with the mask's gradient
+    off, and on, as K10's backward gives the terms' gradient).  Returns the
+    cases by block."""
+    ptxas = {key: r for key, r in PTXAS.items() if "mvit_attention" in key}
+    cases, failures = {}, []
+    for label, q_dims, k_dims, heads in POOL_ATTN_BLOCKS:
+        g = torch.Generator(device="cuda").manual_seed(70 + heads + sum(k_dims))
+        BH, Nq, Nk, D = POOL_ATTN_BATCH * heads, math.prod(q_dims), math.prod(k_dims), 96
+        PP, scale = pa.terms_width(k_dims), D ** -0.5
+        q, k, v, do = (torch.randn(BH, n, D, device="cuda", generator=g).to(torch.bfloat16)
+                       for n in (Nq, Nk, Nk, Nq))
+        e = (torch.randn(BH, Nq, PP, device="cuda", generator=g) * 0.5).to(torch.bfloat16)
+        before = _counts()
+        o, lse = pa.pool_attention_fwd(q, k, v, e, k_dims, scale)
+        grads = pa.pool_attention_bwd(q, k, v, e, o, do, lse, k_dims, scale)
+        again = pa.pool_attention_bwd(q, k, v, e, o, do, lse, k_dims, scale)
+        torch.cuda.synchronize()
+        after = _counts()
+        chunk = max(1, POOL_ATTN_PLAIN_SCORES // (Nq * Nk))
+        want = _pool_attention_plain(q, k, v, e, o, do, lse, k_dims, scale, chunk)
+        got = (o, lse, *grads)
+        errs = {}
+        for name, a, b in zip(("o", "lse", "dq", "dk", "dv", "de"), got, want):
+            if name == "de":
+                a, b = a[..., :sum(k_dims)], b[..., :sum(k_dims)]
+            errs[name] = float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+        del want
+        bwd_split = device_ms_split(
+            lambda: pa.pool_attention_bwd(q, k, v, e, o, do, lse, k_dims, scale),
+            {"dq": "bwd_dq", "dkdv": "bwd_dkdv"})
+        entry = {"block": label, "q_dims": list(q_dims), "k_dims": list(k_dims), "heads": heads,
+                 "BH": BH, "Nq": Nq, "Nk": Nk, "errs": errs, "tol": POOL_ATTN_TOL,
+                 "run_to_run_equal": all(torch.equal(a, b) for a, b in zip(grads, again)),
+                 "launches": [after["K10F"] - before["K10F"], after["K10B"] - before["K10B"]],
+                 "fwd_ms": device_ms(lambda: pa.pool_attention_fwd(q, k, v, e, k_dims, scale)),
+                 "bwd_ms": None if None in bwd_split.values() else sum(bwd_split.values()),
+                 "bwd_ms_by_kernel": bwd_split,
+                 "plain_ms": device_ms(lambda: _pool_attention_plain(
+                     q, k, v, e, o, do, lse, k_dims, scale, chunk), calls=1, warmup=1),
+                 "bound": pool_attention_bound(BH, Nq, Nk, PP)}
+        del grads, again
+        # the yardstick: the bias as one materialised bf16 mask (BH, Nq, Nk)
+        mask = pa.bias_from_terms(e, k_dims).to(torch.bfloat16)[None]
+        q4, k4, v4 = (t[None].requires_grad_() for t in (q, k, v))
+        entry["mask_gb"] = mask.numel() * 2 / 1e9
+
+        def sdpa(m):
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m, scale=scale) + q4
+
+        def sdpa_fwd_bwd(m, leaves):
+            torch.autograd.grad(sdpa(m), leaves, do[None])
+
+        with torch.no_grad():
+            entry["sdpa_fwd_ms"] = device_ms(lambda: sdpa(mask))
+        entry["sdpa_fwd_bwd_ms"] = device_ms(lambda: sdpa_fwd_bwd(mask, (q4, k4, v4)))
+        mask_g = mask.detach().requires_grad_()
+        entry["sdpa_fwd_bwd_mask_grad_ms"] = device_ms(
+            lambda: sdpa_fwd_bwd(mask_g, (q4, k4, v4, mask_g)))
+        emit({"phase": "kernels_pool_attention_case", **entry})
+        if not (all(errs[n] <= POOL_ATTN_TOL[n] for n in POOL_ATTN_TOL)
+                and entry["run_to_run_equal"] and entry["launches"] == [1, 2]):
+            failures.append(entry)
+        cases[label] = entry
+        del q, k, v, do, e, o, lse, mask, mask_g, q4, k4, v4
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_pool_attention", "kernels": [K10F, K10B], "ptxas": ptxas})
+    check(bool(ptxas), "no ptxas report for the pooling-attention kernels")
+    check(not any(r.get("spill_stores") or r.get("spill_loads") for r in ptxas.values()),
+          f"a pooling-attention kernel spills: {ptxas}")
+    check(not failures, f"K10 disagrees with its plain versions: {failures}")
+    return cases
+
+
 def phase_serve(tmp: Path) -> dict:
     cfg = live_config(use_flash=True)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -2429,7 +2592,10 @@ _COUNTERS = {"K1": (fa.flash_attention_qkv, "launches"),
              "LNF": (ln.layernorm, "launches"),
              "LNB": (ln.layernorm, "bwd_launches"),
              "WLP": (wl.window_pack, "launches"),
-             "WLU": (wl.window_unpack, "launches")}
+             "WLU": (wl.window_unpack, "launches"),
+             "K10F": (pa.pool_attention_fwd, "launches"),
+             "K10B": (pa.pool_attention_bwd, "launches"),
+             "MVP": (pops.mvit_pool, "launches")}
 
 
 def _counts() -> dict:
@@ -3200,6 +3366,55 @@ def phase_train_swin() -> dict:
         check(c["WLP"] == c["WLU"] == 16,
               f"swin step {i}: the window layout launched {c['WLP']} packs and {c['WLU']} "
               f"unpacks, expected 8 + 8 each")
+    return result
+
+
+def phase_train_mvit() -> dict:
+    """The published MViTv2-S at the mvitv2s.train.b64 cell's setting
+    (``get_mvitv2_s_config``: bf16, 3 × 16 × 224², no augmentation) at batch
+    ``POOL_ATTN_BATCH`` through ``make_train_step``: TRAIN_STEPS steps from
+    launch counts of 0, K10 16 times each way a step, 48 pools and no other
+    attention kernel."""
+    cfg = get_mvitv2_s_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = MViTv2(cfg, device="cuda", master_weights=True,
+                   generator=torch.Generator(device="cuda").manual_seed(2))
+    optimizer = Adam(model.parameters(), weight_decay=cfg.weight_decay)
+    step = make_train_step(model, optimizer, cfg)
+    op = cfg.optim_params
+    lr_at = cosine_annealing_lr(cfg.lr, op["T_max"], op["eta_min"])
+    g = torch.Generator(device="cuda").manual_seed(41)
+    img = torch.randn((POOL_ATTN_BATCH, cfg.num_modalities, 1, *cfg.img_size), device="cuda",
+                      generator=g).to(torch.bfloat16)
+    labels = torch.tensor([0, 1] * (POOL_ATTN_BATCH // 2), device="cuda")
+    start = [p.detach().clone() for p in model.parameters()]
+    losses, step_ms, per_step, _ = _run_steps(step, img, labels, lr_at,
+                                              torch.Generator().manual_seed(TRAIN_SEED))
+    launches = _counts()
+    changed = max((p.detach() - p0).abs().max().item() for p, p0 in zip(model.parameters(), start))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = dict.fromkeys(("K1", "K2", "K5F", "K5DQ", "K5DKV", "K7F", "K7DQ", "K7DKV", "K6F",
+                          "K6DQ", "K6DKV", "K8", "K9F", "K9B"), 0)
+    want.update(K10F=16, K10B=16, MVP=48)
+    result = {"phase": "train_mvit", "model": "MViTv2", "params": model.num_params(),
+              "batch": POOL_ATTN_BATCH, "img_size": list(cfg.img_size),
+              "streams": cfg.num_modalities, "dtype": "bfloat16", "steps": TRAIN_STEPS,
+              "losses": losses, "max_param_change": changed, "launches": launches,
+              "launches_per_step": per_step, "step_ms": step_ms,
+              "step_ms_steady": statistics.median(step_ms[1:]), "peak_device_gb": peak_gb}
+    emit(result)
+    del model, optimizer, step, img, start
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)), f"mvit: non-finite training loss: {losses}")
+    check(changed > 0, "mvit: the parameters did not change over the training steps")
+    for i, c in enumerate(per_step):
+        got = {k: c[k] for k in want}
+        check(got == want, f"mvit step {i}: attention and pool launches {got}, expected {want}")
+        check(c["EPF"] > 0 and c["EPB"] > 0, f"mvit step {i}: no linear epilogue launch: {c}")
+        check(c["LNF"] == c["LNB"] == LN_PER_STEP["MViTv2"],
+              f"mvit step {i}: LayerNorm launched {c['LNF']} + {c['LNB']} times")
     return result
 
 
@@ -5215,6 +5430,7 @@ def main() -> int:
         window = phase_kernels_window()
         layout = phase_kernels_window_layout()
         layernorm = phase_kernels_layernorm()
+        pool_attention = phase_kernels_pool_attention()
         with tempfile.TemporaryDirectory() as tmp:
             served = phase_serve(Path(tmp))
             served_vit = phase_serve_vit(Path(tmp))
@@ -5224,6 +5440,7 @@ def main() -> int:
             trained_dp = phase_train_dp(Path(tmp))
         trained_vit = phase_train_vit()
         trained_swin = phase_train_swin()
+        trained_mvit = phase_train_mvit()
         trained_remat = phase_train_remat()
         phase_augment_exact(trained["augment_ms"])
         phase_mfu(trained, trained_vit)
@@ -5261,6 +5478,7 @@ def main() -> int:
     for name, result in trained_vit.items():
         paths[f"train_{name}"] = result["launches"]
     paths["train_swin"] = trained_swin["launches"]
+    paths["train_mvit"] = trained_mvit["launches"]
     for mode, result in served_int8["modes"].items():
         paths[f"serve_{mode}"] = result["launches"]
     for name, result in served_int8["vit"].items():
@@ -5439,7 +5657,26 @@ def main() -> int:
                                                  f"plain_{part}_ms", f"{part}_share_of_bound")},
                       "bound_ms": c["bound"][f"{part}_ms"], "bound_by": "bytes"}
                      for c in layout["cases"]]}
-          for kernel, name, part in ((WLP, "WLP", "pack"), (WLU, "WLU", "unpack")))]})
+          for kernel, name, part in ((WLP, "WLP", "pack"), (WLU, "WLU", "unpack"))),
+        *({**kernel, **launches[name],
+           "library": f"scaled_dot_product_attention with the bias as one bf16 float mask and "
+                      f"the residual added{tail}",
+           "shape": "B=64 D=96 bfloat16 at MViTv2-S's seven block shapes",
+           "cases": [{"block": c["block"], "BH": c["BH"], "Nq": c["Nq"], "Nk": c["Nk"],
+                      "ms": c[part], "bound_ms": c["bound"][part], "by": c["bound"][by],
+                      "max_err": max(c["errs"][k] for k in keys), **extra(c)}
+                     for c in pool_attention.values()]}
+          for kernel, name, part, by, keys, tail, extra in (
+              (K10F, "K10F", "fwd_ms", "fwd_by", ("o", "lse"), "",
+               lambda c: {"library_ms": c["sdpa_fwd_ms"]}),
+              (K10B, "K10B", "bwd_ms", "bwd_by", ("dq", "dk", "dv", "de"),
+               "; forward and backward, K10's forward and backward beside it",
+               lambda c: {"ms_by_kernel": c["bwd_ms_by_kernel"],
+                          "run_to_run_equal": c["run_to_run_equal"],
+                          "fwd_bwd_ms": c["fwd_ms"] + c["bwd_ms"] if c["bwd_ms"] else None,
+                          "plain_fwd_bwd_ms": c["plain_ms"],
+                          "library_ms": c["sdpa_fwd_bwd_ms"],
+                          "library_mask_grad_ms": c["sdpa_fwd_bwd_mask_grad_ms"]})))]})
     print(f"# total {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

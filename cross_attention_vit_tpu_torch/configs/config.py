@@ -164,6 +164,49 @@ def get_swin3d_config() -> Config:
     )
 
 
+def get_mvitv2_s_config() -> Config:
+    """MViTv2-S for Kinetics-400 (Li et al., arXiv:2112.01526; PySlowFast
+    ``configs/Kinetics/MViTv2_S_16x4.yaml``) as ``models/mvit.py`` computes
+    it: 16 × 224² RGB clips (the three planes as the stem's channels), a
+    (3, 7, 7) stem of stride (2, 4, 4) to 96 channels, 16 blocks whose width
+    and heads double at blocks 1, 3 and 14 (96/1 to 768/8, heads of 96),
+    query stride (1, 2, 2) there, key/value stride (1, 8, 8) divided at each
+    transition, 3³ depthwise pools, MLP ratio 4 with erf GELU, drop path to
+    0.2, head dropout 0.5, LayerNorm eps 1e-6, and the port's Adam at lr
+    1e-4 with weight decay 1e-5 (the recipe's AdamW is not the port's).
+    Products, convolutions and activations in bf16, as the benchmark's
+    ``mvitv2_s.k400`` configuration trains it.  No option picks the
+    attention: K10 on the card, its plain versions on the CPU."""
+    return Config(
+        img_size=(16, 224, 224),
+        in_channels=1,
+        num_modalities=3,
+        patch_kernel=(3, 7, 7),
+        patch_stride=(2, 4, 4),
+        patch_padding=(1, 3, 3),
+        embed_dim=96,
+        num_heads=1,
+        depth=16,
+        dim_mul_blocks=(1, 3, 14),
+        pool_q_stride=(1, 2, 2),
+        pool_kv_stride_adaptive=(1, 8, 8),
+        mlp_ratio=4,
+        drop_path_rate=0.2,
+        dropout=0.5,
+        layer_norm_eps=1e-6,
+        num_classes=400,
+        compute_dtype="bfloat16",
+        activation_dtype="bfloat16",
+        augment_dtype="bfloat16",
+        gelu_approx=False,
+        lr=1e-4,
+        weight_decay=1e-5,
+        optim_params={"T_max": 250, "eta_min": 1e-6},
+        label_smoothing=0.0,
+        img_aug=False,
+    )
+
+
 def modify_config(config: Config, params: Any) -> Config:
     """Overlay `params` onto `config` in place and return it.
 

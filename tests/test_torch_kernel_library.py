@@ -23,7 +23,8 @@ import torch
 from cross_attention_vit_tpu_torch.kernels import _build
 
 ROOT = Path(__file__).resolve().parents[1]
-MODULES = ("flash_attention", "layernorm", "linear_epilogue", "resample", "window_attention",
+MODULES = ("flash_attention", "layernorm", "linear_epilogue", "pool_attention", "resample",
+           "window_attention",
            "window_layout")
 
 
